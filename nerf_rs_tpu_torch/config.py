@@ -1,0 +1,105 @@
+"""Static configuration dataclasses.
+
+Field names and defaults are those of ``nerf_rs_tpu/config.py``, so configs
+and CLI flags carry over between the two packages unchanged. The constants
+come from the Rust reference renderer: image 256x256, 64+128 samples per
+ray, encoding orders 10/4, transmittance early-out 1e-4, PDF floor 1e-5,
+CDF denominator clamp 1e-6.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class HashGridConfig:
+    """Hyper-parameters of the multiresolution hash-encoding family. The
+    port does not serve this family yet (ROADMAP queue 1, item 12); the
+    dataclass exists so that ``RenderConfig.hash`` keeps its type."""
+
+    levels: int = 16
+    table_log2: int = 17
+    features: int = 2
+    res_min: int = 16
+    res_max: int = 1024
+    width: int = 64
+    geo_features: int = 15
+    color_width: int = 64
+    sh_degree: int = 4
+    aabb: tuple = (-2.0, 2.0)
+    grad_impl: str = "scatter"
+
+    def replace(self, **kw) -> "HashGridConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static knobs for the render pipeline.
+
+    ``impl`` selects the field network:
+
+    - ``"xla"``: the plain PyTorch MLP (``models.mlp.nerf_mlp``), the
+      counterpart of the JAX package's XLA path;
+    - ``"pallas"``: the port's hand-written CUDA kernel
+      (``ops.kernels.fused_mlp.fused_nerf_mlp``), the counterpart of the
+      JAX package's fused Pallas kernel. On CPU tensors it runs the
+      kernel's plain PyTorch version.
+
+    Values the port does not serve yet raise ``NotImplementedError`` where
+    they would take effect: ``model="hashgrid"`` and ``impl="int8"`` /
+    ``"int8qat"`` (ROADMAP queue 1, item 12), ``sampling_impl="pallas"``
+    (item 13). Every ``accel_*`` field acts only with an occupancy grid,
+    and passing a grid raises (item 7). ``host_chunk_rays`` splits device
+    programs in the JAX package; the port already launches one ray chunk
+    at a time, so every value renders the same image.
+    """
+
+    n_coarse: int = 64          # coarse stratified samples per ray
+    n_fine: int = 128           # fine importance samples per ray (0: single pass)
+    x_freqs: int = 10           # positional encoding bands for points
+    d_freqs: int = 4            # positional encoding bands for view dirs
+    white_background: bool = True
+    t_threshold: float = 1e-4   # transmittance early-out; 0 disables
+    pdf_eps: float = 1e-5       # importance-PDF floor
+    cdf_eps: float = 1e-6       # CDF denominator clamp
+    ray_chunk: int = 8192       # rays per render_rays call in image renders
+    impl: str = "xla"           # MLP implementation: "xla" | "pallas"
+    model: str = "mlp"          # field network family: "mlp" | "hashgrid"
+    hash: HashGridConfig = dataclasses.field(default_factory=HashGridConfig)
+    dtype: str = "float32"      # MLP compute dtype: "float32" | "bfloat16"
+    sampling_impl: str = "xla"  # resampling chain: "xla" | "pallas"
+    accel_coarse_capacity: float = 0.25
+    accel_fine_capacity: float = 0.625
+    accel_t_threshold: float = 1e-5
+    accel_t_slack_bins: float = 2.0
+    accel_sample_aabb: bool = False
+    accel_aabb_probes: int = 0
+    accel_pad_probes: float = 1.0
+    accel_range_stride: int = 1
+    host_chunk_rays: int = 0
+    accel_compact: str = "none"
+    accel_cull_rays: bool = False
+
+    def replace(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """NeRF MLP architecture family: the canonical lego network is
+    8x256 with a 128-wide view branch and the skip re-concatenation
+    before dense5; students are narrower or shallower members."""
+
+    width: int = 256      # trunk width
+    v_width: int = 128    # view-branch width
+    depth: int = 8        # dense trunk layers
+    skip_at: int = 4      # encoded input re-concatenated BEFORE dense{skip_at+1}
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# The reference's native sample counts (coarse, fine).
+NATIVE_SAMPLES = (64, 128)

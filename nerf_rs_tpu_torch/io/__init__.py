@@ -1,0 +1,15 @@
+from nerf_rs_tpu_torch.io.golden import camera_from_golden, load_golden
+from nerf_rs_tpu_torch.io.image import load_ppm, quantize_u8, save_png, save_ppm
+from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_nerf_params, params_to_torch
+
+__all__ = [
+    "load_nerf_params",
+    "params_to_torch",
+    "find_lego_assets",
+    "load_golden",
+    "camera_from_golden",
+    "save_ppm",
+    "save_png",
+    "load_ppm",
+    "quantize_u8",
+]

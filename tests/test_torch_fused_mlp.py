@@ -1,0 +1,201 @@
+"""PyTorch port, MLP: the fused kernel's plain version against the JAX
+Pallas kernel (interpret mode on the CPU, as tests/test_fused_mlp.py runs
+it), the port's oracle against the JAX oracle and the TF goldens, and the
+kernel's weight packing.
+
+These run on the CPU, where the wrapper takes the plain version; the CUDA
+kernel itself is held against the same plain version on the card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerf_rs_tpu.models.mlp import nerf_mlp as jax_nerf_mlp
+from nerf_rs_tpu.ops.kernels.fused_mlp import fused_nerf_mlp as jax_fused_nerf_mlp
+from nerf_rs_tpu_torch.config import ArchConfig
+from nerf_rs_tpu_torch.io.golden import golden_examples, load_golden
+from nerf_rs_tpu_torch.io.weights import load_nerf_params, params_to_torch
+from nerf_rs_tpu_torch.models.mlp import NerfMLP, arch_shapes, count_params, nerf_mlp
+from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
+    fused_nerf_mlp,
+    fused_nerf_mlp_reference,
+    pack_params,
+)
+
+torch.set_num_threads(1)
+
+SMALL = ArchConfig(width=128, v_width=64, depth=4, skip_at=2)
+LEGO = Path(__file__).resolve().parents[1] / "assets" / "lego_rust"
+
+
+def np_params(arch, seed):
+    """Glorot-uniform kernels and small random biases, from numpy."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for layer, (d_in, d_out) in arch_shapes(arch).items():
+        lim = np.sqrt(6.0 / (d_in + d_out))
+        out[layer] = {"kernel": rng.uniform(-lim, lim, (d_in, d_out)).astype(np.float32),
+                      "bias": rng.normal(0.0, 0.1, d_out).astype(np.float32)}
+    return out
+
+
+def np_inputs(n, seed):
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-4, 4, size=(n, 3)).astype(np.float32)
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    return pts, dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+
+
+def to_jax(params):
+    return jax.tree_util.tree_map(jnp.asarray, params)
+
+
+@pytest.fixture(scope="module")
+def small():
+    return np_params(SMALL, 0)
+
+
+@pytest.fixture(scope="module")
+def lego():
+    return {net: load_nerf_params(LEGO / net) for net in ("coarse", "fine")}
+
+
+@pytest.mark.parametrize("n", [128, 200])
+@pytest.mark.parametrize("sigma_only", [False, True])
+def test_reference_matches_jax_fused_f32(small, sigma_only, n):
+    """f32, tolerances of tests/test_fused_mlp.py; n=200 is ragged."""
+    pts, dirs = np_inputs(n, 1)
+    rgb_j, sig_j = jax_fused_nerf_mlp(to_jax(small), jnp.asarray(pts), jnp.asarray(dirs),
+                                      sigma_only=sigma_only)
+    rgb, sig = fused_nerf_mlp_reference(params_to_torch(small, "cpu"), torch.from_numpy(pts),
+                                        torch.from_numpy(dirs), sigma_only=sigma_only)
+    np.testing.assert_allclose(rgb.numpy(), np.asarray(rgb_j), atol=1e-5)
+    np.testing.assert_allclose(sig.numpy(), np.asarray(sig_j), atol=1e-4, rtol=1e-5)
+    if sigma_only:
+        assert not rgb.any()
+
+
+def test_reference_bf16_close_to_jax_fused(small):
+    """bf16: the two kernels round at the same places but sum (and, in
+    JAX, take sin) differently; the bars of tests/test_fused_mlp.py for
+    two bf16 orderings."""
+    pts, dirs = np_inputs(256, 2)
+    rgb_j, sig_j = jax_fused_nerf_mlp(to_jax(small), jnp.asarray(pts), jnp.asarray(dirs),
+                                      dtype="bfloat16")
+    rgb, sig = fused_nerf_mlp_reference(params_to_torch(small, "cpu"), torch.from_numpy(pts),
+                                        torch.from_numpy(dirs), dtype="bfloat16")
+    np.testing.assert_allclose(rgb.numpy(), np.asarray(rgb_j), atol=2e-2)
+    np.testing.assert_allclose(sig.numpy(), np.asarray(sig_j), atol=2e-2, rtol=2e-2)
+
+
+def test_reference_per_ray_dirs_and_batch_shape(small):
+    """(B, S, 3) points with one (B, 1, 3) dir per ray, as the render
+    calls it, equal the per-sample broadcast."""
+    pts, dirs = np_inputs(60, 3)
+    p = torch.from_numpy(pts).reshape(5, 12, 3)
+    d = torch.from_numpy(dirs).reshape(5, 12, 3)[:, :1]
+    module = NerfMLP(small)
+    rgb, sig = fused_nerf_mlp(module, p, d)
+    assert rgb.shape == (5, 12, 3) and sig.shape == (5, 12)
+    rgb_b, sig_b = fused_nerf_mlp(module, p, d.expand(5, 12, 3))
+    assert torch.equal(rgb, rgb_b) and torch.equal(sig, sig_b)
+
+
+@pytest.mark.parametrize("net", ["coarse", "fine"])
+def test_nerf_mlp_matches_jax_oracle_lego(lego, net):
+    pts, dirs = np_inputs(64, 4)
+    rgb_j, sig_j = jax_nerf_mlp(to_jax(lego[net]), jnp.asarray(pts), jnp.asarray(dirs))
+    rgb, sig = nerf_mlp(params_to_torch(lego[net], "cpu"), torch.from_numpy(pts),
+                        torch.from_numpy(dirs))
+    np.testing.assert_allclose(rgb.numpy(), np.asarray(rgb_j), atol=1e-5)
+    np.testing.assert_allclose(sig.numpy(), np.asarray(sig_j), atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["oracle", "fused"])
+def test_lego_meets_tf_goldens(lego, impl):
+    """Both MLPs meet the reference's 1e-2 tolerance against the TF goldens."""
+    module = {net: NerfMLP(lego[net]) for net in lego}
+    for ex in golden_examples(load_golden(LEGO / "tf_reference_samples.json")):
+        pts = torch.from_numpy(ex["ray_o"][None] + ex["ray_d"][None] * ex["z_vals"][:, None])
+        dirs = torch.from_numpy(np.broadcast_to(ex["viewdir_unit"], pts.shape).copy())
+        for net in ("coarse", "fine"):
+            fn = nerf_mlp if impl == "oracle" else fused_nerf_mlp
+            rgb, sig = fn(module[net], pts, dirs)
+            np.testing.assert_allclose(sig.detach().numpy(), ex[f"{net}_sigma"], atol=1e-2)
+            np.testing.assert_allclose(rgb.detach().numpy(), ex[f"{net}_rgb"], atol=1e-2)
+
+
+@pytest.mark.parametrize("arch", [SMALL, ArchConfig(), ArchConfig(width=100, v_width=36, depth=3,
+                                                                    skip_at=5)])
+def test_pack_params_padding_zero_and_round_trip(arch):
+    """Every segment holds its layer's weights transposed to K-major
+    (in, out) and zeros everywhere else; unpacking gives the tree back."""
+    params = params_to_torch(np_params(arch, 5), "cpu")
+    pk = pack_params(params, "float32")
+    assert pk.weights.dtype == torch.float32 and pk.biases.dtype == torch.float32
+    covered = torch.zeros(pk.weights.numel(), dtype=torch.bool)
+    w = arch.width
+
+    def region(name, k_rows, n_cols):
+        off, rows, ld = pk.segments[name]
+        m = pk.mat(name)
+        assert not m[k_rows:].any() and not m[:, n_cols:].any(), name
+        covered[off:off + rows * ld] = True
+        return m[:k_rows, :n_cols]
+
+    unpacked = {"dense0": region("dense0", 63, w)}
+    for i in range(1, arch.depth):
+        trunk = region(f"dense{i}", w, w)
+        if f"dense{i}_enc" in pk.segments:
+            trunk = torch.cat([region(f"dense{i}_enc", 63, w), trunk])
+        unpacked[f"dense{i}"] = trunk
+    unpacked["alpha"] = region("alpha", w, 1)
+    unpacked["bottleneck"] = region("bottleneck", w, w)
+    unpacked["viewdirs"] = torch.cat([region("viewdirs", w, arch.v_width),
+                                      region("viewdirs_dir", 27, arch.v_width)])
+    unpacked["rgb"] = region("rgb", arch.v_width, 3)
+    assert not pk.weights[~covered].any()           # alignment gaps are zero
+    for layer, p in params.items():
+        assert torch.equal(unpacked[layer], p["kernel"]), layer
+        off, n = pk.bias_slots[layer]
+        assert torch.equal(pk.biases[off:off + n][:p["bias"].numel()], p["bias"]), layer
+    assert (pk.layout[:16] >= 0).sum() == arch.depth
+    bf = pack_params(params, "bfloat16")
+    assert bf.weights.dtype == torch.bfloat16
+    assert torch.equal(bf.weights, pk.weights.to(torch.bfloat16))
+    assert count_params(params) == sum(int(np.prod(s)) + s[1] for s in arch_shapes(arch).values())
+
+
+def test_pack_params_rejects_unserved_arch():
+    with pytest.raises(ValueError, match="width"):
+        pack_params(params_to_torch(np_params(ArchConfig(width=320), 6), "cpu"), "float32")
+
+
+def test_wrapper_on_cpu_is_the_reference_and_counts_no_launch(small):
+    pts, dirs = np_inputs(32, 7)
+    before = fused_nerf_mlp.launches
+    a = fused_nerf_mlp(params_to_torch(small, "cpu"), torch.from_numpy(pts), torch.from_numpy(dirs))
+    b = fused_nerf_mlp_reference(params_to_torch(small, "cpu"), torch.from_numpy(pts),
+                                 torch.from_numpy(dirs))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert fused_nerf_mlp.launches == before
+    with pytest.raises(NotImplementedError, match="L=\\(10,4\\)"):
+        fused_nerf_mlp(params_to_torch(small, "cpu"), torch.from_numpy(pts),
+                       torch.from_numpy(dirs), x_freqs=8)
+
+
+def test_module_pack_is_kept_until_weights_change(small):
+    module = NerfMLP(small)
+    pk = module.packed("float32")
+    assert module.packed("float32") is pk
+    assert module.packed("bfloat16") is not pk
+    with torch.no_grad():
+        module.weights["dense1_kernel"][0, 0] += 1.0
+    pk2 = module.packed("float32")
+    assert pk2 is not pk
+    assert torch.equal(pk2.mat("dense1")[0, 0], pk.mat("dense1")[0, 0] + 1.0)
