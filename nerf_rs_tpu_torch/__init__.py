@@ -3,9 +3,9 @@
 The JAX package beside it is the reference: module paths, function names,
 param trees and array layouts are the same, so each module's counterpart
 is easy to find and the tests feed both packages the same inputs. The
-fused MLP forward is a hand-written CUDA kernel for Hopper
-(``ops/kernels/csrc/fused_mlp.cu``); everything else is plain PyTorch.
-This package never imports JAX.
+fused MLP forward and backward are hand-written CUDA kernels for Hopper
+(``ops/kernels/csrc/``); everything else is plain PyTorch. This package
+never imports JAX.
 
 Float32 matmuls are true float32 (TF32 off), the counterpart of the JAX
 oracle's ``Precision.HIGHEST``.

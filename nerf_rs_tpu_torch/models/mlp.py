@@ -142,7 +142,7 @@ class NerfMLP(nn.Module):
             for part in ("kernel", "bias"):
                 t = params[layer][part]
                 if not isinstance(t, torch.Tensor):
-                    t = torch.as_tensor(np.asarray(t))
+                    t = torch.as_tensor(np.array(t))
                 self.weights[f"{layer}_{part}"] = nn.Parameter(
                     t.detach().to(device=device, dtype=torch.float32).clone(),
                     requires_grad=requires_grad)

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/fused_mlp.cu`` for ``sm_90a`` into a shared library
-with a plain C entry point, at first use, into ``_build/`` beside this file
-(listed in ``.gitignore``). The library's name carries a hash of the source
-and the flags, so an edited source builds anew. A missing ``nvcc`` or a
-failed build raises with the compiler's output.
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
+with plain C entry points, at first use, into ``_build/`` beside this file
+(listed in ``.gitignore``). The sources compile to objects in parallel, one
+``nvcc`` each, and one more ``nvcc`` links them. The library's name carries
+a hash of every source and header under ``csrc/`` and of the flags, so an
+edited source builds anew. A missing ``nvcc`` or a failed build raises with
+the compiler's output.
 """
 
 from __future__ import annotations
@@ -18,10 +20,10 @@ import subprocess
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-_SOURCE = _HERE / "csrc" / "fused_mlp.cu"
+CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -33,40 +35,71 @@ def _nvcc() -> str:
     if candidate.exists():
         return str(candidate)
     raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin: the fused "
-                       "MLP kernel cannot be built")
+                       "MLP kernels cannot be built")
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
 
 
 def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"fused_mlp_{digest.hexdigest()[:16]}.so"
+    """Where the library for the current sources and flags lives."""
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        digest.update(path.name.encode() + path.read_bytes())
+    return BUILD_DIR / f"nerf_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
     """Compile the library unless it is already built; returns its path.
-    The compiler's output (with ``-Xptxas -v``: registers, shared memory
+    The compilers' output (with ``-Xptxas -v``: registers, shared memory
     and spills per kernel) is kept beside it as ``.log``."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log = []
+    failed = None
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
                            f"{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    for _, obj, _ in jobs:
+        obj.unlink()
+    so.with_suffix(".log").write_text("\n".join(log))
     os.replace(tmp, so)
     return so
 
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare the C entry point's signature."""
+    """Build if needed, load, and declare the C entry points' signatures
+    (``c_void_p`` for every pointer and the stream)."""
     lib = ctypes.CDLL(str(build()))
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn = lib.nerf_fused_mlp_forward
-    fn.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, i, p, p, i, p]
-    fn.restype = ctypes.c_int
+    fwd = lib.nerf_fused_mlp_forward
+    fwd.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, i, p, p, i, p]
+    fwd.restype = ctypes.c_int
+    bwd = lib.nerf_fused_mlp_backward
+    bwd.argtypes = [p, p, ll, ll, p, p, p, p, p, p, i, p, i, i, i, i, i, i, p, p, ll, ll, i,
+                    p, p, p, p, i, p]
+    bwd.restype = ctypes.c_int
     return lib

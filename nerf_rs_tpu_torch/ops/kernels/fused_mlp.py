@@ -1,25 +1,35 @@
-"""Fused NeRF MLP forward: the CUDA kernel's wrapper, its weight packing and
-its plain PyTorch version.
+"""Fused NeRF MLP: the CUDA kernels' wrappers, their weight packing, their
+plain PyTorch versions, and the autograd function that joins them.
 
-The kernel (``csrc/fused_mlp.cu``) replaces the JAX package's Pallas
-kernel ``nerf_rs_tpu/ops/kernels/fused_mlp.py::_forward_t`` /
+The forward kernel K1 (``csrc/fused_mlp.cu``) replaces the JAX package's
+Pallas kernel ``nerf_rs_tpu/ops/kernels/fused_mlp.py::_forward_t`` /
 ``_mlp_chain``: per tile of samples it encodes points and dirs, runs the
 trunk with the skip layer as two summed products, the ReLU sigma head and,
 unless ``sigma_only``, the bottleneck, the view layer (two summed
-products) and the sigmoid rgb head, with activations kept on chip.
+products) and the sigmoid rgb head, with activations kept on chip. The
+backward kernel K2 (``csrc/fused_mlp_bwd.cu``) replaces ``_backward_t`` /
+``_kernel_bwd``: it recomputes the forward per tile, backpropagates, and
+sums every layer's weight and bias gradient over the samples.
 
-- :func:`pack_params` lays the weights out for the kernel, once per
+- :func:`pack_params` lays the weights out for the kernels, once per
   network and dtype (``models.mlp.NerfMLP.packed`` keeps the pack).
-- :func:`fused_nerf_mlp` launches the kernel on CUDA tensors and counts
-  launches in ``fused_nerf_mlp.launches``. On CPU tensors it runs the
-  plain version instead; it never falls back on a CUDA tensor.
-- :func:`fused_nerf_mlp_reference` is the plain version: the same
-  function from the same packed weights, with the kernel's casting.
+- :func:`fused_nerf_mlp` is differentiable on every device, through
+  :class:`_FusedMLP` (the counterpart of ``_make_op``'s ``custom_vjp``).
+  On CUDA tensors its forward launches K1 (counted in
+  ``fused_nerf_mlp.launches``) and its backward K2 (counted in
+  ``fused_nerf_mlp_backward.launches``); on CPU tensors they run the plain
+  versions instead. A CUDA tensor never reaches a plain version.
+- :func:`fused_nerf_mlp_reference` and
+  :func:`fused_nerf_mlp_backward_reference` are the plain versions: the
+  same functions from the same packed weights, with the kernels' casting.
+- :func:`unpack_grads` maps the packed gradient layout to the param tree.
 
 Numerics: ``float32`` is true f32 throughout, with exact sin/cos.
 ``bfloat16`` rounds the encode, the weights and each layer's input
 activations to bf16 and accumulates in f32; the heads read the rounded
-activations and return f32.
+activations and return f32. The bf16 backward also rounds each layer's
+output gradient to bf16 (after the ReLU mask) and accumulates weight,
+bias and encode gradients in f32, as the JAX kernel does.
 """
 
 from __future__ import annotations
@@ -36,9 +46,10 @@ from nerf_rs_tpu_torch.ops.kernels import _build
 _XF, _DF = 10, 4            # encoding bands the kernel serves (points, dirs)
 _ENC_X_RAW, _ENC_D_RAW = 3 + 6 * _XF, 3 + 6 * _DF   # 63, 27
 _ENC_X, _ENC_D = 64, 32     # the kernel's padded encode rows
-MAX_DEPTH = 16              # kMaxDepth in csrc/fused_mlp.cu
+MAX_DEPTH = 16              # kMaxDepth in csrc/fused_mlp_common.cuh
 MAX_WIDTH = 256             # kMaxWidth: widest trunk or view branch served
 _ALIGN = 8                  # segment offsets: 16-byte aligned bf16 loads
+_TILE = 64                  # kTile in csrc/fused_mlp_common.cuh
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -72,7 +83,11 @@ class PackedMLP:
     (the encode input of a skip layer), ``alpha``, ``bottleneck``,
     ``viewdirs``, ``viewdirs_dir`` (the dir-encode input of the view
     layer) and ``rgb``. Every padding entry is zero. ``layout`` is the
-    int64 offset table in the order ``csrc/fused_mlp.cu`` reads it.
+    int64 offset table in the order ``csrc/fused_mlp_common.cuh`` reads it.
+
+    ``weights_t`` holds the transposed (ld, K) copy of every segment but
+    the two heads, at ``layout_t``'s offsets (``csrc/fused_mlp_bwd.cu``):
+    the backward kernel's input-gradient products read it.
     """
 
     weights: torch.Tensor
@@ -80,6 +95,8 @@ class PackedMLP:
     segments: Dict[str, Tuple[int, int, int]]
     bias_slots: Dict[str, Tuple[int, int]]
     layout: np.ndarray
+    weights_t: torch.Tensor
+    layout_t: np.ndarray
     width: int
     v_width: int
     depth: int
@@ -150,8 +167,9 @@ def pack_params(params, dtype: str) -> PackedMLP:
              ("rgb", kern("rgb"), ldv, 3)]
 
     segments: Dict[str, Tuple[int, int, int]] = {}
-    pieces = []
-    off = 0
+    pieces, pieces_t = [], []
+    offsets_t: Dict[str, int] = {}
+    off = off_t = 0
     for name, m, rows, ld in mats:
         padded = torch.zeros((rows, ld), dtype=torch.float32, device=device)
         padded[:m.shape[0], :m.shape[1]] = m
@@ -159,7 +177,12 @@ def pack_params(params, dtype: str) -> PackedMLP:
         pieces.append(torch.nn.functional.pad(padded.reshape(-1), (0, size - rows * ld)))
         segments[name] = (off, rows, ld)
         off += size
+        if name not in ("alpha", "rgb"):        # rows and ld are multiples of 8
+            pieces_t.append(padded.t().reshape(-1))
+            offsets_t[name] = off_t
+            off_t += rows * ld
     weights = torch.cat(pieces).to(_DTYPES[dtype])
+    weights_t = torch.cat(pieces_t).to(_DTYPES[dtype])
 
     bias_slots: Dict[str, Tuple[int, int]] = {}
     bpieces = []
@@ -183,13 +206,24 @@ def pack_params(params, dtype: str) -> PackedMLP:
         + [bias_slots[f"dense{i}"][0] if i < depth else -1 for i in range(MAX_DEPTH)]
         + [bias_slots[n][0] for n in ("alpha", "bottleneck", "viewdirs", "rgb")],
         dtype=np.int64)
+    layout_t = np.array(
+        [offsets_t.get(f"dense{i}", -1) for i in range(MAX_DEPTH)]
+        + [offsets_t.get(f"dense{i}_enc", -1) for i in range(MAX_DEPTH)]
+        + [offsets_t[n] for n in ("bottleneck", "viewdirs", "viewdirs_dir")],
+        dtype=np.int64)
     return PackedMLP(weights=weights, biases=biases, segments=segments,
-                     bias_slots=bias_slots, layout=layout, width=width, v_width=v_width,
-                     depth=depth, ldw=ldw, ldv=ldv, dtype=dtype)
+                     bias_slots=bias_slots, layout=layout, weights_t=weights_t,
+                     layout_t=layout_t, width=width, v_width=v_width, depth=depth,
+                     ldw=ldw, ldv=ldv, dtype=dtype)
 
 
 def _packed(params, dtype: str) -> PackedMLP:
-    """The pack of a NerfMLP (kept by the module) or of a param tree."""
+    """A pack itself, the pack of a NerfMLP (kept by the module), or the
+    pack of a param tree."""
+    if isinstance(params, PackedMLP):
+        if params.dtype != dtype:
+            raise ValueError(f"pack holds {params.dtype} weights, call asks for {dtype}")
+        return params
     if hasattr(params, "packed"):
         return params.packed(dtype)
     return pack_params(params, dtype)
@@ -209,30 +243,58 @@ def _encode(x: torch.Tensor, freqs: int, rows: int) -> torch.Tensor:
     return torch.nn.functional.pad(enc, (0, rows - enc.shape[-1]))
 
 
+def _encode_vjp(x: torch.Tensor, de: torch.Tensor, freqs: int) -> torch.Tensor:
+    """d(x) from d(positional_encoding(x)) ``de`` (rows past 3 + 6 freqs
+    ignored): identity rows give 1, sin rows 2^b cos(2^b x), cos rows
+    -2^b sin(2^b x)."""
+    out = de[:, :3]
+    for b in range(freqs):
+        scale = float(2 ** b)
+        arg = x * scale
+        out = (out + de[:, 3 + 6 * b:6 + 6 * b] * (scale * torch.cos(arg))
+               - de[:, 6 + 6 * b:9 + 6 * b] * (scale * torch.sin(arg)))
+    return out
+
+
+def _rounder(dtype: str):
+    if dtype == "bfloat16":
+        return lambda x: x.to(torch.bfloat16).to(x.dtype)
+    return lambda x: x
+
+
+def _flat_inputs(points: torch.Tensor, viewdirs: torch.Tensor, dt=torch.float32):
+    pts = points.reshape(-1, 3).to(dt)
+    dirs = torch.broadcast_to(viewdirs, points.shape).reshape(-1, 3).to(dt)
+    return pts, dirs
+
+
+def _trunk(mat, bias, enc_x: torch.Tensor, rnd, depth: int, skips):
+    """Every trunk layer's output, as the kernels compute them."""
+    hs = [rnd(torch.relu(enc_x @ mat("dense0") + bias("dense0")))]
+    for i in range(1, depth):
+        acc = hs[-1] @ mat(f"dense{i}")
+        if f"dense{i}_enc" in skips:
+            acc = acc + enc_x @ mat(f"dense{i}_enc")
+        hs.append(rnd(torch.relu(acc + bias(f"dense{i}"))))
+    return hs
+
+
 def fused_nerf_mlp_reference(params, points: torch.Tensor, viewdirs: torch.Tensor, *,
                              x_freqs: int = 10, d_freqs: int = 4, dtype: str = "float32",
                              sigma_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's plain PyTorch version: same function, same packed
-    weights, same bf16 rounding points; only the f32 summation order
-    differs. Differentiable; any device."""
+    """The forward kernel's plain PyTorch version: same function, same
+    packed weights, same bf16 rounding points; only the f32 summation
+    order differs. Any device. It reads the weights through the pack,
+    which holds detached copies: torch autograd reaches points and
+    viewdirs through it but never the parameters. :func:`fused_nerf_mlp`
+    is the differentiable entry point."""
     _check_call(x_freqs, d_freqs, dtype)
     pk = _packed(params, dtype)
-    if dtype == "bfloat16":
-        def rnd(x):
-            return x.to(torch.bfloat16).to(torch.float32)
-    else:
-        def rnd(x):
-            return x
+    rnd = _rounder(dtype)
     batch = points.shape[:-1]
-    pts = points.reshape(-1, 3).to(torch.float32)
-    dirs = torch.broadcast_to(viewdirs, points.shape).reshape(-1, 3).to(torch.float32)
+    pts, dirs = _flat_inputs(points, viewdirs)
     enc_x = rnd(_encode(pts, x_freqs, _ENC_X))
-    h = rnd(torch.relu(enc_x @ pk.mat("dense0") + pk.bias("dense0")))
-    for i in range(1, pk.depth):
-        acc = h @ pk.mat(f"dense{i}")
-        if f"dense{i}_enc" in pk.segments:
-            acc = acc + enc_x @ pk.mat(f"dense{i}_enc")
-        h = rnd(torch.relu(acc + pk.bias(f"dense{i}")))
+    h = _trunk(pk.mat, pk.bias, enc_x, rnd, pk.depth, pk.segments)[-1]
     sigma = torch.relu(h @ pk.mat("alpha") + pk.bias("alpha"))[:, 0]
     if sigma_only:
         rgb = torch.zeros((pts.shape[0], 3), dtype=torch.float32, device=pts.device)
@@ -245,37 +307,123 @@ def fused_nerf_mlp_reference(params, points: torch.Tensor, viewdirs: torch.Tenso
     return rgb.reshape(*batch, 3), sigma.reshape(batch)
 
 
-def _requires_grad(params, *tensors) -> bool:
-    tree = params.tree() if hasattr(params, "tree") else params
-    leaves = [t for layer in tree.values() for t in layer.values()]
-    return any(isinstance(t, torch.Tensor) and t.requires_grad for t in (*tensors, *leaves))
+def fused_nerf_mlp_backward_reference(params, points: torch.Tensor, viewdirs: torch.Tensor,
+                                      g_rgb: torch.Tensor, g_sigma: torch.Tensor, *,
+                                      x_freqs: int = 10, d_freqs: int = 4,
+                                      dtype: str = "float32", sigma_only: bool = False,
+                                      input_grads: bool = True):
+    """The backward kernel's plain PyTorch version: the gradients of
+    ``sum(g_rgb * rgb) + sum(g_sigma * sigma)`` for the forward above, in
+    the JAX kernel's order and with its bf16 rounding points.
 
-
-def fused_nerf_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *,
-                   x_freqs: int = 10, d_freqs: int = 4, dtype: str = "float32",
-                   sigma_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Drop-in fused replacement for ``models.mlp.nerf_mlp``.
-
-    ``params`` is a NerfMLP (whose pack is reused) or a param tree (packed
-    on every call). points (..., 3) f32, viewdirs (..., 3) f32 broadcastable
-    against them -> (rgb (..., 3), sigma (...,)) f32. With ``sigma_only``
-    rgb is zeros and the color branch is skipped.
-
-    CUDA tensors launch the kernel on the current stream without
-    synchronizing; CPU tensors run :func:`fused_nerf_mlp_reference`.
-    Forward only: with autograd recording and an input or a parameter that
-    requires grad, a CUDA call raises NotImplementedError (the backward
-    kernel is ROADMAP queue 1, item 9).
+    Returns ``(dweights, dbiases, dpoints, dviewdirs)``: ``dweights`` flat
+    in the layout of ``PackedMLP.weights``, ``dbiases`` in that of
+    ``PackedMLP.biases`` (padding entries zero), ``dpoints`` shaped like
+    points and ``dviewdirs`` one row per sample, also shaped like points
+    (``None, None`` without ``input_grads``). With ``sigma_only`` the rgb
+    cotangent is ignored, and the color branch's gradients are zero. The
+    arithmetic is float32, or float64 for float64 points: the same
+    function, rounded where the kernel rounds, as an oracle for both.
     """
-    if points.device.type == "cpu":
-        return fused_nerf_mlp_reference(params, points, viewdirs, x_freqs=x_freqs,
-                                        d_freqs=d_freqs, dtype=dtype, sigma_only=sigma_only)
-    if points.device.type != "cuda":
-        raise ValueError(f"fused_nerf_mlp takes CPU or CUDA tensors, got {points.device}")
     _check_call(x_freqs, d_freqs, dtype)
-    if torch.is_grad_enabled() and _requires_grad(params, points, viewdirs):
-        raise NotImplementedError("the fused MLP kernel is forward-only; its backward "
-                                  "(kernel K2) is ROADMAP queue 1, item 9")
+    pk = _packed(params, dtype)
+    rnd = _rounder(dtype)
+    dt = torch.float64 if points.dtype == torch.float64 else torch.float32
+    pts, dirs = _flat_inputs(points, viewdirs, dt)
+    g_rgb = g_rgb.reshape(-1, 3).to(dt)
+    g_sigma = g_sigma.reshape(-1, 1).to(dt)
+    dweights = torch.zeros(pk.weights.numel(), dtype=dt, device=pts.device)
+    dbiases = torch.zeros_like(pk.biases, dtype=dt)
+
+    def mat(name):
+        return pk.mat(name).to(dt)
+
+    def bias(name):
+        return pk.bias(name).to(dt)
+
+    def grad_wb(name, dz, x):
+        off, k, ld = pk.segments[name]
+        dweights[off:off + k * ld] = (x.t() @ dz).reshape(-1)
+        if name in pk.bias_slots:
+            boff, nb = pk.bias_slots[name]
+            dbiases[boff:boff + nb] = dz.sum(0)
+
+    with torch.no_grad():
+        enc_x = rnd(_encode(pts, x_freqs, _ENC_X))
+        hs = _trunk(mat, bias, enc_x, rnd, pk.depth, pk.segments)
+        h = hs[-1]
+        pre = h @ mat("alpha") + bias("alpha")
+        ds = rnd(g_sigma * (pre > 0))
+        grad_wb("alpha", ds, h)
+        dh = ds @ mat("alpha").t()
+        de_d = None
+        if not sigma_only:
+            enc_d = rnd(_encode(dirs, d_freqs, _ENC_D))
+            bneck = rnd(h @ mat("bottleneck") + bias("bottleneck"))
+            hv = rnd(torch.relu(bneck @ mat("viewdirs") + enc_d @ mat("viewdirs_dir")
+                                + bias("viewdirs")))
+            pre = hv @ mat("rgb") + bias("rgb")
+            # sigmoid' = sg (1 - sg), with 1 - sg as sigmoid(-pre): no
+            # cancellation where the sigmoid saturates (JAX subtracts).
+            dr = rnd(g_rgb * torch.sigmoid(pre) * torch.sigmoid(-pre))
+            grad_wb("rgb", dr, hv)
+            dhv = rnd((dr @ mat("rgb").t()) * (hv > 0))
+            grad_wb("viewdirs", dhv, bneck)
+            grad_wb("viewdirs_dir", dhv, enc_d)
+            dbn = rnd(dhv @ mat("viewdirs").t())
+            de_d = dhv @ mat("viewdirs_dir").t()
+            grad_wb("bottleneck", dbn, h)
+            dh = dbn @ mat("bottleneck").t() + dh
+        dh = rnd(dh * (h > 0))
+        de_x = torch.zeros_like(enc_x)
+        for i in range(pk.depth - 1, 0, -1):
+            hin = hs[i - 1]
+            grad_wb(f"dense{i}", dh, hin)
+            if f"dense{i}_enc" in pk.segments:
+                grad_wb(f"dense{i}_enc", dh, enc_x)
+                de_x = de_x + dh @ mat(f"dense{i}_enc").t()
+            dh = rnd((dh @ mat(f"dense{i}").t()) * (hin > 0))
+        grad_wb("dense0", dh, enc_x)
+        if not input_grads:
+            return dweights, dbiases, None, None
+        de_x = de_x + dh @ mat("dense0").t()
+        dpts = _encode_vjp(pts, de_x, x_freqs)
+        ddirs = torch.zeros_like(dpts) if de_d is None else _encode_vjp(dirs, de_d, d_freqs)
+    return dweights, dbiases, dpts.reshape(points.shape), ddirs.reshape(points.shape)
+
+
+def unpack_grads(packed: PackedMLP, dweights: torch.Tensor,
+                 dbiases: torch.Tensor) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Map gradients in the packed layout (``dweights`` like
+    ``packed.weights``, ``dbiases`` like ``packed.biases``) back to the
+    param tree's layout; padding entries are ignored."""
+    w, v = packed.width, packed.v_width
+
+    def seg(name, rows, cols):
+        off, k, ld = packed.segments[name]
+        return dweights[off:off + k * ld].view(k, ld)[:rows, :cols]
+
+    def bias(name, n):
+        off, _ = packed.bias_slots[name]
+        return dbiases[off:off + n]
+
+    out = {"dense0": {"kernel": seg("dense0", _ENC_X_RAW, w), "bias": bias("dense0", w)}}
+    for i in range(1, packed.depth):
+        kernel = seg(f"dense{i}", w, w)
+        if f"dense{i}_enc" in packed.segments:
+            kernel = torch.cat([seg(f"dense{i}_enc", _ENC_X_RAW, w), kernel])
+        out[f"dense{i}"] = {"kernel": kernel, "bias": bias(f"dense{i}", w)}
+    out["alpha"] = {"kernel": seg("alpha", w, 1), "bias": bias("alpha", 1)}
+    out["bottleneck"] = {"kernel": seg("bottleneck", w, w), "bias": bias("bottleneck", w)}
+    out["viewdirs"] = {"kernel": torch.cat([seg("viewdirs", w, v),
+                                            seg("viewdirs_dir", _ENC_D_RAW, v)]),
+                       "bias": bias("viewdirs", v)}
+    out["rgb"] = {"kernel": seg("rgb", v, 3), "bias": bias("rgb", 3)}
+    return out
+
+
+def _kernel_inputs(pk: PackedMLP, points: torch.Tensor, viewdirs: torch.Tensor):
+    """Check what the kernels take; -> (dirs, dir_div, batch shape, n)."""
     if points.dtype != torch.float32 or viewdirs.dtype != torch.float32:
         raise TypeError(f"points and viewdirs must be float32, got {points.dtype} "
                         f"and {viewdirs.dtype}")
@@ -286,11 +434,8 @@ def fused_nerf_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *,
                          f"{tuple(viewdirs.shape)} must end in 3")
     if not points.is_contiguous():
         raise ValueError("points must be contiguous")
-    pk = _packed(params, dtype)
     if pk.weights.device != points.device:
         raise ValueError(f"packed weights on {pk.weights.device}, points on {points.device}")
-    batch = points.shape[:-1]
-    n = points.numel() // 3
     if viewdirs.shape == points.shape:
         dirs, dir_div = viewdirs, 1
     elif points.dim() >= 2 and viewdirs.shape == (*points.shape[:-2], 1, 3):
@@ -299,21 +444,146 @@ def fused_nerf_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *,
         dirs, dir_div = torch.broadcast_to(viewdirs, points.shape).contiguous(), 1
     if not dirs.is_contiguous():
         raise ValueError("viewdirs must be contiguous")
-    with torch.no_grad():
-        rgb = torch.empty((*batch, 3), dtype=torch.float32, device=points.device)
-        sigma = torch.empty(batch, dtype=torch.float32, device=points.device)
-        if n == 0:
-            return rgb, sigma
-        err = _build.load_library().nerf_fused_mlp_forward(
-            points.data_ptr(), dirs.data_ptr(), n, dir_div, pk.weights.data_ptr(),
-            pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout.size, pk.ldw, pk.ldv,
-            pk.depth, int(dtype == "bfloat16"), int(sigma_only), rgb.data_ptr(),
-            sigma.data_ptr(), points.device.index or 0,
-            torch.cuda.current_stream(points.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"fused MLP kernel launch failed with CUDA error {err}")
-        fused_nerf_mlp.launches += 1
+    return dirs, dir_div, points.shape[:-1], points.numel() // 3
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _forward_kernel(pk: PackedMLP, points: torch.Tensor, viewdirs: torch.Tensor,
+                    sigma_only: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 on CUDA tensors, on the current stream, without synchronizing."""
+    dirs, dir_div, batch, n = _kernel_inputs(pk, points, viewdirs)
+    rgb = torch.empty((*batch, 3), dtype=torch.float32, device=points.device)
+    sigma = torch.empty(batch, dtype=torch.float32, device=points.device)
+    if n == 0:
+        return rgb, sigma
+    err = _build.load_library().nerf_fused_mlp_forward(
+        points.data_ptr(), dirs.data_ptr(), n, dir_div, pk.weights.data_ptr(),
+        pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout.size, pk.ldw, pk.ldv,
+        pk.depth, int(pk.dtype == "bfloat16"), int(sigma_only), rgb.data_ptr(),
+        sigma.data_ptr(), points.device.index or 0, _stream(points.device))
+    if err != 0:
+        raise RuntimeError(f"fused MLP kernel launch failed with CUDA error {err}")
+    fused_nerf_mlp.launches += 1
     return rgb, sigma
+
+
+def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor,
+                            g_rgb: torch.Tensor, g_sigma: torch.Tensor, *, x_freqs: int = 10,
+                            d_freqs: int = 4, dtype: str = "float32", sigma_only: bool = False,
+                            input_grads: bool = True):
+    """The backward kernel K2: the contract of
+    :func:`fused_nerf_mlp_backward_reference`, which CPU tensors run.
+
+    CUDA tensors launch K2 on the current stream without synchronizing,
+    and count one launch per call in ``fused_nerf_mlp_backward.launches``
+    (the kernel and its fixed-order sum of per-CTA partials). Two calls on
+    the same inputs give bitwise-equal results.
+    """
+    if points.device.type == "cpu":
+        return fused_nerf_mlp_backward_reference(
+            params, points, viewdirs, g_rgb, g_sigma, x_freqs=x_freqs, d_freqs=d_freqs,
+            dtype=dtype, sigma_only=sigma_only, input_grads=input_grads)
+    if points.device.type != "cuda":
+        raise ValueError(f"fused_nerf_mlp_backward takes CPU or CUDA tensors, got {points.device}")
+    _check_call(x_freqs, d_freqs, dtype)
+    pk = _packed(params, dtype)
+    dirs, dir_div, batch, n = _kernel_inputs(pk, points, viewdirs)
+    dev = points.device
+    g_rgb = g_rgb.to(torch.float32).reshape(n, 3).contiguous()
+    g_sigma = g_sigma.to(torch.float32).reshape(n).contiguous()
+    n_w, n_b = pk.weights.numel(), pk.biases.numel()
+    dweights = torch.zeros(n_w, dtype=torch.float32, device=dev)
+    dbiases = torch.zeros(n_b, dtype=torch.float32, device=dev)
+    dpts = ddirs = None
+    if input_grads:
+        dpts = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        ddirs = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    if n > 0:
+        tiles = -(-n // _TILE)
+        grid = min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+        act = torch.empty(grid * pk.depth * pk.ldw * _TILE, dtype=torch.float32, device=dev)
+        partials = torch.zeros(grid * (n_w + n_b), dtype=torch.float32, device=dev)
+        err = _build.load_library().nerf_fused_mlp_backward(
+            points.data_ptr(), dirs.data_ptr(), n, dir_div, g_rgb.data_ptr(),
+            g_sigma.data_ptr(), pk.weights.data_ptr(), pk.weights_t.data_ptr(),
+            pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout.size,
+            pk.layout_t.ctypes.data, pk.layout_t.size, pk.ldw, pk.ldv, pk.depth,
+            int(dtype == "bfloat16"), int(sigma_only), act.data_ptr(), partials.data_ptr(),
+            n_w, n_b, grid, dweights.data_ptr(), dbiases.data_ptr(),
+            dpts.data_ptr() if input_grads else None, ddirs.data_ptr() if input_grads else None,
+            dev.index or 0, _stream(dev))
+        if err != 0:
+            raise RuntimeError(f"fused MLP backward kernel launch failed with CUDA error {err}")
+        fused_nerf_mlp_backward.launches += 1
+    if not input_grads:
+        return dweights, dbiases, None, None
+    return dweights, dbiases, dpts.view(*batch, 3), ddirs.view(*batch, 3)
+
+
+fused_nerf_mlp_backward.launches = 0
+
+
+class _FusedMLP(torch.autograd.Function):
+    """The fused MLP with its backward, the counterpart of the JAX
+    package's ``_make_op`` ``custom_vjp``. The inputs are points, viewdirs
+    and the network's parameter tensors, which forward saves: changing one
+    in place before backward raises, as autograd does. Forward and
+    backward run the kernels on CUDA tensors and the plain versions on CPU
+    tensors; points' and viewdirs' gradients are computed only when asked
+    for."""
+
+    @staticmethod
+    def forward(ctx, params, opts, names, points, viewdirs, *leaves):
+        pk = _packed(params, opts["dtype"])
+        if points.device.type == "cpu":
+            rgb, sigma = fused_nerf_mlp_reference(pk, points, viewdirs, **opts)
+        else:
+            rgb, sigma = _forward_kernel(pk, points, viewdirs, opts["sigma_only"])
+        ctx.save_for_backward(points, viewdirs, *leaves)
+        ctx.pk, ctx.opts, ctx.names = pk, opts, names
+        return rgb, sigma
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_sigma):
+        points, viewdirs, *_ = ctx.saved_tensors
+        want_pts, want_dirs = ctx.needs_input_grad[3:5]
+        dweights, dbiases, dpts, ddirs = fused_nerf_mlp_backward(
+            ctx.pk, points, viewdirs, g_rgb, g_sigma, input_grads=want_pts or want_dirs,
+            **ctx.opts)
+        tree = unpack_grads(ctx.pk, dweights, dbiases)
+        dleaves = [tree[layer][part] if want else None
+                   for (layer, part), want in zip(ctx.names, ctx.needs_input_grad[5:])]
+        dpts = dpts.to(points.dtype) if want_pts else None
+        ddirs = ddirs.sum_to_size(viewdirs.shape).to(viewdirs.dtype) if want_dirs else None
+        return (None, None, None, dpts, ddirs, *dleaves)
+
+
+def fused_nerf_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *,
+                   x_freqs: int = 10, d_freqs: int = 4, dtype: str = "float32",
+                   sigma_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Drop-in fused replacement for ``models.mlp.nerf_mlp``, differentiable
+    in the parameters, points and viewdirs on every device.
+
+    ``params`` is a NerfMLP (whose pack is reused) or a param tree (packed
+    on every call). points (..., 3) f32, viewdirs (..., 3) f32 broadcastable
+    against them -> (rgb (..., 3), sigma (...,)) f32. With ``sigma_only``
+    rgb is zeros and the color branch is skipped; an rgb cotangent then
+    gives the color branch no gradient.
+
+    CUDA tensors launch K1 (and, in backward, K2) on the current stream
+    without synchronizing; CPU tensors run the plain versions.
+    """
+    _check_call(x_freqs, d_freqs, dtype)
+    if points.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_nerf_mlp takes CPU or CUDA tensors, got {points.device}")
+    tree = params.tree() if hasattr(params, "tree") else params
+    names = [(layer, part) for layer in tree for part in ("kernel", "bias")]
+    opts = dict(x_freqs=x_freqs, d_freqs=d_freqs, dtype=dtype, sigma_only=sigma_only)
+    return _FusedMLP.apply(params, opts, names, points, viewdirs,
+                           *(tree[layer][part] for layer, part in names))
 
 
 fused_nerf_mlp.launches = 0

@@ -12,7 +12,13 @@ the JAX package's samples for the same seed:
 - 32-bit random bits at flat index i are ``y1 ^ y2`` of
   ``threefry2x32(k, (i >> 32, i & 0xFFFFFFFF))``;
 - ``uniform`` sets those bits' top 23 as the mantissa of a float in
-  [1, 2), subtracts 1 and clamps at 0.
+  [1, 2), subtracts 1, scales to [minval, maxval) and clamps at minval;
+- ``normal`` is ``sqrt(2) * erf_inv(u)`` of a uniform u on
+  [nextafter(-1, 0), 1), the same bits as ``jax.random.normal``, with
+  XLA's single-precision ``erf_inv`` (Giles' polynomials) written out.
+  Its log1p and fused multiply-adds round as the host's do, so values
+  agree with JAX's to about one ulp (``torch.erfinv`` is tens of ulps
+  away in the tails).
 
 A key is an int64 tensor whose last dimension holds the two uint32 words.
 Arithmetic is int64 with 32-bit masks, since torch has no uint32 shifts on
@@ -23,6 +29,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -80,10 +87,11 @@ def random_bits(k: torch.Tensor, count: int) -> torch.Tensor:
     return y1 ^ y2
 
 
-def uniform(k: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.uniform(k, shape)`` in float32 on [0, 1) for one (2,)
-    key, or per-key streams: keys ``(B, 2)`` with ``shape == (B, count)``
-    give row b from key b, as ``vmap(uniform)`` over per-ray keys."""
+def uniform(k: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, minval=minval, maxval=maxval)`` in
+    float32 for one (2,) key, or per-key streams: keys ``(B, 2)`` with
+    ``shape == (B, count)`` give row b from key b, as ``vmap(uniform)``
+    over per-ray keys."""
     shape = tuple(shape)
     if k.dim() == 1:
         n = 1
@@ -95,4 +103,36 @@ def uniform(k: torch.Tensor, shape) -> torch.Tensor:
             raise ValueError(f"per-ray keys {tuple(k.shape)} != batch {shape[:-1]}")
         bits = random_bits(k, shape[-1])
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp(floats, min=0.0)
+    lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+# erf_inv(x) = x * p(w), w = -log1p(-x^2): Horner coefficients, highest
+# power first, for w < 5 (in w - 2.5) and w >= 5 (in sqrt(w) - 3).
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` on (-1, 1). Each Horner step
+    ``c + p * w`` is one fused multiply-add, emulated in float64."""
+    w = -torch.log1p(x * -x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+    coef = [torch.where(small, lt, ge).double()
+            for lt, ge in zip(torch.tensor(_ERFINV_LT5, dtype=torch.float32, device=x.device),
+                              torch.tensor(_ERFINV_GE5, dtype=torch.float32, device=x.device))]
+    p = coef[0]
+    for c in coef[1:]:
+        p = (c + p * w).float().double()
+    return p.float() * x
+
+
+def normal(k: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(k, shape)`` in float32 for one (2,) key."""
+    u = uniform(k, shape, _NORMAL_LO, 1.0)
+    return np.float32(np.sqrt(2.0)).item() * erf_inv(u)

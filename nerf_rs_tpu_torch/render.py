@@ -57,13 +57,10 @@ def get_mlp_fn(cfg: RenderConfig):
     return xla_mlp
 
 
-def _check_served(cfg: RenderConfig, grid, return_aux: bool) -> None:
+def _check_served(cfg: RenderConfig, grid) -> None:
     if grid is not None:
         raise NotImplementedError("occupancy-grid acceleration is not ported yet "
                                   "(ROADMAP queue 1, item 7)")
-    if return_aux:
-        raise NotImplementedError("return_aux waits for the training slice "
-                                  "(ROADMAP queue 1, item 9)")
     if cfg.sampling_impl == "pallas":
         raise NotImplementedError("sampling_impl='pallas' (fused resample kernel K3) is not "
                                   "ported yet (ROADMAP queue 1, item 13)")
@@ -74,8 +71,9 @@ def _check_served(cfg: RenderConfig, grid, return_aux: bool) -> None:
 def render_rays(params_coarse, params_fine, origin: torch.Tensor, dirs: torch.Tensor,
                 near, far, key: torch.Tensor, cfg: RenderConfig, *,
                 ray_ids: Optional[torch.Tensor] = None, grid=None,
-                return_aux: bool = False) -> torch.Tensor:
-    """Render a batch of rays -> fine RGB (..., 3).
+                return_aux: bool = False):
+    """Render a batch of rays -> fine RGB (..., 3), differentiable in the
+    networks' parameters.
 
     origin: (3,) shared camera origin (or (..., 3) per-ray origins); dirs:
     (..., 3) *unit* directions; near/far: scalars or 0-d tensors; key: a
@@ -83,8 +81,14 @@ def render_rays(params_coarse, params_fine, origin: torch.Tensor, dirs: torch.Te
     then (B, 3)) gives every ray its own random stream, folded in by its
     id, which makes renders invariant to chunking. With ``cfg.n_fine ==
     0`` the coarse field is composited directly (single pass).
+
+    ``return_aux`` also returns the JAX package's aux dict (``rgb_coarse``,
+    ``acc``, ``weights_coarse``, ``weights_fine``, ``t_coarse``,
+    ``t_fine``, ``depth``); the coarse pass then runs the full network, as
+    training needs the coarse image. The importance samples are detached,
+    as in JAX.
     """
-    _check_served(cfg, grid, return_aux)
+    _check_served(cfg, grid)
     mlp = get_mlp_fn(cfg)
     batch_shape = tuple(dirs.shape[:-1])
     k_coarse, k_fine = random.split(key)
@@ -96,14 +100,21 @@ def render_rays(params_coarse, params_fine, origin: torch.Tensor, dirs: torch.Te
     near = torch.as_tensor(near, dtype=torch.float32, device=dirs.device)
     far = torch.as_tensor(far, dtype=torch.float32, device=dirs.device)
 
-    # --- coarse pass: the coarse colors are discarded unless single-pass ---
+    # --- coarse pass: the coarse colors are discarded unless single-pass
+    # or the caller needs the coarse image ---
     t_c = stratified_samples(k_coarse, near, far, cfg.n_coarse, batch_shape)
     pts_c = origin[..., None, :] + dirs[..., None, :] * t_c[..., :, None]
     single_pass = cfg.n_fine == 0
-    rgb_c, sigma_c = mlp(params_coarse, pts_c, dirs[..., None, :], sigma_only=not single_pass)
+    rgb_c, sigma_c = mlp(params_coarse, pts_c, dirs[..., None, :],
+                         sigma_only=not (single_pass or return_aux))
     w_c = compute_weights(sigma_c, t_c, far, t_threshold=cfg.t_threshold)
     if single_pass:
-        return composite(rgb_c, w_c, white_background=cfg.white_background)
+        rgb = composite(rgb_c, w_c, white_background=cfg.white_background)
+        if not return_aux:
+            return rgb
+        return rgb, {"rgb_coarse": rgb, "acc": torch.sum(w_c, dim=-1), "weights_coarse": w_c,
+                     "weights_fine": w_c, "t_coarse": t_c, "t_fine": t_c,
+                     "depth": torch.sum(w_c * t_c, dim=-1)}
 
     # --- hierarchical resampling ---
     t_extra = importance_samples(k_fine, t_c, w_c, cfg.n_fine, pdf_eps=cfg.pdf_eps,
@@ -114,7 +125,12 @@ def render_rays(params_coarse, params_fine, origin: torch.Tensor, dirs: torch.Te
     pts_f = origin[..., None, :] + dirs[..., None, :] * t_f[..., :, None]
     rgb_f, sigma_f = mlp(params_fine, pts_f, dirs[..., None, :])
     w_f = compute_weights(sigma_f, t_f, far, t_threshold=cfg.t_threshold)
-    return composite(rgb_f, w_f, white_background=cfg.white_background)
+    rgb = composite(rgb_f, w_f, white_background=cfg.white_background)
+    if not return_aux:
+        return rgb
+    return rgb, {"rgb_coarse": composite(rgb_c, w_c, white_background=cfg.white_background),
+                 "acc": torch.sum(w_f, dim=-1), "weights_coarse": w_c, "weights_fine": w_f,
+                 "t_coarse": t_c, "t_fine": t_f, "depth": torch.sum(w_f * t_f, dim=-1)}
 
 
 def _render_flat(params_coarse, params_fine, origin, dirs_flat, near, far, key,
@@ -142,7 +158,7 @@ def render_image(params_coarse, params_fine, camera: Camera, height: int, width:
     become NerfMLPs on the device, so the fused kernel packs each network
     once per call."""
     cfg = cfg or RenderConfig()
-    _check_served(cfg, grid, False)
+    _check_served(cfg, grid)
     device = torch.device(device) if device is not None else key.device
     key = key.to(device)
     coarse = as_module(params_coarse, device)

@@ -1,6 +1,7 @@
 """PyTorch port, renderer: render_rays against the JAX render_rays, the
 lego frame against the committed golden, the import boundary and the CLI."""
 
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -54,29 +55,61 @@ def golden():
     return load_golden(LEGO / "tf_reference_samples.json")
 
 
+@functools.lru_cache(maxsize=None)
+def jax_case(n_fine, side, seed, return_aux):
+    """One JAX render of side x side golden-camera rays with the SMALL
+    nets of seeds (seed, seed + 1), key seed // 2 and ray ids from 1000 +
+    seed, kept for both of the port's impls -> (inputs, JAX output)."""
+    golden = load_golden(LEGO / "tf_reference_samples.json")
+    pc, pf = np_params(SMALL, seed), np_params(SMALL, seed + 1)
+    _, dirs = jax_camera_rays(jax_camera_from_golden(golden), side, side)
+    dirs = np.array(dirs).reshape(-1, 3)
+    ids = np.arange(side * side, dtype=np.int32) + 1000 + seed
+    cam = camera_from_golden(golden)
+    want = jax_render_rays(
+        jax.tree_util.tree_map(jnp.asarray, pc), jax.tree_util.tree_map(jnp.asarray, pf),
+        jnp.asarray(cam.position), jnp.asarray(dirs), cam.near, cam.far,
+        jax.random.key(seed // 2), JaxRenderConfig(n_coarse=8, n_fine=n_fine),
+        ray_ids=jnp.asarray(ids), return_aux=return_aux)
+    return (pc, pf, cam, dirs, ids), want
+
+
+def port_case(inputs, n_fine, seed, impl, return_aux):
+    pc, pf, cam, dirs, ids = inputs
+    return render_rays(params_to_torch(pc, "cpu"), params_to_torch(pf, "cpu"),
+                       torch.from_numpy(cam.position), torch.from_numpy(dirs), cam.near,
+                       cam.far, random.key(seed // 2, "cpu"),
+                       RenderConfig(n_coarse=8, n_fine=n_fine, impl=impl),
+                       ray_ids=torch.from_numpy(ids.astype(np.int64)), return_aux=return_aux)
+
+
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
 @pytest.mark.parametrize("n_fine", [16, 0], ids=["two_pass", "single_pass"])
 def test_render_rays_matches_jax(golden, n_fine, impl):
     """Same weights, rays, key and per-ray ids: the port's render equals
     the JAX render (f32, atol 1e-5). The JAX side runs its XLA oracle; the
     port's "pallas" impl runs the kernel's plain version on the CPU."""
-    pc, pf = np_params(SMALL, 10), np_params(SMALL, 11)
-    _, dirs = jax_camera_rays(jax_camera_from_golden(golden), 8, 8)
-    dirs = np.array(dirs).reshape(-1, 3)
-    ids = np.arange(64, dtype=np.int32) + 1000
-    cam = camera_from_golden(golden)
-    want = jax_render_rays(
-        jax.tree_util.tree_map(jnp.asarray, pc), jax.tree_util.tree_map(jnp.asarray, pf),
-        jnp.asarray(cam.position), jnp.asarray(dirs), cam.near, cam.far, jax.random.key(7),
-        JaxRenderConfig(n_coarse=8, n_fine=n_fine), ray_ids=jnp.asarray(ids))
-    got = render_rays(params_to_torch(pc, "cpu"), params_to_torch(pf, "cpu"),
-                      torch.from_numpy(cam.position), torch.from_numpy(dirs), cam.near,
-                      cam.far, random.key(7, "cpu"),
-                      RenderConfig(n_coarse=8, n_fine=n_fine, impl=impl),
-                      ray_ids=torch.from_numpy(ids.astype(np.int64)))
+    inputs, want = jax_case(n_fine, 8, 14, False)
+    got = port_case(inputs, n_fine, 14, impl, False)
     assert got.shape == (64, 3)
     assert float(np.abs(np.asarray(want) - 1.0).max()) > 0.05   # not just background
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("n_fine", [16, 0], ids=["two_pass", "single_pass"])
+def test_render_rays_aux_matches_jax(golden, n_fine, impl):
+    """return_aux: the fine image and every aux entry of the JAX render
+    (the coarse pass then runs the full network in both packages)."""
+    inputs, (want, want_aux) = jax_case(n_fine, 6, 20, True)
+    got, aux = port_case(inputs, n_fine, 20, impl, True)
+    assert sorted(aux) == sorted(want_aux)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    assert float(np.abs(np.asarray(want_aux["rgb_coarse"]) - 1.0).max()) > 0.05
+    for name, value in want_aux.items():
+        atol = 1e-4 if name == "depth" else 1e-5      # depth sums t ~ 4 times weights
+        np.testing.assert_allclose(aux[name].numpy(), np.asarray(value), atol=atol, rtol=0,
+                                   err_msg=name)
 
 
 def test_render_image_chunk_invariant(golden):
@@ -112,7 +145,7 @@ def test_unserved_config_raises(golden, change, match):
 
 
 @pytest.mark.parametrize("kw, match", [(dict(grid=object()), "item 7"),
-                                       (dict(return_aux=True), "item 9")])
+                                       (dict(grid=object(), return_aux=True), "item 7")])
 def test_unserved_render_options_raise(kw, match):
     pc = params_to_torch(np_params(SMALL, 15), "cpu")
     with pytest.raises(NotImplementedError, match=match):
