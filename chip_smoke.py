@@ -3,18 +3,22 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths and holds them to the repository's own
+Drives the port's three main paths and holds them to the repository's own
 bars: the render path — the pretrained lego coarse and fine networks
 rendering a 256x256 frame with 64 stratified + 128 importance samples on
-white, through ``nerf_rs_tpu_torch.render.render_image`` — and the training
+white, through ``nerf_rs_tpu_torch.render.render_image`` — the training
 path — the JAX CLI's default job, a full-width 8x256 student distilled from
 the lego networks at 4096 rays and 64 + 128 samples, through
-``nerf_rs_tpu_torch.train.train_step`` and ``data.DistillationDataset``.
+``nerf_rs_tpu_torch.train.train_step`` and ``data.DistillationDataset`` —
+and the accelerated render and serving path — bench.py's default: a 128^3
+occupancy grid swept through K1, probe culling (32 probes, stride 4,
+``accel_compact="off"``), ray packing, and the fused resampler K3, through
+``render_image(grid=...)`` and the HTTP viewer (``api``, ``serve``).
 Phases, each reported on its own line:
 
 1. device: a CUDA card is required; its name and power limit are printed;
-2. build: the fused MLP kernels K1 and K2 are compiled from the checkout's
-   sources (one nvcc per source, in parallel);
+2. build: the fused MLP kernels K1 and K2 and the fused resampler K3 are
+   compiled from the checkout's sources (one nvcc per source, in parallel);
 3. K1 against its plain PyTorch version at the render's shapes (8192 rays
    x 64 samples sigma-only, 8192 x 192 full), f32 and bf16;
 4. the f32 frame with K1: PSNR against the committed golden > 45 dB, and
@@ -31,7 +35,26 @@ Phases, each reported on its own line:
 10. 50 kernel steps from a random init: the loss falls, K2 launches twice
     a step and K1 four times (teacher and student, coarse and fine);
 11. K2 and plain backward times at the fine shape, and ms per step and
-    rays/s for the kernel and the plain training paths.
+    rays/s for the kernel and the plain training paths;
+12. K3 against its plain version on what the render hands it (the f32
+    coarse pass of RAY_CHUNK golden-camera rays), at (64, 128) and
+    (32, 64), with the scalar far and with the per-ray far of
+    ``accel_sample_aabb``: rows sorted, every entry within a coarse bin
+    of the plain version, 99% within 5e-5 + 1e-5 |t|, two calls bitwise
+    equal;
+13. the 256x256 f32 accel frame: PSNR against the committed golden
+    > 45 dB, K3 once and K1 twice per rendered chunk, every hit ray
+    bitwise the unpacked accel frame's;
+14. the 800x800 frames (bench.py's size, 16384-ray chunks): f32 accel+K3
+    against f32 dense >= 40 dB (bench.py's accel bar), bf16 accel+K3
+    against f32 accel+K3 at BF16_FRAME_BAR_DB, and the share of rays
+    packed away;
+15. serving: the port's HTTP handler on a loopback port answers three
+    256x256 /render requests with the bytes of ``render_image`` for each
+    seed, and a bad size with 400;
+16. times: K3 and the plain chain per call at 16384 x (64, 128), the grid
+    build, the 800x800 f32 frames dense, accel with the plain chain and
+    accel with K3, and the device idle share of the accel+K3 frame.
 
 Any failed phase exits non-zero. The line before the last is a JSON
 summary of the kernels; the last line is the JSON device record.
@@ -79,6 +102,12 @@ BWD_BARS = {"float32": 1e-4, "bfloat16": 3e-2}
 F32_VS_PLAIN = 1.5
 TRAIN_RAYS = 4096              # the JAX CLI's train defaults (nerf_rs_tpu/cli.py)
 TRAIN_STEPS = 50
+# The accel path as bench.py runs it by default (bench.py:536-543).
+BENCH_SIZE, BENCH_CHUNK = 800, 16384
+GRID_RES, PROBES, STRIDE = 128, 32, 4
+ACCEL_BAR_DB = 40.0            # bench.py's accel frame against the dense frame
+# K3 against its plain version: tests/test_resample.py's bars.
+K3_ATOL, K3_RTOL, K3_SHARE = 5e-5, 1e-5, 0.99
 
 
 class PhaseFailure(Exception):
@@ -96,20 +125,23 @@ def psnr(a, b) -> float:
     return -10.0 * math.log10(max(mse, 1e-20))
 
 
-def timed_ms(fn, reps: int = 3) -> float:
-    """Median wall time of ``reps`` runs after one warm-up, each run
-    bracketed by device synchronizations."""
+def timed_ms(fn, reps: int = 3, inner: int = 1, warm: bool = True) -> float:
+    """Median wall time of ``reps`` runs after one warm-up (unless the
+    caller has just run ``fn``), each run ``inner`` calls bracketed by
+    device synchronizations; per call."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn()
+        for _ in range(inner):
+            fn()
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+        times.append((time.perf_counter() - t0) * 1e3 / inner)
     return statistics.median(times)
 
 
@@ -142,7 +174,7 @@ def phase_build():
     if log.exists():
         for line in log.read_text().splitlines():
             entry = re.search(r"entry function '.*?(fused_mlp_bwd_kernel|fused_mlp_kernel|"
-                              r"reduce_partials)(I\w*?Lb[01]E)?", line)
+                              r"reduce_partials|resample_kernel)(I\w*?Lb[01]E)?", line)
             if entry:
                 say("2 build", "ptxas: " + "".join(g for g in entry.groups() if g))
             elif "registers" in line or "spill" in line:
@@ -455,6 +487,293 @@ def time_steps(dev, impl: str) -> float:
     return timed_ms(lambda: train_step(state, batch, step_key, cfg))
 
 
+def accel_cfg(dtype: str = "float32", sampling: str = "pallas", cull: bool = True,
+              chunk: int = RAY_CHUNK):
+    """bench.py's default accel render: probe culling without per-sample
+    masks, ray packing, K1 and K3."""
+    from nerf_rs_tpu_torch.config import RenderConfig
+
+    return RenderConfig(n_coarse=N_COARSE, n_fine=N_FINE, ray_chunk=chunk, impl="pallas",
+                        dtype=dtype, sampling_impl=sampling, accel_compact="off",
+                        accel_aabb_probes=PROBES, accel_range_stride=STRIDE,
+                        accel_cull_rays=cull)
+
+
+def resample_inputs(coarse, cam, dev, n_rays: int, nc: int, nf: int, grid=None):
+    """What render_rays hands K3 for ``n_rays`` center rays of the 256x256
+    golden camera, key 0: t_c and sigma_c of the f32 K1 sigma-only coarse
+    pass, u from the fine keys, and far — the camera's, or with ``grid``
+    the per-ray far_w of ``accel_sample_aabb`` (t_c drawn over each ray's
+    occupied range, 32 probes) -> (t_c, sigma_c, u, far, coarse bin width)."""
+    import torch
+
+    from nerf_rs_tpu_torch.accel import ray_occupied_range
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import fused_nerf_mlp
+    from nerf_rs_tpu_torch.ops.rays import camera_rays
+    from nerf_rs_tpu_torch.ops.sampling import _batched_uniform, stratified_samples
+
+    _, dirs = camera_rays(cam, H, W, dev)
+    first = (H // 2 - n_rays // W // 2) * W
+    dirs = dirs.reshape(-1, 3)[first:first + n_rays].contiguous()
+    ids = torch.arange(first, first + n_rays, device=dev)
+    k_c, k_f = random.split(random.key(0, dev))
+    near = torch.as_tensor(cam.near, device=dev)
+    far = torch.as_tensor(cam.far, device=dev)
+    origin = torch.as_tensor(cam.position, device=dev)
+    t_lo, t_hi, far_w = near, far, far
+    if grid is not None:
+        t_lo, t_hi = ray_occupied_range(grid, origin, dirs, near, far, probes=PROBES)
+        far_w = torch.minimum(far, t_hi + (t_hi - t_lo) / nc)
+    t_c = stratified_samples(random.fold_in(k_c, ids), t_lo, t_hi, nc, (n_rays,))
+    pts = (origin + dirs[:, None, :] * t_c[..., None]).contiguous()
+    saved = fused_nerf_mlp.launches
+    with torch.no_grad():
+        _, sigma = fused_nerf_mlp(coarse, pts, dirs[:, None, :], sigma_only=True)
+    fused_nerf_mlp.launches = saved                   # set-up launches do not count
+    u = _batched_uniform(random.fold_in(k_f, ids), (n_rays,), nf)
+    return t_c, sigma, u, far_w, float(cam.far - cam.near) / nc
+
+
+def phase_resample_vs_plain(coarse, cam, dev, grid):
+    """K3 against its plain version on the render's inputs."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops.kernels.resample import fused_resample, fused_resample_reference
+
+    worst = 0.0
+    saved = fused_resample.launches
+    for nc, nf in ((N_COARSE, N_FINE), (32, 64)):
+        for far_kind, g in (("scalar far", None), ("per-ray far", grid)):
+            t_c, sigma, u, far, bin_width = resample_inputs(coarse, cam, dev, RAY_CHUNK, nc, nf, g)
+            got = fused_resample(t_c, sigma, u, far)
+            again = fused_resample(t_c, sigma, u, far)
+            want = fused_resample_reference(t_c, sigma, u, far)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            share = float((err <= K3_ATOL + K3_RTOL * want.abs()).float().mean())
+            max_err = float(err.max())
+            ok = (tuple(got.shape) == (RAY_CHUNK, nc + nf) and bool(torch.isfinite(got).all())
+                  and bool((got[:, 1:] >= got[:, :-1]).all()) and max_err <= bin_width
+                  and share >= K3_SHARE and torch.equal(got, again))
+            say("12 resample", f"K3 ({nc}, {nf}) {far_kind} x {RAY_CHUNK} rays: max |d t| "
+                f"{max_err:.3e} (bar: a coarse bin, {bin_width:.4f}), share within "
+                f"{K3_ATOL:g} + {K3_RTOL:g} |t| {share:.6f} (bar >= {K3_SHARE}), rows sorted "
+                f"{bool((got[:, 1:] >= got[:, :-1]).all())}, two calls bitwise equal "
+                f"{torch.equal(got, again)} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise PhaseFailure(f"K3 disagrees with its plain version: ({nc}, {nf}), {far_kind}")
+            worst = max(worst, max_err)
+    fused_resample.launches = saved                   # comparison launches do not count
+    return worst
+
+
+def rendered_chunks(grid, cam, size: int, cfg, dev):
+    """(hit rays, chunks the packed render renders) for a size x size frame."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops.rays import camera_rays
+    from nerf_rs_tpu_torch.render import _image_ray_ranges
+
+    _, dirs = camera_rays(cam, size, size, dev)
+    (t0, t1), _, n_hit = _image_ray_ranges(
+        grid, torch.as_tensor(cam.position, device=dev), dirs,
+        torch.as_tensor(cam.near, device=dev), torch.as_tensor(cam.far, device=dev), cfg)
+    hit = (t1 > t0).reshape(size, size)
+    n = size * size
+    return hit, min(-(-max(int(n_hit), 1) // cfg.ray_chunk), -(-n // cfg.ray_chunk))
+
+
+def render_accel(coarse, fine, cam, dev, cfg, grid, size: int, key: int = 0):
+    import torch
+
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.render import render_image
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = render_image(coarse, fine, cam, size, size, random.key(key, dev), cfg, device=dev,
+                       grid=grid)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if tuple(img.shape) != (size, size, 3) or not bool(torch.isfinite(img).all()):
+        raise PhaseFailure(f"accel frame: shape {tuple(img.shape)} or non-finite values")
+    return img, ms
+
+
+def phase_accel_frame(coarse, fine, cam, dev, grid):
+    """The accel path's main run: the 256x256 f32 frame with K1 and K3,
+    with the launch counts set to 0 just before and read just after."""
+    import torch
+
+    from nerf_rs_tpu_torch.io.image import load_ppm
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import fused_nerf_mlp, fused_nerf_mlp_backward
+    from nerf_rs_tpu_torch.ops.kernels.resample import fused_resample
+
+    cfg = accel_cfg()
+    hit, chunks = rendered_chunks(grid, cam, H, cfg, dev)
+    torch.cuda.synchronize()
+    fused_nerf_mlp.launches = fused_nerf_mlp_backward.launches = fused_resample.launches = 0
+    packed, ms = render_accel(coarse, fine, cam, dev, cfg, grid, H)
+    launches = {"fused_nerf_mlp": fused_nerf_mlp.launches, "fused_resample": fused_resample.launches,
+                "fused_nerf_mlp_backward": fused_nerf_mlp_backward.launches}
+    unpacked, _ = render_accel(coarse, fine, cam, dev, cfg.replace(accel_cull_rays=False), grid, H)
+    golden_db = psnr(packed.cpu().numpy(), load_ppm(GOLDEN_PPM))
+    bitwise = torch.equal(packed[hit], unpacked[hit])
+    ok = (golden_db > GOLDEN_BAR_DB and launches["fused_resample"] == chunks
+          and launches["fused_nerf_mlp"] == 2 * chunks
+          and launches["fused_nerf_mlp_backward"] == 0 and bitwise)
+    say("13 accel", f"f32 accel frame {H}x{W} (grid {GRID_RES}^3, {PROBES} probes, stride "
+        f"{STRIDE}, packing, K3): PSNR vs committed golden {golden_db:.2f} dB (bar > "
+        f"{GOLDEN_BAR_DB}); {int(hit.sum())} of {H * W} rays hit, {chunks} chunks rendered; "
+        f"launches K3 {launches['fused_resample']} (expected {chunks}), K1 "
+        f"{launches['fused_nerf_mlp']} (expected {2 * chunks}); hit rays bitwise equal to "
+        f"the unpacked accel frame: {bitwise}; {ms:.1f} ms -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the accel frame misses the golden bar, went around K1/K3, or packing "
+                           "changed a hit ray")
+    return launches
+
+
+def phase_bench_frames(coarse, fine, cam, dev, grid, card):
+    """The 800x800 frames of bench.py's default run."""
+    from nerf_rs_tpu_torch.config import RenderConfig
+
+    size = BENCH_SIZE
+    dense_cfg = RenderConfig(n_coarse=N_COARSE, n_fine=N_FINE, ray_chunk=BENCH_CHUNK,
+                             impl="pallas")
+    dense, dense_ms = render_accel(coarse, fine, cam, dev, dense_cfg, None, size)
+    cfg = accel_cfg(chunk=BENCH_CHUNK)
+    fast, fast_ms = render_accel(coarse, fine, cam, dev, cfg, grid, size)
+    fast_bf16, bf16_ms = render_accel(coarse, fine, cam, dev, accel_cfg("bfloat16", chunk=BENCH_CHUNK),
+                                      grid, size)
+    accel_db = psnr(fast.cpu().numpy(), dense.cpu().numpy())
+    bf16_db = psnr(fast_bf16.cpu().numpy(), fast.cpu().numpy())
+    hit, chunks = rendered_chunks(grid, cam, size, cfg, dev)
+    n = size * size
+    ok = accel_db >= ACCEL_BAR_DB and bf16_db >= BF16_FRAME_BAR_DB
+    say("14 800", f"{size}x{size} 16384-ray chunks: f32 accel+K3 vs f32 dense {accel_db:.2f} dB "
+        f"(bar >= {ACCEL_BAR_DB}); bf16 accel+K3 vs f32 accel+K3 {bf16_db:.2f} dB (bar >= "
+        f"{BF16_FRAME_BAR_DB}); rays that miss {1 - float(hit.float().mean()):.4f}, packed away "
+        f"(not rendered) {1 - chunks * BENCH_CHUNK / n:.4f} ({chunks} of {-(-n // BENCH_CHUNK)} "
+        f"chunks); first frames (with first-use costs) dense {dense_ms:.1f} ms, accel f32 "
+        f"{fast_ms:.1f} ms, accel bf16 {bf16_ms:.1f} ms on {card} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the 800x800 accel frames miss their bars")
+    return dense_cfg, cfg
+
+
+def phase_serve(dev):
+    """The viewer: the port's HTTP handler on a loopback port, serving the
+    accel path with K1 and K3."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from nerf_rs_tpu_torch import api, serve
+    from nerf_rs_tpu_torch.config import RenderConfig
+    from nerf_rs_tpu_torch.io.image import pixels_to_rgba
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.render import render_image
+
+    api._state.clear()
+    api.init_renderer(accel=True, device=dev, cfg=RenderConfig(
+        ray_chunk=16384, accel_cull_rays=True, impl="pallas", sampling_impl="pallas"))
+    state = dict(api._state)
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), serve.Handler)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        same = []
+        for seed in range(3):
+            t0 = time.perf_counter()
+            body = urllib.request.urlopen(f"{base}/render?width=256&height=256&seed={seed}",
+                                          timeout=300).read()
+            ms = (time.perf_counter() - t0) * 1e3
+            want = pixels_to_rgba(render_image(
+                state["params"]["coarse"], state["params"]["fine"], state["camera"], 256, 256,
+                random.key(seed, dev), state["cfg"], device=dev, grid=state["grid"]))
+            same.append(body == want.tobytes())
+            say("15 serve", f"GET /render 256x256 seed {seed}: {len(body)} bytes in {ms:.1f} ms, "
+                f"equal to render_image's bytes: {same[-1]}")
+        try:
+            urllib.request.urlopen(f"{base}/render?width=0&height=256", timeout=60)
+            bad = None
+        except urllib.error.HTTPError as e:
+            bad = e.code
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        api._state.clear()
+    ok = all(same) and bad == 400
+    say("15 serve", f"bad size answered {bad} (expected 400) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the viewer's frames differ from render_image, or a bad size was not "
+                           "refused")
+
+
+def profile_frame(fn):
+    """(wall ms, device busy ms, the top device kernels by time) of one
+    run of ``fn`` under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return wall, sum(by_name.values()), top
+
+
+def phase_accel_times(coarse, fine, cam, dev, grid, card, dense_cfg, cfg):
+    """K3 and the plain chain per call, the grid build, the 800x800 frames
+    and the accel+K3 frame's device idle share."""
+    import torch
+
+    from nerf_rs_tpu_torch.accel import build_scene_grid
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import fused_nerf_mlp
+    from nerf_rs_tpu_torch.ops.kernels.resample import fused_resample, fused_resample_reference
+
+    saved = (fused_nerf_mlp.launches, fused_resample.launches)
+    t_c, sigma, u, far, _ = resample_inputs(coarse, cam, dev, BENCH_CHUNK, N_COARSE, N_FINE)
+    k3_ms = timed_ms(lambda: fused_resample(t_c, sigma, u, far), inner=20)
+    plain_ms = timed_ms(lambda: fused_resample_reference(t_c, sigma, u, far), inner=20)
+    say("16 times", f"{card}: K3 {BENCH_CHUNK} x ({N_COARSE}, {N_FINE}): kernel {k3_ms:.4f} ms, "
+        f"plain chain {plain_ms:.4f} ms per call (median of 3 runs of 20 calls)")
+    grid_ms = timed_ms(lambda: build_scene_grid(coarse, fine, resolution=GRID_RES))
+    say("16 times", f"{card}: grid build, two {GRID_RES}^3 sweeps through K1 (bf16, "
+        f"sigma-only): {grid_ms:.1f} ms (median of 3)")
+    size = BENCH_SIZE
+    frames = {}
+    for label, c, g, warm in (("dense", dense_cfg, None, False),
+                              ("accel, plain chain", cfg.replace(sampling_impl="xla"), grid, True),
+                              ("accel, K3", cfg, grid, False)):
+        frames[label] = timed_ms(lambda: render_accel(coarse, fine, cam, dev, c, g, size),
+                                 warm=warm)
+        say("16 times", f"{card}: {size}x{size} f32 frame, {label}: {frames[label]:.1f} ms, "
+            f"{size * size / frames[label] * 1e3:,.0f} rays/s (median of 3)")
+    wall, busy, top = profile_frame(lambda: render_accel(coarse, fine, cam, dev, cfg, grid, size))
+    if busy > 0:
+        kernels = "; ".join(f"{name[:60]} {ms:.1f} ms" for name, ms in top)
+        say("16 times", f"{card}: accel+K3 {size}x{size} frame under torch.profiler: wall "
+            f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share {1 - busy / wall:.4f}; top: "
+            f"{kernels}")
+    else:
+        say("16 times", f"{card}: torch.profiler saw no device time: idle share not measured")
+    fused_nerf_mlp.launches, fused_resample.launches = saved   # timing launches do not count
+    return k3_ms, plain_ms
+
+
 def main() -> int:
     import torch
 
@@ -555,6 +874,20 @@ def main() -> int:
             f"f32: {step_ms[impl]:.1f} ms, {TRAIN_RAYS / step_ms[impl] * 1e3:,.0f} rays/s "
             f"fwd+bwd (median of 3, teacher batch excluded)")
 
+    # The accelerated render and serving path: K3 against its plain
+    # version, the path itself, the bench-size frames, the viewer, times.
+    from nerf_rs_tpu_torch.accel import build_scene_grid
+
+    grid = build_scene_grid(coarse, fine, resolution=GRID_RES)
+    say("12 resample", f"grid {GRID_RES}^3 built: {float(grid.occ.float().mean()):.4f} of the "
+        f"cells occupied")
+    k3_err = phase_resample_vs_plain(coarse, cam, dev, grid)
+    accel_launches = phase_accel_frame(coarse, fine, cam, dev, grid)
+    dense_cfg, bench_cfg = phase_bench_frames(coarse, fine, cam, dev, grid, card)
+    phase_serve(dev)
+    k3_ms, k3_plain_ms = phase_accel_times(coarse, fine, cam, dev, grid, card, dense_cfg,
+                                           bench_cfg)
+
     k_ms, p_ms = times[("fine", "float32")]
     print(json.dumps({"kernels": [{
         "name": "fused_nerf_mlp",
@@ -574,6 +907,15 @@ def main() -> int:
         "max_abs_err": bwd_err,
         "ms": kb_ms,
         "plain_ms": pb_ms,
+    }, {
+        "name": "fused_resample",
+        "route": "cuda",
+        "source": "nerf_rs_tpu_torch/ops/kernels/csrc/resample.cu",
+        "replaces": "nerf_rs_tpu/ops/kernels/resample.py:207",
+        "launches": accel_launches["fused_resample"],
+        "max_abs_err": k3_err,
+        "ms": k3_ms,
+        "plain_ms": k3_plain_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

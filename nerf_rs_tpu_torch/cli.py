@@ -1,11 +1,15 @@
 """Command-line front-end of the PyTorch port.
 
     python -m nerf_rs_tpu_torch render --device cuda --width 256 --height 256 -o out.ppm
+    python -m nerf_rs_tpu_torch render --accel --sampling-impl pallas --device cuda
     python -m nerf_rs_tpu_torch train --device cuda --impl pallas --steps 20
 
-``render`` and ``train`` (distillation from the pretrained lego networks)
-are ported; the other subcommands of the JAX package's CLI are ROADMAP
-queue 1, item 10.
+``render`` (with the occupancy-grid flags and the depth and opacity maps)
+and ``train`` (distillation from the pretrained lego networks) are ported;
+the viewer is ``python -m nerf_rs_tpu_torch.serve``. The other
+subcommands of the JAX package's CLI, and render's ``--orbit``,
+``--checkpoint``, ``--sharded`` and ``--trace-dir``, are ROADMAP queue 1,
+items 10 and 11.
 """
 
 from __future__ import annotations
@@ -16,40 +20,103 @@ import time
 from pathlib import Path
 
 
+def _build_accel(args, cfg, params, camera, device):
+    """The occupancy grid and the accel config of ``render --accel``:
+    capacities for the compaction modes from the camera's geometry, or
+    measured by one render (``--accel-calibrate``, and always with
+    ``--accel-aabb``)."""
+    import torch
+
+    from nerf_rs_tpu_torch.accel import build_scene_grid, calibrate_capacities, suggest_capacities
+    from nerf_rs_tpu_torch.ops import random
+
+    t0 = time.perf_counter()
+    cfg = cfg.replace(accel_compact=args.accel_compact)
+    if args.accel_aabb:
+        cfg = cfg.replace(accel_sample_aabb=True)
+    if args.accel_cull_rays:
+        cfg = cfg.replace(accel_cull_rays=True)
+    grid = build_scene_grid(params["coarse"], params["fine"], resolution=args.accel_res,
+                            device=device)
+    note = ("packing/placement only (no per-sample culling)" if cfg.accel_compact == "off"
+            else "mask-only (no capacities)")
+    if cfg.accel_compact not in ("none", "off"):
+        if args.accel_calibrate or cfg.accel_sample_aabb:
+            # Box placement concentrates samples in occupied cells, which the
+            # geometry-only suggestion undershoots: measure instead.
+            cfg = calibrate_capacities(params["coarse"], params["fine"], grid, camera,
+                                       args.height, args.width, random.key(args.seed, device),
+                                       cfg)
+        else:
+            cfg = suggest_capacities(grid, camera, args.height, args.width, cfg)
+        note = f"capacities {cfg.accel_coarse_capacity:.2f}/{cfg.accel_fine_capacity:.2f}"
+    frac = float(grid.occ.to(torch.float32).mean())
+    print(f"occupancy grid {args.accel_res}^3 built in {time.perf_counter() - t0:.2f}s "
+          f"({100 * frac:.1f}% occupied; {note})")
+    return cfg, grid
+
+
 def cmd_render(args) -> int:
+    import numpy as np
     import torch
 
     from nerf_rs_tpu_torch.config import RenderConfig
     from nerf_rs_tpu_torch.io.golden import camera_from_golden, load_golden
     from nerf_rs_tpu_torch.io.image import save_png, save_ppm
-    from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_nerf_params
+    from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_scene_assets
+    from nerf_rs_tpu_torch.models.mlp import as_module
     from nerf_rs_tpu_torch.ops import random
-    from nerf_rs_tpu_torch.render import render_image
+    from nerf_rs_tpu_torch.render import render_image, render_image_aux
 
     assets = Path(args.weights) if args.weights else find_lego_assets()
     if assets is None:
         sys.exit("error: no weight assets found (set --weights or $NERF_RS_TPU_ASSETS)")
-    camera_json = Path(args.camera) if args.camera else assets / "tf_reference_samples.json"
-    if not camera_json.exists():
-        sys.exit(f"error: {camera_json} not found — pass --camera <json>")
     device = torch.device(args.device)
-    coarse = load_nerf_params(assets / "coarse")
-    fine = load_nerf_params(assets / "fine")
-    camera = camera_from_golden(load_golden(camera_json))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        sys.exit(f"error: --device {args.device} but torch.cuda.is_available() is false")
+    trees, golden = load_scene_assets(assets)
+    if args.camera:
+        golden = load_golden(Path(args.camera))
+    camera = camera_from_golden(golden)
+    params = {net: as_module(trees[net], device) for net in ("coarse", "fine")}
     cfg = RenderConfig(n_coarse=args.coarse_samples, n_fine=args.fine_samples,
-                       ray_chunk=args.ray_chunk, impl=args.impl, dtype=args.dtype)
+                       ray_chunk=args.ray_chunk, impl=args.impl, dtype=args.dtype,
+                       sampling_impl=args.sampling_impl)
     print(f"Rendering {args.width}x{args.height} with {cfg.n_coarse} coarse and "
-          f"{cfg.n_fine} fine samples per ray ({cfg.impl}/{cfg.dtype} on {device})")
+          f"{cfg.n_fine} fine samples per ray ({cfg.impl}/{cfg.dtype}, sampling "
+          f"{cfg.sampling_impl}, on {device})")
+    if args.accel_aabb and not args.accel:
+        print("note: --accel-aabb implies --accel")
+        args.accel = True
+    grid = None
+    if args.accel:
+        cfg, grid = _build_accel(args, cfg, params, camera, device)
+
+    def save(path, img):
+        path = Path(path)
+        if path.suffix.lower() == ".ppm":
+            save_ppm(path, img, args.height, args.width)
+        else:
+            save_png(path, img, args.height, args.width)
+        print(f"Wrote {path}")
+
+    key = random.key(args.seed, device)
     t0 = time.perf_counter()
-    img = render_image(coarse, fine, camera, args.height, args.width,
-                       random.key(args.seed, device), cfg, device=device).cpu().numpy()
-    dt = time.perf_counter() - t0
-    out = Path(args.output)
-    if out.suffix.lower() == ".ppm":
-        save_ppm(out, img, args.height, args.width)
+    if args.depth_output or args.acc_output:
+        rgb, depth, acc = (x.cpu().numpy() for x in render_image_aux(
+            params["coarse"], params["fine"], camera, args.height, args.width, key, cfg,
+            device=device, grid=grid))
+        if args.depth_output:
+            # Depth normalized to [near, far], near = white.
+            d = (depth - camera.near) / (camera.far - camera.near)
+            save(args.depth_output, np.repeat(1.0 - np.clip(d, 0, 1)[..., None], 3, -1))
+        if args.acc_output:
+            save(args.acc_output, np.repeat(np.clip(acc, 0, 1)[..., None], 3, -1))
     else:
-        save_png(out, img, args.height, args.width)
-    print(f"Wrote {out}")
+        rgb = render_image(params["coarse"], params["fine"], camera, args.height, args.width,
+                           key, cfg, device=device, grid=grid).cpu().numpy()
+    dt = time.perf_counter() - t0
+    save(args.output, rgb)
     rays = args.width * args.height
     print(f"Rendering completed in {dt:.2f} seconds ({rays / dt:,.0f} rays/s, "
           f"includes the kernel build on first use)")
@@ -140,6 +207,9 @@ def main(argv=None) -> int:
                    help="torch device to render on, e.g. cuda, cuda:1 or cpu")
     p.add_argument("--impl", default="pallas", choices=["xla", "pallas"],
                    help="MLP: 'pallas' = the fused CUDA kernel, 'xla' = plain PyTorch")
+    p.add_argument("--sampling-impl", default="xla", choices=["xla", "pallas"],
+                   help="resampling chain: 'pallas' = the fused CUDA kernel, 'xla' = plain "
+                        "PyTorch")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--coarse-samples", type=int, default=64)
     p.add_argument("--fine-samples", type=int, default=128)
@@ -148,6 +218,27 @@ def main(argv=None) -> int:
     p.add_argument("--width", type=int, default=256)
     p.add_argument("--height", type=int, default=256)
     p.add_argument("-o", "--output", default="output.ppm")
+    p.add_argument("--accel", action="store_true",
+                   help="occupancy-grid empty-space skipping (fast mode)")
+    p.add_argument("--accel-res", type=int, default=128,
+                   help="occupancy grid resolution per axis")
+    p.add_argument("--accel-calibrate", action="store_true",
+                   help="measure capacities with one instrumented render "
+                        "(tighter than the default geometry estimate)")
+    p.add_argument("--accel-aabb", action="store_true",
+                   help="clamp each ray's sample range to the occupied-box intersection "
+                        "(same sample count, denser on the object; implies --accel-calibrate)")
+    p.add_argument("--accel-compact", default="none",
+                   choices=("off", "none", "scatter", "gather"),
+                   help="per-sample culling: 'off' (grid steers ray packing + placement "
+                        "only; rendered rays stay exact), 'none' (mask-only: dense eval, "
+                        "zeroed sigma), or fixed-capacity compaction")
+    p.add_argument("--accel-cull-rays", action="store_true",
+                   help="pack away rays that miss the occupied cells and composite them "
+                        "to background without rendering")
+    p.add_argument("--depth-output",
+                   help="also write the depth map (expected t, near = white) as PNG/PPM here")
+    p.add_argument("--acc-output", help="also write the accumulated-opacity map here")
     p.set_defaults(fn=cmd_render)
 
     p = sub.add_parser("train", help="train coarse+fine networks, distilling from the "

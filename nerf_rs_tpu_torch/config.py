@@ -47,13 +47,24 @@ class RenderConfig:
       JAX package's fused Pallas kernel. On CPU tensors it runs the
       kernel's plain PyTorch version.
 
+    ``sampling_impl`` selects the resampling chain: ``"xla"`` the plain
+    ops, ``"pallas"`` the hand-written CUDA kernel K3
+    (``ops.kernels.resample.fused_resample``; its plain version on CPU
+    tensors), on the inference path.
+
     Values the port does not serve yet raise ``NotImplementedError`` where
     they would take effect: ``model="hashgrid"`` and ``impl="int8"`` /
-    ``"int8qat"`` (ROADMAP queue 1, item 12), ``sampling_impl="pallas"``
-    (item 13). Every ``accel_*`` field acts only with an occupancy grid,
-    and passing a grid raises (item 7). ``host_chunk_rays`` splits device
-    programs in the JAX package; the port already launches one ray chunk
-    at a time, so every value renders the same image.
+    ``"int8qat"`` (ROADMAP queue 1, item 12). Every ``accel_*`` field acts
+    only with an occupancy grid (``accel.py``), with the JAX package's
+    meanings: ``accel_compact`` "off" (the grid steers ray packing and
+    sample placement only), "none" (mask-only culling), "scatter" /
+    "gather" (fixed-capacity compaction); ``accel_cull_rays`` packs away
+    the rays that cannot hit anything; ``accel_sample_aabb`` places each
+    ray's samples in its occupied range, ``accel_aabb_probes`` refines it
+    by probes, ``accel_range_stride`` probes a strided sub-grid of the
+    image. ``host_chunk_rays`` splits device programs in the JAX package;
+    the port already launches one ray chunk at a time, so every value
+    renders the same image.
     """
 
     n_coarse: int = 64          # coarse stratified samples per ray

@@ -1,4 +1,4 @@
-"""Image output: binary PPM (P6) and PNG.
+"""Image output: binary PPM (P6), PNG and RGBA buffers.
 
 Quantization is the reference's: clamp to [0, 1], scale by 255, add 0.5,
 truncate to u8. Pixels may be numpy arrays or tensors on any device.
@@ -55,6 +55,16 @@ def load_ppm(path) -> np.ndarray:
     i += 1  # single whitespace after maxval
     raw = np.frombuffer(data, dtype=np.uint8, count=width * height * 3, offset=i)
     return raw.reshape(height, width, 3).astype(np.float32) / float(maxval)
+
+
+def pixels_to_rgba(pixels) -> np.ndarray:
+    """Flat RGBA u8 buffer with A=255: the reference's quantization of
+    (..., 3) pixels, interleaved with an opaque alpha."""
+    rgb = quantize_u8(_to_numpy(pixels).reshape(-1, 3))
+    rgba = np.empty((rgb.shape[0], 4), dtype=np.uint8)
+    rgba[:, :3] = rgb
+    rgba[:, 3] = 255
+    return rgba.reshape(-1)
 
 
 def save_png(path, pixels, height: int, width: int) -> None:

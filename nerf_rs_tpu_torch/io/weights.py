@@ -1,7 +1,8 @@
-"""Checkpoint I/O for the reference `.bin` weight format.
+"""Checkpoint I/O for the reference `.bin` weight format and `.npz` bundles.
 
 Each network is a directory of raw little-endian f32 row-major tensors plus
-a ``shapes.txt`` manifest (one ``name dim0 [dim1]`` per line). Loading gives
+a ``shapes.txt`` manifest (one ``name dim0 [dim1]`` per line); a bundle
+holds both networks and the golden JSON in one file. Loading gives
 the param tree ``{layer: {"kernel": (in, out), "bias": (out,)}}`` as numpy
 arrays, the same tree the JAX package builds; :func:`params_to_torch` turns
 that tree into tensors. The same numpy tree fed to both packages is how the
@@ -23,14 +24,18 @@ _REPO_ASSETS = Path(__file__).resolve().parents[2] / "assets" / "lego_rust"
 
 
 def find_lego_assets() -> Optional[Path]:
-    """Locate the pretrained lego weight directory (coarse/ + fine/ +
-    golden JSON): ``$NERF_RS_TPU_ASSETS`` first, then the repository's
-    ``assets/lego_rust``. Returns None when neither holds the weights."""
+    """Locate the pretrained lego weights — a directory with coarse/ +
+    fine/ + golden JSON, or a single-file ``.npz`` bundle
+    (:func:`save_bundle`): ``$NERF_RS_TPU_ASSETS`` first, then the
+    repository's ``assets/lego_rust``. Returns None when neither holds
+    the weights."""
     candidates = []
     if os.environ.get(ASSET_ENV_VAR):
         candidates.append(Path(os.environ[ASSET_ENV_VAR]))
     candidates.append(_REPO_ASSETS)
     for p in candidates:
+        if p.suffix == ".npz" and p.is_file():
+            return p
         if (p / "coarse" / "shapes.txt").exists() and (p / "fine" / "shapes.txt").exists():
             return p
     return None
@@ -103,6 +108,70 @@ def params_to_torch(params, device, dtype=torch.float32) -> Dict[str, Dict[str, 
                 for part, arr in p.items()}
         for layer, p in params.items()
     }
+
+
+def _to_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype="<f4")
+
+
+def _tree(params):
+    return params.tree() if hasattr(params, "tree") else params
+
+
+def save_bundle(path: os.PathLike, coarse_params, fine_params, golden_json_text: str) -> None:
+    """Pack both networks (param trees or NerfMLPs) and the camera/golden
+    JSON into ONE ``.npz`` file: arrays ``{net}.{layer}.kernel`` and
+    ``{net}.{layer}.bias`` (little-endian f32) and ``golden_json`` (UTF-8
+    bytes), the layout the JAX package's ``save_bundle`` writes and its
+    ``load_bundle`` reads. Load with :func:`load_bundle`, or point
+    ``$NERF_RS_TPU_ASSETS`` / ``api.init_renderer(assets_dir=...)`` at it."""
+    arrays: Dict[str, np.ndarray] = {}
+    for net, params in (("coarse", _tree(coarse_params)), ("fine", _tree(fine_params))):
+        for layer in param_layer_names(params):
+            arrays[f"{net}.{layer}.kernel"] = _to_numpy(params[layer]["kernel"])
+            arrays[f"{net}.{layer}.bias"] = _to_numpy(params[layer]["bias"])
+    arrays["golden_json"] = np.frombuffer(golden_json_text.encode("utf-8"), dtype=np.uint8)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **arrays)
+
+
+def load_bundle(path: os.PathLike, dtype=np.float32):
+    """Load a :func:`save_bundle` artifact (or the JAX package's) ->
+    ``(params, golden_dict)`` with ``params = {"coarse": tree, "fine":
+    tree}`` of numpy arrays, each tree checked by
+    :func:`validate_param_chain`."""
+    import json
+
+    with np.load(Path(path)) as z:
+        golden = json.loads(bytes(z["golden_json"]).decode("utf-8"))
+        params: Dict[str, Dict[str, Dict[str, np.ndarray]]] = {}
+        for net in ("coarse", "fine"):
+            layers = param_layer_names({f.split(".")[1] for f in z.files
+                                        if f.startswith(f"{net}.") and f.endswith(".kernel")})
+            tree = {layer: {"kernel": z[f"{net}.{layer}.kernel"].astype(dtype),
+                            "bias": z[f"{net}.{layer}.bias"].astype(dtype)}
+                    for layer in layers}
+            validate_param_chain(tree)
+            params[net] = tree
+    return params, golden
+
+
+def load_scene_assets(assets: os.PathLike, dtype=np.float32):
+    """``assets`` is a reference-format weight directory (coarse/ + fine/ +
+    tf_reference_samples.json) or a ``.npz`` bundle. Returns
+    ``({"coarse": tree, "fine": tree}, golden_dict)`` with numpy trees."""
+    import json
+
+    assets = Path(assets)
+    if assets.is_file():
+        return load_bundle(assets, dtype=dtype)
+    params = {net: load_nerf_params(assets / net, dtype=dtype) for net in ("coarse", "fine")}
+    with open(assets / "tf_reference_samples.json") as f:
+        golden = json.load(f)
+    return params, golden
 
 
 def validate_param_chain(params, x_freqs: int = 10, d_freqs: int = 4) -> None:

@@ -34,8 +34,8 @@ def _nvcc() -> str:
     candidate = Path(cuda_home) / "bin" / "nvcc"
     if candidate.exists():
         return str(candidate)
-    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin: the fused "
-                       "MLP kernels cannot be built")
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin: the port's "
+                       "CUDA kernels cannot be built")
 
 
 def sources() -> list:
@@ -102,4 +102,8 @@ def load_library() -> ctypes.CDLL:
     bwd.argtypes = [p, p, ll, ll, p, p, p, p, p, p, i, p, i, i, i, i, i, i, p, p, ll, ll, i,
                     p, p, p, p, i, p]
     bwd.restype = ctypes.c_int
+    f = ctypes.c_float
+    res = lib.nerf_fused_resample
+    res.argtypes = [p, p, p, p, ll, f, ll, i, i, f, f, f, p, i, p]
+    res.restype = ctypes.c_int
     return lib

@@ -72,6 +72,14 @@ def infer_arch(params) -> Tuple[int, int, int, int]:
     return width, v_width, depth, skip_at
 
 
+def supports_arch(params) -> bool:
+    """Whether the kernels serve a network (a NerfMLP or a param tree):
+    trunk and view widths up to ``MAX_WIDTH``, at most ``MAX_DEPTH`` dense
+    layers."""
+    width, v_width, depth, _ = infer_arch(params.tree() if hasattr(params, "tree") else params)
+    return 1 <= width <= MAX_WIDTH and 1 <= v_width <= MAX_WIDTH and 1 <= depth <= MAX_DEPTH
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedMLP:
     """Weights in the kernel's layout.
@@ -127,7 +135,7 @@ def pack_params(params, dtype: str) -> PackedMLP:
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got {dtype!r}")
     width, v_width, depth, _ = infer_arch(params)
-    if not (1 <= width <= MAX_WIDTH and 1 <= v_width <= MAX_WIDTH and 1 <= depth <= MAX_DEPTH):
+    if not supports_arch(params):
         raise ValueError(
             f"fused kernel serves width, v_width <= {MAX_WIDTH} and depth <= "
             f"{MAX_DEPTH}; got width={width}, v_width={v_width}, depth={depth}")

@@ -45,6 +45,16 @@ def importance_samples(key: torch.Tensor, ts: torch.Tensor, weights: torch.Tenso
     ts: (..., Nc) sorted sample positions; weights: (..., Nc) transmittance
     weights; Nc >= 3. Returns (..., count), NOT sorted.
     """
+    u = _batched_uniform(key, ts.shape[:-1], count)
+    return inverse_cdf(ts, weights, u, pdf_eps=pdf_eps, cdf_eps=cdf_eps)
+
+
+def inverse_cdf(ts: torch.Tensor, weights: torch.Tensor, u: torch.Tensor, *,
+                pdf_eps: float = 1e-5, cdf_eps: float = 1e-6) -> torch.Tensor:
+    """The body of :func:`importance_samples` for given uniforms ``u``
+    (..., count): one new t per uniform, NOT sorted. The fused resampler's
+    plain version (``ops.kernels.resample``) calls it with the uniforms its
+    kernel reads."""
     n_c = ts.shape[-1]
     if n_c < 3:
         raise ValueError(f"importance sampling requires >= 3 coarse samples, got {n_c}")
@@ -56,7 +66,6 @@ def importance_samples(key: torch.Tensor, ts: torch.Tensor, weights: torch.Tenso
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf[..., :-1],
                      torch.ones_like(cdf[..., :1])], dim=-1)          # (..., Nc-1)
 
-    u = _batched_uniform(key, ts.shape[:-1], count)
     # The CDF is strictly increasing (every PDF entry >= the pdf_eps
     # floor), so "first j with cdf[j] <= u < cdf[j+1]" is one bin, which a
     # right-sided search finds.

@@ -133,6 +133,9 @@ def nerf_loss(params, batch: Dict[str, torch.Tensor], key: torch.Tensor, cfg: Tr
     raises: occupancy-culled training is ROADMAP queue 1, item 7. The
     metrics (loss, mse_fine, mse_coarse, psnr) are detached 0-d tensors.
     """
+    if grid is not None:
+        raise NotImplementedError("occupancy-culled training is not ported yet "
+                                  "(ROADMAP queue 1, item 7)")
     rcfg = cfg.render
     dirs = batch["dirs"]
     if ray_ids is None:

@@ -1,5 +1,6 @@
 """PyTorch port on the card: the fused MLP kernels (forward K1, backward K2)
-against their plain versions.
+and the fused resampler (K3) against their plain versions, and the packed
+accel render against the unpacked one.
 
 Needs an NVIDIA card and nvcc, and skips elsewhere. Imports no JAX, so it
 runs on a machine without it:
@@ -237,3 +238,73 @@ def test_train_step_kernels_match_plain(card):
     assert max(float(d.max()) for d in diffs.values()) < 2 * cfg.lr_init
     assert (sum(int((d > 1e-5).sum()) for d in diffs.values())
             < 1e-3 * sum(d.numel() for d in diffs.values())), shares
+
+
+def resample_inputs(n, nc, nf, seed, device):
+    """tests/test_resample.py's rows: jittered t over [2, 6], sigma with
+    mass in every bin, uniforms."""
+    rng = np.random.default_rng(seed)
+    t_c = 2.0 + (np.arange(nc) + rng.uniform(size=(n, nc))) * (4.0 / nc)
+    sigma = rng.uniform(0, 2.0, size=(n, nc))
+    u = rng.uniform(size=(n, nf))
+    far = rng.uniform(5.0, 6.0, size=(n, 1))
+    return [torch.from_numpy(x.astype(np.float32)).to(device) for x in (t_c, sigma, u, far)]
+
+
+@pytest.mark.parametrize("per_ray", [False, True], ids=["scalar_far", "per_ray_far"])
+def test_resample_kernel_matches_plain(card, per_ray):
+    """K3 at the bench's chunk, 16384 rays x (64, 128), against its plain
+    version on the card, with tests/test_resample.py's tail bars: the CDFs
+    differ by scan-order ulps, which a bin holding little mass stretches
+    across its width, so 99% of entries lie within 5e-5 + 1e-5 |t| and
+    every entry within a coarse bin. Rows sorted, every coarse t kept
+    exactly, two calls bitwise equal."""
+    from nerf_rs_tpu_torch.ops.kernels.resample import fused_resample, fused_resample_reference
+
+    t_c, sigma, u, far_rows = resample_inputs(16384, 64, 128, 12, card)
+    far = far_rows if per_ray else 6.0
+    before = fused_resample.launches
+    got = fused_resample(t_c, sigma, u, far)
+    again = fused_resample(t_c, sigma, u, far)
+    torch.cuda.synchronize()
+    assert fused_resample.launches == before + 2
+    want = fused_resample_reference(t_c, sigma, u, far)
+    assert got.shape == (16384, 192) and torch.equal(got, again)
+    assert bool((got[:, 1:] >= got[:, :-1]).all())
+    slot = torch.searchsorted(got, t_c).clamp(max=191)
+    assert torch.equal(torch.gather(got, 1, slot), t_c)
+    err = (got - want).abs()
+    assert float(err.max()) <= 4.0 / 64
+    assert float((err <= 5e-5 + 1e-5 * want.abs()).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("change", [dict(accel_compact="off", accel_aabb_probes=32),
+                                    dict(accel_sample_aabb=True, accel_aabb_probes=32)],
+                         ids=["off_probes", "aabb_probes_per_ray_far"])
+def test_accel_packed_matches_unpacked_on_card(card, change):
+    """A 64x64 lego frame through K1 and K3 on a 64^3 grid: every hit ray
+    of the packed render is bitwise the unpacked render's, and K3 launches
+    once per rendered chunk."""
+    from nerf_rs_tpu_torch.accel import build_scene_grid
+    from nerf_rs_tpu_torch.ops.kernels.resample import fused_resample
+    from nerf_rs_tpu_torch.ops.rays import camera_rays
+    from nerf_rs_tpu_torch.render import _image_ray_ranges
+
+    cam = camera_from_golden(load_golden(LEGO / "tf_reference_samples.json"))
+    coarse, fine = (NerfMLP(load_nerf_params(LEGO / n), device=card) for n in ("coarse", "fine"))
+    grid = build_scene_grid(coarse, fine, resolution=64)
+    cfg = RenderConfig(n_coarse=64, n_fine=128, ray_chunk=512, impl="pallas",
+                       sampling_impl="pallas", **change)
+    _, dirs = camera_rays(cam, 64, 64, card)
+    (t0, t1), _, n_hit = _image_ray_ranges(grid, torch.as_tensor(cam.position, device=card), dirs,
+                                           torch.tensor(cam.near, device=card),
+                                           torch.tensor(cam.far, device=card), cfg)
+    hit = (t1 > t0).reshape(64, 64)
+    assert 0 < int(n_hit) < 64 * 64
+    unpacked = render_image(coarse, fine, cam, 64, 64, random.key(0, card), cfg, grid=grid)
+    before = fused_resample.launches
+    packed = render_image(coarse, fine, cam, 64, 64, random.key(0, card),
+                          cfg.replace(accel_cull_rays=True), grid=grid)
+    torch.cuda.synchronize()
+    assert fused_resample.launches - before == -(-int(n_hit) // 512)
+    assert torch.equal(packed[hit], unpacked[hit])

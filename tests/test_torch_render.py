@@ -135,7 +135,6 @@ def test_render_image_lego_vs_committed_golden(golden):
 @pytest.mark.parametrize("change, match", [
     (dict(model="hashgrid"), "item 12"),
     (dict(impl="int8"), "item 12"),
-    (dict(sampling_impl="pallas"), "item 13"),
 ])
 def test_unserved_config_raises(golden, change, match):
     pc = params_to_torch(np_params(SMALL, 14), "cpu")
@@ -144,13 +143,51 @@ def test_unserved_config_raises(golden, change, match):
                     random.key(0, "cpu"), RenderConfig(n_coarse=4, n_fine=4, **change))
 
 
-@pytest.mark.parametrize("kw, match", [(dict(grid=object()), "item 7"),
-                                       (dict(grid=object(), return_aux=True), "item 7")])
-def test_unserved_render_options_raise(kw, match):
+def _full_grid():
+    from nerf_rs_tpu_torch.accel import grid_from_numpy
+
+    return grid_from_numpy(np.ones((4, 4, 4), bool), -2.0, 2.0, "cpu")
+
+
+def test_unserved_grid_of_hashgrid_family_raises():
+    """An occupancy grid with a hash-grid config: the family waits for item 12."""
+    from nerf_rs_tpu_torch.accel import hashgrid_grid_kwargs
+
     pc = params_to_torch(np_params(SMALL, 15), "cpu")
-    with pytest.raises(NotImplementedError, match=match):
+    cfg = RenderConfig(n_coarse=4, n_fine=4, model="hashgrid")
+    with pytest.raises(NotImplementedError, match="item 12"):
         render_rays(pc, pc, torch.zeros(3), torch.ones(4, 3) / 3 ** 0.5, 2.0, 6.0,
-                    random.key(0, "cpu"), RenderConfig(n_coarse=4, n_fine=4), **kw)
+                    random.key(0, "cpu"), cfg, grid=_full_grid())
+    with pytest.raises(NotImplementedError, match="item 12"):
+        hashgrid_grid_kwargs(cfg)
+
+
+def test_unserved_checkpoint_raises():
+    """Serving a training checkpoint waits for item 10, and the refusal
+    leaves the renderer's state untouched."""
+    from nerf_rs_tpu_torch import api
+
+    before = dict(api._state)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        api.init_renderer(checkpoint="step_00000001", device="cpu")
+    assert api._state == before
+
+
+@pytest.mark.parametrize("nc, nf", [(2, 8), (8, 0), (1024, 1025)])
+def test_unserved_resample_counts_raise(nc, nf):
+    """Sample counts outside the K3 kernel's envelope raise, on the render
+    path too: no quiet switch to the plain chain."""
+    from nerf_rs_tpu_torch.ops.kernels.resample import fused_resample, supported
+
+    assert not supported(nc, nf)
+    with pytest.raises(NotImplementedError, match="sampling_impl='xla'"):
+        fused_resample(torch.zeros(4, nc), torch.zeros(4, nc), torch.zeros(4, nf), 6.0)
+    if nf > 0:
+        pc = params_to_torch(np_params(SMALL, 16), "cpu")
+        with pytest.raises(NotImplementedError, match="sampling_impl='xla'"):
+            render_rays(pc, pc, torch.zeros(3), torch.ones(4, 3) / 3 ** 0.5, 2.0, 6.0,
+                        random.key(0, "cpu"),
+                        RenderConfig(n_coarse=nc, n_fine=nf, sampling_impl="pallas"))
 
 
 def test_package_never_imports_jax():
