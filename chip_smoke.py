@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths and holds them to the repository's own
+Drives the port's four main paths and holds them to the repository's own
 bars: the render path — the pretrained lego coarse and fine networks
 rendering a 256x256 frame with 64 stratified + 128 importance samples on
 white, through ``nerf_rs_tpu_torch.render.render_image`` — the training
@@ -13,12 +13,16 @@ the lego networks at 4096 rays and 64 + 128 samples, through
 and the accelerated render and serving path — bench.py's default: a 128^3
 occupancy grid swept through K1, probe culling (32 probes, stride 4,
 ``accel_compact="off"``), ray packing, and the fused resampler K3, through
-``render_image(grid=...)`` and the HTTP viewer (``api``, ``serve``).
-Phases, each reported on its own line:
+``render_image(grid=...)`` and the HTTP viewer (``api``, ``serve``) — and
+the hash-grid family — the paper config (16 levels of 2^17 rows, F = 2,
+resolutions 16-1024), distilled from the lego networks as ``train --model
+hashgrid`` does, then rendered dense and through a grid of its own sigma,
+through the hash-encode kernel. Phases, each reported on its own line:
 
 1. device: a CUDA card is required; its name and power limit are printed;
-2. build: the fused MLP kernels K1 and K2 and the fused resampler K3 are
-   compiled from the checkout's sources (one nvcc per source, in parallel);
+2. build: the fused MLP kernels K1 and K2, the fused resampler K3 and the
+   hash encode are compiled from the checkout's sources (one nvcc per
+   source, in parallel);
 3. K1 against its plain PyTorch version at the render's shapes (8192 rays
    x 64 samples sigma-only, 8192 x 192 full), f32 and bf16;
 4. the f32 frame with K1: PSNR against the committed golden > 45 dB, and
@@ -54,15 +58,38 @@ Phases, each reported on its own line:
     seed, and a bad size with 400;
 16. times: K3 and the plain chain per call at 16384 x (64, 128), the grid
     build, the 800x800 f32 frames dense, accel with the plain chain and
-    accel with K3, and the device idle share of the accel+K3 frame.
+    accel with K3, and the device idle share of the accel+K3 frame;
+17. the hash encode against its plain version on the render's points
+    (16384 golden-camera rays x 64 and x 192), tables U(-1, 1), at the
+    paper config and at L = 4, F = 8, f32 and bf16: f32 within 1e-5 x
+    max |table|, bf16 within 2 bf16 ulps of max |feature|, two calls
+    bitwise equal;
+18. one hash-grid step with the kernel against one with the plain encode
+    (loss and parameters, phase 9's bars), then HASH_STEPS distillation
+    steps from a random init at 4096 rays, 64 + 128, f32, the teacher
+    through K1: the loss falls, the encode launches twice a step;
+19. frames of the trained field: 256x256 and 800x800 f32 dense with the
+    kernel against the plain encode (>= 60 dB), bf16 against f32 (>=
+    BF16_FRAME_BAR_DB), the 800x800 accel+K3 frame on a 128^3 grid from
+    ``accel.hashgrid_grid_kwargs`` against the dense frame (>= 40 dB),
+    PSNR against the lego teacher's frames (reported); two encode
+    launches per rendered chunk;
+20. times: the encode kernel and its plain version per call at 16384 x
+    192, f32 and bf16, rows gathered per second, one ``index_select`` of
+    the same rows (the library yardstick), the train step with the kernel
+    and with the plain encode, the 800x800 frames dense and accel+K3 with
+    their idle shares and top device kernels.
 
 Any failed phase exits non-zero. The line before the last is a JSON
-summary of the kernels; the last line is the JSON device record.
+summary of the kernels, each with its bound (the larger of its bytes over
+the memory rate and its operations over the f32 peak, from this run's
+shapes); the last line is the JSON device record.
 Never imports JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -174,17 +201,18 @@ def phase_build():
     if log.exists():
         for line in log.read_text().splitlines():
             entry = re.search(r"entry function '.*?(fused_mlp_bwd_kernel|fused_mlp_kernel|"
-                              r"reduce_partials|resample_kernel)(I\w*?Lb[01]E)?", line)
+                              r"reduce_partials|resample_kernel|hash_encode_kernel)"
+                              r"(I\w*?Lb[01]E)?", line)
             if entry:
                 say("2 build", "ptxas: " + "".join(g for g in entry.groups() if g))
             elif "registers" in line or "spill" in line:
                 say("2 build", "ptxas: " + line.strip())
 
 
-def main_path_inputs(cam, dev):
-    """The main path's MLP inputs for 8192 rays of the frame's center rows:
-    stratified samples at the coarse width (64) and at the fine width
-    (64 + 128 = 192) per ray."""
+def main_path_inputs(cam, dev, n_rays: int = RAY_CHUNK):
+    """The main path's field inputs for ``n_rays`` rays of the frame's
+    center rows: stratified samples at the coarse width (64) and at the
+    fine width (64 + 128 = 192) per ray."""
     import torch
 
     from nerf_rs_tpu_torch.ops import random
@@ -192,15 +220,15 @@ def main_path_inputs(cam, dev):
     from nerf_rs_tpu_torch.ops.sampling import stratified_samples
 
     _, dirs = camera_rays(cam, H, W, dev)
-    first = (H // 2 - RAY_CHUNK // W // 2) * W
-    dirs = dirs.reshape(-1, 3)[first:first + RAY_CHUNK].contiguous()
-    ids = torch.arange(first, first + RAY_CHUNK, device=dev)
+    first = (H // 2 - n_rays // W // 2) * W
+    dirs = dirs.reshape(-1, 3)[first:first + n_rays].contiguous()
+    ids = torch.arange(first, first + n_rays, device=dev)
     k_c, k_f = random.split(random.key(0, dev))
     near = torch.as_tensor(cam.near, device=dev)
     far = torch.as_tensor(cam.far, device=dev)
     origin = torch.as_tensor(cam.position, device=dev)
-    t_c = stratified_samples(random.fold_in(k_c, ids), near, far, N_COARSE, (RAY_CHUNK,))
-    t_f = stratified_samples(random.fold_in(k_f, ids), near, far, N_COARSE + N_FINE, (RAY_CHUNK,))
+    t_c = stratified_samples(random.fold_in(k_c, ids), near, far, N_COARSE, (n_rays,))
+    t_f = stratified_samples(random.fold_in(k_f, ids), near, far, N_COARSE + N_FINE, (n_rays,))
     pts_c = (origin + dirs[:, None, :] * t_c[..., None]).contiguous()
     pts_f = (origin + dirs[:, None, :] * t_f[..., None]).contiguous()
     return pts_c, pts_f, dirs[:, None, :]
@@ -660,7 +688,7 @@ def phase_bench_frames(coarse, fine, cam, dev, grid, card):
         f"{fast_ms:.1f} ms, accel bf16 {bf16_ms:.1f} ms on {card} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise PhaseFailure("the 800x800 accel frames miss their bars")
-    return dense_cfg, cfg
+    return dense_cfg, cfg, dense.cpu().numpy()
 
 
 def phase_serve(dev):
@@ -774,6 +802,355 @@ def phase_accel_times(coarse, fine, cam, dev, grid, card, dense_cfg, cfg):
     return k3_ms, plain_ms
 
 
+# The hash-grid family (phases 17-20): the paper config, distilled from the
+# lego networks with the JAX CLI's hash-grid recipe (nerf_rs_tpu/cli.py:384-402).
+HASH_STEPS = 300
+HASH_RECIPE = dict(lr_init=1e-2, lr_final=1e-4, adam_eps=1e-15)
+HASH_WIDE = dict(levels=4, features=8)          # train --hash-levels 4 --hash-features 8
+# One H100 SXM's data-sheet peaks at 700 W, for the bounds of the kernels line.
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+
+
+def bf16_ulp(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def bound(n_bytes: float, ops: float, peak_ops: float):
+    """(ms, "bytes" or "operations"): the least time for ``n_bytes`` moved
+    at the memory rate and ``ops`` done at ``peak_ops``."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mlp_flops(net, sigma_only: bool) -> int:
+    """Forward FLOPs per sample of a NeRF MLP: two per weight of the layers
+    it runs (the encode and the activations are a few hundred more)."""
+    skip = ("bottleneck", "viewdirs", "rgb") if sigma_only else ()
+    return 2 * sum(int(p["kernel"].numel()) for layer, p in net.tree().items()
+                   if layer not in skip)
+
+
+@contextlib.contextmanager
+def plain_encode():
+    """The hash encode's plain version on CUDA tensors, inside the same
+    autograd function and backward: the comparison side of phases 18-20."""
+    import nerf_rs_tpu_torch.ops.kernels.hash_encode as he
+
+    real = he._forward
+    he._forward = he.hash_encode_reference
+    try:
+        yield
+    finally:
+        he._forward = real
+
+
+def counters():
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import fused_nerf_mlp, fused_nerf_mlp_backward
+    from nerf_rs_tpu_torch.ops.kernels.hash_encode import fused_hash_encode
+    from nerf_rs_tpu_torch.ops.kernels.resample import fused_resample
+
+    return (fused_nerf_mlp, fused_nerf_mlp_backward, fused_resample, fused_hash_encode)
+
+
+def save_counts():
+    return [fn.launches for fn in counters()]
+
+
+def restore_counts(saved) -> None:
+    for fn, n in zip(counters(), saved):
+        fn.launches = n
+
+
+def zero_counts() -> None:
+    restore_counts([0] * len(counters()))
+
+
+def read_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in counters()}
+
+
+def phase_hash_vs_plain(cam, dev):
+    """The encode kernel against its plain version at the paper config and
+    the wide-F config, on the points the render hands it (16384 golden
+    camera rays at 64 coarse and 192 fine samples), tables U(-1, 1)."""
+    import torch
+
+    from nerf_rs_tpu_torch.config import HashGridConfig
+    from nerf_rs_tpu_torch.ops.kernels.hash_encode import fused_hash_encode, hash_encode_reference
+
+    pts_c, pts_f, _ = main_path_inputs(cam, dev, BENCH_CHUNK)
+    saved = save_counts()
+    worst = 0.0
+    for name, cfg in (("paper", HashGridConfig()), ("wide F=8", HashGridConfig(**HASH_WIDE))):
+        gen = torch.Generator(device=dev).manual_seed(17)
+        t32 = torch.rand((cfg.levels, 1 << cfg.table_log2, cfg.features), generator=gen,
+                         device=dev) * 2.0 - 1.0
+        top = float(t32.abs().max())
+        for dtype in (torch.float32, torch.bfloat16):
+            tables = t32.to(dtype)
+            for label, pts in (("coarse", pts_c), ("fine", pts_f)):
+                got = fused_hash_encode(tables, pts, cfg)
+                again = fused_hash_encode(tables, pts, cfg)
+                want = hash_encode_reference(tables, pts, cfg)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                if dtype == torch.float32:
+                    bar, what = 1e-5 * top, "1e-5 x max|table|"
+                    worst = max(worst, err)
+                else:
+                    bar, what = 2 * bf16_ulp(float(want.float().abs().max())), \
+                        "2 bf16 ulps of max|feature|"
+                shape = (*pts.shape[:-1], cfg.levels * cfg.features)
+                ok = (tuple(got.shape) == shape and got.dtype == dtype
+                      and bool(torch.isfinite(got).all()) and err <= bar
+                      and torch.equal(got, again))
+                say("17 hash", f"{name} (L={cfg.levels}, T=2^{cfg.table_log2}, F={cfg.features}) "
+                    f"{str(dtype)[6:]} {label} {tuple(pts.shape[:-1])}: max |kernel - plain| "
+                    f"{err:.3e} (bar {bar:.3e}, {what}), exactly equal "
+                    f"{torch.equal(got.float(), want.float())}, two calls bitwise equal "
+                    f"{torch.equal(got, again)} -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise PhaseFailure(f"the hash encode disagrees with its plain version: "
+                                       f"{name}/{dtype}/{label}")
+                del got, again, want
+    restore_counts(saved)                      # comparison launches do not count
+    return worst
+
+
+def hash_setup(dev):
+    """The hash-grid training job, as ``train --model hashgrid`` builds it
+    at its defaults: the paper field, 4096 rays, 64 + 128 samples, the
+    recipe above, the lego teacher through K1."""
+    import torch
+
+    from nerf_rs_tpu_torch.config import HashGridConfig, RenderConfig, TrainConfig
+    from nerf_rs_tpu_torch.data import DistillationDataset
+    from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_nerf_params
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.train import create_train_state
+
+    rcfg = RenderConfig(n_coarse=N_COARSE, n_fine=N_FINE, ray_chunk=TRAIN_RAYS, impl="pallas",
+                        model="hashgrid", hash=HashGridConfig())
+    cfg = TrainConfig(batch_rays=TRAIN_RAYS, render=rcfg, **HASH_RECIPE)
+    state = create_train_state(torch.Generator(device=dev).manual_seed(cfg.seed), cfg)
+    teacher = {net: load_nerf_params(find_lego_assets() / net) for net in ("coarse", "fine")}
+    dataset = DistillationDataset(teacher, cfg=rcfg.replace(model="mlp"), seed=cfg.seed,
+                                  device=dev)
+    return state, dataset, cfg, random.key(cfg.seed + 1, dev)
+
+
+def phase_hash_step_vs_plain(dev):
+    """One hash-grid step from the same state and batch, the encode kernel
+    against its plain version (same backward): loss and parameters."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.train import train_step
+
+    saved = save_counts()
+    results, batch = {}, None
+    for label in ("kernel", "plain"):
+        state, dataset, cfg, key = hash_setup(dev)
+        if batch is None:
+            batch = next(dataset.batches(cfg.batch_rays, seed=cfg.seed))
+        with plain_encode() if label == "plain" else contextlib.nullcontext():
+            state, metrics = train_step(state, batch, random.fold_in(key, torch.tensor(0)), cfg)
+        torch.cuda.synchronize()
+        results[label] = (float(metrics["loss"]), state.params["shared"])
+    restore_counts(saved)                      # comparison launches do not count
+    (loss_k, field_k), (loss_p, field_p) = results["kernel"], results["plain"]
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    diffs = {name: (p.detach() - field_p.weights[name].detach()).abs()
+             for name, p in field_k.weights.items()}
+    worst = max(float(d.max()) for d in diffs.values())
+    share = sum(int((d > 1e-5).sum()) for d in diffs.values()) / sum(d.numel() for d in diffs.values())
+    same = all(torch.equal(p, field_p.weights[n]) for n, p in field_k.weights.items())
+    ok = loss_rel <= 1e-5 and worst < 2 * cfg.lr_init and share < 1e-3
+    say("18 hash step", f"one f32 hash-grid step, encode kernel vs plain encode: loss {loss_k:.7f} "
+        f"vs {loss_p:.7f} (rel {loss_rel:.2e}, bar 1e-5); params after the step: max |d| "
+        f"{worst:.3e} (bar < {2 * cfg.lr_init:g}), share of entries > 1e-5 {share:.2e} (bar < "
+        f"1e-3), bitwise equal {same} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the hash-grid step with the kernel disagrees with the plain step")
+
+
+def phase_hash_train(dev):
+    """The hash-grid training path: HASH_STEPS steps from a random init,
+    with the launch counts set to 0 just before and read just after."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.train import train_step
+
+    state, dataset, cfg, key = hash_setup(dev)
+    batches = dataset.batches(cfg.batch_rays, seed=cfg.seed)
+    losses = []
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    for step in range(HASH_STEPS):
+        state, metrics = train_step(state, next(batches), random.fold_in(key, torch.tensor(step)),
+                                    cfg)
+        losses.append(float(metrics["loss"]))
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    ok = (all(math.isfinite(v) for v in losses) and last < first
+          and launches["fused_hash_encode"] == 2 * HASH_STEPS
+          and launches["fused_nerf_mlp"] == 2 * HASH_STEPS
+          and launches["fused_nerf_mlp_backward"] == 0)
+    say("18 hash train", f"{HASH_STEPS} steps, paper hash grid (L=16, T=2^17, F=2), {TRAIN_RAYS} "
+        f"rays, {N_COARSE}+{N_FINE} samples, lr 1e-2 -> 1e-4, eps 1e-15: loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}, mean of the first 10 {first:.5f}, of the last 10 {last:.5f}; launches "
+        f"hash encode {launches['fused_hash_encode']} (expected {2 * HASH_STEPS}), K1 (teacher) "
+        f"{launches['fused_nerf_mlp']} (expected {2 * HASH_STEPS}), K2 "
+        f"{launches['fused_nerf_mlp_backward']} (expected 0); {secs:.1f} s with the teacher "
+        f"batches -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("hash-grid training did not reduce the loss, or went around the encode "
+                           "kernel")
+    return state, cfg, launches
+
+
+def hash_render_cfg(hcfg, dtype: str = "float32"):
+    from nerf_rs_tpu_torch.config import RenderConfig
+
+    return RenderConfig(n_coarse=N_COARSE, n_fine=N_FINE, ray_chunk=BENCH_CHUNK,
+                        model="hashgrid", hash=hcfg, dtype=dtype)
+
+
+def phase_hash_frames(field, hcfg, cam, dev, lego_256, lego_800, card):
+    """Frames of the trained field: dense with the kernel and with the
+    plain encode at 256x256 and 800x800, bf16, the 800x800 accel+K3 frame
+    on a grid swept through the field, and PSNR against the lego teacher."""
+    import torch
+
+    from nerf_rs_tpu_torch.accel import build_scene_grid, hashgrid_grid_kwargs
+
+    def frame(size, cfg, grid=None, plain=False):
+        with plain_encode() if plain else contextlib.nullcontext():
+            img, ms = render_accel(field, field, cam, dev, cfg, grid, size)
+        return img.cpu().numpy(), ms
+
+    dense = hash_render_cfg(hcfg)
+    out = {}
+    for size in (H, BENCH_SIZE):
+        chunks = -(-size * size // BENCH_CHUNK)
+        torch.cuda.synchronize()
+        zero_counts()
+        out[size], ms = frame(size, dense)
+        launches = read_counts()
+        plain, plain_ms = frame(size, dense, plain=True)
+        plain_db = psnr(plain, out[size])
+        teacher_db = psnr(out[size], lego_256 if size == H else lego_800)
+        ok = (plain_db >= PLAIN_BAR_DB and launches["fused_hash_encode"] == 2 * chunks
+              and launches["fused_nerf_mlp"] == 0)
+        say("19 hash frames", f"{size}x{size} f32 dense, {chunks} chunks: encode launches "
+            f"{launches['fused_hash_encode']} (expected {2 * chunks}); plain-encode frame vs "
+            f"kernel frame {plain_db:.2f} dB (bar >= {PLAIN_BAR_DB}); vs the lego teacher's frame "
+            f"{teacher_db:.2f} dB (reported); first frames {ms:.1f} ms kernel, {plain_ms:.1f} ms "
+            f"plain on {card} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailure(f"the {size}x{size} hash-grid frame went around the kernel or "
+                               f"differs from the plain encode's")
+    bf16, _ = frame(BENCH_SIZE, hash_render_cfg(hcfg, "bfloat16"))
+    bf16_db = psnr(bf16, out[BENCH_SIZE])
+    grid_cfg = hash_render_cfg(hcfg)
+    t0 = time.perf_counter()
+    grid = build_scene_grid(field, field, resolution=GRID_RES, **hashgrid_grid_kwargs(grid_cfg))
+    torch.cuda.synchronize()
+    grid_ms = (time.perf_counter() - t0) * 1e3
+    acfg = accel_cfg(chunk=BENCH_CHUNK).replace(model="hashgrid", hash=hcfg)
+    hit, chunks = rendered_chunks(grid, cam, BENCH_SIZE, acfg, dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    fast, fast_ms = frame(BENCH_SIZE, acfg, grid)
+    launches = read_counts()
+    accel_db = psnr(fast, out[BENCH_SIZE])
+    ok = (bf16_db >= BF16_FRAME_BAR_DB and accel_db >= ACCEL_BAR_DB
+          and launches["fused_hash_encode"] == 2 * chunks
+          and launches["fused_resample"] == chunks)
+    say("19 hash frames", f"{BENCH_SIZE}x{BENCH_SIZE}: bf16 dense vs f32 dense {bf16_db:.2f} dB (bar "
+        f">= {BF16_FRAME_BAR_DB}); grid {GRID_RES}^3 swept through the field in {grid_ms:.1f} ms, "
+        f"{float(grid.occ.float().mean()):.4f} of the cells occupied; f32 accel+K3 ({PROBES} "
+        f"probes, stride {STRIDE}, packing) vs f32 dense {accel_db:.2f} dB (bar >= "
+        f"{ACCEL_BAR_DB}); {chunks} chunks rendered, launches encode "
+        f"{launches['fused_hash_encode']} (expected {2 * chunks}), K3 "
+        f"{launches['fused_resample']} (expected {chunks}); rays that miss "
+        f"{1 - float(hit.float().mean()):.4f}; first accel frame {fast_ms:.1f} ms -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the hash-grid bf16 or accel frames miss their bars, or went around the "
+                           "kernels")
+    return grid, dense, acfg
+
+
+def phase_hash_times(field, cfg, cam, dev, grid, dense, acfg, card):
+    """The encode kernel, its plain version and one index_select of the
+    same rows per call at 16384 x 192; train-step times with the kernel and
+    the plain encode; the 800x800 frames with their idle shares."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.ops.kernels.hash_encode import (
+        _Corners,
+        _lattice,
+        fused_hash_encode,
+        hash_encode_reference,
+    )
+    from nerf_rs_tpu_torch.train import train_step
+
+    hcfg = cfg.render.hash
+    saved = save_counts()
+    _, pts, _ = main_path_inputs(cam, dev, BENCH_CHUNK)
+    n = pts.numel() // 3
+    tables32 = field.weights["hash_tables"].detach()
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tables = tables32.to(dtype)
+        k_ms = timed_ms(lambda: fused_hash_encode(tables, pts, hcfg), inner=10)
+        p_ms = timed_ms(lambda: hash_encode_reference(tables, pts, hcfg), inner=2)
+        times[dtype] = (k_ms, p_ms)
+        rows = n * hcfg.levels * 8
+        say("20 hash times", f"{card}: hash encode {BENCH_CHUNK} x {N_COARSE + N_FINE} "
+            f"{str(dtype)[6:]} (L={hcfg.levels}, F={hcfg.features}): kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.3f} ms per call (medians of 3); {rows / k_ms * 1e3:.4g} rows gathered per s")
+    corners = _Corners(_lattice(pts, hcfg), hcfg, 1 << hcfg.table_log2, dev)
+    idx = torch.cat([corners(c)[0].reshape(-1) for c in range(8)])
+    flat = tables32.reshape(-1, hcfg.features)
+    lib_ms = timed_ms(lambda: flat.index_select(0, idx), inner=10)
+    say("20 hash times", f"{card}: torch.index_select of the same {idx.numel()} rows from "
+        f"precomputed indices: {lib_ms:.4f} ms per call (median of 3)")
+    del idx, corners
+    state, dataset, cfg, key = hash_setup(dev)
+    batch = next(dataset.batches(cfg.batch_rays, seed=cfg.seed))
+    step_key = random.fold_in(key, torch.tensor(0))
+    step_ms = {"kernel": timed_ms(lambda: train_step(state, batch, step_key, cfg))}
+    with plain_encode():
+        step_ms["plain"] = timed_ms(lambda: train_step(state, batch, step_key, cfg))
+    for label in ("kernel", "plain"):
+        say("20 hash times", f"{card}: hash-grid train step ({label} encode), {TRAIN_RAYS} rays "
+            f"{N_COARSE}+{N_FINE}, f32: {step_ms[label]:.1f} ms, "
+            f"{TRAIN_RAYS / step_ms[label] * 1e3:,.0f} rays/s fwd+bwd (median of 3, teacher batch "
+            f"excluded)")
+    size = BENCH_SIZE
+    for label, c, g in (("dense", dense, None), ("accel, K3", acfg, grid)):
+        ms = timed_ms(lambda: render_accel(field, field, cam, dev, c, g, size), warm=False)
+        wall, busy, top = profile_frame(lambda: render_accel(field, field, cam, dev, c, g, size))
+        line = (f"{card}: hash-grid {size}x{size} f32 frame, {label}: {ms:.1f} ms, "
+                f"{size * size / ms * 1e3:,.0f} rays/s (median of 3)")
+        if busy > 0:
+            kernels = "; ".join(f"{name[:60]} {t:.1f} ms" for name, t in top)
+            line += (f"; under torch.profiler: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
+                     f"idle share {1 - busy / wall:.4f}; top: {kernels}")
+        else:
+            line += "; torch.profiler saw no device time: idle share not measured"
+        say("20 hash times", line)
+    restore_counts(saved)                      # timing launches do not count
+    return times[torch.float32], lib_ms, n
+
+
 def main() -> int:
     import torch
 
@@ -883,40 +1260,60 @@ def main() -> int:
         f"cells occupied")
     k3_err = phase_resample_vs_plain(coarse, cam, dev, grid)
     accel_launches = phase_accel_frame(coarse, fine, cam, dev, grid)
-    dense_cfg, bench_cfg = phase_bench_frames(coarse, fine, cam, dev, grid, card)
+    dense_cfg, bench_cfg, lego_800 = phase_bench_frames(coarse, fine, cam, dev, grid, card)
     phase_serve(dev)
     k3_ms, k3_plain_ms = phase_accel_times(coarse, fine, cam, dev, grid, card, dense_cfg,
                                            bench_cfg)
 
+    # The hash-grid family: the encode kernel against its plain version, the
+    # distillation path, the trained field's frames, times.
+    hash_err = phase_hash_vs_plain(cam, dev)
+    phase_hash_step_vs_plain(dev)
+    hstate, hcfg, hash_launches = phase_hash_train(dev)
+    field = hstate.params["shared"]
+    hgrid, hdense, hacfg = phase_hash_frames(field, hcfg.render.hash, cam, dev, img_f32, lego_800,
+                                             card)
+    (hk_ms, hp_ms), hlib_ms, h_n = phase_hash_times(field, hcfg, cam, dev, hgrid, hdense, hacfg,
+                                                    card)
+
+    # Bounds from this run's shapes (bytes: each input read once, each
+    # output written once; operations at the f32 CUDA-core peak).
     k_ms, p_ms = times[("fine", "float32")]
-    print(json.dumps({"kernels": [{
-        "name": "fused_nerf_mlp",
-        "route": "cuda",
-        "source": "nerf_rs_tpu_torch/ops/kernels/csrc/fused_mlp.cu",
-        "replaces": "nerf_rs_tpu/ops/kernels/fused_mlp.py:779",
-        "launches": launches["fused_nerf_mlp"],
-        "max_abs_err": f32_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }, {
-        "name": "fused_nerf_mlp_backward",
-        "route": "cuda",
-        "source": "nerf_rs_tpu_torch/ops/kernels/csrc/fused_mlp_bwd.cu",
-        "replaces": "nerf_rs_tpu/ops/kernels/fused_mlp.py:663",
-        "launches": launches["fused_nerf_mlp_backward"],
-        "max_abs_err": bwd_err,
-        "ms": kb_ms,
-        "plain_ms": pb_ms,
-    }, {
-        "name": "fused_resample",
-        "route": "cuda",
-        "source": "nerf_rs_tpu_torch/ops/kernels/csrc/resample.cu",
-        "replaces": "nerf_rs_tpu/ops/kernels/resample.py:207",
-        "launches": accel_launches["fused_resample"],
-        "max_abs_err": k3_err,
-        "ms": k3_ms,
-        "plain_ms": k3_plain_ms,
-    }]}), flush=True)
+    _, _, k1_net, k1_pts, _ = next(c for c in timing_cases if c[:2] == ("fine", "float32"))
+    k1_n, k1_rays = k1_pts.numel() // 3, vd.numel() // 3
+    w_bytes = 4 * sum(int(p.numel()) for p in k1_net.parameters())
+    k1_bound = bound(4 * (k1_n * 7 + k1_rays * 3) + w_bytes, mlp_flops(k1_net, False) * k1_n,
+                     F32_FLOP_S)
+    k2_n = pts.numel() // 3
+    k2_bound = bound(4 * (pts.numel() + vd_f.numel() + g_rgb.numel() + g_sigma.numel())
+                     + 2 * w_bytes, 3 * mlp_flops(net, False) * k2_n, F32_FLOP_S)
+    width = 1 << (N_COARSE + N_FINE - 1).bit_length()            # the bitonic row
+    lg = width.bit_length() - 1
+    k3_bound = bound(4 * BENCH_CHUNK * (3 * N_COARSE + 2 * N_FINE),
+                     BENCH_CHUNK * (width // 2 * lg * (lg + 1) // 2 + 10 * N_COARSE
+                                    + N_FINE * math.ceil(math.log2(N_COARSE))), F32_FLOP_S)
+    hc = hcfg.render.hash
+    h_bound = bound(4 * (h_n * 3 + hc.levels * (1 << hc.table_log2) * hc.features
+                         + h_n * hc.levels * hc.features),
+                    h_n * hc.levels * (3 * 6 + 8 * 3 + 8 * 2 * hc.features), F32_FLOP_S)
+
+    def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms):
+        return {"name": name, "route": "cuda", "source": f"nerf_rs_tpu_torch/ops/kernels/csrc/{source}",
+                "replaces": replaces, "launches": n_launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
+    print(json.dumps({"kernels": [
+        entry("fused_nerf_mlp", "fused_mlp.cu", "nerf_rs_tpu/ops/kernels/fused_mlp.py:779",
+              launches["fused_nerf_mlp"], f32_err, k_ms, p_ms, k1_bound, None),
+        entry("fused_nerf_mlp_backward", "fused_mlp_bwd.cu",
+              "nerf_rs_tpu/ops/kernels/fused_mlp.py:663", launches["fused_nerf_mlp_backward"],
+              bwd_err, kb_ms, pb_ms, k2_bound, None),
+        entry("fused_resample", "resample.cu", "nerf_rs_tpu/ops/kernels/resample.py:207",
+              accel_launches["fused_resample"], k3_err, k3_ms, k3_plain_ms, k3_bound, None),
+        entry("hash_encode", "hash_encode.cu", "tools/pallas_gather_probe.py:81",
+              hash_launches["fused_hash_encode"], hash_err, hk_ms, hp_ms, h_bound, hlib_ms),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -78,12 +78,10 @@ def _default_mlp_fn(params) -> Callable:
 
 
 def _params_device(params) -> torch.device:
-    from nerf_rs_tpu_torch.models.mlp import NerfMLP
-
-    if isinstance(params, NerfMLP):
+    if isinstance(params, torch.nn.Module):
         return next(params.parameters()).device
-    kernel = params["dense0"]["kernel"]
-    return kernel.device if isinstance(kernel, torch.Tensor) else torch.device("cpu")
+    leaf = params["hash_tables"] if "hash_tables" in params else params["dense0"]["kernel"]
+    return leaf.device if isinstance(leaf, torch.Tensor) else torch.device("cpu")
 
 
 def _cell_centers(resolution: int, aabb, device) -> torch.Tensor:
@@ -113,10 +111,17 @@ def _grid_sweep(params, pts, sigma_threshold: float, *, mlp_fn, chunk: int, r: i
 
 
 def hashgrid_grid_kwargs(cfg) -> dict:
-    """Grid-sweep arguments for a hash-grid config: the hash-grid family is
-    not ported yet."""
-    raise NotImplementedError("occupancy grids of the hash-grid family are not ported yet "
-                              "(ROADMAP queue 1, item 12)")
+    """``build_scene_grid`` arguments for a hash-grid RenderConfig: sweep
+    the hash field itself (sigma-only, at ``cfg.dtype``) over its own AABB,
+    since the default sweep assumes the MLP family and the (-2, 2) box."""
+    from nerf_rs_tpu_torch.render import get_mlp_fn
+
+    mlp = get_mlp_fn(cfg)
+
+    def sigma_fn(params, points, viewdirs):
+        return mlp(params, points, viewdirs, sigma_only=True)
+
+    return {"mlp_fn": sigma_fn, "aabb": cfg.hash.aabb}
 
 
 def build_occupancy_grid(params, *, resolution: int = 128,
@@ -127,9 +132,10 @@ def build_occupancy_grid(params, *, resolution: int = 128,
     """Dense sigma sweep at cell centers -> thresholded, dilated bool grid,
     on ``device`` (default: the params' device).
 
-    ``params`` is a param tree or a NerfMLP; ``mlp_fn(params, points,
+    ``params`` is a param tree or a module; ``mlp_fn(params, points,
     viewdirs) -> (rgb, sigma)`` defaults to the fused kernel's bf16
-    sigma-only path for the archs it serves, else the plain oracle.
+    sigma-only path for the archs it serves, else the plain oracle. A
+    hash-grid field takes its sweep from :func:`hashgrid_grid_kwargs`.
     """
     from nerf_rs_tpu_torch.models.mlp import as_module
 
@@ -164,9 +170,10 @@ def density_grid(params, *, resolution: int = 128, aabb: Tuple[float, float] = (
 def build_scene_grid(params_coarse, params_fine, **kw) -> OccupancyGrid:
     """Union occupancy of the coarse AND fine networks: the fine pass is
     culled by this grid too, and the two networks disagree slightly about
-    surface extents."""
+    surface extents. One network given for both passes (a hash-grid field)
+    is swept once."""
     gc = build_occupancy_grid(params_coarse, **kw)
-    gf = build_occupancy_grid(params_fine, **kw)
+    gf = gc if params_fine is params_coarse else build_occupancy_grid(params_fine, **kw)
     return OccupancyGrid(occ=gc.occ | gf.occ, aabb_min=gc.aabb_min, aabb_max=gc.aabb_max)
 
 

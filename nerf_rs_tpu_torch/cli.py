@@ -3,9 +3,11 @@
     python -m nerf_rs_tpu_torch render --device cuda --width 256 --height 256 -o out.ppm
     python -m nerf_rs_tpu_torch render --accel --sampling-impl pallas --device cuda
     python -m nerf_rs_tpu_torch train --device cuda --impl pallas --steps 20
+    python -m nerf_rs_tpu_torch train --device cuda --model hashgrid --steps 300
 
 ``render`` (with the occupancy-grid flags and the depth and opacity maps)
-and ``train`` (distillation from the pretrained lego networks) are ported;
+and ``train`` (distillation from the pretrained lego networks, of an MLP
+student or a hash-grid field) are ported;
 the viewer is ``python -m nerf_rs_tpu_torch.serve``. The other
 subcommands of the JAX package's CLI, and render's ``--orbit``,
 ``--checkpoint``, ``--sharded`` and ``--trace-dir``, are ROADMAP queue 1,
@@ -135,7 +137,6 @@ def _refuse_unported(args) -> None:
         (args.init_weights is not None, "--init-weights", 10),
         (args.accel_aabb or any(getattr(args, f"accel_{f}") is not None for f in _ACCEL_FLAGS),
          "--accel-* (occupancy-culled training)", 7),
-        (args.model == "hashgrid", "--model hashgrid", 12),
         (args.impl in ("int8", "int8qat"), f"--impl {args.impl}", 12),
     ]
     for hit, what, item in refused:
@@ -146,7 +147,7 @@ def _refuse_unported(args) -> None:
 def cmd_train(args) -> int:
     import torch
 
-    from nerf_rs_tpu_torch.config import ArchConfig, RenderConfig, TrainConfig
+    from nerf_rs_tpu_torch.config import ArchConfig, HashGridConfig, RenderConfig, TrainConfig
     from nerf_rs_tpu_torch.data import DistillationDataset
     from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_nerf_params
     from nerf_rs_tpu_torch.ops import random
@@ -165,12 +166,22 @@ def cmd_train(args) -> int:
                               ray_chunk=args.batch_rays, impl=args.impl, dtype=args.dtype)
     cfg = TrainConfig(batch_rays=args.batch_rays, n_steps=args.steps, seed=args.seed,
                       arch=arch, render=render_cfg)
-    if args.lr is not None:
+    if args.model == "hashgrid":
+        # One field for both passes; the paper's recipe: a higher lr and a
+        # tiny Adam eps (table gradients are minute under the default).
+        hcfg = HashGridConfig(levels=args.hash_levels, table_log2=args.hash_table_log2,
+                              res_max=args.hash_res_max, features=args.hash_features,
+                              aabb=(-args.hash_extent, args.hash_extent))
+        lr = args.lr if args.lr is not None else 1e-2
+        cfg = cfg.replace(lr_init=lr, lr_final=lr * 1e-2, adam_eps=1e-15,
+                          render=render_cfg.replace(model="hashgrid", hash=hcfg))
+    elif args.lr is not None:
         cfg = cfg.replace(lr_init=args.lr, lr_final=min(cfg.lr_final, args.lr))
     state = create_train_state(torch.Generator(device=device).manual_seed(cfg.seed), cfg)
     print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})")
 
     teacher = {net: load_nerf_params(assets / net) for net in ("coarse", "fine")}
+    # The teacher is the lego MLP on --impl, whatever the student's family.
     teacher_cfg = render_cfg
     if args.teacher_samples:
         tc, tf = (int(v) for v in args.teacher_samples.split(","))
@@ -250,8 +261,20 @@ def main(argv=None) -> int:
     p.add_argument("--impl", default="pallas", choices=["xla", "pallas", "int8", "int8qat"],
                    help="MLP: 'pallas' = the fused CUDA kernels, 'xla' = plain PyTorch")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
-    p.add_argument("--model", default="mlp", choices=["mlp", "hashgrid"])
-    p.add_argument("--lr", type=float, default=None, help="initial learning rate (default 5e-4)")
+    p.add_argument("--model", default="mlp", choices=["mlp", "hashgrid"],
+                   help="student family: the reference MLP and its ArchConfig students, or "
+                        "the multiresolution hash grid (one field for both passes)")
+    p.add_argument("--lr", type=float, default=None,
+                   help="initial learning rate (default 5e-4 for mlp, 1e-2 for hashgrid)")
+    p.add_argument("--hash-levels", type=int, default=16, help="hashgrid: resolution levels")
+    p.add_argument("--hash-table-log2", type=int, default=17,
+                   help="hashgrid: log2 of the table rows per level")
+    p.add_argument("--hash-res-max", type=int, default=1024,
+                   help="hashgrid: finest grid resolution")
+    p.add_argument("--hash-features", type=int, default=2,
+                   help="hashgrid: feature channels per table row")
+    p.add_argument("--hash-extent", type=float, default=2.0,
+                   help="hashgrid: scene AABB half-width (+-extent)")
     p.add_argument("--width", type=int, default=256, help="trunk width")
     p.add_argument("--v-width", type=int, default=128, help="view-branch width")
     p.add_argument("--depth", type=int, default=8, help="dense trunk layers")

@@ -14,21 +14,27 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class HashGridConfig:
-    """Hyper-parameters of the multiresolution hash-encoding family. The
-    port does not serve this family yet (ROADMAP queue 1, item 12); the
-    dataclass exists so that ``RenderConfig.hash`` keeps its type."""
+    """Multiresolution hash-encoding family (``models/hashgrid.py``;
+    Mueller et al. 2022): L tables of T rows of F features, gathered at
+    each sample's cell corners per level and trilinearly blended, then a
+    tiny MLP. The defaults are the JAX package's, the paper's setting
+    scaled to single-object scenes: T = 2^17 keeps the stacked table at
+    16 MiB in f32 and 8 MiB in bf16."""
 
-    levels: int = 16
-    table_log2: int = 17
-    features: int = 2
-    res_min: int = 16
-    res_max: int = 1024
-    width: int = 64
-    geo_features: int = 15
-    color_width: int = 64
-    sh_degree: int = 4
-    aabb: tuple = (-2.0, 2.0)
-    grad_impl: str = "scatter"
+    levels: int = 16        # L resolution levels
+    table_log2: int = 17    # log2 of the rows per level's table (T)
+    features: int = 2       # feature channels per row (F)
+    res_min: int = 16       # coarsest grid resolution (N_min)
+    res_max: int = 1024     # finest grid resolution (N_max)
+    width: int = 64         # density-MLP hidden width (one hidden layer)
+    geo_features: int = 15  # geometry features fed to the color MLP
+    #                         (density output dim = 1 + geo_features)
+    color_width: int = 64   # color-MLP hidden width (two hidden layers)
+    sh_degree: int = 4      # spherical-harmonics view encoding degree
+    aabb: tuple = (-2.0, 2.0)   # scene bounds per axis, as accel's grids
+    grad_impl: str = "scatter"  # table gradient: "scatter" (an accumulating
+    #                             indexed add) or "sorted" (sort by row,
+    #                             cumsum-difference segment sums)
 
     def replace(self, **kw) -> "HashGridConfig":
         return dataclasses.replace(self, **kw)
@@ -38,7 +44,10 @@ class HashGridConfig:
 class RenderConfig:
     """Static knobs for the render pipeline.
 
-    ``impl`` selects the field network:
+    ``model`` selects the family: ``"mlp"`` (the reference network and
+    its ArchConfig students) or ``"hashgrid"`` (``models.hashgrid``, with
+    ``hash``; its encode is a hand-written CUDA kernel on CUDA tensors).
+    Within the MLP family ``impl`` selects the field network:
 
     - ``"xla"``: the plain PyTorch MLP (``models.mlp.nerf_mlp``), the
       counterpart of the JAX package's XLA path;
@@ -53,8 +62,8 @@ class RenderConfig:
     tensors), on the inference path.
 
     Values the port does not serve yet raise ``NotImplementedError`` where
-    they would take effect: ``model="hashgrid"`` and ``impl="int8"`` /
-    ``"int8qat"`` (ROADMAP queue 1, item 12). Every ``accel_*`` field acts
+    they would take effect: ``impl="int8"`` / ``"int8qat"`` of the MLP
+    family (ROADMAP queue 1, item 12). Every ``accel_*`` field acts
     only with an occupancy grid (``accel.py``), with the JAX package's
     meanings: ``accel_compact`` "off" (the grid steers ray packing and
     sample placement only), "none" (mask-only culling), "scatter" /
@@ -116,9 +125,10 @@ class ArchConfig:
 class TrainConfig:
     """Training hyper-parameters: the original NeRF recipe, Adam from 5e-4
     decaying exponentially to 5e-6 over ``lr_decay_steps``. ``adam_eps``
-    is the JAX package's default; its hash-grid recipe (1e-15) waits for
-    that family (ROADMAP queue 1, item 12). ``checkpoint_every`` keeps its
-    place for item 10's checkpoints."""
+    is the JAX package's default; the CLI's hash-grid recipe sets lr 1e-2
+    decaying to 1e-4 and ``adam_eps`` 1e-15 (table gradients are minute
+    under the default eps). ``checkpoint_every`` keeps its place for item
+    10's checkpoints."""
 
     batch_rays: int = 4096
     lr_init: float = 5e-4

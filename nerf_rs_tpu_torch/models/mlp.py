@@ -174,8 +174,14 @@ class NerfMLP(nn.Module):
                         d_freqs=d_freqs, sigma_only=sigma_only)
 
 
-def as_module(params, device) -> NerfMLP:
-    """``params`` (a param tree or a NerfMLP) as a NerfMLP on ``device``."""
-    if isinstance(params, NerfMLP):
+def as_module(params, device):
+    """``params`` (a param tree, a NerfMLP or a hash-grid field) as a
+    module on ``device``: a NerfMLP, or a ``models.hashgrid.HashGridField``
+    for a hash-grid tree."""
+    from nerf_rs_tpu_torch.models.hashgrid import HashGridField, is_hashgrid_params
+
+    if isinstance(params, (NerfMLP, HashGridField)):
         return params.to(device)
+    if is_hashgrid_params(params):
+        return HashGridField(params, device=device)
     return NerfMLP(params, device=device)

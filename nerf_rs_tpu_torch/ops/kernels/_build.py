@@ -106,4 +106,7 @@ def load_library() -> ctypes.CDLL:
     res = lib.nerf_fused_resample
     res.argtypes = [p, p, p, p, ll, f, ll, i, i, f, f, f, p, i, p]
     res.restype = ctypes.c_int
+    enc = lib.nerf_hash_encode
+    enc.argtypes = [p, ll, p, i, ll, i, i, i, p, p, p, f, f, p, i, p]
+    enc.restype = ctypes.c_int
     return lib

@@ -42,11 +42,16 @@ from nerf_rs_tpu_torch.ops.volume import composite, compute_weights, exclusive_t
 
 
 def get_mlp_fn(cfg: RenderConfig):
-    """Resolve the field network: the plain PyTorch MLP (``impl="xla"``)
-    or the fused CUDA kernel (``impl="pallas"``). Families and impls the
-    port does not serve yet raise NotImplementedError."""
+    """Resolve the field network: the hash-grid family
+    (``model="hashgrid"``: ``models.hashgrid.hashgrid_mlp``, whose encode is
+    a CUDA kernel; ``impl`` selects kernels within the MLP family only, as
+    in the JAX package), the plain PyTorch MLP (``impl="xla"``) or the
+    fused CUDA kernel (``impl="pallas"``). Impls the port does not serve
+    yet raise NotImplementedError."""
     if cfg.model == "hashgrid":
-        raise NotImplementedError("model='hashgrid' is not ported yet (ROADMAP queue 1, item 12)")
+        from nerf_rs_tpu_torch.models.hashgrid import hashgrid_mlp
+
+        return functools.partial(hashgrid_mlp, cfg=cfg.hash, dtype=cfg.dtype)
     if cfg.model != "mlp":
         raise ValueError(f"unknown model {cfg.model!r} (expected 'mlp' or 'hashgrid')")
     if cfg.impl == "pallas":
@@ -357,10 +362,13 @@ def _pad_rays(dirs_flat: torch.Tensor, chunk: int) -> torch.Tensor:
 def _image_setup(params_coarse, params_fine, camera: Camera, height: int, width: int, key,
                  cfg: RenderConfig, device, grid):
     """The networks, key and grid on the render's device, the camera's rays
-    and the chunk size."""
+    and the chunk size. One network given for both passes (a hash-grid
+    field) stays one module."""
     device = torch.device(device) if device is not None else key.device
     origin, dirs = camera_rays(camera, height, width, device)
-    return (as_module(params_coarse, device), as_module(params_fine, device), key.to(device),
+    coarse = as_module(params_coarse, device)
+    fine = coarse if params_fine is params_coarse else as_module(params_fine, device)
+    return (coarse, fine, key.to(device),
             grid.to(device) if grid is not None else None, origin[0, 0], dirs,
             min(cfg.ray_chunk, max(height * width, 1)))
 
@@ -435,9 +443,9 @@ def render_image(params_coarse, params_fine, camera: Camera, height: int, width:
                  key: torch.Tensor, cfg: Optional[RenderConfig] = None, *, device=None,
                  grid=None, return_live: bool = False):
     """Render a full (height, width, 3) f32 image on ``device`` (default:
-    the key's device). The networks are param trees or NerfMLPs; both
-    become NerfMLPs on the device, so the fused kernel packs each network
-    once per call.
+    the key's device). The networks are param trees or modules; both
+    become modules on the device (``models.mlp.as_module``), so the fused
+    kernel packs each network once per call.
 
     ``grid`` (``accel.OccupancyGrid``) renders through empty-space
     skipping; with ``cfg.accel_cull_rays`` only the rays that can hit the

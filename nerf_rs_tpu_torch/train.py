@@ -5,6 +5,10 @@ renders, Adam with an exponential learning-rate decay from 5e-4 to 5e-6.
 The coarse and fine networks are independent parameter sets trained
 together. With ``impl="pallas"`` every MLP forward runs the fused kernel K1
 and every MLP backward the fused kernel K2 (``ops/kernels/fused_mlp.py``).
+The hash-grid family (``model="hashgrid"``) trains one field that serves
+both passes; its encode runs the hash-encode kernel
+(``ops/kernels/hash_encode.py``). Its recipe (the CLI's) is Adam from 1e-2
+to 1e-4 with eps 1e-15.
 
 The JAX step is a pure function that returns a new state. Here
 :func:`train_step` updates the state in place: the parameters and Adam's
@@ -22,18 +26,20 @@ import numpy as np
 import torch
 
 from nerf_rs_tpu_torch.config import TrainConfig
+from nerf_rs_tpu_torch.models.hashgrid import HashGridField, init_hashgrid_params, is_hashgrid_params
 from nerf_rs_tpu_torch.models.mlp import NerfMLP, init_nerf_params
 from nerf_rs_tpu_torch.render import render_rays
 
 
 @dataclasses.dataclass
 class TrainState:
-    """``params`` {"coarse": NerfMLP, "fine": NerfMLP}; Adam's first and
-    second moments ``mu``/``nu``, keyed like ``params`` and then like
-    each module's ``weights``; ``count``, the number of Adam updates so
-    far (optax's ``ScaleByAdamState.count``); ``step``."""
+    """``params`` {"coarse": NerfMLP, "fine": NerfMLP}, or {"shared":
+    HashGridField} for the hash-grid family; Adam's first and second
+    moments ``mu``/``nu``, keyed like ``params`` and then like each
+    module's ``weights``; ``count``, the number of Adam updates so far
+    (optax's ``ScaleByAdamState.count``); ``step``."""
 
-    params: Dict[str, NerfMLP]
+    params: Dict[str, torch.nn.Module]
     mu: Dict[str, Dict[str, torch.Tensor]]
     nu: Dict[str, Dict[str, torch.Tensor]]
     count: int = 0
@@ -79,46 +85,66 @@ def make_optimizer(cfg: TrainConfig) -> Adam:
     return Adam(cfg.lr_init, cfg.lr_final, cfg.lr_decay_steps, cfg.adam_eps)
 
 
-def _zeros_like(params: Dict[str, NerfMLP]) -> Dict[str, Dict[str, torch.Tensor]]:
+def _zeros_like(params: Dict[str, torch.nn.Module]) -> Dict[str, Dict[str, torch.Tensor]]:
     return {net: {name: torch.zeros_like(p) for name, p in module.weights.items()}
             for net, module in params.items()}
 
 
 def create_train_state(generator: torch.Generator, cfg: TrainConfig) -> TrainState:
-    """Random coarse and fine networks of ``cfg.arch`` on the generator's
-    device (the coarse one drawn first), with zero Adam moments."""
+    """Random networks on the generator's device, with zero Adam moments:
+    for the MLP family coarse and fine networks of ``cfg.arch`` (the
+    coarse one drawn first); for the hash-grid family one field,
+    ``{"shared": HashGridField}``, that both passes query, so that the
+    gradients of both passes accumulate in the same tables."""
     if cfg.render.model == "hashgrid":
-        raise NotImplementedError("model='hashgrid' is not ported yet (ROADMAP queue 1, item 12)")
-    params = {net: NerfMLP(init_nerf_params(generator, arch=cfg.arch), device=generator.device,
-                           requires_grad=True)
-              for net in ("coarse", "fine")}
+        params = {"shared": HashGridField(init_hashgrid_params(generator, cfg.render.hash),
+                                          device=generator.device, requires_grad=True)}
+    else:
+        params = {net: NerfMLP(init_nerf_params(generator, arch=cfg.arch),
+                               device=generator.device, requires_grad=True)
+                  for net in ("coarse", "fine")}
     return TrainState(params=params, mu=_zeros_like(params), nu=_zeros_like(params))
+
+
+def _flat(tree) -> Dict[str, object]:
+    """A param tree keyed as the modules' ``weights``: ``{layer}_{part}``
+    for each layer's arrays, the name itself for a bare array
+    (``hash_tables``)."""
+    out = {}
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            out.update({f"{name}_{part}": arr for part, arr in value.items()})
+        else:
+            out[name] = value
+    return out
 
 
 def train_state_from_numpy(params, mu, nu, count: int, step: int, device) -> TrainState:
     """The port's state from a JAX ``TrainState`` taken to numpy:
     ``params``, ``mu`` and ``nu`` are {"coarse": tree, "fine": tree} with
-    trees of {layer: {"kernel", "bias"}} arrays (optax's Adam moments have
-    the params' structure); ``count`` is the Adam count, ``step`` the
-    step. Lets a run continue from a JAX run."""
-    modules = {net: NerfMLP(tree, device=device, requires_grad=True)
+    trees of {layer: {"kernel", "bias"}} arrays, or {"shared": tree} with a
+    hash-grid tree (optax's Adam moments have the params' structure);
+    ``count`` is the Adam count, ``step`` the step. Lets a run continue
+    from a JAX run."""
+    modules = {net: (HashGridField if is_hashgrid_params(tree) else NerfMLP)(
+                   tree, device=device, requires_grad=True)
                for net, tree in params.items()}
 
     def moments(trees):
-        return {net: {f"{layer}_{part}": torch.as_tensor(np.asarray(arr), dtype=torch.float32,
-                                                         device=device).clone()
-                      for layer, parts in tree.items() for part, arr in parts.items()}
+        return {net: {name: torch.as_tensor(np.asarray(arr), dtype=torch.float32,
+                                            device=device).clone()
+                      for name, arr in _flat(tree).items()}
                 for net, tree in trees.items()}
 
     return TrainState(params=modules, mu=moments(mu), nu=moments(nu), count=int(count),
                       step=int(step))
 
 
-def split_params(params) -> Tuple[NerfMLP, NerfMLP]:
-    """(coarse, fine) networks of a train-state param dict."""
+def split_params(params) -> Tuple[torch.nn.Module, torch.nn.Module]:
+    """(coarse, fine) networks of a train-state param dict: the one shared
+    network twice, or the coarse and fine networks."""
     if "shared" in params:
-        raise NotImplementedError("a shared (hashgrid) network is not ported yet "
-                                  "(ROADMAP queue 1, item 12)")
+        return params["shared"], params["shared"]
     return params["coarse"], params["fine"]
 
 

@@ -1,6 +1,6 @@
-"""PyTorch port on the card: the fused MLP kernels (forward K1, backward K2)
-and the fused resampler (K3) against their plain versions, and the packed
-accel render against the unpacked one.
+"""PyTorch port on the card: the fused MLP kernels (forward K1, backward K2),
+the fused resampler (K3) and the hash encode against their plain versions,
+and the packed accel render against the unpacked one.
 
 Needs an NVIDIA card and nvcc, and skips elsewhere. Imports no JAX, so it
 runs on a machine without it:
@@ -308,3 +308,60 @@ def test_accel_packed_matches_unpacked_on_card(card, change):
     torch.cuda.synchronize()
     assert fused_resample.launches - before == -(-int(n_hit) // 512)
     assert torch.equal(packed[hit], unpacked[hit])
+
+
+def hash_inputs(cfg, n, seed, device, dtype):
+    """Tables U(-1, 1) and n points in and around the config's box, the
+    first rows NaN and +-inf."""
+    rng = np.random.default_rng(seed)
+    tables = rng.uniform(-1, 1, (cfg.levels, 1 << cfg.table_log2, cfg.features))
+    pts = rng.uniform(-2.2, 2.2, (n, 3))
+    pts[:3] = [[np.nan, 0.1, 0.2], [np.inf, -0.5, 0.0], [-np.inf, np.nan, 1.0]]
+    return (torch.from_numpy(tables.astype(np.float32)).to(device, dtype),
+            torch.from_numpy(pts.astype(np.float32)).to(device))
+
+
+@pytest.mark.parametrize("features", [2, 8], ids=["paper_f2", "wide_f8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_hash_encode_kernel_matches_plain(card, dtype, features):
+    """The hash-encode kernel against its plain version on 65536 points:
+    f32 within 1e-5 of the largest table entry (both sum the same products
+    in the same order, so they agree exactly unless a rounding differs);
+    bf16 within 2 bf16 ulps of the largest feature. Two calls bitwise
+    equal, one launch each."""
+    from nerf_rs_tpu_torch.config import HashGridConfig
+    from nerf_rs_tpu_torch.ops.kernels.hash_encode import fused_hash_encode, hash_encode_reference
+
+    cfg = HashGridConfig(features=features, levels=16 if features == 2 else 4)
+    tables, pts = hash_inputs(cfg, 65536, 20, card, dtype)
+    before = fused_hash_encode.launches
+    got = fused_hash_encode(tables, pts, cfg)
+    again = fused_hash_encode(tables, pts, cfg)
+    torch.cuda.synchronize()
+    assert fused_hash_encode.launches == before + 2
+    want = hash_encode_reference(tables, pts, cfg)
+    assert got.shape == (65536, cfg.levels * features) and got.dtype == dtype
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        atol = 1e-5 * float(tables.abs().max())
+    else:
+        atol = 2 * 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def test_hash_encode_backward_on_card_matches_cpu(card):
+    """The plain backward on the card (sort-based accumulation) against the
+    CPU's: d(tables) to 1e-5 relative, bitwise repeatable on the card."""
+    from nerf_rs_tpu_torch.config import HashGridConfig
+    from nerf_rs_tpu_torch.ops.kernels.hash_encode import fused_hash_encode
+
+    cfg = HashGridConfig(levels=4, table_log2=12, res_min=4, res_max=32, aabb=(-1.0, 1.0))
+    tables, pts = hash_inputs(cfg, 4096, 21, "cpu", torch.float32)
+    cot = torch.from_numpy(np.random.default_rng(22).normal(size=(4096, 8)).astype(np.float32))
+    grads = []
+    for device in ("cpu", card, card):
+        t = tables.detach().to(device).requires_grad_(True)
+        torch.sum(fused_hash_encode(t, pts.to(device), cfg) * cot.to(device)).backward()
+        grads.append(t.grad.cpu())
+    assert torch.equal(grads[1], grads[2])
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-6)

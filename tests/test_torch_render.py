@@ -133,7 +133,6 @@ def test_render_image_lego_vs_committed_golden(golden):
 
 
 @pytest.mark.parametrize("change, match", [
-    (dict(model="hashgrid"), "item 12"),
     (dict(impl="int8"), "item 12"),
 ])
 def test_unserved_config_raises(golden, change, match):
@@ -141,25 +140,6 @@ def test_unserved_config_raises(golden, change, match):
     with pytest.raises(NotImplementedError, match=match):
         render_rays(pc, pc, torch.zeros(3), torch.ones(4, 3) / 3 ** 0.5, 2.0, 6.0,
                     random.key(0, "cpu"), RenderConfig(n_coarse=4, n_fine=4, **change))
-
-
-def _full_grid():
-    from nerf_rs_tpu_torch.accel import grid_from_numpy
-
-    return grid_from_numpy(np.ones((4, 4, 4), bool), -2.0, 2.0, "cpu")
-
-
-def test_unserved_grid_of_hashgrid_family_raises():
-    """An occupancy grid with a hash-grid config: the family waits for item 12."""
-    from nerf_rs_tpu_torch.accel import hashgrid_grid_kwargs
-
-    pc = params_to_torch(np_params(SMALL, 15), "cpu")
-    cfg = RenderConfig(n_coarse=4, n_fine=4, model="hashgrid")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        render_rays(pc, pc, torch.zeros(3), torch.ones(4, 3) / 3 ** 0.5, 2.0, 6.0,
-                    random.key(0, "cpu"), cfg, grid=_full_grid())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        hashgrid_grid_kwargs(cfg)
 
 
 def test_unserved_checkpoint_raises():
@@ -198,6 +178,8 @@ def test_package_never_imports_jax():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'nerf_rs_tpu.'))\n"
         "             or k == 'nerf_rs_tpu')\n"
         "assert not bad, bad\n"
+        "walked = {'nerf_rs_tpu_torch.models.hashgrid', 'nerf_rs_tpu_torch.ops.kernels.hash_encode'}\n"
+        "assert walked <= set(sys.modules), walked - set(sys.modules)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)

@@ -231,9 +231,6 @@ def test_training_reduces_loss_on_cpu():
 
 
 def test_unserved_training_options_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        create_train_state(torch.Generator(), TINY.replace(render=TINY.render.replace(
-            model="hashgrid")))
     state = create_train_state(torch.Generator().manual_seed(0), PORT_SMALL)
     with pytest.raises(NotImplementedError, match="item 7"):
         nerf_loss(state.params, torch_batch(np_batch(8)), random.key(0, "cpu"), PORT_SMALL,
@@ -299,7 +296,6 @@ def test_cli_train_on_cpu(capsys):
     (["--init-weights", "w"], 10),
     (["--accel-every", "8"], 7),
     (["--accel-aabb"], 7),
-    (["--model", "hashgrid"], 12),
     (["--impl", "int8qat"], 12),
 ])
 def test_cli_train_refuses_unported_flags(flags, item):
