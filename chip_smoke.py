@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's four main paths and holds them to the repository's own
+Drives the port's five main paths and holds them to the repository's own
 bars: the render path — the pretrained lego coarse and fine networks
 rendering a 256x256 frame with 64 stratified + 128 importance samples on
 white, through ``nerf_rs_tpu_torch.render.render_image`` — the training
@@ -17,12 +17,15 @@ occupancy grid swept through K1, probe culling (32 probes, stride 4,
 the hash-grid family — the paper config (16 levels of 2^17 rows, F = 2,
 resolutions 16-1024), distilled from the lego networks as ``train --model
 hashgrid`` does, then rendered dense and through a grid of its own sigma,
-through the hash-encode kernel. Phases, each reported on its own line:
+through the hash-encode kernel — and the int8 W8A8 family — the lego
+networks quantized after training and rendered through the int8 MLP kernel
+(``render --impl int8``), and an 8x256 student distilled through the QAT
+forward (``train --impl int8qat``). Phases, each reported on its own line:
 
 1. device: a CUDA card is required; its name and power limit are printed;
-2. build: the fused MLP kernels K1 and K2, the fused resampler K3 and the
-   hash encode are compiled from the checkout's sources (one nvcc per
-   source, in parallel);
+2. build: the fused MLP kernels K1 and K2, the fused resampler K3, the
+   hash encode and the int8 MLP kernel are compiled from the checkout's
+   sources (one nvcc per source, in parallel);
 3. K1 against its plain PyTorch version at the render's shapes (8192 rays
    x 64 samples sigma-only, 8192 x 192 full), f32 and bf16;
 4. the f32 frame with K1: PSNR against the committed golden > 45 dB, and
@@ -78,12 +81,28 @@ through the hash-encode kernel. Phases, each reported on its own line:
     192, f32 and bf16, rows gathered per second, one ``index_select`` of
     the same rows (the library yardstick), the train step with the kernel
     and with the plain encode, the 800x800 frames dense and accel+K3 with
-    their idle shares and top device kernels.
+    their idle shares and top device kernels;
+21. the int8 kernel against its plain version on phase 3's inputs (coarse
+    sigma-only at 8192 x 64, fine full at 8192 x 192): sigma bitwise
+    equal, rgb within 2e-6, two calls bitwise equal;
+22. the post-training int8 256x256 frame: against the f32 K1 frame (> 25
+    dB), against the plain int8 frame (>= 60 dB), two int8 launches per
+    chunk and no K1; the int8 accel+K3 frame on phase 12's grid against
+    the dense int8 frame (>= 40 dB);
+23. QAT_STEPS int8qat distillation steps from a random init (8x256, 4096
+    rays, 64 + 128, the teacher through K1): the loss falls, K1 launches
+    only for the teacher, K2 and the int8 kernel never; the trained
+    student's int8 kernel frame against its int8qat frame (>= 40 dB), and
+    against the lego teacher's (reported);
+24. times: the int8 kernel, its plain version and ``torch._int_mm`` of the
+    same layers at the phase-21 shapes, the int8 frame with the kernel and
+    the plain version, the int8qat step and its peak memory.
 
 Any failed phase exits non-zero. The line before the last is a JSON
 summary of the kernels, each with its bound (the larger of its bytes over
-the memory rate and its operations over the f32 peak, from this run's
-shapes); the last line is the JSON device record.
+the memory rate and its operations over the peak for their type — f32 on
+the CUDA cores, int8 for the int8 kernel — from this run's shapes); the
+last line is the JSON device record.
 Never imports JAX.
 """
 
@@ -201,7 +220,8 @@ def phase_build():
     if log.exists():
         for line in log.read_text().splitlines():
             entry = re.search(r"entry function '.*?(fused_mlp_bwd_kernel|fused_mlp_kernel|"
-                              r"reduce_partials|resample_kernel|hash_encode_kernel)"
+                              r"reduce_partials|resample_kernel|hash_encode_kernel|"
+                              r"int8_mlp_kernel)"
                               r"(I\w*?Lb[01]E)?", line)
             if entry:
                 say("2 build", "ptxas: " + "".join(g for g in entry.groups() if g))
@@ -848,9 +868,11 @@ def plain_encode():
 def counters():
     from nerf_rs_tpu_torch.ops.kernels.fused_mlp import fused_nerf_mlp, fused_nerf_mlp_backward
     from nerf_rs_tpu_torch.ops.kernels.hash_encode import fused_hash_encode
+    from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp
     from nerf_rs_tpu_torch.ops.kernels.resample import fused_resample
 
-    return (fused_nerf_mlp, fused_nerf_mlp_backward, fused_resample, fused_hash_encode)
+    return (fused_nerf_mlp, fused_nerf_mlp_backward, fused_resample, fused_hash_encode,
+            fused_int8_mlp)
 
 
 def save_counts():
@@ -1151,6 +1173,225 @@ def phase_hash_times(field, cfg, cam, dev, grid, dense, acfg, card):
     return times[torch.float32], lib_ms, n
 
 
+# The int8 W8A8 family (phases 21-24): the lego networks quantized after
+# training (render --impl int8), and a student distilled through the QAT
+# forward as the JAX CLI's train defaults with --impl int8qat do.
+QAT_STEPS = 50
+INT8_RGB_ATOL = 2e-6           # only the kernel's expf may differ from torch.sigmoid's
+INT8_VS_F32_BAR_DB = 25.0      # tests/test_quant.py:76, post-training int8 vs exact frame
+QAT_BAR_DB = 40.0              # the trained student's kernel frame vs its fake-quant frame
+INT8_OPS_S = 1979e12           # one H100 SXM's dense int8 tensor-core peak (data sheet, 700 W)
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """The int8 kernel's plain version on CUDA tensors, wherever the render
+    path asks for the kernel: the comparison side of phases 22 and 24."""
+    import nerf_rs_tpu_torch.ops.kernels.int8_mlp as im
+
+    real = im.fused_int8_mlp
+    im.fused_int8_mlp = im.fused_int8_mlp_reference
+    try:
+        yield
+    finally:
+        im.fused_int8_mlp = real
+
+
+def phase_int8_vs_plain(coarse, fine, cam, dev):
+    """The int8 kernel against its plain version on phase 3's inputs: the
+    coarse network sigma-only at RAY_CHUNK x 64, the fine one full at
+    RAY_CHUNK x 192. Sigma bitwise, rgb within INT8_RGB_ATOL, two calls
+    bitwise equal."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp, fused_int8_mlp_reference
+
+    pts_c, pts_f, vd = main_path_inputs(cam, dev)
+    saved = save_counts()
+    worst, cases = 0.0, []
+    with torch.no_grad():
+        for name, net, pts, sigma_only in (("coarse", coarse, pts_c, True),
+                                           ("fine", fine, pts_f, False)):
+            rgb, sig = fused_int8_mlp(net, pts, vd, sigma_only=sigma_only)
+            rgb2, sig2 = fused_int8_mlp(net, pts, vd, sigma_only=sigma_only)
+            rgb_r, sig_r = fused_int8_mlp_reference(net, pts, vd, sigma_only=sigma_only)
+            torch.cuda.synchronize()
+            shape = tuple(pts.shape[:-1])
+            finite = bool(torch.isfinite(rgb).all()) and bool(torch.isfinite(sig).all())
+            same_sigma = torch.equal(sig, sig_r)
+            rgb_err = float((rgb - rgb_r).abs().max())
+            sig_err = float((sig - sig_r).abs().max())
+            bitwise = torch.equal(rgb, rgb2) and torch.equal(sig, sig2)
+            ok = (tuple(sig.shape) == shape and tuple(rgb.shape) == (*shape, 3) and finite
+                  and same_sigma and rgb_err <= INT8_RGB_ATOL and bitwise)
+            say("21 int8", f"{name} {shape} sigma_only={sigma_only}: sigma bitwise equal "
+                f"{same_sigma} ({int((sig != sig_r).sum())} samples differ, max |d sigma| "
+                f"{sig_err:.3e}), max |d rgb| {rgb_err:.3e} (atol {INT8_RGB_ATOL}), two calls "
+                f"bitwise equal {bitwise} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise PhaseFailure(f"the int8 kernel disagrees with its plain version: {name}")
+            worst = max(worst, rgb_err, sig_err)
+            cases.append((name, net, pts, sigma_only))
+    restore_counts(saved)                      # comparison launches do not count
+    return worst, cases, vd
+
+
+def phase_int8_frames(coarse, fine, cam, dev, img_f32, grid):
+    """The int8 render path's main run: the post-training W8A8 256x256
+    frame through the kernel, with the counts set to 0 just before and read
+    just after; against the f32 K1 frame and the plain int8 frame; then
+    the same frame on the accel path (phase 12's grid, K3)."""
+    import torch
+
+    n_chunks = -(-H * W // RAY_CHUNK)
+    torch.cuda.synchronize()
+    zero_counts()
+    img, ms = render(coarse, fine, cam, dev, "int8", "float32")
+    launches = read_counts()
+    with plain_int8():
+        plain, plain_ms = render(coarse, fine, cam, dev, "int8", "float32")
+    f32_db, plain_db = psnr(img, img_f32), psnr(plain, img)
+    ok = (f32_db > INT8_VS_F32_BAR_DB and plain_db >= PLAIN_BAR_DB
+          and launches["fused_int8_mlp"] == 2 * n_chunks and launches["fused_nerf_mlp"] == 0
+          and launches["fused_nerf_mlp_backward"] == 0)
+    say("22 int8 frames", f"post-training int8 frame {H}x{W} {N_COARSE}+{N_FINE}: vs the f32 K1 "
+        f"frame {f32_db:.2f} dB (bar > {INT8_VS_F32_BAR_DB}); plain int8 frame vs kernel frame "
+        f"{plain_db:.2f} dB (bar >= {PLAIN_BAR_DB}); launches int8 {launches['fused_int8_mlp']} "
+        f"(expected {2 * n_chunks}), K1 {launches['fused_nerf_mlp']} (expected 0); first frames "
+        f"{ms:.1f} ms kernel, {plain_ms:.1f} ms plain -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the int8 frame misses its bars or went around the int8 kernel")
+    cfg = accel_cfg().replace(impl="int8")
+    hit, chunks = rendered_chunks(grid, cam, H, cfg, dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    fast, fast_ms = render_accel(coarse, fine, cam, dev, cfg, grid, H)
+    accel = read_counts()
+    accel_db = psnr(fast.cpu().numpy(), img)
+    ok = (accel_db >= ACCEL_BAR_DB and accel["fused_int8_mlp"] == 2 * chunks
+          and accel["fused_resample"] == chunks and accel["fused_nerf_mlp"] == 0)
+    say("22 int8 frames", f"int8 accel frame {H}x{W} (grid {GRID_RES}^3, {PROBES} probes, stride "
+        f"{STRIDE}, packing, K3) vs the dense int8 frame {accel_db:.2f} dB (bar >= "
+        f"{ACCEL_BAR_DB}); {chunks} chunks rendered, launches int8 {accel['fused_int8_mlp']} "
+        f"(expected {2 * chunks}), K3 {accel['fused_resample']} (expected {chunks}); "
+        f"{fast_ms:.1f} ms -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the int8 accel frame misses its bar or went around the kernels")
+    return launches
+
+
+def phase_qat(cam, dev, img_f32):
+    """QAT_STEPS int8qat distillation steps from a random init (the 8x256
+    student, TRAIN_RAYS rays, 64 + 128, f32, the teacher through K1), with
+    the counts set to 0 just before and read just after; then the trained
+    student rendered through the int8 kernel and through the fake-quant
+    forward."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.train import train_step
+
+    state, dataset, cfg, key = distill_setup(dev, "int8qat")
+    batches = dataset.batches(cfg.batch_rays, seed=cfg.seed)
+    losses = []
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    for step in range(QAT_STEPS):
+        state, metrics = train_step(state, next(batches), random.fold_in(key, torch.tensor(step)),
+                                    cfg)
+        losses.append(float(metrics["loss"]))
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    ok = (all(math.isfinite(v) for v in losses) and last < first
+          and launches["fused_nerf_mlp"] == 2 * QAT_STEPS
+          and launches["fused_nerf_mlp_backward"] == 0 and launches["fused_int8_mlp"] == 0)
+    say("23 qat", f"{QAT_STEPS} int8qat steps, 8x256 student, {TRAIN_RAYS} rays, "
+        f"{N_COARSE}+{N_FINE} samples: loss {losses[0]:.5f} -> {losses[-1]:.5f}, mean of the first "
+        f"10 {first:.5f}, of the last 10 {last:.5f}; launches K1 (teacher) "
+        f"{launches['fused_nerf_mlp']} (expected {2 * QAT_STEPS}), K2 "
+        f"{launches['fused_nerf_mlp_backward']} (expected 0), int8 {launches['fused_int8_mlp']} "
+        f"(expected 0); {secs:.1f} s with the teacher batches -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("QAT did not reduce the loss, or the student's steps went through a "
+                           "kernel")
+    student = (state.params["coarse"], state.params["fine"])
+    real, _ = render(*student, cam, dev, "int8", "float32")
+    fake, _ = render(*student, cam, dev, "int8qat", "float32")
+    qat_db, teacher_db = psnr(real, fake), psnr(real, img_f32)
+    ok = qat_db >= QAT_BAR_DB
+    say("23 qat", f"trained student {H}x{W}: int8 kernel frame vs int8qat frame {qat_db:.2f} dB "
+        f"(bar >= {QAT_BAR_DB}); vs the lego teacher's f32 frame {teacher_db:.2f} dB (reported) "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the QAT student's int8 frame differs from its fake-quant frame")
+
+
+def int_mm_ms(net, n: int, sigma_only: bool) -> float:
+    """The library yardstick: torch._int_mm of int8 codes layer by layer at
+    the network's shapes for n samples, each layer's K and N padded to
+    multiples of 8 as it requires, summed over the layers (the products
+    only: no encode, requantize or dequant)."""
+    import torch
+
+    dev = next(net.parameters()).device
+    skip = ("bottleneck", "viewdirs", "rgb") if sigma_only else ()
+    acts, total = {}, 0.0
+    for layer, p in net.tree().items():
+        if layer in skip:
+            continue
+        k, m = (-(-int(d) // 8) * 8 for d in p["kernel"].shape)
+        if k not in acts:
+            acts[k] = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev)
+        w = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev)
+        total += timed_ms(lambda: torch._int_mm(acts[k], w.t()), inner=5)
+    return total
+
+
+def phase_int8_times(cases, vd, cam, dev, card):
+    """The int8 kernel, its plain version and _int_mm at the phase-21
+    shapes; the int8 256x256 frame with the kernel and with the plain
+    version; the QAT step and its peak memory."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp, fused_int8_mlp_reference
+    from nerf_rs_tpu_torch.train import train_step
+
+    saved = save_counts()
+    times = {}
+    with torch.no_grad():
+        for name, net, pts, sigma_only in cases:
+            kw = dict(sigma_only=sigma_only)
+            k_ms = timed_ms(lambda: fused_int8_mlp(net, pts, vd, **kw))
+            p_ms = timed_ms(lambda: fused_int8_mlp_reference(net, pts, vd, **kw))
+            lib_ms = int_mm_ms(net, pts.numel() // 3, sigma_only)
+            times[name] = (k_ms, p_ms, lib_ms)
+            say("24 int8 times", f"{card}: {name} {tuple(pts.shape[:-1])} sigma_only={sigma_only}: "
+                f"int8 kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, torch._int_mm of the same "
+                f"layers {lib_ms:.3f} ms (medians of 3)")
+    coarse, fine = cases[0][1], cases[1][1]
+    frame_ms = {"kernel": timed_ms(lambda: render(coarse, fine, cam, dev, "int8", "float32"))}
+    with plain_int8():
+        frame_ms["plain"] = timed_ms(lambda: render(coarse, fine, cam, dev, "int8", "float32"))
+    say("24 int8 times", f"{card}: int8 frame {H}x{W} {N_COARSE}+{N_FINE}: kernel "
+        f"{frame_ms['kernel']:.1f} ms, plain {frame_ms['plain']:.1f} ms (medians of 3)")
+    state, dataset, cfg, key = distill_setup(dev, "int8qat")
+    batch = next(dataset.batches(cfg.batch_rays, seed=cfg.seed))
+    step_key = random.fold_in(key, torch.tensor(0))
+    train_step(state, batch, step_key, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = timed_ms(lambda: train_step(state, batch, step_key, cfg), warm=False)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    say("24 int8 times", f"{card}: int8qat train step, {TRAIN_RAYS} rays {N_COARSE}+{N_FINE}: "
+        f"{step_ms:.1f} ms, {TRAIN_RAYS / step_ms * 1e3:,.0f} rays/s fwd+bwd (median of 3, "
+        f"teacher batch excluded), peak device memory {peak:.2f} GiB")
+    restore_counts(saved)                      # timing launches do not count
+    return times
+
+
 def main() -> int:
     import torch
 
@@ -1276,6 +1517,13 @@ def main() -> int:
     (hk_ms, hp_ms), hlib_ms, h_n = phase_hash_times(field, hcfg, cam, dev, hgrid, hdense, hacfg,
                                                     card)
 
+    # The int8 family: the kernel against its plain version, the
+    # post-training int8 frames, QAT distillation, times.
+    int8_err, int8_cases, int8_vd = phase_int8_vs_plain(coarse, fine, cam, dev)
+    int8_launches = phase_int8_frames(coarse, fine, cam, dev, img_f32, grid)
+    phase_qat(cam, dev, img_f32)
+    int8_times = phase_int8_times(int8_cases, int8_vd, cam, dev, card)
+
     # Bounds from this run's shapes (bytes: each input read once, each
     # output written once; operations at the f32 CUDA-core peak).
     k_ms, p_ms = times[("fine", "float32")]
@@ -1296,6 +1544,15 @@ def main() -> int:
     h_bound = bound(4 * (h_n * 3 + hc.levels * (1 << hc.table_log2) * hc.features
                          + h_n * hc.levels * hc.features),
                     h_n * hc.levels * (3 * 6 + 8 * 3 + 8 * 2 * hc.features), F32_FLOP_S)
+    from nerf_rs_tpu_torch.ops.kernels.int8_mlp import pack_int8_params
+
+    _, q_net, q_pts, _ = int8_cases[1]                             # fine, full
+    q_n, q_rays = q_pts.numel() // 3, int8_vd.numel() // 3
+    q_pk = pack_int8_params(q_net.tree())
+    q_bytes = 4 * (q_pk.weights.numel() + q_pk.scales.numel() + q_pk.biases.numel())
+    q_bound = bound(4 * (q_n * 7 + q_rays * 3) + q_bytes, mlp_flops(q_net, False) * q_n,
+                    INT8_OPS_S)
+    q_ms, q_plain_ms, q_lib_ms = int8_times["fine"]
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms):
         return {"name": name, "route": "cuda", "source": f"nerf_rs_tpu_torch/ops/kernels/csrc/{source}",
@@ -1313,6 +1570,8 @@ def main() -> int:
               accel_launches["fused_resample"], k3_err, k3_ms, k3_plain_ms, k3_bound, None),
         entry("hash_encode", "hash_encode.cu", "tools/pallas_gather_probe.py:81",
               hash_launches["fused_hash_encode"], hash_err, hk_ms, hp_ms, h_bound, hlib_ms),
+        entry("int8_mlp", "int8_mlp.cu", "tools/pallas_int8_probe.py:66",
+              int8_launches["fused_int8_mlp"], int8_err, q_ms, q_plain_ms, q_bound, q_lib_ms),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

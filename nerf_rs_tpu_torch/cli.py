@@ -4,10 +4,13 @@
     python -m nerf_rs_tpu_torch render --accel --sampling-impl pallas --device cuda
     python -m nerf_rs_tpu_torch train --device cuda --impl pallas --steps 20
     python -m nerf_rs_tpu_torch train --device cuda --model hashgrid --steps 300
+    python -m nerf_rs_tpu_torch render --impl int8 --device cuda -o int8.ppm
+    python -m nerf_rs_tpu_torch train --device cuda --impl int8qat --steps 50
 
-``render`` (with the occupancy-grid flags and the depth and opacity maps)
-and ``train`` (distillation from the pretrained lego networks, of an MLP
-student or a hash-grid field) are ported;
+``render`` (with the occupancy-grid flags and the depth and opacity maps,
+and the W8A8 ``--impl int8`` / ``int8qat``) and ``train`` (distillation
+from the pretrained lego networks, of an MLP student, an int8 QAT student
+or a hash-grid field) are ported;
 the viewer is ``python -m nerf_rs_tpu_torch.serve``. The other
 subcommands of the JAX package's CLI, and render's ``--orbit``,
 ``--checkpoint``, ``--sharded`` and ``--trace-dir``, are ROADMAP queue 1,
@@ -137,7 +140,6 @@ def _refuse_unported(args) -> None:
         (args.init_weights is not None, "--init-weights", 10),
         (args.accel_aabb or any(getattr(args, f"accel_{f}") is not None for f in _ACCEL_FLAGS),
          "--accel-* (occupancy-culled training)", 7),
-        (args.impl in ("int8", "int8qat"), f"--impl {args.impl}", 12),
     ]
     for hit, what, item in refused:
         if hit:
@@ -154,6 +156,11 @@ def cmd_train(args) -> int:
     from nerf_rs_tpu_torch.train import create_train_state, train_step
 
     _refuse_unported(args)
+    if args.impl == "int8":
+        # Real-int8 forwards carry no gradient through the int8 values;
+        # QAT is the trainable form of the same arithmetic.
+        sys.exit("error: --impl int8 is inference-only; train with "
+                 "--impl int8qat (same quantized values, STE gradients)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         sys.exit(f"error: --device {args.device} but torch.cuda.is_available() is false")
@@ -181,8 +188,10 @@ def cmd_train(args) -> int:
     print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})")
 
     teacher = {net: load_nerf_params(assets / net) for net in ("coarse", "fine")}
-    # The teacher is the lego MLP on --impl, whatever the student's family.
-    teacher_cfg = render_cfg
+    # The teacher is the lego MLP on --impl, whatever the student's family,
+    # except for the quantized impls: QAT distills toward the exact f32
+    # teacher through the fused kernel.
+    teacher_cfg = render_cfg.replace(impl="pallas") if args.impl == "int8qat" else render_cfg
     if args.teacher_samples:
         tc, tf = (int(v) for v in args.teacher_samples.split(","))
         teacher_cfg = teacher_cfg.replace(n_coarse=tc, n_fine=tf)
@@ -216,8 +225,10 @@ def main(argv=None) -> int:
     p.add_argument("--camera", help="camera JSON (default: the weight directory's golden JSON)")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on, e.g. cuda, cuda:1 or cpu")
-    p.add_argument("--impl", default="pallas", choices=["xla", "pallas"],
-                   help="MLP: 'pallas' = the fused CUDA kernel, 'xla' = plain PyTorch")
+    p.add_argument("--impl", default="pallas", choices=["xla", "pallas", "int8", "int8qat"],
+                   help="MLP: 'pallas' = the fused CUDA kernel, 'xla' = plain PyTorch, "
+                        "'int8' = real W8A8 inference through the int8 CUDA kernel, "
+                        "'int8qat' = the QAT fake-quant forward")
     p.add_argument("--sampling-impl", default="xla", choices=["xla", "pallas"],
                    help="resampling chain: 'pallas' = the fused CUDA kernel, 'xla' = plain "
                         "PyTorch")
@@ -259,7 +270,9 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device to train on, e.g. cuda, cuda:1 or cpu")
     p.add_argument("--impl", default="pallas", choices=["xla", "pallas", "int8", "int8qat"],
-                   help="MLP: 'pallas' = the fused CUDA kernels, 'xla' = plain PyTorch")
+                   help="MLP: 'pallas' = the fused CUDA kernels, 'xla' = plain PyTorch, "
+                        "'int8qat' = quantization-aware distillation of a W8A8 student "
+                        "(served with render --impl int8); 'int8' is inference-only")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--model", default="mlp", choices=["mlp", "hashgrid"],
                    help="student family: the reference MLP and its ArchConfig students, or "

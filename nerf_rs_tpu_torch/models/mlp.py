@@ -125,12 +125,13 @@ def count_params(params) -> int:
 
 class NerfMLP(nn.Module):
     """One NeRF network: its f32 params, and the packed weights that the
-    fused kernel reads.
+    fused kernel and the int8 kernel read.
 
-    Packs are built on first use per compute dtype and kept until the
-    module moves (``.to``/``.cuda`` clear them) or a parameter is modified
-    in place (tracked by the tensors' version counters), so a render packs
-    each network once, not on every kernel call.
+    Packs are built on first use per compute dtype (and for ``"int8"``) and
+    kept until the module moves (``.to``/``.cuda`` clear them) or a
+    parameter is modified in place (tracked by the tensors' version
+    counters), so a render packs each network once, not on every kernel
+    call, and a training step invalidates the packs.
     """
 
     def __init__(self, params, *, device=None, requires_grad: bool = False):
@@ -154,13 +155,17 @@ class NerfMLP(nn.Module):
                 for layer in self.layer_names}
 
     def packed(self, dtype: str):
-        """The fused kernel's packed weights for compute ``dtype``."""
+        """The fused kernel's packed weights for compute ``dtype``, or with
+        ``"int8"`` the int8 kernel's codes (``ops.kernels.int8_mlp``)."""
         from nerf_rs_tpu_torch.ops.kernels.fused_mlp import pack_params
+        from nerf_rs_tpu_torch.ops.kernels.int8_mlp import pack_int8_params
 
         versions = tuple(p._version for p in self.parameters())
         hit = self._packs.get(dtype)
         if hit is None or hit[0] != versions:
-            hit = (versions, pack_params(self.tree(), dtype))
+            tree = self.tree()
+            hit = (versions, pack_int8_params(tree) if dtype == "int8"
+                   else pack_params(tree, dtype))
             self._packs[dtype] = hit
         return hit[1]
 

@@ -109,4 +109,7 @@ def load_library() -> ctypes.CDLL:
     enc = lib.nerf_hash_encode
     enc.argtypes = [p, ll, p, i, ll, i, i, i, p, p, p, f, f, p, i, p]
     enc.restype = ctypes.c_int
+    q8 = lib.nerf_int8_mlp_forward
+    q8.argtypes = [p, p, ll, ll, p, p, p, p, i, i, i, i, i, p, p, i, p]
+    q8.restype = ctypes.c_int
     return lib

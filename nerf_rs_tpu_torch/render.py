@@ -45,9 +45,11 @@ def get_mlp_fn(cfg: RenderConfig):
     """Resolve the field network: the hash-grid family
     (``model="hashgrid"``: ``models.hashgrid.hashgrid_mlp``, whose encode is
     a CUDA kernel; ``impl`` selects kernels within the MLP family only, as
-    in the JAX package), the plain PyTorch MLP (``impl="xla"``) or the
-    fused CUDA kernel (``impl="pallas"``). Impls the port does not serve
-    yet raise NotImplementedError."""
+    in the JAX package), the plain PyTorch MLP (``impl="xla"``), the
+    fused CUDA kernel (``impl="pallas"``), or the W8A8 family
+    (``models/quant.py``, which ignores ``cfg.dtype``): real int8
+    inference through the int8 CUDA kernel (``impl="int8"``) or the
+    fake-quant STE forward that QAT trains through (``impl="int8qat"``)."""
     if cfg.model == "hashgrid":
         from nerf_rs_tpu_torch.models.hashgrid import hashgrid_mlp
 
@@ -59,8 +61,15 @@ def get_mlp_fn(cfg: RenderConfig):
 
         return functools.partial(fused_nerf_mlp, x_freqs=cfg.x_freqs, d_freqs=cfg.d_freqs,
                                  dtype=cfg.dtype)
-    if cfg.impl in ("int8", "int8qat"):
-        raise NotImplementedError(f"impl={cfg.impl!r} is not ported yet (ROADMAP queue 1, item 12)")
+    if cfg.impl == "int8":
+        from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp
+
+        return functools.partial(fused_int8_mlp, x_freqs=cfg.x_freqs, d_freqs=cfg.d_freqs)
+    if cfg.impl == "int8qat":
+        from nerf_rs_tpu_torch.models.quant import int8_nerf_mlp
+
+        return functools.partial(int8_nerf_mlp, x_freqs=cfg.x_freqs, d_freqs=cfg.d_freqs,
+                                 fake=True)
     if cfg.impl != "xla":
         raise ValueError(f"unknown MLP impl {cfg.impl!r} "
                          "(expected 'xla', 'pallas', 'int8', or 'int8qat')")

@@ -54,6 +54,18 @@ def test_rgba_contract():
     np.testing.assert_array_equal(buf, pixels_to_rgba(img))
 
 
+def test_serves_the_int8_family():
+    """cfg.impl="int8" is served as given (only "pallas" drops to "xla" for
+    an arch it cannot serve): the frames are render_image's int8 frames."""
+    cfg = SMALL.replace(impl="int8")
+    api.init_renderer(cfg=cfg, device="cpu")
+    assert api._state["cfg"].impl == "int8"
+    buf = api.render_image_rgba(16, 16, seed=1)
+    img = render_image(api._state["params"]["coarse"], api._state["params"]["fine"],
+                       api._state["camera"], 16, 16, random.key(1, "cpu"), cfg)
+    np.testing.assert_array_equal(buf, pixels_to_rgba(img))
+
+
 def test_invalid_dims_rejected():
     api.init_renderer(cfg=SMALL, device="cpu")
     for w, h in ((0, 16), (16, -1)):

@@ -1,6 +1,6 @@
 """PyTorch port on the card: the fused MLP kernels (forward K1, backward K2),
-the fused resampler (K3) and the hash encode against their plain versions,
-and the packed accel render against the unpacked one.
+the fused resampler (K3), the hash encode and the int8 MLP kernel against
+their plain versions, and the packed accel render against the unpacked one.
 
 Needs an NVIDIA card and nvcc, and skips elsewhere. Imports no JAX, so it
 runs on a machine without it:
@@ -365,3 +365,78 @@ def test_hash_encode_backward_on_card_matches_cpu(card):
         grads.append(t.grad.cpu())
     assert torch.equal(grads[1], grads[2])
     torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-6)
+
+
+# The int8 kernel against its plain version: the same codes, the same int32
+# sums and the same three rounded dequant ops, so sigma is bitwise equal;
+# rgb may differ only where the kernel's expf differs from torch.sigmoid's.
+INT8_RGB_ATOL = 2e-6
+
+
+def check_int8(net, pts, dirs, sigma_only):
+    from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp, fused_int8_mlp_reference
+
+    before = fused_int8_mlp.launches
+    rgb, sig = fused_int8_mlp(net, pts, dirs, sigma_only=sigma_only)
+    again = fused_int8_mlp(net, pts, dirs, sigma_only=sigma_only)
+    torch.cuda.synchronize()
+    assert fused_int8_mlp.launches == before + 2
+    rgb_r, sig_r = fused_int8_mlp_reference(net, pts, dirs, sigma_only=sigma_only)
+    assert rgb.shape == rgb_r.shape and sig.shape == sig_r.shape
+    assert torch.equal(rgb, again[0]) and torch.equal(sig, again[1])
+    assert torch.equal(sig, sig_r), float((sig - sig_r).abs().max())
+    torch.testing.assert_close(rgb, rgb_r, atol=INT8_RGB_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("sigma_only", [False, True])
+@pytest.mark.parametrize("arch", [SMALL, ArchConfig(width=100, v_width=36, depth=3, skip_at=0)],
+                         ids=["small", "ragged_skip"])
+def test_int8_kernel_matches_plain_ragged(card, arch, sigma_only):
+    """A ragged sample count (37 x 29), widths not multiples of 8, the skip
+    at dense1; per-ray and per-sample dirs; two calls bitwise equal."""
+    net = NerfMLP(np_params(arch, 30), device=card)
+    pts, dirs = inputs(37, 29, 31, card)
+    check_int8(net, pts * 0.4, dirs, sigma_only)
+    check_int8(net, pts * 0.4, dirs.expand(37, 29, 3).contiguous(), sigma_only)
+
+
+@pytest.mark.parametrize("net", ["coarse", "fine"])
+def test_int8_kernel_matches_plain_lego(card, net):
+    module = NerfMLP(load_nerf_params(LEGO / net), device=card)
+    pts, dirs = inputs(64, 96, 32, card)
+    check_int8(module, pts * 0.4, dirs, net == "coarse")
+
+
+def test_int8_kernel_refuses_what_it_does_not_serve(card):
+    from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp
+
+    wide = NerfMLP(np_params(ArchConfig(width=264, v_width=32, depth=2, skip_at=5), 33),
+                   device=card)
+    pts, dirs = inputs(4, 8, 34, card)
+    with pytest.raises(NotImplementedError, match="width=264"):
+        fused_int8_mlp(wide, pts, dirs)
+    net = NerfMLP(np_params(SMALL, 35), device=card)
+    with pytest.raises(NotImplementedError, match="L=\\(10,4\\)"):
+        fused_int8_mlp(net, pts, dirs, x_freqs=8)
+
+
+def test_int8_render_on_card_matches_plain(card):
+    """A small lego frame with impl="int8": two kernel launches per chunk,
+    and at least 60 dB from the same frame with the plain version."""
+    import nerf_rs_tpu_torch.ops.kernels.int8_mlp as im
+
+    cam = camera_from_golden(load_golden(LEGO / "tf_reference_samples.json"))
+    coarse, fine = (NerfMLP(load_nerf_params(LEGO / n), device=card) for n in ("coarse", "fine"))
+    cfg = RenderConfig(n_coarse=16, n_fine=32, ray_chunk=512, impl="int8")
+    before = im.fused_int8_mlp.launches
+    got = render_image(coarse, fine, cam, 32, 32, random.key(0, card), cfg)
+    torch.cuda.synchronize()
+    assert im.fused_int8_mlp.launches == before + 2 * 2
+    real = im.fused_int8_mlp
+    im.fused_int8_mlp = im.fused_int8_mlp_reference
+    try:
+        plain = render_image(coarse, fine, cam, 32, 32, random.key(0, card), cfg)
+    finally:
+        im.fused_int8_mlp = real
+    mse = float(((got.double() - plain.double()) ** 2).mean())
+    assert -10 * np.log10(max(mse, 1e-20)) >= 60.0

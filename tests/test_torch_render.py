@@ -132,14 +132,16 @@ def test_render_image_lego_vs_committed_golden(golden):
     assert score > 45.0, f"PSNR vs committed golden too low: {score:.2f} dB"
 
 
-@pytest.mark.parametrize("change, match", [
-    (dict(impl="int8"), "item 12"),
-])
-def test_unserved_config_raises(golden, change, match):
-    pc = params_to_torch(np_params(SMALL, 14), "cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        render_rays(pc, pc, torch.zeros(3), torch.ones(4, 3) / 3 ** 0.5, 2.0, 6.0,
-                    random.key(0, "cpu"), RenderConfig(n_coarse=4, n_fine=4, **change))
+def test_cli_render_int8_cpu_writes_image(tmp_path, capsys):
+    """render --impl int8 serves the W8A8 family (the int8 kernel's plain
+    version on CPU tensors)."""
+    out = tmp_path / "int8.ppm"
+    rc = cli_main(["render", "--impl", "int8", "--device", "cpu", "--width", "16", "--height",
+                   "16", "--coarse-samples", "8", "--fine-samples", "8", "-o", str(out)])
+    assert rc == 0
+    img = load_ppm(out)
+    assert img.shape == (16, 16, 3) and float(np.abs(img - 1.0).max()) > 0.05
+    assert "(int8/float32" in capsys.readouterr().out
 
 
 def test_unserved_checkpoint_raises():
@@ -178,7 +180,8 @@ def test_package_never_imports_jax():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'nerf_rs_tpu.'))\n"
         "             or k == 'nerf_rs_tpu')\n"
         "assert not bad, bad\n"
-        "walked = {'nerf_rs_tpu_torch.models.hashgrid', 'nerf_rs_tpu_torch.ops.kernels.hash_encode'}\n"
+        "walked = {'nerf_rs_tpu_torch.models.hashgrid', 'nerf_rs_tpu_torch.ops.kernels.hash_encode',\n"
+        "          'nerf_rs_tpu_torch.models.quant', 'nerf_rs_tpu_torch.ops.kernels.int8_mlp'}\n"
         "assert walked <= set(sys.modules), walked - set(sys.modules)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,

@@ -290,13 +290,30 @@ def test_cli_train_on_cpu(capsys):
     assert "distilling from the pretrained lego networks" in out
 
 
+def test_cli_train_int8qat_on_cpu(capsys):
+    """train --impl int8qat distills a W8A8 student through the STE
+    forward; the teacher renders through the fused kernel's path."""
+    rc = cli_main(["train", "--device", "cpu", "--impl", "int8qat", "--width", "64", "--v-width",
+                   "32", "--depth", "3", "--skip-at", "1", "--steps", "2", "--batch-rays", "32",
+                   "--coarse-samples", "8", "--fine-samples", "8", "--log-every", "1"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    lines = re.findall(r"^step (\d+): loss ([0-9.]+) psnr", out, flags=re.M)
+    assert [int(s) for s, _ in lines] == [0, 1], out
+
+
+def test_cli_train_int8_is_inference_only():
+    with pytest.raises(SystemExit) as exc:
+        cli_main(["train", "--device", "cpu", "--impl", "int8"])
+    assert "--impl int8 is inference-only" in str(exc.value.code)
+
+
 @pytest.mark.parametrize("flags, item", [
     (["--data", "scene"], 10),
     (["--checkpoint-dir", "ckpt"], 10),
     (["--init-weights", "w"], 10),
     (["--accel-every", "8"], 7),
     (["--accel-aabb"], 7),
-    (["--impl", "int8qat"], 12),
 ])
 def test_cli_train_refuses_unported_flags(flags, item):
     with pytest.raises(SystemExit) as exc:
