@@ -61,6 +61,19 @@ def _build_accel(args, cfg, params, camera, device):
     return cfg, grid
 
 
+def _impl_for_params(cfg, arch):
+    """``impl="pallas"`` for a network the fused kernels do not serve
+    (``arch``: weights or an ArchConfig) runs the plain MLP instead, with a
+    note, as the JAX CLI does."""
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import MAX_DEPTH, MAX_WIDTH, supports_arch
+
+    if cfg.impl == "pallas" and not supports_arch(arch):
+        print(f"note: the network is outside the fused kernels' range (width, v_width <= "
+              f"{MAX_WIDTH}, depth <= {MAX_DEPTH}) — running impl='xla'")
+        return cfg.replace(impl="xla")
+    return cfg
+
+
 def cmd_render(args) -> int:
     import numpy as np
     import torch
@@ -87,6 +100,7 @@ def cmd_render(args) -> int:
     cfg = RenderConfig(n_coarse=args.coarse_samples, n_fine=args.fine_samples,
                        ray_chunk=args.ray_chunk, impl=args.impl, dtype=args.dtype,
                        sampling_impl=args.sampling_impl)
+    cfg = _impl_for_params(cfg, params["coarse"])
     print(f"Rendering {args.width}x{args.height} with {cfg.n_coarse} coarse and "
           f"{cfg.n_fine} fine samples per ray ({cfg.impl}/{cfg.dtype}, sampling "
           f"{cfg.sampling_impl}, on {device})")
@@ -156,11 +170,6 @@ def cmd_train(args) -> int:
     from nerf_rs_tpu_torch.train import create_train_state, train_step
 
     _refuse_unported(args)
-    if args.impl == "int8":
-        # Real-int8 forwards carry no gradient through the int8 values;
-        # QAT is the trainable form of the same arithmetic.
-        sys.exit("error: --impl int8 is inference-only; train with "
-                 "--impl int8qat (same quantized values, STE gradients)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         sys.exit(f"error: --device {args.device} but torch.cuda.is_available() is false")
@@ -182,16 +191,26 @@ def cmd_train(args) -> int:
         lr = args.lr if args.lr is not None else 1e-2
         cfg = cfg.replace(lr_init=lr, lr_final=lr * 1e-2, adam_eps=1e-15,
                           render=render_cfg.replace(model="hashgrid", hash=hcfg))
-    elif args.lr is not None:
-        cfg = cfg.replace(lr_init=args.lr, lr_final=min(cfg.lr_final, args.lr))
+    else:
+        if args.impl == "int8":
+            # Real-int8 forwards carry no gradient through the int8 values;
+            # QAT is the trainable form of the same arithmetic.
+            sys.exit("error: --impl int8 is inference-only; train with "
+                     "--impl int8qat (same quantized values, STE gradients)")
+        # A student the fused kernels do not serve trains on the plain MLP;
+        # the teacher stays on --impl.
+        cfg = cfg.replace(render=_impl_for_params(render_cfg, arch))
+        if args.lr is not None:
+            cfg = cfg.replace(lr_init=args.lr, lr_final=min(cfg.lr_final, args.lr))
     state = create_train_state(torch.Generator(device=device).manual_seed(cfg.seed), cfg)
     print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})")
 
     teacher = {net: load_nerf_params(assets / net) for net in ("coarse", "fine")}
-    # The teacher is the lego MLP on --impl, whatever the student's family,
-    # except for the quantized impls: QAT distills toward the exact f32
-    # teacher through the fused kernel.
-    teacher_cfg = render_cfg.replace(impl="pallas") if args.impl == "int8qat" else render_cfg
+    # The teacher is the lego MLP on --impl, whatever the student's family
+    # or arch, except for the quantized impls: the student distills toward
+    # the exact f32 teacher through the fused kernel.
+    teacher_cfg = (render_cfg.replace(impl="pallas") if args.impl in ("int8", "int8qat")
+                   else render_cfg)
     if args.teacher_samples:
         tc, tf = (int(v) for v in args.teacher_samples.split(","))
         teacher_cfg = teacher_cfg.replace(n_coarse=tc, n_fine=tf)

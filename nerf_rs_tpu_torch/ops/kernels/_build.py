@@ -96,8 +96,11 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fwd = lib.nerf_fused_mlp_forward
-    fwd.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, i, p, p, i, p]
+    fwd.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, p, p, i, p]
     fwd.restype = ctypes.c_int
+    tc = lib.nerf_fused_mlp_tc_forward
+    tc.argtypes = [p, p, ll, ll, p, p, p, p, i, p, i, i, i, i, i, p, p, i, p]
+    tc.restype = ctypes.c_int
     bwd = lib.nerf_fused_mlp_backward
     bwd.argtypes = [p, p, ll, ll, p, p, p, p, p, p, i, p, i, i, i, i, i, i, p, p, ll, ll, i,
                     p, p, p, p, i, p]

@@ -20,13 +20,12 @@
 //   is fetched once per CTA (the 8 threads that share it sit in one warp
 //   and read the same address);
 // - the skip and view layers are two products summed, with no concat.
-// Tensor cores (wgmma), TMA weight staging and a persistent grid are work
-// for later versions.
+// This kernel serves float32, the parity mode; bf16 runs on the tensor
+// cores (fused_mlp_tc.cu). The template also takes bf16 weights (WT), as
+// the backward kernel's shared helpers do, but no bf16 instance is built.
 //
-// Numerics: f32 mode is true f32 throughout with exact sinf/cosf (no fast
-// math: the encode's arguments reach 2^9*|x|). bf16 mode rounds the encode,
-// the weights (packed as bf16) and each layer's input activations to bf16,
-// and accumulates in f32. Heads read the rounded activations and write f32.
+// Numerics: true f32 throughout with exact sinf/cosf (no fast math: the
+// encode's arguments reach 2^9*|x|).
 //
 // The packed-weight layout and the shared device helpers are in
 // fused_mlp_common.cuh.
@@ -156,13 +155,14 @@ cudaError_t launch(const float* pts, const float* dirs, long long n, long long d
 }  // namespace
 
 // pts (n, 3) f32; dirs (ceil(n / dir_div), 3) f32, sample s reads row
-// s / dir_div; weights (bf16 != 0: bf16, else f32) and biases (f32) as
-// packed by pack_params; layout: kLayoutLen host int64 offsets; rgb (n, 3)
-// and sigma (n,) f32 outputs. Returns a cudaError_t value (0 = launched).
+// s / dir_div; weights and biases (f32) as packed by pack_params; layout:
+// kLayoutLen host int64 offsets; rgb (n, 3) and sigma (n,) f32 outputs.
+// Returns a cudaError_t value (0 = launched). bf16 packs go to the
+// tensor-core kernel, nerf_fused_mlp_tc_forward (fused_mlp_tc.cu).
 extern "C" int nerf_fused_mlp_forward(const void* pts, const void* dirs, long long n,
                                       long long dir_div, const void* weights,
                                       const void* biases, const long long* layout,
-                                      int layout_len, int ldw, int ldv, int depth, int bf16,
+                                      int layout_len, int ldw, int ldv, int depth,
                                       int sigma_only, void* rgb, void* sigma, int device,
                                       void* stream) {
   Layout L;
@@ -178,13 +178,7 @@ extern "C" int nerf_fused_mlp_forward(const void* pts, const void* dirs, long lo
   float* o_rgb = static_cast<float*>(rgb);
   float* o_sigma = static_cast<float*>(sigma);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    err = sigma_only
-              ? launch<__nv_bfloat16, true>(p, d, n, dir_div, weights, b, L, o_rgb, o_sigma, s)
-              : launch<__nv_bfloat16, false>(p, d, n, dir_div, weights, b, L, o_rgb, o_sigma, s);
-  } else {
-    err = sigma_only ? launch<float, true>(p, d, n, dir_div, weights, b, L, o_rgb, o_sigma, s)
-                     : launch<float, false>(p, d, n, dir_div, weights, b, L, o_rgb, o_sigma, s);
-  }
+  err = sigma_only ? launch<float, true>(p, d, n, dir_div, weights, b, L, o_rgb, o_sigma, s)
+                   : launch<float, false>(p, d, n, dir_div, weights, b, L, o_rgb, o_sigma, s);
   return static_cast<int>(err);
 }

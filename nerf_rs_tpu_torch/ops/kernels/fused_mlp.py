@@ -1,22 +1,26 @@
 """Fused NeRF MLP: the CUDA kernels' wrappers, their weight packing, their
 plain PyTorch versions, and the autograd function that joins them.
 
-The forward kernel K1 (``csrc/fused_mlp.cu``) replaces the JAX package's
-Pallas kernel ``nerf_rs_tpu/ops/kernels/fused_mlp.py::_forward_t`` /
-``_mlp_chain``: per tile of samples it encodes points and dirs, runs the
-trunk with the skip layer as two summed products, the ReLU sigma head and,
-unless ``sigma_only``, the bottleneck, the view layer (two summed
-products) and the sigmoid rgb head, with activations kept on chip. The
-backward kernel K2 (``csrc/fused_mlp_bwd.cu``) replaces ``_backward_t`` /
-``_kernel_bwd``: it recomputes the forward per tile, backpropagates, and
-sums every layer's weight and bias gradient over the samples.
+The forward kernel K1 replaces the JAX package's Pallas kernel
+``nerf_rs_tpu/ops/kernels/fused_mlp.py::_forward_t`` / ``_mlp_chain``: per
+tile of samples it encodes points and dirs, runs the trunk with the skip
+layer as two summed products, the ReLU sigma head and, unless
+``sigma_only``, the bottleneck, the view layer (two summed products) and
+the sigmoid rgb head, with activations kept on chip. It has two kernels:
+float32 on the CUDA cores (``csrc/fused_mlp.cu``) and bfloat16 on the
+tensor cores (``csrc/fused_mlp_tc.cu``: ``wgmma`` on weights bulk-copied
+into shared memory). The backward kernel K2 (``csrc/fused_mlp_bwd.cu``)
+replaces ``_backward_t`` / ``_kernel_bwd``: it recomputes the forward per
+tile, backpropagates, and sums every layer's weight and bias gradient
+over the samples.
 
 - :func:`pack_params` lays the weights out for the kernels, once per
   network and dtype (``models.mlp.NerfMLP.packed`` keeps the pack).
 - :func:`fused_nerf_mlp` is differentiable on every device, through
   :class:`_FusedMLP` (the counterpart of ``_make_op``'s ``custom_vjp``).
   On CUDA tensors its forward launches K1 (counted in
-  ``fused_nerf_mlp.launches``) and its backward K2 (counted in
+  ``fused_nerf_mlp.launches``, the bf16 tensor-core launches also in
+  ``fused_nerf_mlp.tc_launches``) and its backward K2 (counted in
   ``fused_nerf_mlp_backward.launches``); on CPU tensors they run the plain
   versions instead. A CUDA tensor never reaches a plain version.
 - :func:`fused_nerf_mlp_reference` and
@@ -35,7 +39,7 @@ bias and encode gradients in f32, as the JAX kernel does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +54,7 @@ MAX_DEPTH = 16              # kMaxDepth in csrc/fused_mlp_common.cuh
 MAX_WIDTH = 256             # kMaxWidth: widest trunk or view branch served
 _ALIGN = 8                  # segment offsets: 16-byte aligned bf16 loads
 _TILE = 64                  # kTile in csrc/fused_mlp_common.cuh
+_TC_PIECE = 64              # kPiece in csrc/fused_mlp_tc.cu: tensor-core widths pad to it
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -73,10 +78,13 @@ def infer_arch(params) -> Tuple[int, int, int, int]:
 
 
 def supports_arch(params) -> bool:
-    """Whether the kernels serve a network (a NerfMLP or a param tree):
-    trunk and view widths up to ``MAX_WIDTH``, at most ``MAX_DEPTH`` dense
-    layers."""
-    width, v_width, depth, _ = infer_arch(params.tree() if hasattr(params, "tree") else params)
+    """Whether the kernels serve a network (a NerfMLP, a param tree or an
+    ArchConfig): trunk and view widths up to ``MAX_WIDTH``, at most
+    ``MAX_DEPTH`` dense layers."""
+    if hasattr(params, "skip_at"):
+        width, v_width, depth = params.width, params.v_width, params.depth
+    else:
+        width, v_width, depth, _ = infer_arch(params.tree() if hasattr(params, "tree") else params)
     return 1 <= width <= MAX_WIDTH and 1 <= v_width <= MAX_WIDTH and 1 <= depth <= MAX_DEPTH
 
 
@@ -96,6 +104,12 @@ class PackedMLP:
     ``weights_t`` holds the transposed (ld, K) copy of every segment but
     the two heads, at ``layout_t``'s offsets (``csrc/fused_mlp_bwd.cu``):
     the backward kernel's input-gradient products read it.
+
+    bf16 packs also hold ``weights_tc``, the forward's tensor-core copy
+    (``csrc/fused_mlp_tc.cu``) of every segment but the heads, at
+    ``layout_tc``'s offsets: see :func:`tc_tile`. Trunk and view widths
+    pad to multiples of 64, and so does the K of the layers that read the
+    trunk; the encodes keep K = 64 and 32. f32 packs hold ``None`` there.
     """
 
     weights: torch.Tensor
@@ -111,6 +125,8 @@ class PackedMLP:
     ldw: int
     ldv: int
     dtype: str
+    weights_tc: Optional[torch.Tensor] = None
+    layout_tc: Optional[np.ndarray] = None
 
     def mat(self, name: str) -> torch.Tensor:
         """Segment ``name`` as a float32 (K, ld) matrix."""
@@ -219,10 +235,47 @@ def pack_params(params, dtype: str) -> PackedMLP:
         + [offsets_t.get(f"dense{i}_enc", -1) for i in range(MAX_DEPTH)]
         + [offsets_t[n] for n in ("bottleneck", "viewdirs", "viewdirs_dir")],
         dtype=np.int64)
+    weights_tc = layout_tc = None
+    if dtype == "bfloat16":
+        ldw_tc, ldv_tc = _round_up(ldw, _TC_PIECE), _round_up(ldv, _TC_PIECE)
+        offsets_tc: Dict[str, int] = {}
+        pieces_tc = []
+        off_tc = 0
+        for name, m, rows, ld in mats:
+            if name in ("alpha", "rgb"):
+                continue
+            encoded = name in ("dense0", "viewdirs_dir") or name.endswith("_enc")
+            tiled = tc_tile(m, rows if encoded else ldw_tc, ldw_tc if ld == ldw else ldv_tc)
+            pieces_tc.append(tiled)
+            offsets_tc[name] = off_tc
+            off_tc += tiled.numel()
+        weights_tc = torch.cat(pieces_tc).to(torch.bfloat16)
+        layout_tc = np.array(
+            [offsets_tc.get(f"dense{i}", -1) for i in range(MAX_DEPTH)]
+            + [offsets_tc.get(f"dense{i}_enc", -1) for i in range(MAX_DEPTH)]
+            + [offsets_tc[n] for n in ("bottleneck", "viewdirs", "viewdirs_dir")],
+            dtype=np.int64)
     return PackedMLP(weights=weights, biases=biases, segments=segments,
                      bias_slots=bias_slots, layout=layout, weights_t=weights_t,
                      layout_t=layout_t, width=width, v_width=v_width, depth=depth,
-                     ldw=ldw, ldv=ldv, dtype=dtype)
+                     ldw=ldw, ldv=ldv, dtype=dtype, weights_tc=weights_tc,
+                     layout_tc=layout_tc)
+
+
+def tc_tile(m: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """A (K, N) weight matrix zero-padded to (k, n), flat in the order the
+    tensor-core forward copies it into shared memory and ``wgmma`` reads
+    it: for B = W (K x N) "K-major", 8 x 8 core matrices of 8 n-rows of 8
+    consecutive k (16 bytes a row, 128 a matrix), the core matrix of k
+    group kg and n group ng at ``(kg * n / 8 + ng) * 64`` elements. Every
+    64 consecutive k rows (one bulk copy) are one contiguous run of
+    ``64 * n`` elements. k must be a multiple of 16 (a bf16 ``wgmma``
+    k-step), n of 64."""
+    if k % 16 or n % _TC_PIECE or m.shape[0] > k or m.shape[1] > n:
+        raise ValueError(f"cannot tile a {tuple(m.shape)} matrix to ({k}, {n})")
+    padded = torch.zeros((k, n), dtype=torch.float32, device=m.device)
+    padded[:m.shape[0], :m.shape[1]] = m
+    return padded.reshape(k // 8, 8, n // 8, 8).permute(0, 2, 3, 1).reshape(-1)
 
 
 def _packed(params, dtype: str) -> PackedMLP:
@@ -295,23 +348,33 @@ def fused_nerf_mlp_reference(params, points: torch.Tensor, viewdirs: torch.Tenso
     order differs. Any device. It reads the weights through the pack,
     which holds detached copies: torch autograd reaches points and
     viewdirs through it but never the parameters. :func:`fused_nerf_mlp`
-    is the differentiable entry point."""
+    is the differentiable entry point. The arithmetic is float32, or
+    float64 for float64 points: the same function, rounded where the
+    kernel rounds, without its summation error."""
     _check_call(x_freqs, d_freqs, dtype)
     pk = _packed(params, dtype)
     rnd = _rounder(dtype)
     batch = points.shape[:-1]
-    pts, dirs = _flat_inputs(points, viewdirs)
+    dt = torch.float64 if points.dtype == torch.float64 else torch.float32
+    pts, dirs = _flat_inputs(points, viewdirs, dt)
+
+    def mat(name):
+        return pk.mat(name).to(dt)
+
+    def bias(name):
+        return pk.bias(name).to(dt)
+
     enc_x = rnd(_encode(pts, x_freqs, _ENC_X))
-    h = _trunk(pk.mat, pk.bias, enc_x, rnd, pk.depth, pk.segments)[-1]
-    sigma = torch.relu(h @ pk.mat("alpha") + pk.bias("alpha"))[:, 0]
+    h = _trunk(mat, bias, enc_x, rnd, pk.depth, pk.segments)[-1]
+    sigma = torch.relu(h @ mat("alpha") + bias("alpha"))[:, 0]
     if sigma_only:
-        rgb = torch.zeros((pts.shape[0], 3), dtype=torch.float32, device=pts.device)
+        rgb = torch.zeros((pts.shape[0], 3), dtype=dt, device=pts.device)
     else:
         enc_d = rnd(_encode(dirs, d_freqs, _ENC_D))
-        bneck = rnd(h @ pk.mat("bottleneck") + pk.bias("bottleneck"))
-        hv = rnd(torch.relu(bneck @ pk.mat("viewdirs") + enc_d @ pk.mat("viewdirs_dir")
-                            + pk.bias("viewdirs")))
-        rgb = torch.sigmoid(hv @ pk.mat("rgb") + pk.bias("rgb"))
+        bneck = rnd(h @ mat("bottleneck") + bias("bottleneck"))
+        hv = rnd(torch.relu(bneck @ mat("viewdirs") + enc_d @ mat("viewdirs_dir")
+                            + bias("viewdirs")))
+        rgb = torch.sigmoid(hv @ mat("rgb") + bias("rgb"))
     return rgb.reshape(*batch, 3), sigma.reshape(batch)
 
 
@@ -461,20 +524,32 @@ def _stream(device: torch.device) -> int:
 
 def _forward_kernel(pk: PackedMLP, points: torch.Tensor, viewdirs: torch.Tensor,
                     sigma_only: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 on CUDA tensors, on the current stream, without synchronizing."""
+    """K1 on CUDA tensors, on the current stream, without synchronizing:
+    f32 packs launch the CUDA-core kernel (``csrc/fused_mlp.cu``), bf16
+    packs the tensor-core kernel (``csrc/fused_mlp_tc.cu``, also counted
+    in ``fused_nerf_mlp.tc_launches``)."""
     dirs, dir_div, batch, n = _kernel_inputs(pk, points, viewdirs)
     rgb = torch.empty((*batch, 3), dtype=torch.float32, device=points.device)
     sigma = torch.empty(batch, dtype=torch.float32, device=points.device)
     if n == 0:
         return rgb, sigma
-    err = _build.load_library().nerf_fused_mlp_forward(
-        points.data_ptr(), dirs.data_ptr(), n, dir_div, pk.weights.data_ptr(),
-        pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout.size, pk.ldw, pk.ldv,
-        pk.depth, int(pk.dtype == "bfloat16"), int(sigma_only), rgb.data_ptr(),
-        sigma.data_ptr(), points.device.index or 0, _stream(points.device))
+    lib = _build.load_library()
+    args = (points.data_ptr(), dirs.data_ptr(), n, dir_div)
+    tail = (pk.ldw, pk.ldv, pk.depth, int(sigma_only), rgb.data_ptr(), sigma.data_ptr(),
+            points.device.index or 0, _stream(points.device))
+    layout = (pk.layout.ctypes.data, pk.layout.size)
+    tc = pk.dtype == "bfloat16"
+    if tc:
+        err = lib.nerf_fused_mlp_tc_forward(
+            *args, pk.weights_tc.data_ptr(), pk.weights.data_ptr(), pk.biases.data_ptr(),
+            *layout, pk.layout_tc.ctypes.data, pk.layout_tc.size, *tail)
+    else:
+        err = lib.nerf_fused_mlp_forward(*args, pk.weights.data_ptr(), pk.biases.data_ptr(),
+                                         *layout, *tail)
     if err != 0:
         raise RuntimeError(f"fused MLP kernel launch failed with CUDA error {err}")
     fused_nerf_mlp.launches += 1
+    fused_nerf_mlp.tc_launches += int(tc)
     return rgb, sigma
 
 
@@ -595,3 +670,4 @@ def fused_nerf_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *,
 
 
 fused_nerf_mlp.launches = 0
+fused_nerf_mlp.tc_launches = 0

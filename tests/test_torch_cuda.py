@@ -1,6 +1,7 @@
-"""PyTorch port on the card: the fused MLP kernels (forward K1, backward K2),
-the fused resampler (K3), the hash encode and the int8 MLP kernel against
-their plain versions, and the packed accel render against the unpacked one.
+"""PyTorch port on the card: the fused MLP kernels (forward K1, f32 on the
+CUDA cores and bf16 on the tensor cores; backward K2), the fused resampler
+(K3), the hash encode and the int8 MLP kernel against their plain
+versions, and the packed accel render against the unpacked one.
 
 Needs an NVIDIA card and nvcc, and skips elsewhere. Imports no JAX, so it
 runs on a machine without it:
@@ -34,6 +35,11 @@ LEGO = Path(__file__).resolve().parents[1] / "assets" / "lego_rust"
 # Kernel against plain version: f32 differs by summation order only; bf16
 # by summation order between bf16 roundings (tests/test_fused_mlp.py's bars).
 TOL = {"float32": (1e-4, 1e-3, 1e-4), "bfloat16": (2e-2, 2e-2, 2e-2)}
+# bf16 sigma: the tensor-core kernel's sums flip some bf16 roundings that
+# the plain version's f32 sums do not, and a flip cascades through the
+# trunk, so sigma is held to the bars above on this share of the samples
+# (chip_smoke.py phase 3, which also holds both to a float64 evaluation).
+BF16_SHARE = 0.999
 # Backward kernel against plain version, per gradient ||g_k - g_p|| / ||g_p||:
 # f32 differs by summation order; bf16 also by where that order flips a
 # bf16 rounding of a layer's output gradient.
@@ -67,15 +73,24 @@ def inputs(rays, samples, seed, device):
 
 
 def check(net, pts, dirs, dtype, sigma_only):
+    """One K1 launch (bf16 through the tensor-core kernel) against the
+    plain version; a second call bitwise equal."""
     rgb_atol, sig_atol, sig_rtol = TOL[dtype]
-    before = fused_nerf_mlp.launches
+    before, before_tc = fused_nerf_mlp.launches, fused_nerf_mlp.tc_launches
     rgb, sig = fused_nerf_mlp(net, pts, dirs, dtype=dtype, sigma_only=sigma_only)
     torch.cuda.synchronize()
     assert fused_nerf_mlp.launches == before + 1
+    assert fused_nerf_mlp.tc_launches == before_tc + int(dtype == "bfloat16")
     rgb_r, sig_r = fused_nerf_mlp_reference(net, pts, dirs, dtype=dtype, sigma_only=sigma_only)
     assert rgb.shape == rgb_r.shape and sig.shape == sig_r.shape
     torch.testing.assert_close(rgb, rgb_r, atol=rgb_atol, rtol=0)
-    torch.testing.assert_close(sig, sig_r, atol=sig_atol, rtol=sig_rtol)
+    if dtype == "float32":
+        torch.testing.assert_close(sig, sig_r, atol=sig_atol, rtol=sig_rtol)
+    else:
+        outside = (sig - sig_r).abs() > sig_atol + sig_rtol * sig_r.abs()
+        assert int(outside.sum()) <= (1 - BF16_SHARE) * sig.numel(), float((sig - sig_r).abs().max())
+    again = fused_nerf_mlp(net, pts, dirs, dtype=dtype, sigma_only=sigma_only)
+    assert torch.equal(rgb, again[0]) and torch.equal(sig, again[1])
 
 
 @pytest.mark.parametrize("sigma_only", [False, True])
@@ -83,20 +98,24 @@ def check(net, pts, dirs, dtype, sigma_only):
 @pytest.mark.parametrize("arch", [ArchConfig(width=128, v_width=64, depth=4, skip_at=2),
                                   ArchConfig(width=100, v_width=36, depth=3, skip_at=5)],
                          ids=["small", "unaligned_noskip"])
-def test_kernel_matches_plain_ragged(card, arch, dtype, sigma_only):
-    """A ragged sample count (37 x 29 = 1073, not a tile multiple), per-ray dirs."""
+@pytest.mark.parametrize("rays, samples", [(37, 29), (331, 67)], ids=["1073", "22177"])
+def test_kernel_matches_plain_ragged(card, rays, samples, arch, dtype, sigma_only):
+    """Ragged sample counts (not multiples of the 64- or 128-sample tiles;
+    22177 samples are 174 tensor-core tiles, more than the card's SMs, so
+    the persistent CTAs loop), per-ray and per-sample dirs."""
     net = NerfMLP(np_params(arch, 0), device=card)
-    pts, dirs = inputs(37, 29, 1, card)
+    pts, dirs = inputs(rays, samples, 1, card)
     check(net, pts, dirs, dtype, sigma_only)
-    check(net, pts, dirs.expand(37, 29, 3).contiguous(), dtype, sigma_only)
+    check(net, pts, dirs.expand(rays, samples, 3).contiguous(), dtype, sigma_only)
 
 
+@pytest.mark.parametrize("sigma_only", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("net", ["coarse", "fine"])
-def test_kernel_matches_plain_lego(card, net, dtype):
+def test_kernel_matches_plain_lego(card, net, dtype, sigma_only):
     module = NerfMLP(load_nerf_params(LEGO / net), device=card)
     pts, dirs = inputs(64, 96, 2, card)
-    check(module, pts * 0.4, dirs, dtype, net == "coarse")
+    check(module, pts * 0.4, dirs, dtype, sigma_only)
 
 
 def test_kernel_refuses_what_it_does_not_take(card):

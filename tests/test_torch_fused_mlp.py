@@ -171,6 +171,58 @@ def test_pack_params_padding_zero_and_round_trip(arch):
     assert count_params(params) == sum(int(np.prod(s)) + s[1] for s in arch_shapes(arch).values())
 
 
+def untile(flat, off, k, n):
+    """The (k, n) matrix at ``off`` of the tensor-core pack, read element
+    by element from the core-matrix order csrc/fused_mlp_tc.cu copies."""
+    kk, nn = np.meshgrid(np.arange(k), np.arange(n), indexing="ij")
+    idx = off + (kk // 8) * (n * 8) + (nn // 8) * 64 + (nn % 8) * 8 + kk % 8
+    return flat[idx], idx
+
+
+@pytest.mark.parametrize("arch", [SMALL, ArchConfig(), ArchConfig(width=100, v_width=36, depth=3,
+                                                                    skip_at=5)],
+                         ids=["small", "lego", "unaligned_noskip"])
+def test_tc_pack_round_trip_and_padding(arch):
+    """The bf16 pack's tensor-core copy: each segment read back through the
+    plain inverse of its tiling is the layer's bf16 weights, zero-padded to
+    K and N multiples of 64 (the encodes keep K = 64 and 32, multiples of
+    16); its segments cover the copy exactly once. The pack's other
+    layouts are those of the f32 pack, in bf16."""
+    params = params_to_torch(np_params(arch, 8), "cpu")
+    bf, f32 = pack_params(params, "bfloat16"), pack_params(params, "float32")
+    assert f32.weights_tc is None and f32.layout_tc is None
+    assert torch.equal(bf.weights, f32.weights.to(torch.bfloat16))
+    assert torch.equal(bf.weights_t, f32.weights_t.to(torch.bfloat16))
+    assert bf.weights_tc.dtype == torch.bfloat16
+    flat = bf.weights_tc.float().numpy()
+    nw, nv = -(-arch.width // 64) * 64, -(-arch.v_width // 64) * 64
+    enc_x, enc_d = 63, 27
+
+    def kern(layer, rows=slice(None)):
+        return params[layer]["kernel"][rows].to(torch.bfloat16).float().numpy()
+
+    segs = {"dense0": (bf.layout_tc[0], 64, nw, kern("dense0"))}
+    for i in range(1, arch.depth):
+        k = kern(f"dense{i}")
+        if bf.layout_tc[16 + i] >= 0:
+            segs[f"dense{i}_enc"] = (bf.layout_tc[16 + i], 64, nw, k[:enc_x])
+            k = k[enc_x:]
+        segs[f"dense{i}"] = (bf.layout_tc[i], nw, nw, k)
+    assert (bf.layout_tc[:16] >= 0).sum() == arch.depth
+    segs["bottleneck"] = (bf.layout_tc[32], nw, nw, kern("bottleneck"))
+    segs["viewdirs"] = (bf.layout_tc[33], nw, nv, kern("viewdirs", slice(0, arch.width)))
+    segs["viewdirs_dir"] = (bf.layout_tc[34], 32, nv, kern("viewdirs", slice(arch.width, None)))
+    covered = np.zeros(flat.size, np.int64)
+    for name, (off, k, n, want) in segs.items():
+        assert k % 16 == 0 and n % 64 == 0 and off % 8 == 0, name
+        got, idx = untile(flat, int(off), k, n)
+        np.add.at(covered, idx.reshape(-1), 1)
+        rows, cols = want.shape
+        np.testing.assert_array_equal(got[:rows, :cols], want, err_msg=name)
+        assert not got[rows:].any() and not got[:, cols:].any(), name
+    assert (covered == 1).all()
+
+
 def test_pack_params_rejects_unserved_arch():
     with pytest.raises(ValueError, match="width"):
         pack_params(params_to_torch(np_params(ArchConfig(width=320), 6), "cpu"), "float32")
