@@ -61,13 +61,12 @@ def _build_accel(args, cfg, params, camera, device):
     return cfg, grid
 
 
-def _impl_for_params(cfg, arch):
-    """``impl="pallas"`` for a network the fused kernels do not serve
-    (``arch``: weights or an ArchConfig) runs the plain MLP instead, with a
-    note, as the JAX CLI does."""
-    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import MAX_DEPTH, MAX_WIDTH, supports_arch
+def _impl_for_params(cfg, width: int, v_width: int, depth: int):
+    """``impl="pallas"`` for a network the fused kernels do not serve runs
+    the plain MLP instead, with a note, as the JAX CLI does."""
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import MAX_DEPTH, MAX_WIDTH, supports_dims
 
-    if cfg.impl == "pallas" and not supports_arch(arch):
+    if cfg.impl == "pallas" and not supports_dims(width, v_width, depth):
         print(f"note: the network is outside the fused kernels' range (width, v_width <= "
               f"{MAX_WIDTH}, depth <= {MAX_DEPTH}) — running impl='xla'")
         return cfg.replace(impl="xla")
@@ -84,6 +83,7 @@ def cmd_render(args) -> int:
     from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_scene_assets
     from nerf_rs_tpu_torch.models.mlp import as_module
     from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import infer_arch
     from nerf_rs_tpu_torch.render import render_image, render_image_aux
 
     assets = Path(args.weights) if args.weights else find_lego_assets()
@@ -100,7 +100,7 @@ def cmd_render(args) -> int:
     cfg = RenderConfig(n_coarse=args.coarse_samples, n_fine=args.fine_samples,
                        ray_chunk=args.ray_chunk, impl=args.impl, dtype=args.dtype,
                        sampling_impl=args.sampling_impl)
-    cfg = _impl_for_params(cfg, params["coarse"])
+    cfg = _impl_for_params(cfg, *infer_arch(trees["coarse"])[:3])
     print(f"Rendering {args.width}x{args.height} with {cfg.n_coarse} coarse and "
           f"{cfg.n_fine} fine samples per ray ({cfg.impl}/{cfg.dtype}, sampling "
           f"{cfg.sampling_impl}, on {device})")
@@ -199,7 +199,8 @@ def cmd_train(args) -> int:
                      "--impl int8qat (same quantized values, STE gradients)")
         # A student the fused kernels do not serve trains on the plain MLP;
         # the teacher stays on --impl.
-        cfg = cfg.replace(render=_impl_for_params(render_cfg, arch))
+        cfg = cfg.replace(render=_impl_for_params(render_cfg, arch.width, arch.v_width,
+                                                  arch.depth))
         if args.lr is not None:
             cfg = cfg.replace(lr_init=args.lr, lr_final=min(cfg.lr_final, args.lr))
     state = create_train_state(torch.Generator(device=device).manual_seed(cfg.seed), cfg)

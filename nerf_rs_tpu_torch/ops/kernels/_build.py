@@ -99,7 +99,7 @@ def load_library() -> ctypes.CDLL:
     fwd.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, p, p, i, p]
     fwd.restype = ctypes.c_int
     tc = lib.nerf_fused_mlp_tc_forward
-    tc.argtypes = [p, p, ll, ll, p, p, p, p, i, p, i, i, i, i, i, p, p, i, p]
+    tc.argtypes = fwd.argtypes
     tc.restype = ctypes.c_int
     bwd = lib.nerf_fused_mlp_backward
     bwd.argtypes = [p, p, ll, ll, p, p, p, p, p, p, i, p, i, i, i, i, i, i, p, p, ll, ll, i,

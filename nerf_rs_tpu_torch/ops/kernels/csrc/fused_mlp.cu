@@ -21,8 +21,7 @@
 //   and read the same address);
 // - the skip and view layers are two products summed, with no concat.
 // This kernel serves float32, the parity mode; bf16 runs on the tensor
-// cores (fused_mlp_tc.cu). The template also takes bf16 weights (WT), as
-// the backward kernel's shared helpers do, but no bf16 instance is built.
+// cores (fused_mlp_tc.cu).
 //
 // Numerics: true f32 throughout with exact sinf/cosf (no fast math: the
 // encode's arguments reach 2^9*|x|).
@@ -36,13 +35,12 @@ namespace {
 
 using namespace nerf;
 
-template <typename WT, bool kSigmaOnly>
+template <bool kSigmaOnly>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
-                 long long n, long long dir_div, const WT* __restrict__ w,
+                 long long n, long long dir_div, const float* __restrict__ w,
                  const float* __restrict__ bias, const Layout L,
                  float* __restrict__ rgb, float* __restrict__ sigma) {
-  constexpr bool kBf16 = sizeof(WT) == 2;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* xin = smem;                       // [6][kTile] points, dirs
@@ -76,20 +74,20 @@ fused_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
       const float d[3] = {xin[3 * kTile + t], xin[4 * kTile + t], xin[5 * kTile + t]};
       v = encode(d, r - kEncX);
     }
-    enc[idx] = round_act<kBf16>(v);
+    enc[idx] = v;
   }
   __syncthreads();
 
   // Trunk.
-  dense<WT, kBf16>(w + L.w_dense[0], enc, kTile, kEncX, nullptr, nullptr, 0, 0,
-                   bias + L.b_dense[0], L.ldw, true, buf_a, kTile, nullptr);
+  dense<float, false>(w + L.w_dense[0], enc, kTile, kEncX, nullptr, nullptr, 0, 0,
+                      bias + L.b_dense[0], L.ldw, true, buf_a, kTile, nullptr);
   __syncthreads();
   float* cur = buf_a;
   float* nxt = buf_b;
   for (int i = 1; i < L.depth; ++i) {
     const bool skip = L.w_skip[i] >= 0;
-    dense<WT, kBf16>(w + L.w_dense[i], cur, kTile, L.ldw, skip ? w + L.w_skip[i] : nullptr,
-                     enc, kTile, kEncX, bias + L.b_dense[i], L.ldw, true, nxt, kTile, nullptr);
+    dense<float, false>(w + L.w_dense[i], cur, kTile, L.ldw, skip ? w + L.w_skip[i] : nullptr,
+                        enc, kTile, kEncX, bias + L.b_dense[i], L.ldw, true, nxt, kTile, nullptr);
     __syncthreads();
     float* t = cur;
     cur = nxt;
@@ -119,11 +117,11 @@ fused_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
   // Bottleneck (no activation), then the view layer: bottleneck part plus
   // dir-encode part, ReLU. The sigma head's reads of `cur` end before the
   // barrier after the bottleneck, so the view layer may overwrite it.
-  dense<WT, kBf16>(w + L.w_bneck, cur, kTile, L.ldw, nullptr, nullptr, 0, 0, bias + L.b_bneck,
-                   L.ldw, false, nxt, kTile, nullptr);
+  dense<float, false>(w + L.w_bneck, cur, kTile, L.ldw, nullptr, nullptr, 0, 0, bias + L.b_bneck,
+                      L.ldw, false, nxt, kTile, nullptr);
   __syncthreads();
-  dense<WT, kBf16>(w + L.w_view, nxt, kTile, L.ldw, w + L.w_view_dir, enc + kEncX * kTile,
-                   kTile, kEncD, bias + L.b_view, L.ldv, true, cur, kTile, nullptr);
+  dense<float, false>(w + L.w_view, nxt, kTile, L.ldw, w + L.w_view_dir, enc + kEncX * kTile,
+                      kTile, kEncD, bias + L.b_view, L.ldv, true, cur, kTile, nullptr);
   __syncthreads();
 
   // Rgb head with sigmoid: one thread per (sample, channel).
@@ -136,19 +134,19 @@ fused_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
   }
 }
 
-template <typename WT, bool kSigmaOnly>
+template <bool kSigmaOnly>
 cudaError_t launch(const float* pts, const float* dirs, long long n, long long dir_div,
-                   const void* w, const float* bias, const Layout& L, float* rgb,
+                   const float* w, const float* bias, const Layout& L, float* rgb,
                    float* sigma, cudaStream_t stream) {
   const int cap = L.ldw > L.ldv ? L.ldw : L.ldv;
   const size_t smem = sizeof(float) * kTile * (6 + kEncRows + 2 * cap);
-  auto kernel = fused_mlp_kernel<WT, kSigmaOnly>;
+  auto kernel = fused_mlp_kernel<kSigmaOnly>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long blocks = (n + kTile - 1) / kTile;
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      pts, dirs, n, dir_div, static_cast<const WT*>(w), bias, L, rgb, sigma);
+      pts, dirs, n, dir_div, w, bias, L, rgb, sigma);
   return cudaGetLastError();
 }
 
@@ -174,11 +172,12 @@ extern "C" int nerf_fused_mlp_forward(const void* pts, const void* dirs, long lo
   if (err != cudaSuccess) return static_cast<int>(err);
   const float* p = static_cast<const float*>(pts);
   const float* d = static_cast<const float*>(dirs);
+  const float* w = static_cast<const float*>(weights);
   const float* b = static_cast<const float*>(biases);
   float* o_rgb = static_cast<float*>(rgb);
   float* o_sigma = static_cast<float*>(sigma);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = sigma_only ? launch<float, true>(p, d, n, dir_div, weights, b, L, o_rgb, o_sigma, s)
-                   : launch<float, false>(p, d, n, dir_div, weights, b, L, o_rgb, o_sigma, s);
+  err = sigma_only ? launch<true>(p, d, n, dir_div, w, b, L, o_rgb, o_sigma, s)
+                   : launch<false>(p, d, n, dir_div, w, b, L, o_rgb, o_sigma, s);
   return static_cast<int>(err);
 }

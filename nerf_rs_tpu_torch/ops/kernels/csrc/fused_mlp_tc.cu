@@ -40,6 +40,12 @@
 //   the CUDA cores of the consumer threads, from shared memory.
 // Widths pad to multiples of 64 (the wgmma N of one piece); padding
 // weights and biases are zero, so padding columns stay 0.
+//
+// The pack (PackedMLP.weights_tc) and its offset table (layout_tc) are
+// this kernel's own; the table has the order of fused_mlp_common.cuh's
+// Layout, so the same parse and the same entry signature as fused_mlp.cu
+// serve it. Its layer segments are tiled as above, its head segments are
+// fused_mlp_common.cuh's K-major (ldw, 1) and (ldv, 3) rows.
 
 #include "fused_mlp_common.cuh"
 
@@ -57,7 +63,6 @@ constexpr int kThreadsTc = kConsumers + 128;   // + the producer warpgroup
 // Registers a thread (65,536 an SM): 168 at launch; the producer drops to
 // 40, the consumers (128 accumulators each) rise to 232.
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr int kTcLayoutLen = 2 * kMaxDepth + 3;
 constexpr int kXBands = 10, kDBands = 4;   // encoding bands (points, dirs)
 
 // Shared memory, in bytes from the dynamic base.
@@ -68,17 +73,6 @@ constexpr int kHeadOff = kEncDOff + kRows * kEncD * 2;    // alpha [256], rgb [2
 constexpr int kBarOff = kHeadOff + 4 * kMaxWidth * 4;     // full[kStages], empty[kStages]
 constexpr int kSmemBytes = kBarOff + 2 * kStages * 8;
 static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
-
-// Offsets (elements) of the tensor-core pack's segments, as
-// fused_mlp.py::pack_params writes layout_tc: [0, 16) dense layer i,
-// [16, 32) its encode part (-1 if none), bottleneck, viewdirs, viewdirs'
-// dir-encode part.
-struct LayoutTc {
-  long long w_dense[kMaxDepth];
-  long long w_skip[kMaxDepth];
-  long long w_bneck, w_view, w_view_dir;
-  int nw, nv;                              // ldw and ldv rounded up to kPiece
-};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -311,10 +305,9 @@ __device__ __forceinline__ float row_dot(const uint8_t* act, int row, int k, con
 template <bool kSigmaOnly>
 __global__ void __launch_bounds__(kThreadsTc, 1)
 fused_mlp_tc_kernel(const float* __restrict__ pts, const float* __restrict__ dirs, long long n,
-                    long long dir_div, const __nv_bfloat16* __restrict__ wtc,
-                    const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
-                    const Layout L, const LayoutTc T, float* __restrict__ rgb,
-                    float* __restrict__ sigma) {
+                    long long dir_div, const __nv_bfloat16* __restrict__ w,
+                    const float* __restrict__ bias, const Layout L, const int nw, const int nv,
+                    float* __restrict__ rgb, float* __restrict__ sigma) {
   extern __shared__ __align__(1024) uint8_t smem[];
   uint8_t* act = smem + kActOff;
   uint8_t* enc_x = smem + kEncXOff;
@@ -351,7 +344,7 @@ fused_mlp_tc_kernel(const float* __restrict__ pts, const float* __restrict__ dir
         const uint32_t bytes = static_cast<uint32_t>(min(kChunkK, k - c) * nn * 2);
         mbar_wait(bars + 8 * (kStages + stage), phase ^ 1);
         mbar_expect_tx(bars + 8 * stage, bytes);
-        bulk_copy(ring + stage * kStageBytes, wtc + off + static_cast<long long>(c) * nn, bytes,
+        bulk_copy(ring + stage * kStageBytes, w + off + static_cast<long long>(c) * nn, bytes,
                   bars + 8 * stage);
         if (++stage == kStages) {
           stage = 0;
@@ -360,15 +353,15 @@ fused_mlp_tc_kernel(const float* __restrict__ pts, const float* __restrict__ dir
       }
     };
     for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      emit(T.w_dense[0], kEncX, T.nw);
+      emit(L.w_dense[0], kEncX, nw);
       for (int i = 1; i < L.depth; ++i) {
-        if (T.w_skip[i] >= 0) emit(T.w_skip[i], kEncX, T.nw);
-        emit(T.w_dense[i], T.nw, T.nw);
+        if (L.w_skip[i] >= 0) emit(L.w_skip[i], kEncX, nw);
+        emit(L.w_dense[i], nw, nw);
       }
       if (!kSigmaOnly) {
-        emit(T.w_bneck, T.nw, T.nw);
-        emit(T.w_view, T.nw, T.nv);
-        emit(T.w_view_dir, kEncD, T.nv);
+        emit(L.w_bneck, nw, nw);
+        emit(L.w_view, nw, nv);
+        emit(L.w_view_dir, kEncD, nv);
       }
     }
     return;
@@ -379,7 +372,7 @@ fused_mlp_tc_kernel(const float* __restrict__ pts, const float* __restrict__ dir
   reg_alloc<kConsumerRegs>();
   const int g = warp >> 2;
   const int t = tid & 127;
-  const int npw = T.nw / kPiece, npv = T.nv / kPiece;
+  const int npw = nw / kPiece, npv = nv / kPiece;
   Pipe q{smem_u32(smem), bars, 0, 0u, -1};
   const uint32_t a_act = smem_u32(act) + g * 1024;     // row 64 g: 8 row groups of 128 B
   const uint32_t a_ex = smem_u32(enc_x) + g * 1024;
@@ -427,12 +420,12 @@ fused_mlp_tc_kernel(const float* __restrict__ pts, const float* __restrict__ dir
     wg_barrier(g);
 
     // Trunk.
-    layer_any(npw, q, a_ex, kEncX, 0, 0, T.nw, bias + L.b_dense[0], L.ldw, true, act, g);
+    layer_any(npw, q, a_ex, kEncX, 0, 0, nw, bias + L.b_dense[0], L.ldw, true, act, g);
     for (int i = 1; i < L.depth; ++i) {
-      if (T.w_skip[i] >= 0) {
-        layer_any(npw, q, a_ex, kEncX, a_act, T.nw, T.nw, bias + L.b_dense[i], L.ldw, true, act, g);
+      if (L.w_skip[i] >= 0) {
+        layer_any(npw, q, a_ex, kEncX, a_act, nw, nw, bias + L.b_dense[i], L.ldw, true, act, g);
       } else {
-        layer_any(npw, q, a_act, T.nw, 0, 0, T.nw, bias + L.b_dense[i], L.ldw, true, act, g);
+        layer_any(npw, q, a_act, nw, 0, 0, nw, bias + L.b_dense[i], L.ldw, true, act, g);
       }
     }
 
@@ -452,8 +445,8 @@ fused_mlp_tc_kernel(const float* __restrict__ pts, const float* __restrict__ dir
 
     // Bottleneck (no activation), then the view layer: bottleneck part
     // plus dir-encode part, ReLU.
-    layer_any(npw, q, a_act, T.nw, 0, 0, T.nw, bias + L.b_bneck, L.ldw, false, act, g);
-    layer_any(npv, q, a_act, T.nw, a_ed, kEncD, T.nv, bias + L.b_view, L.ldv, true, act, g);
+    layer_any(npw, q, a_act, nw, 0, 0, nw, bias + L.b_bneck, L.ldw, false, act, g);
+    layer_any(npv, q, a_act, nw, a_ed, kEncD, nv, bias + L.b_view, L.ldv, true, act, g);
 
     // Rgb head with sigmoid.
     float out[3];
@@ -472,9 +465,8 @@ fused_mlp_tc_kernel(const float* __restrict__ pts, const float* __restrict__ dir
 
 template <bool kSigmaOnly>
 cudaError_t launch(const float* pts, const float* dirs, long long n, long long dir_div,
-                   const __nv_bfloat16* wtc, const __nv_bfloat16* w, const float* bias,
-                   const Layout& L, const LayoutTc& T, float* rgb, float* sigma, int device,
-                   cudaStream_t stream) {
+                   const __nv_bfloat16* w, const float* bias, const Layout& L, float* rgb,
+                   float* sigma, int device, cudaStream_t stream) {
   auto kernel = fused_mlp_tc_kernel<kSigmaOnly>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
@@ -484,7 +476,9 @@ cudaError_t launch(const float* pts, const float* dirs, long long n, long long d
   if (err != cudaSuccess) return err;
   const long long tiles = (n + kRows - 1) / kRows;
   const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  kernel<<<grid, kThreadsTc, kSmemBytes, stream>>>(pts, dirs, n, dir_div, wtc, w, bias, L, T, rgb,
+  const int nw = (L.ldw + kPiece - 1) / kPiece * kPiece;   // widths in the pack
+  const int nv = (L.ldv + kPiece - 1) / kPiece * kPiece;
+  kernel<<<grid, kThreadsTc, kSmemBytes, stream>>>(pts, dirs, n, dir_div, w, bias, L, nw, nv, rgb,
                                                    sigma);
   return cudaGetLastError();
 }
@@ -492,37 +486,26 @@ cudaError_t launch(const float* pts, const float* dirs, long long n, long long d
 }  // namespace
 
 // pts (n, 3) f32; dirs (ceil(n / dir_div), 3) f32, sample s reads row
-// s / dir_div; weights_tc: the tensor-core pack (bf16, 16-byte aligned) at
-// layout_tc's kTcLayoutLen offsets; weights (bf16, for the heads) and
-// biases (f32) with their kLayoutLen offsets, as packed by pack_params;
-// rgb (n, 3) and sigma (n,) f32 outputs. Returns a cudaError_t value
+// s / dir_div; weights: the tensor-core pack (bf16, 16-byte aligned) and
+// biases (f32) as pack_params writes them, layout: its kLayoutLen host
+// int64 offsets (layout_tc); rgb (n, 3) and sigma (n,) f32 outputs. The
+// signature is nerf_fused_mlp_forward's. Returns a cudaError_t value
 // (0 = launched).
 extern "C" int nerf_fused_mlp_tc_forward(const void* pts, const void* dirs, long long n,
-                                         long long dir_div, const void* weights_tc,
-                                         const void* weights, const void* biases,
-                                         const long long* layout, int layout_len,
-                                         const long long* layout_tc, int layout_tc_len, int ldw,
-                                         int ldv, int depth, int sigma_only, void* rgb,
-                                         void* sigma, int device, void* stream) {
+                                         long long dir_div, const void* weights,
+                                         const void* biases, const long long* layout,
+                                         int layout_len, int ldw, int ldv, int depth,
+                                         int sigma_only, void* rgb, void* sigma, int device,
+                                         void* stream) {
   Layout L;
   if (!parse_layout(layout, layout_len, ldw, ldv, depth, &L) || dir_div < 1 || n < 0 ||
-      layout_tc_len != kTcLayoutLen || reinterpret_cast<uintptr_t>(weights_tc) % 16 != 0) {
+      reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  LayoutTc T;
-  for (int i = 0; i < kMaxDepth; ++i) {
-    T.w_dense[i] = layout_tc[i];
-    T.w_skip[i] = layout_tc[kMaxDepth + i];
-  }
-  T.w_bneck = layout_tc[2 * kMaxDepth];
-  T.w_view = layout_tc[2 * kMaxDepth + 1];
-  T.w_view_dir = layout_tc[2 * kMaxDepth + 2];
-  T.nw = (ldw + kPiece - 1) / kPiece * kPiece;
-  T.nv = (ldv + kPiece - 1) / kPiece * kPiece;
-  for (int i = 0; i < kTcLayoutLen; ++i) {
+  for (int i = 0; i < 2 * kMaxDepth + 5; ++i) {   // the weight segments
     const bool needed = i < depth || i >= 2 * kMaxDepth;
     // Segments start on 16-byte boundaries, as the bulk copies need.
-    if ((needed && layout_tc[i] < 0) || (layout_tc[i] >= 0 && layout_tc[i] % 8 != 0)) {
+    if ((needed && layout[i] < 0) || (layout[i] >= 0 && layout[i] % 8 != 0)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -531,13 +514,12 @@ extern "C" int nerf_fused_mlp_tc_forward(const void* pts, const void* dirs, long
   if (err != cudaSuccess) return static_cast<int>(err);
   const float* p = static_cast<const float*>(pts);
   const float* d = static_cast<const float*>(dirs);
-  const auto* wtc = static_cast<const __nv_bfloat16*>(weights_tc);
   const auto* w = static_cast<const __nv_bfloat16*>(weights);
   const float* b = static_cast<const float*>(biases);
   float* o_rgb = static_cast<float*>(rgb);
   float* o_sigma = static_cast<float*>(sigma);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = sigma_only ? launch<true>(p, d, n, dir_div, wtc, w, b, L, T, o_rgb, o_sigma, device, s)
-                   : launch<false>(p, d, n, dir_div, wtc, w, b, L, T, o_rgb, o_sigma, device, s);
+  err = sigma_only ? launch<true>(p, d, n, dir_div, w, b, L, o_rgb, o_sigma, device, s)
+                   : launch<false>(p, d, n, dir_div, w, b, L, o_rgb, o_sigma, device, s);
   return static_cast<int>(err);
 }

@@ -77,15 +77,16 @@ def infer_arch(params) -> Tuple[int, int, int, int]:
     return width, v_width, depth, skip_at
 
 
-def supports_arch(params) -> bool:
-    """Whether the kernels serve a network (a NerfMLP, a param tree or an
-    ArchConfig): trunk and view widths up to ``MAX_WIDTH``, at most
-    ``MAX_DEPTH`` dense layers."""
-    if hasattr(params, "skip_at"):
-        width, v_width, depth = params.width, params.v_width, params.depth
-    else:
-        width, v_width, depth, _ = infer_arch(params.tree() if hasattr(params, "tree") else params)
+def supports_dims(width: int, v_width: int, depth: int) -> bool:
+    """Whether the kernels serve these dimensions: trunk and view widths up
+    to ``MAX_WIDTH``, at most ``MAX_DEPTH`` dense layers."""
     return 1 <= width <= MAX_WIDTH and 1 <= v_width <= MAX_WIDTH and 1 <= depth <= MAX_DEPTH
+
+
+def supports_arch(params) -> bool:
+    """Whether the kernels serve a network (a NerfMLP or a param tree)."""
+    width, v_width, depth, _ = infer_arch(params.tree() if hasattr(params, "tree") else params)
+    return supports_dims(width, v_width, depth)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,11 +106,13 @@ class PackedMLP:
     the two heads, at ``layout_t``'s offsets (``csrc/fused_mlp_bwd.cu``):
     the backward kernel's input-gradient products read it.
 
-    bf16 packs also hold ``weights_tc``, the forward's tensor-core copy
-    (``csrc/fused_mlp_tc.cu``) of every segment but the heads, at
-    ``layout_tc``'s offsets: see :func:`tc_tile`. Trunk and view widths
-    pad to multiples of 64, and so does the K of the layers that read the
-    trunk; the encodes keep K = 64 and 32. f32 packs hold ``None`` there.
+    bf16 packs also hold ``weights_tc``, the tensor-core forward's own
+    pack (``csrc/fused_mlp_tc.cu``), with ``layout_tc``, an offset table
+    in ``layout``'s order (the same bias offsets). Its layer segments are
+    tiled by :func:`tc_tile`: trunk and view widths pad to multiples of
+    64, and so does the K of the layers that read the trunk; the encodes
+    keep K = 64 and 32. Its two head segments are those of ``weights``.
+    f32 packs hold ``None`` there.
     """
 
     weights: torch.Tensor
@@ -151,7 +154,7 @@ def pack_params(params, dtype: str) -> PackedMLP:
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got {dtype!r}")
     width, v_width, depth, _ = infer_arch(params)
-    if not supports_arch(params):
+    if not supports_dims(width, v_width, depth):
         raise ValueError(
             f"fused kernel serves width, v_width <= {MAX_WIDTH} and depth <= "
             f"{MAX_DEPTH}; got width={width}, v_width={v_width}, depth={depth}")
@@ -220,16 +223,18 @@ def pack_params(params, dtype: str) -> PackedMLP:
         boff += size
     biases = torch.cat(bpieces)
 
-    def seg(name):
-        return segments[name][0] if name in segments else -1
+    def table(offsets: Dict[str, int]) -> np.ndarray:
+        """A forward kernel's offset table: weight segments at ``offsets``,
+        then the biases, in csrc/fused_mlp_common.cuh's order."""
+        return np.array(
+            [offsets.get(f"dense{i}", -1) for i in range(MAX_DEPTH)]
+            + [offsets.get(f"dense{i}_enc", -1) for i in range(MAX_DEPTH)]
+            + [offsets[n] for n in ("alpha", "bottleneck", "viewdirs", "viewdirs_dir", "rgb")]
+            + [bias_slots[f"dense{i}"][0] if i < depth else -1 for i in range(MAX_DEPTH)]
+            + [bias_slots[n][0] for n in ("alpha", "bottleneck", "viewdirs", "rgb")],
+            dtype=np.int64)
 
-    layout = np.array(
-        [seg(f"dense{i}") if i < depth else -1 for i in range(MAX_DEPTH)]
-        + [seg(f"dense{i}_enc") for i in range(MAX_DEPTH)]
-        + [seg(n) for n in ("alpha", "bottleneck", "viewdirs", "viewdirs_dir", "rgb")]
-        + [bias_slots[f"dense{i}"][0] if i < depth else -1 for i in range(MAX_DEPTH)]
-        + [bias_slots[n][0] for n in ("alpha", "bottleneck", "viewdirs", "rgb")],
-        dtype=np.int64)
+    layout = table({name: off for name, (off, _, _) in segments.items()})
     layout_t = np.array(
         [offsets_t.get(f"dense{i}", -1) for i in range(MAX_DEPTH)]
         + [offsets_t.get(f"dense{i}_enc", -1) for i in range(MAX_DEPTH)]
@@ -241,20 +246,17 @@ def pack_params(params, dtype: str) -> PackedMLP:
         offsets_tc: Dict[str, int] = {}
         pieces_tc = []
         off_tc = 0
-        for name, m, rows, ld in mats:
-            if name in ("alpha", "rgb"):
-                continue
-            encoded = name in ("dense0", "viewdirs_dir") or name.endswith("_enc")
-            tiled = tc_tile(m, rows if encoded else ldw_tc, ldw_tc if ld == ldw else ldv_tc)
-            pieces_tc.append(tiled)
+        for (name, m, rows, ld), flat in zip(mats, pieces):
+            if name in ("alpha", "rgb"):          # the heads run on the CUDA cores
+                piece = flat
+            else:
+                encoded = name in ("dense0", "viewdirs_dir") or name.endswith("_enc")
+                piece = tc_tile(m, rows if encoded else ldw_tc, ldw_tc if ld == ldw else ldv_tc)
+            pieces_tc.append(piece)
             offsets_tc[name] = off_tc
-            off_tc += tiled.numel()
+            off_tc += piece.numel()
         weights_tc = torch.cat(pieces_tc).to(torch.bfloat16)
-        layout_tc = np.array(
-            [offsets_tc.get(f"dense{i}", -1) for i in range(MAX_DEPTH)]
-            + [offsets_tc.get(f"dense{i}_enc", -1) for i in range(MAX_DEPTH)]
-            + [offsets_tc[n] for n in ("bottleneck", "viewdirs", "viewdirs_dir")],
-            dtype=np.int64)
+        layout_tc = table(offsets_tc)
     return PackedMLP(weights=weights, biases=biases, segments=segments,
                      bias_slots=bias_slots, layout=layout, weights_t=weights_t,
                      layout_t=layout_t, width=width, v_width=v_width, depth=depth,
@@ -376,6 +378,38 @@ def fused_nerf_mlp_reference(params, points: torch.Tensor, viewdirs: torch.Tenso
                             + bias("viewdirs")))
         rgb = torch.sigmoid(hv @ mat("rgb") + bias("rgb"))
     return rgb.reshape(*batch, 3), sigma.reshape(batch)
+
+
+BF16_SIGMA_BARS = (2e-2, 2e-2)   # atol, rtol: tests/test_fused_mlp.py's bars for two bf16 orders
+
+
+def bf16_sigma_agrees(sig_kernel: torch.Tensor, sig_plain: torch.Tensor,
+                      sig_exact: torch.Tensor) -> Tuple[bool, Dict[str, int]]:
+    """Whether the bf16 forward kernel's sigma agrees with its plain
+    version's, on the same inputs.
+
+    A bf16 rounding that the kernel's tensor-core sums and the plain
+    version's f32 sums round apart cascades through the trunk, so a bar on
+    every sample holds only for one summation order. Both are held to
+    ``sig_exact``, the plain version on float64 inputs (the same function
+    without summation error): the kernel may leave at most twice as many
+    samples outside ``BF16_SIGMA_BARS`` of it as the plain version does,
+    plus 2. As a backstop, at most 4 + 5e-5 n of its n samples may lie
+    outside the bars of the plain version itself (fewer than one
+    128-sample tile at the render's shapes). -> (ok, the three counts).
+    """
+    atol, rtol = BF16_SIGMA_BARS
+
+    def outside(got, want):
+        got, want = got.double().reshape(-1), want.double().reshape(-1)
+        return int(((got - want).abs() > atol + rtol * want.abs()).sum())
+
+    counts = {"kernel_vs_plain": outside(sig_kernel, sig_plain),
+              "kernel_vs_exact": outside(sig_kernel, sig_exact),
+              "plain_vs_exact": outside(sig_plain, sig_exact)}
+    ok = (counts["kernel_vs_exact"] <= 2 * counts["plain_vs_exact"] + 2
+          and counts["kernel_vs_plain"] <= 4 + 5e-5 * sig_kernel.numel())
+    return ok, counts
 
 
 def fused_nerf_mlp_backward_reference(params, points: torch.Tensor, viewdirs: torch.Tensor,
@@ -534,18 +568,13 @@ def _forward_kernel(pk: PackedMLP, points: torch.Tensor, viewdirs: torch.Tensor,
     if n == 0:
         return rgb, sigma
     lib = _build.load_library()
-    args = (points.data_ptr(), dirs.data_ptr(), n, dir_div)
-    tail = (pk.ldw, pk.ldv, pk.depth, int(sigma_only), rgb.data_ptr(), sigma.data_ptr(),
-            points.device.index or 0, _stream(points.device))
-    layout = (pk.layout.ctypes.data, pk.layout.size)
     tc = pk.dtype == "bfloat16"
-    if tc:
-        err = lib.nerf_fused_mlp_tc_forward(
-            *args, pk.weights_tc.data_ptr(), pk.weights.data_ptr(), pk.biases.data_ptr(),
-            *layout, pk.layout_tc.ctypes.data, pk.layout_tc.size, *tail)
-    else:
-        err = lib.nerf_fused_mlp_forward(*args, pk.weights.data_ptr(), pk.biases.data_ptr(),
-                                         *layout, *tail)
+    entry, weights, layout = ((lib.nerf_fused_mlp_tc_forward, pk.weights_tc, pk.layout_tc) if tc
+                              else (lib.nerf_fused_mlp_forward, pk.weights, pk.layout))
+    err = entry(points.data_ptr(), dirs.data_ptr(), n, dir_div, weights.data_ptr(),
+                pk.biases.data_ptr(), layout.ctypes.data, layout.size, pk.ldw, pk.ldv, pk.depth,
+                int(sigma_only), rgb.data_ptr(), sigma.data_ptr(), points.device.index or 0,
+                _stream(points.device))
     if err != 0:
         raise RuntimeError(f"fused MLP kernel launch failed with CUDA error {err}")
     fused_nerf_mlp.launches += 1

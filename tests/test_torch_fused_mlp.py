@@ -22,6 +22,7 @@ from nerf_rs_tpu_torch.io.golden import golden_examples, load_golden
 from nerf_rs_tpu_torch.io.weights import load_nerf_params, params_to_torch
 from nerf_rs_tpu_torch.models.mlp import NerfMLP, arch_shapes, count_params, nerf_mlp
 from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
+    bf16_sigma_agrees,
     fused_nerf_mlp,
     fused_nerf_mlp_reference,
     pack_params,
@@ -183,11 +184,13 @@ def untile(flat, off, k, n):
                                                                     skip_at=5)],
                          ids=["small", "lego", "unaligned_noskip"])
 def test_tc_pack_round_trip_and_padding(arch):
-    """The bf16 pack's tensor-core copy: each segment read back through the
-    plain inverse of its tiling is the layer's bf16 weights, zero-padded to
-    K and N multiples of 64 (the encodes keep K = 64 and 32, multiples of
-    16); its segments cover the copy exactly once. The pack's other
-    layouts are those of the f32 pack, in bf16."""
+    """The bf16 pack's tensor-core copy: each layer segment read back
+    through the plain inverse of its tiling is the layer's bf16 weights,
+    zero-padded to K and N multiples of 64 (the encodes keep K = 64 and
+    32, multiples of 16); the two heads are ``weights``' head segments; the
+    segments cover the copy exactly once; its table has the order and the
+    bias offsets of ``layout``. The pack's other layouts are those of the
+    f32 pack, in bf16."""
     params = params_to_torch(np_params(arch, 8), "cpu")
     bf, f32 = pack_params(params, "bfloat16"), pack_params(params, "float32")
     assert f32.weights_tc is None and f32.layout_tc is None
@@ -209,10 +212,18 @@ def test_tc_pack_round_trip_and_padding(arch):
             k = k[enc_x:]
         segs[f"dense{i}"] = (bf.layout_tc[i], nw, nw, k)
     assert (bf.layout_tc[:16] >= 0).sum() == arch.depth
-    segs["bottleneck"] = (bf.layout_tc[32], nw, nw, kern("bottleneck"))
-    segs["viewdirs"] = (bf.layout_tc[33], nw, nv, kern("viewdirs", slice(0, arch.width)))
-    segs["viewdirs_dir"] = (bf.layout_tc[34], 32, nv, kern("viewdirs", slice(arch.width, None)))
+    segs["bottleneck"] = (bf.layout_tc[33], nw, nw, kern("bottleneck"))
+    segs["viewdirs"] = (bf.layout_tc[34], nw, nv, kern("viewdirs", slice(0, arch.width)))
+    segs["viewdirs_dir"] = (bf.layout_tc[35], 32, nv, kern("viewdirs", slice(arch.width, None)))
+    assert bf.layout_tc.shape == bf.layout.shape
+    np.testing.assert_array_equal(bf.layout_tc[37:], bf.layout[37:])
     covered = np.zeros(flat.size, np.int64)
+    for slot, name in ((32, "alpha"), (36, "rgb")):
+        off, k, ld = bf.segments[name]
+        assert bf.layout_tc[slot] % 8 == 0 and bf.layout[slot] == off, name
+        np.testing.assert_array_equal(flat[bf.layout_tc[slot]:bf.layout_tc[slot] + k * ld],
+                                      bf.weights[off:off + k * ld].float().numpy(), err_msg=name)
+        covered[bf.layout_tc[slot]:bf.layout_tc[slot] + k * ld] += 1
     for name, (off, k, n, want) in segs.items():
         assert k % 16 == 0 and n % 64 == 0 and off % 8 == 0, name
         got, idx = untile(flat, int(off), k, n)
@@ -221,6 +232,26 @@ def test_tc_pack_round_trip_and_padding(arch):
         np.testing.assert_array_equal(got[:rows, :cols], want, err_msg=name)
         assert not got[rows:].any() and not got[:, cols:].any(), name
     assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("moved, ok", [(0, True), (2, True), (128, False)],
+                         ids=["same", "two_cascades", "one_tile"])
+def test_bf16_sigma_agrees_catches_a_wrong_tile(moved, ok):
+    """The card's bar for the bf16 kernel's sigma at the coarse render
+    shape (8192 x 64): a plain version with 5 samples off the float64
+    evaluation, a kernel equal to it but for ``moved`` samples moved 5%
+    off. Two such samples (a flipped rounding's cascade) pass; one
+    128-sample tile fails."""
+    rng = np.random.default_rng(0)
+    exact = torch.from_numpy(rng.uniform(1.0, 50.0, 8192 * 64))
+    plain = exact.float()
+    plain[:5] *= 1.05
+    kernel = plain.clone()
+    kernel[4096:4096 + moved] *= 1.05
+    got, counts = bf16_sigma_agrees(kernel, plain, exact)
+    assert counts == {"kernel_vs_plain": moved, "kernel_vs_exact": 5 + moved,
+                      "plain_vs_exact": 5}
+    assert got == ok
 
 
 def test_pack_params_rejects_unserved_arch():
