@@ -24,10 +24,12 @@ forward (``train --impl int8qat``). Phases, each reported on its own line:
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: the fused MLP kernels K1 (f32 on the CUDA cores, bf16 on the
-   tensor cores) and K2, the fused resampler K3, the hash encode and the
-   int8 MLP kernel are compiled from the checkout's sources (one nvcc per
-   source, in parallel); ``cuobjdump --dump-sass`` must show HGMMA
-   (``wgmma``) instructions in both variants of the tensor-core K1;
+   tensor cores) and K2 (on the tensor cores), the fused resampler K3, the
+   hash encode and the int8 MLP kernel are compiled from the checkout's
+   sources (one nvcc per source, in parallel); ``cuobjdump --dump-sass``
+   must show HGMMA (``wgmma``) instructions in both variants of the
+   tensor-core K1, and HMMA (``mma.sync``) instructions in all four of K2,
+   every one tf32 in its f32 variants and bf16 in its bf16 ones;
 3. K1 against its plain PyTorch version at the render's shapes (8192 rays
    x 64 samples sigma-only, 8192 x 192 full), f32 and bf16, two calls
    bitwise equal; bf16 sigma held to the float64 evaluation, no further
@@ -47,9 +49,14 @@ forward (``train --impl int8qat``). Phases, each reported on its own line:
 9. one training step from the same state and batch, kernels against the
    plain MLP: losses and parameters after the step;
 10. 50 kernel steps from a random init: the loss falls, K2 launches twice
-    a step and K1 four times (teacher and student, coarse and fine);
-11. K2 and plain backward times at the fine shape, and ms per step and
-    rays/s for the kernel and the plain training paths;
+    a step and K1 four times (teacher and student, coarse and fine); then
+    BF16_STEPS steps of the bf16 training path (``train --dtype
+    bfloat16``): the loss stays finite, every K2 launch is bf16, two a step;
+11. K2 times at the fine shape in both modes against their plain versions,
+    the f32 call against its library yardstick (autograd through
+    ``models.mlp.nerf_mlp``), K2's peak scratch and its bounds by route,
+    ms per step and rays/s for the kernel and the plain training paths,
+    and one kernel step under ``torch.profiler`` (idle share, top kernels);
 12. K3 against its plain version on what the render hands it (the f32
     coarse pass of RAY_CHUNK golden-camera rays), at (64, 128) and
     (32, 64), with the scalar far and with the per-ray far of
@@ -109,8 +116,9 @@ forward (``train --impl int8qat``). Phases, each reported on its own line:
 Any failed phase exits non-zero. The line before the last is a JSON
 summary of the kernels, each with its bound (the larger of its bytes over
 the memory rate and its operations over the peak for their type — f32 on
-the CUDA cores, bf16 for the tensor-core K1, int8 for the int8 kernel —
-from this run's shapes); the last line is the JSON device record.
+the CUDA cores, bf16 for the tensor-core K1 and K2's bf16 mode, tf32 for
+the 3xTF32 products of K2's f32 mode, int8 for the int8 kernel — from
+this run's shapes); the last line is the JSON device record.
 Never imports JAX.
 """
 
@@ -160,6 +168,7 @@ BWD_BARS = {"float32": 1e-4, "bfloat16": 3e-2}
 F32_VS_PLAIN = 1.5
 TRAIN_RAYS = 4096              # the JAX CLI's train defaults (nerf_rs_tpu/cli.py)
 TRAIN_STEPS = 50
+BF16_STEPS = 10                # the bf16 training path, K2's bf16 mode
 # The accel path as bench.py runs it by default (bench.py:536-543).
 BENCH_SIZE, BENCH_CHUNK = 800, 16384
 GRID_RES, PROBES, STRIDE = 128, 32, 4
@@ -232,7 +241,7 @@ def phase_build():
     if log.exists():
         injected = 0
         for line in log.read_text().splitlines():
-            entry = re.search(r"entry function '.*?(fused_mlp_bwd_kernel|fused_mlp_tc_kernel|"
+            entry = re.search(r"entry function '.*?(fused_mlp_bwd_tc_kernel|fused_mlp_tc_kernel|"
                               r"fused_mlp_kernel|reduce_partials|resample_kernel|"
                               r"hash_encode_kernel|int8_mlp_kernel)"
                               r"(I\w*?Lb[01]E)?", line)
@@ -243,31 +252,50 @@ def phase_build():
             elif "registers" in line or "spill" in line or "wgmma" in line:
                 say("2 build", "ptxas: " + line.strip())
         say("2 build", f"ptxas: {injected} warpgroup.arrive injected before wgmmas (C7519)")
-    hgmma = tensor_core_instructions(_build)
-    say("2 build", "HGMMA instructions in the SASS of " + ", ".join(
-        f"{fn} {count}" for fn, count in hgmma.items()))
-    if len(hgmma) != 2 or not all(hgmma.values()):
+    sass = tensor_core_instructions(_build)
+    say("2 build", "tensor-core instructions in the SASS: " + ", ".join(
+        f"{re.search(r'fused_mlp(?:_bwd)?_tc_kernel(?:I(?:Lb[01]E)+)?', fn).group(0)} {count} {kind}"
+        for (fn, kind), count in sass.items()))
+    # K1 bf16: HGMMA in both variants; K2: HMMA in all four, .TF32 in the
+    # two f32 variants (template argument kBf16 = false, "Lb0" first) and
+    # .BF16 in the two bf16 ones.
+    k1 = [count for (_, kind), count in sass.items() if kind == "HGMMA"]
+    k2 = {fn: count for (fn, kind), count in sass.items() if kind == "HMMA"}
+    k2_ok = len(k2) == 4 and all(
+        count and sass.get((fn, "TF32" if "ILb0E" in fn else "BF16"), 0) == count
+        for fn, count in k2.items())
+    if len(k1) != 2 or not all(k1):
         raise PhaseFailure("the tensor-core K1 (fused_mlp_tc_kernel, both variants) has no HGMMA "
                            "instructions in the built library")
+    if not k2_ok:
+        raise PhaseFailure("K2 (fused_mlp_bwd_tc_kernel, four variants) lacks HMMA instructions, "
+                           "or tf32 ones in f32, or bf16 ones in bf16")
 
 
 def tensor_core_instructions(build) -> dict:
-    """{function: HGMMA instruction count} for each fused_mlp_tc_kernel
-    instance in ``cuobjdump --dump-sass`` of the built library."""
+    """{(function, kind): count} from ``cuobjdump --dump-sass`` of the built
+    library: HGMMA instructions of each fused_mlp_tc_kernel instance, and
+    HMMA instructions of each fused_mlp_bwd_tc_kernel instance, also
+    counted by operand type (kind "TF32" or "BF16")."""
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(build.library_path())],
                           capture_output=True, text=True, timeout=300)
     if sass.returncode != 0:
         raise PhaseFailure(f"cuobjdump failed: {sass.stderr.strip()[-500:]}")
-    counts, fn = {}, None
+    counts, fn, op = {}, None, None
     for line in sass.stdout.splitlines():
         head = re.search(r"Function : (\S+)", line)
         if head:
-            fn = head.group(1) if "fused_mlp_tc_kernel" in head.group(1) else None
+            name = head.group(1)
+            fn, op = ((name, "HGMMA") if "fused_mlp_tc_kernel" in name else
+                      (name, "HMMA") if "fused_mlp_bwd_tc_kernel" in name else (None, None))
             if fn:
-                counts[fn] = 0
-        elif fn and "HGMMA" in line:
-            counts[fn] += 1
+                counts[(fn, op)] = 0
+        elif fn and re.search(rf"\b{op}\.", line):
+            counts[(fn, op)] += 1
+            for kind in ("TF32", "BF16"):
+                if op == "HMMA" and f".{kind}" in line:
+                    counts[(fn, kind)] = counts.get((fn, kind), 0) + 1
     return counts
 
 
@@ -404,14 +432,15 @@ def main_path_backward_inputs(dev):
         seen.append((points, viewdirs, g_rgb, g_sigma))
         return real(pk, points, viewdirs, g_rgb, g_sigma, **kw)
 
-    record.launches = real.launches       # the wrapper counts through its module name
+    # The wrapper counts through its module name.
+    record.launches, record.bf16_launches = real.launches, real.bf16_launches
     fm.fused_nerf_mlp_backward = record
     try:
         loss, _ = nerf_loss(nets, batch, random.fold_in(key, torch.tensor(0)), cfg)
         loss.backward()
     finally:
         fm.fused_nerf_mlp_backward = real
-        real.launches = record.launches
+        real.launches, real.bf16_launches = record.launches, record.bf16_launches
     by_samples = {args[0].shape[-2]: args for args in seen}
     return {"coarse": (nets["coarse"], *by_samples[N_COARSE]),
             "fine": (nets["fine"], *by_samples[N_COARSE + N_FINE])}
@@ -428,7 +457,7 @@ def phase_backward_vs_plain(dev):
     )
 
     inputs = main_path_backward_inputs(dev)
-    f32_err = 0.0
+    errs = {dtype: 0.0 for dtype in BWD_BARS}
     for name, (net, *args) in inputs.items():
         for dtype, bar in BWD_BARS.items():
             got = fused_nerf_mlp_backward(net, *args, dtype=dtype)
@@ -469,20 +498,20 @@ def phase_backward_vs_plain(dev):
                          f"{rel_err(gk[tight], g64[tight]):.3e}, plain "
                          f"{rel_err(gp[tight], g64[tight]):.3e} (bar max({bar}, "
                          f"{F32_VS_PLAIN} x plain))")
-                f32_err = max(f32_err, *(float((a - b).abs().max())     # parameter gradients
-                                         for a, b in zip(got[:2], want[:2])))
+            errs[dtype] = max(errs[dtype], *(float((a - b).abs().max())   # parameter gradients
+                                             for a, b in zip(got[:2], want[:2])))
             ok = ok and bitwise
             say("8 backward", f"{line}; two calls bitwise equal: {bitwise} -> "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise PhaseFailure(f"K2 disagrees with its plain version or is not "
                                    f"deterministic: {name}/{dtype}")
-    return f32_err, inputs["fine"]
+    return errs, inputs["fine"]
 
 
-def distill_setup(dev, impl: str):
+def distill_setup(dev, impl: str, dtype: str = "float32"):
     """The training job's state, dataset, config and step key, as
-    ``python -m nerf_rs_tpu_torch train`` builds them."""
+    ``python -m nerf_rs_tpu_torch train`` builds them (``--dtype``)."""
     import torch
 
     from nerf_rs_tpu_torch.config import RenderConfig, TrainConfig
@@ -492,7 +521,7 @@ def distill_setup(dev, impl: str):
     from nerf_rs_tpu_torch.train import create_train_state
 
     cfg = TrainConfig(batch_rays=TRAIN_RAYS, render=RenderConfig(
-        n_coarse=N_COARSE, n_fine=N_FINE, ray_chunk=TRAIN_RAYS, impl=impl))
+        n_coarse=N_COARSE, n_fine=N_FINE, ray_chunk=TRAIN_RAYS, impl=impl, dtype=dtype))
     state = create_train_state(torch.Generator(device=dev).manual_seed(cfg.seed), cfg)
     assets = find_lego_assets()
     teacher = {net: load_nerf_params(assets / net) for net in ("coarse", "fine")}
@@ -579,6 +608,76 @@ def phase_train(dev):
     if not ok:
         raise PhaseFailure("training did not reduce the loss, or went around the kernels")
     return launches
+
+
+def phase_train_bf16(dev):
+    """The training path in bf16 (``train --dtype bfloat16``): BF16_STEPS
+    kernel steps from a random init, counts set to 0 just before and read
+    just after; every K2 launch is a bf16 one, two a step."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.train import train_step
+
+    state, dataset, cfg, key = distill_setup(dev, "pallas", "bfloat16")
+    batches = dataset.batches(cfg.batch_rays, seed=cfg.seed)
+    losses = []
+    torch.cuda.synchronize()
+    zero_counts()
+    for step in range(BF16_STEPS):
+        state, metrics = train_step(state, next(batches), random.fold_in(key, torch.tensor(step)),
+                                    cfg)
+        losses.append(float(metrics["loss"]))
+    counts = read_counts()
+    ok = (all(math.isfinite(v) for v in losses)
+          and counts["fused_nerf_mlp_backward_bf16"] == 2 * BF16_STEPS
+          and counts["fused_nerf_mlp_backward"] == 2 * BF16_STEPS)
+    say("10 train", f"{BF16_STEPS} bf16 kernel steps: loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+        f"K2 launches {counts['fused_nerf_mlp_backward']}, bf16 "
+        f"{counts['fused_nerf_mlp_backward_bf16']} (expected {2 * BF16_STEPS} each) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("bf16 training went around the bf16 K2 or gave a non-finite loss")
+    return counts
+
+
+def library_backward_ms(net, pts, viewdirs, g_rgb, g_sigma) -> float:
+    """K2's library yardstick: the forward of ``models.mlp.nerf_mlp`` (f32,
+    cuBLAS products with TF32 off) with grad on, and ``torch.autograd.grad``
+    of sum(g_rgb rgb) + sum(g_sigma sigma) to the parameters, the function
+    K2 computes (parameter gradients, recompute included); median ms. The
+    port's kernel path never calls it."""
+    import torch
+
+    from nerf_rs_tpu_torch.models.mlp import nerf_mlp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tree = {layer: {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+            for layer, p in net.tree().items()}
+    leaves = [t for p in tree.values() for t in p.values()]
+
+    def run():
+        rgb, sigma = nerf_mlp(tree, pts, viewdirs)
+        loss = (rgb * g_rgb.reshape(rgb.shape)).sum() + (sigma * g_sigma.reshape(sigma.shape)).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    return timed_ms(run)
+
+
+def profile_step(dev):
+    """(wall ms, device busy ms, top device kernels) of one kernel train
+    step (student forward, backward and Adam) on a fixed batch, warmed up."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.train import train_step
+
+    state, dataset, cfg, key = distill_setup(dev, "pallas")
+    batch = next(dataset.batches(cfg.batch_rays, seed=cfg.seed))
+    step_key = random.fold_in(key, torch.tensor(0))
+    train_step(state, batch, step_key, cfg)
+    return profile_frame(lambda: train_step(state, batch, step_key, cfg))
 
 
 def time_steps(dev, impl: str) -> float:
@@ -893,6 +992,7 @@ HASH_WIDE = dict(levels=4, features=8)          # train --hash-levels 4 --hash-f
 # One H100 SXM's data-sheet peaks at 700 W, for the bounds of the kernels line.
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+TF32_FLOP_S = 495e12           # dense tf32 tensor-core peak
 BF16_FLOP_S = 989e12           # dense bf16 tensor-core peak
 # The acceptance bar of the tensor-core K1: a bf16 fine call at most a
 # quarter of the CUDA-core bf16 kernel's 64.741 ms (PERF.md, PR 5).
@@ -918,6 +1018,29 @@ def mlp_bound(net, pts, viewdirs, peak_ops: float, weight_bytes: int):
     w = sum(int(p["kernel"].numel()) * weight_bytes + 4 * int(p["bias"].numel())
             for p in net.tree().values())
     return bound(4 * (n * 7 + rays * 3) + w, mlp_flops(net, False) * n, peak_ops)
+
+
+def backward_bounds(net, pts, viewdirs, g_rgb, g_sigma) -> dict:
+    """K2's bounds for one full call at these inputs, (ms, "bytes" or
+    "operations") by route: points, dirs and cotangents read once, the
+    weights read and their gradients written once (4 or 2 bytes a weight);
+    three forwards of products. "float32" is the kernel's f32 route: the
+    recompute's products on the CUDA cores, the dW and W dz products as
+    three tf32 products each; "3xtf32" all three forwards so, "cuda_cores"
+    all three on the CUDA cores; "bfloat16" all three in bf16."""
+    n = pts.numel() // 3
+    fwd = mlp_flops(net, False) * n
+    io = 4 * (pts.numel() + viewdirs.numel() + g_rgb.numel() + g_sigma.numel())
+    n_w = sum(int(p.numel()) for p in net.parameters())
+
+    def at(n_bytes, ms):
+        t_bytes = n_bytes / HBM_BYTES_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= ms else (ms, "operations")
+
+    return {"float32": at(io + 8 * n_w, (fwd / F32_FLOP_S + 3 * 2 * fwd / TF32_FLOP_S) * 1e3),
+            "3xtf32": at(io + 8 * n_w, 3 * 3 * fwd / TF32_FLOP_S * 1e3),
+            "cuda_cores": at(io + 8 * n_w, 3 * fwd / F32_FLOP_S * 1e3),
+            "bfloat16": at(io + 6 * n_w, 3 * fwd / BF16_FLOP_S * 1e3)}
 
 
 def library_mlp_ms(net, pts, viewdirs, dtype: str, sigma_only: bool) -> float:
@@ -968,25 +1091,27 @@ def counters():
 
 
 def save_counts():
-    """Every launch count: each wrapper's, then K1's tensor-core count."""
+    """Every launch count: each wrapper's, then K1's tensor-core count and
+    K2's bf16 count."""
     fns = counters()
-    return [fn.launches for fn in fns] + [fns[0].tc_launches]
+    return [fn.launches for fn in fns] + [fns[0].tc_launches, fns[1].bf16_launches]
 
 
 def restore_counts(saved) -> None:
     fns = counters()
     for fn, n in zip(fns, saved):
         fn.launches = n
-    fns[0].tc_launches = saved[-1]
+    fns[0].tc_launches, fns[1].bf16_launches = saved[-2:]
 
 
 def zero_counts() -> None:
-    restore_counts([0] * (len(counters()) + 1))
+    restore_counts([0] * (len(counters()) + 2))
 
 
 def read_counts() -> dict:
     fns = counters()
-    return {**{fn.__name__: fn.launches for fn in fns}, "fused_nerf_mlp_tc": fns[0].tc_launches}
+    return {**{fn.__name__: fn.launches for fn in fns}, "fused_nerf_mlp_tc": fns[0].tc_launches,
+            "fused_nerf_mlp_backward_bf16": fns[1].bf16_launches}
 
 
 def phase_hash_vs_plain(cam, dev):
@@ -1595,26 +1720,57 @@ def main() -> int:
 
     # The training path: K2 against its plain version, one step against the
     # plain MLP's step, then the path itself.
-    bwd_err, (net, pts, vd_f, g_rgb, g_sigma) = phase_backward_vs_plain(dev)
+    bwd_errs, (net, pts, vd_f, g_rgb, g_sigma) = phase_backward_vs_plain(dev)
     phase_step_vs_plain(dev)
     launches = phase_train(dev)
+    bf16_train_counts = phase_train_bf16(dev)
 
-    # As the training path calls them: parameter gradients only.
-    saved = fused_nerf_mlp_backward.launches
-    kb_ms = timed_ms(lambda: fused_nerf_mlp_backward(net, pts, vd_f, g_rgb, g_sigma,
-                                                     input_grads=False))
-    fused_nerf_mlp_backward.launches = saved       # comparison launches do not count
-    pb_ms = timed_ms(lambda: fused_nerf_mlp_backward_reference(net, pts, vd_f, g_rgb, g_sigma,
-                                                               input_grads=False))
-    say("11 times", f"{card}: K2 fine {tuple(pts.shape[:-1])} float32, parameter gradients: "
-        f"kernel {kb_ms:.3f} ms, plain {pb_ms:.3f} ms (median of 3)")
-    saved = (fused_nerf_mlp.launches, fused_nerf_mlp_backward.launches)
+    # K2 as the training path calls it (parameter gradients only) in both
+    # modes, its plain version, its library yardstick, its peak scratch.
+    saved = save_counts()
+    k2_ms = {}
+    for dtype in ("float32", "bfloat16"):
+        args = (net, pts, vd_f, g_rgb, g_sigma)
+        k2_ms[dtype] = (
+            timed_ms(lambda: fused_nerf_mlp_backward(*args, dtype=dtype, input_grads=False)),
+            timed_ms(lambda: fused_nerf_mlp_backward_reference(*args, dtype=dtype,
+                                                               input_grads=False)))
+    lib_bwd_ms = library_backward_ms(net, pts, vd_f, g_rgb, g_sigma)
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused_nerf_mlp_backward(net, pts, vd_f, g_rgb, g_sigma, input_grads=False)
+    torch.cuda.synchronize()
+    scratch_gib = (torch.cuda.max_memory_allocated() - base_bytes) / 2 ** 30
+    restore_counts(saved)                          # timing launches do not count
+    kb_ms, pb_ms = k2_ms["float32"]
+    say("11 times", f"{card}: K2 fine {tuple(pts.shape[:-1])}, parameter gradients (median of 3): "
+        f"float32 kernel {kb_ms:.3f} ms, plain {pb_ms:.3f} ms, library yardstick (autograd "
+        f"through models.mlp.nerf_mlp, f32, TF32 off) {lib_bwd_ms:.3f} ms -> the kernel is "
+        f"{'faster' if kb_ms < min(pb_ms, lib_bwd_ms) else 'NOT faster'} than both; bfloat16 "
+        f"kernel {k2_ms['bfloat16'][0]:.3f} ms, plain {k2_ms['bfloat16'][1]:.3f} ms; peak "
+        f"scratch of a float32 call {scratch_gib:.3f} GiB")
+    k2_bounds = backward_bounds(net, pts, vd_f, g_rgb, g_sigma)
+    say("11 times", f"{card}: K2 bounds from this call's shapes: float32 "
+        f"{k2_bounds['float32'][0]:.3f} ms ({k2_bounds['float32'][1]}; the recompute's f32 "
+        f"products at {F32_FLOP_S / 1e12:g} TFLOP/s on the CUDA cores plus the dW and W dz "
+        f"products as 3xTF32 at {TF32_FLOP_S / 1e12:g}), {k2_bounds['float32'][0] / kb_ms:.1%} "
+        f"of it; all products as 3xTF32 {k2_bounds['3xtf32'][0]:.3f} ms; all on the CUDA cores "
+        f"{k2_bounds['cuda_cores'][0]:.3f} ms; bfloat16 {k2_bounds['bfloat16'][0]:.3f} ms "
+        f"({k2_bounds['bfloat16'][1]}), {k2_bounds['bfloat16'][0] / k2_ms['bfloat16'][0]:.1%} of it")
+    saved = save_counts()
     step_ms = {impl: time_steps(dev, impl) for impl in ("pallas", "xla")}
-    fused_nerf_mlp.launches, fused_nerf_mlp_backward.launches = saved
+    restore_counts(saved)
     for impl, label in (("pallas", "kernels"), ("xla", "plain MLP")):
         say("11 times", f"{card}: train step ({label}), {TRAIN_RAYS} rays {N_COARSE}+{N_FINE}, "
             f"f32: {step_ms[impl]:.1f} ms, {TRAIN_RAYS / step_ms[impl] * 1e3:,.0f} rays/s "
             f"fwd+bwd (median of 3, teacher batch excluded)")
+    saved = save_counts()
+    step_wall, step_busy, step_top = profile_step(dev)
+    restore_counts(saved)
+    say("11 times", f"{card}: one kernel train step under torch.profiler: {step_wall:.1f} ms wall, "
+        f"device busy {step_busy:.1f} ms, idle {1 - step_busy / step_wall:.2%}; top device "
+        f"kernels: " + ", ".join(f"{name[:40]} {ms:.1f} ms" for name, ms in step_top))
 
     # The accelerated render and serving path: K3 against its plain
     # version, the path itself, the bench-size frames, the viewer, times.
@@ -1654,10 +1810,6 @@ def main() -> int:
     kt_ms, pt_ms, libt_ms = times[("fine", "bfloat16")]
     _, _, k1_net, k1_pts, _ = next(c for c in timing_cases if c[:2] == ("fine", "float32"))
     k1_bound = mlp_bound(k1_net, k1_pts, vd, F32_FLOP_S, 4)
-    w_bytes = 4 * sum(int(p.numel()) for p in k1_net.parameters())
-    k2_n = pts.numel() // 3
-    k2_bound = bound(4 * (pts.numel() + vd_f.numel() + g_rgb.numel() + g_sigma.numel())
-                     + 2 * w_bytes, 3 * mlp_flops(net, False) * k2_n, F32_FLOP_S)
     width = 1 << (N_COARSE + N_FINE - 1).bit_length()            # the bitonic row
     lg = width.bit_length() - 1
     k3_bound = bound(4 * BENCH_CHUNK * (3 * N_COARSE + 2 * N_FINE),
@@ -1689,9 +1841,13 @@ def main() -> int:
         entry("fused_nerf_mlp_bf16", "fused_mlp_tc.cu", "nerf_rs_tpu/ops/kernels/fused_mlp.py:779",
               bf16_counts["fused_nerf_mlp_tc"], k1_errs["bfloat16"], kt_ms, pt_ms, bf16_bound,
               libt_ms),
-        entry("fused_nerf_mlp_backward", "fused_mlp_bwd.cu",
+        entry("fused_nerf_mlp_backward", "fused_mlp_bwd_tc.cu",
               "nerf_rs_tpu/ops/kernels/fused_mlp.py:663", launches["fused_nerf_mlp_backward"],
-              bwd_err, kb_ms, pb_ms, k2_bound, None),
+              bwd_errs["float32"], kb_ms, pb_ms, k2_bounds["float32"], lib_bwd_ms),
+        entry("fused_nerf_mlp_backward_bf16", "fused_mlp_bwd_tc.cu",
+              "nerf_rs_tpu/ops/kernels/fused_mlp.py:663",
+              bf16_train_counts["fused_nerf_mlp_backward_bf16"], bwd_errs["bfloat16"],
+              *k2_ms["bfloat16"], k2_bounds["bfloat16"], None),
         entry("fused_resample", "resample.cu", "nerf_rs_tpu/ops/kernels/resample.py:207",
               accel_launches["fused_resample"], k3_err, k3_ms, k3_plain_ms, k3_bound, None),
         entry("hash_encode", "hash_encode.cu", "tools/pallas_gather_probe.py:81",

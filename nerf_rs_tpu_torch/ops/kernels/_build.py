@@ -102,8 +102,8 @@ def load_library() -> ctypes.CDLL:
     tc.argtypes = fwd.argtypes
     tc.restype = ctypes.c_int
     bwd = lib.nerf_fused_mlp_backward
-    bwd.argtypes = [p, p, ll, ll, p, p, p, p, p, p, i, p, i, i, i, i, i, i, p, p, ll, ll, i,
-                    p, p, p, p, i, p]
+    bwd.argtypes = [p, p, ll, ll, p, p, p, p, p, ll, p, p, i, p, i, i, i, i, i, i, p, p, ll, ll,
+                    i, p, p, p, p, i, p]
     bwd.restype = ctypes.c_int
     f = ctypes.c_float
     res = lib.nerf_fused_resample

@@ -79,15 +79,15 @@ fused_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
   __syncthreads();
 
   // Trunk.
-  dense<float, false>(w + L.w_dense[0], enc, kTile, kEncX, nullptr, nullptr, 0, 0,
-                      bias + L.b_dense[0], L.ldw, true, buf_a, kTile, nullptr);
+  dense(w + L.w_dense[0], enc, kTile, kEncX, nullptr, nullptr, 0, 0, bias + L.b_dense[0], L.ldw,
+        true, buf_a, kTile);
   __syncthreads();
   float* cur = buf_a;
   float* nxt = buf_b;
   for (int i = 1; i < L.depth; ++i) {
     const bool skip = L.w_skip[i] >= 0;
-    dense<float, false>(w + L.w_dense[i], cur, kTile, L.ldw, skip ? w + L.w_skip[i] : nullptr,
-                        enc, kTile, kEncX, bias + L.b_dense[i], L.ldw, true, nxt, kTile, nullptr);
+    dense(w + L.w_dense[i], cur, kTile, L.ldw, skip ? w + L.w_skip[i] : nullptr, enc, kTile, kEncX,
+          bias + L.b_dense[i], L.ldw, true, nxt, kTile);
     __syncthreads();
     float* t = cur;
     cur = nxt;
@@ -117,11 +117,11 @@ fused_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
   // Bottleneck (no activation), then the view layer: bottleneck part plus
   // dir-encode part, ReLU. The sigma head's reads of `cur` end before the
   // barrier after the bottleneck, so the view layer may overwrite it.
-  dense<float, false>(w + L.w_bneck, cur, kTile, L.ldw, nullptr, nullptr, 0, 0, bias + L.b_bneck,
-                      L.ldw, false, nxt, kTile, nullptr);
+  dense(w + L.w_bneck, cur, kTile, L.ldw, nullptr, nullptr, 0, 0, bias + L.b_bneck, L.ldw, false,
+        nxt, kTile);
   __syncthreads();
-  dense<float, false>(w + L.w_view, nxt, kTile, L.ldw, w + L.w_view_dir, enc + kEncX * kTile,
-                      kTile, kEncD, bias + L.b_view, L.ldv, true, cur, kTile, nullptr);
+  dense(w + L.w_view, nxt, kTile, L.ldw, w + L.w_view_dir, enc + kEncX * kTile, kTile, kEncD,
+        bias + L.b_view, L.ldv, true, cur, kTile);
   __syncthreads();
 
   // Rgb head with sigmoid: one thread per (sample, channel).

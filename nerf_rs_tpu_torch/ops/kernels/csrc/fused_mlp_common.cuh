@@ -1,7 +1,8 @@
-// Pieces shared by the fused NeRF MLP forward (fused_mlp.cu, K1) and its
-// backward (fused_mlp_bwd.cu, K2): the packed-weight layout, weight loads,
-// the bf16 rounding of activations, the CUDA-core product with an
-// 8-output x 8-sample register tile per thread, and the positional encode.
+// Pieces shared by the fused NeRF MLP kernels (fused_mlp.cu and
+// fused_mlp_tc.cu, K1; fused_mlp_bwd_tc.cu, K2): the packed-weight layout,
+// weight loads, the bf16 rounding of activations, the positional encode,
+// and the f32 forward's CUDA-core product with an 8-output x 8-sample
+// register tile per thread.
 //
 // Layout contract with ops/kernels/fused_mlp.py::pack_params: every weight
 // segment is a K-major (K, ld) matrix, w[k * ld + o], at an offset that is
@@ -74,23 +75,12 @@ __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-// Eight consecutive weights (16-byte aligned) as floats.
+// Eight consecutive weights (16-byte aligned).
 __device__ __forceinline__ void load8(const float* p, float (&w)[8]) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
   const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
   w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
   w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&w)[8]) {
-  // A bf16 value is the high half of the f32 with the same value; element
-  // 2i sits in the low half of word i (little endian).
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    w[2 * i] = __uint_as_float(u[i] << 16);
-    w[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
-  }
 }
 
 template <bool kBf16>
@@ -100,11 +90,10 @@ __device__ __forceinline__ float round_act(float v) {
 }
 
 // acc[i][j] += sum_k w[k * ld + o0 + i] * in[k * in_ld + t0 + j]
-template <typename WT>
-__device__ __forceinline__ void gemm_acc(float (&acc)[8][8], const WT* __restrict__ w,
+__device__ __forceinline__ void gemm_acc(float (&acc)[8][8], const float* __restrict__ w,
                                          int ld, int o0, const float* in, int in_ld, int K,
                                          int t0) {
-  const WT* wp = w + o0;
+  const float* wp = w + o0;
   const float* ip = in + t0;
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
@@ -123,14 +112,11 @@ __device__ __forceinline__ void gemm_acc(float (&acc)[8][8], const WT* __restric
 
 // out[o][t] = act(sum_k w1[k][o] in1[k][t] + sum_k w2[k][o] in2[k][t] + bias[o])
 // for o < n_out (a multiple of 8, <= kMaxWidth); w2 may be null. Row
-// strides: in1_ld, in2_ld and out_ld floats in shared memory; gout, when
-// not null, receives a copy of out with row stride kTile.
-template <typename WT, bool kBf16>
-__device__ __forceinline__ void dense(const WT* __restrict__ w1, const float* in1, int in1_ld,
-                                      int k1, const WT* __restrict__ w2, const float* in2,
+// strides: in1_ld, in2_ld and out_ld floats in shared memory.
+__device__ __forceinline__ void dense(const float* __restrict__ w1, const float* in1, int in1_ld,
+                                      int k1, const float* __restrict__ w2, const float* in2,
                                       int in2_ld, int k2, const float* __restrict__ bias,
-                                      int n_out, bool relu, float* out, int out_ld,
-                                      float* __restrict__ gout) {
+                                      int n_out, bool relu, float* out, int out_ld) {
   const int o0 = (threadIdx.x >> 3) * 8;  // 32 groups of 8 outputs
   const int t0 = (threadIdx.x & 7) * 8;   // 8 groups of 8 samples
   if (o0 >= n_out) return;
@@ -150,18 +136,11 @@ __device__ __forceinline__ void dense(const WT* __restrict__ w1, const float* in
     for (int j = 0; j < 8; ++j) {
       float x = acc[i][j] + b;
       if (relu) x = fmaxf(x, 0.f);
-      v[j] = round_act<kBf16>(x);
+      v[j] = x;
     }
-    const float4 lo = make_float4(v[0], v[1], v[2], v[3]);
-    const float4 hi = make_float4(v[4], v[5], v[6], v[7]);
     float4* dst = reinterpret_cast<float4*>(out + (o0 + i) * out_ld + t0);
-    dst[0] = lo;
-    dst[1] = hi;
-    if (gout != nullptr) {
-      float4* g = reinterpret_cast<float4*>(gout + (o0 + i) * kTile + t0);
-      g[0] = lo;
-      g[1] = hi;
-    }
+    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+    dst[1] = make_float4(v[4], v[5], v[6], v[7]);
   }
 }
 

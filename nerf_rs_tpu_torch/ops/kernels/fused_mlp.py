@@ -9,10 +9,11 @@ layer as two summed products, the ReLU sigma head and, unless
 the sigmoid rgb head, with activations kept on chip. It has two kernels:
 float32 on the CUDA cores (``csrc/fused_mlp.cu``) and bfloat16 on the
 tensor cores (``csrc/fused_mlp_tc.cu``: ``wgmma`` on weights bulk-copied
-into shared memory). The backward kernel K2 (``csrc/fused_mlp_bwd.cu``)
+into shared memory). The backward kernel K2 (``csrc/fused_mlp_bwd_tc.cu``)
 replaces ``_backward_t`` / ``_kernel_bwd``: it recomputes the forward per
 tile, backpropagates, and sums every layer's weight and bias gradient
-over the samples.
+over the samples, with every product on the tensor cores (``mma.sync``:
+3xTF32 in float32, bf16 in bfloat16).
 
 - :func:`pack_params` lays the weights out for the kernels, once per
   network and dtype (``models.mlp.NerfMLP.packed`` keeps the pack).
@@ -53,8 +54,8 @@ _ENC_X, _ENC_D = 64, 32     # the kernel's padded encode rows
 MAX_DEPTH = 16              # kMaxDepth in csrc/fused_mlp_common.cuh
 MAX_WIDTH = 256             # kMaxWidth: widest trunk or view branch served
 _ALIGN = 8                  # segment offsets: 16-byte aligned bf16 loads
-_TILE = 64                  # kTile in csrc/fused_mlp_common.cuh
 _TC_PIECE = 64              # kPiece in csrc/fused_mlp_tc.cu: tensor-core widths pad to it
+_BWD_TILE = 128             # kRows in csrc/fused_mlp_bwd_tc.cu: samples a backward tile
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -102,9 +103,19 @@ class PackedMLP:
     layer) and ``rgb``. Every padding entry is zero. ``layout`` is the
     int64 offset table in the order ``csrc/fused_mlp_common.cuh`` reads it.
 
-    ``weights_t`` holds the transposed (ld, K) copy of every segment but
-    the two heads, at ``layout_t``'s offsets (``csrc/fused_mlp_bwd.cu``):
-    the backward kernel's input-gradient products read it.
+    ``mma_wt`` and, in bf16 packs, ``mma_w`` are the backward kernel's
+    tensor-core packs (``csrc/fused_mlp_bwd_tc.cu``): the transpose of
+    every segment but the two heads (for the input-gradient products),
+    and the segment itself (for the bf16 recompute; the f32 recompute
+    reads ``weights``), tiled by :func:`mma_tile` into ``mma.sync``
+    B-fragment order, at the offsets of ``layout_mma`` (35 entries for
+    ``mma_w`` in the order dense{i}, dense{i}_enc, bottleneck, viewdirs,
+    viewdirs_dir, -1 in f32 packs, then 35 for ``mma_wt``). A segment's K
+    (its rows) pads to a multiple of 16, its N stays ``ld``; a
+    transpose's K is the segment's ``ld`` padded to 16, its N the
+    segment's rows. f32 ``mma_wt`` holds two rows, ``hi = tf32_rna(w)``
+    and ``lo = tf32_rna(w - hi)`` (:func:`tf32_split`), for the kernel's
+    3xTF32 products; bf16 packs hold bf16 weights.
 
     bf16 packs also hold ``weights_tc``, the tensor-core forward's own
     pack (``csrc/fused_mlp_tc.cu``), with ``layout_tc``, an offset table
@@ -120,8 +131,9 @@ class PackedMLP:
     segments: Dict[str, Tuple[int, int, int]]
     bias_slots: Dict[str, Tuple[int, int]]
     layout: np.ndarray
-    weights_t: torch.Tensor
-    layout_t: np.ndarray
+    mma_w: Optional[torch.Tensor]
+    mma_wt: torch.Tensor
+    layout_mma: np.ndarray
     width: int
     v_width: int
     depth: int
@@ -194,9 +206,10 @@ def pack_params(params, dtype: str) -> PackedMLP:
              ("rgb", kern("rgb"), ldv, 3)]
 
     segments: Dict[str, Tuple[int, int, int]] = {}
-    pieces, pieces_t = [], []
-    offsets_t: Dict[str, int] = {}
-    off = off_t = 0
+    pieces, pieces_w, pieces_wt = [], [], []
+    offsets_w: Dict[str, int] = {}
+    offsets_wt: Dict[str, int] = {}
+    off = off_w = off_wt = 0
     for name, m, rows, ld in mats:
         padded = torch.zeros((rows, ld), dtype=torch.float32, device=device)
         padded[:m.shape[0], :m.shape[1]] = m
@@ -205,11 +218,19 @@ def pack_params(params, dtype: str) -> PackedMLP:
         segments[name] = (off, rows, ld)
         off += size
         if name not in ("alpha", "rgb"):        # rows and ld are multiples of 8
-            pieces_t.append(padded.t().reshape(-1))
-            offsets_t[name] = off_t
-            off_t += rows * ld
+            w_rnd = padded.to(_DTYPES[dtype]).to(torch.float32)
+            if dtype == "bfloat16":
+                pieces_w.append(mma_tile(w_rnd, _round_up(rows, 16), ld, dtype))
+                offsets_w[name] = off_w
+                off_w += pieces_w[-1].numel()
+            pieces_wt.append(mma_tile(w_rnd.t(), _round_up(ld, 16), rows, dtype))
+            offsets_wt[name] = off_wt
+            off_wt += pieces_wt[-1].numel()
     weights = torch.cat(pieces).to(_DTYPES[dtype])
-    weights_t = torch.cat(pieces_t).to(_DTYPES[dtype])
+    if dtype == "float32":
+        mma_w, mma_wt = None, torch.stack(tf32_split(torch.cat(pieces_wt)))
+    else:
+        mma_w, mma_wt = (torch.cat(p).to(torch.bfloat16) for p in (pieces_w, pieces_wt))
 
     bias_slots: Dict[str, Tuple[int, int]] = {}
     bpieces = []
@@ -235,10 +256,11 @@ def pack_params(params, dtype: str) -> PackedMLP:
             dtype=np.int64)
 
     layout = table({name: off for name, (off, _, _) in segments.items()})
-    layout_t = np.array(
-        [offsets_t.get(f"dense{i}", -1) for i in range(MAX_DEPTH)]
-        + [offsets_t.get(f"dense{i}_enc", -1) for i in range(MAX_DEPTH)]
-        + [offsets_t[n] for n in ("bottleneck", "viewdirs", "viewdirs_dir")],
+    layout_mma = np.array(
+        [x for offsets in (offsets_w, offsets_wt) for x in (
+            [offsets.get(f"dense{i}", -1) for i in range(MAX_DEPTH)]
+            + [offsets.get(f"dense{i}_enc", -1) for i in range(MAX_DEPTH)]
+            + [offsets.get(n, -1) for n in ("bottleneck", "viewdirs", "viewdirs_dir")])],
         dtype=np.int64)
     weights_tc = layout_tc = None
     if dtype == "bfloat16":
@@ -258,10 +280,48 @@ def pack_params(params, dtype: str) -> PackedMLP:
         weights_tc = torch.cat(pieces_tc).to(torch.bfloat16)
         layout_tc = table(offsets_tc)
     return PackedMLP(weights=weights, biases=biases, segments=segments,
-                     bias_slots=bias_slots, layout=layout, weights_t=weights_t,
-                     layout_t=layout_t, width=width, v_width=v_width, depth=depth,
+                     bias_slots=bias_slots, layout=layout, mma_w=mma_w, mma_wt=mma_wt,
+                     layout_mma=layout_mma, width=width, v_width=v_width, depth=depth,
                      ldw=ldw, ldv=ldv, dtype=dtype, weights_tc=weights_tc,
                      layout_tc=layout_tc)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of float32 ``x``: ``hi = tf32_rna(x)``, ``lo =
+    tf32_rna(x - hi)``, each a float32 whose low 13 mantissa bits are zero,
+    as ``cvt.rna.tf32.f32`` rounds (to nearest, ties away from zero). The
+    3xTF32 product hi·hi + hi·lo + lo·hi of two split operands is within
+    about 2^-21 of the f32 product."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    # Adding half a tf32 ulp to the magnitude bits rounds half away from
+    # zero; the mask drops the 13 bits tf32 does not keep.
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mma_tile(m: torch.Tensor, k: int, n: int, dtype: str) -> torch.Tensor:
+    """A (K, N) matrix zero-padded to (k, n), flat in the order the backward
+    kernel loads ``mma.sync`` B fragments (``csrc/fused_mlp_bwd_tc.cu``):
+    one block of 16 k x 8 n per (k // 16, n // 8), row-major over blocks;
+    in a block, lane ``4 g + t`` of a warp holds its four elements at
+    ``4 (4 g + t) + j``, all at column ``8 nb + g`` and rows
+    ``16 kb + t + 4 j`` (f32: j = 0, 1 are ``m16n8k8``'s b0, b1 for the
+    first eight k, j = 2, 3 for the next) or ``16 kb + 2 t + (j & 1) + 8 (j >> 1)``
+    (bf16: ``m16n8k16``'s b0 = (j0, j1), b1 = (j2, j3)). k must be a
+    multiple of 16, n of 8. Returns float32; the caller casts or splits."""
+    if k % 16 or n % 8 or m.shape[0] > k or m.shape[1] > n:
+        raise ValueError(f"cannot tile a {tuple(m.shape)} matrix to ({k}, {n})")
+    padded = torch.zeros((k, n), dtype=torch.float32, device=m.device)
+    padded[:m.shape[0], :m.shape[1]] = m
+    t, j = np.meshgrid(np.arange(4), np.arange(4), indexing="ij")
+    rows = t + 4 * j if dtype == "float32" else 2 * t + (j & 1) + 8 * (j >> 1)
+    blocks = padded.reshape(k // 16, 16, n // 8, 8).permute(0, 2, 3, 1)   # kb, nb, g, row
+    idx = torch.as_tensor(rows.reshape(-1), device=m.device)
+    return blocks[..., idx].reshape(-1)
 
 
 def tc_tile(m: torch.Tensor, k: int, n: int) -> torch.Tensor:
@@ -591,8 +651,9 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
 
     CUDA tensors launch K2 on the current stream without synchronizing,
     and count one launch per call in ``fused_nerf_mlp_backward.launches``
-    (the kernel and its fixed-order sum of per-CTA partials). Two calls on
-    the same inputs give bitwise-equal results.
+    (the kernel and its fixed-order sum of per-CTA partials; bf16 calls
+    also in ``fused_nerf_mlp_backward.bf16_launches``). Two calls on the
+    same inputs give bitwise-equal results.
     """
     if points.device.type == "cpu":
         return fused_nerf_mlp_backward_reference(
@@ -614,28 +675,35 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
         dpts = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         ddirs = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     if n > 0:
-        tiles = -(-n // _TILE)
+        tiles = -(-n // _BWD_TILE)
         grid = min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
-        act = torch.empty(grid * pk.depth * pk.ldw * _TILE, dtype=torch.float32, device=dev)
+        # Per CTA: the tile's encodes, trunk outputs and bottleneck output,
+        # in the compute dtype (csrc/fused_mlp_bwd_tc.cu's workspace).
+        ws = torch.empty(grid * _BWD_TILE * (_ENC_X + _ENC_D + (pk.depth + 1) * pk.ldw),
+                         dtype=_DTYPES[dtype], device=dev)
         partials = torch.zeros(grid * (n_w + n_b), dtype=torch.float32, device=dev)
         err = _build.load_library().nerf_fused_mlp_backward(
             points.data_ptr(), dirs.data_ptr(), n, dir_div, g_rgb.data_ptr(),
-            g_sigma.data_ptr(), pk.weights.data_ptr(), pk.weights_t.data_ptr(),
-            pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout.size,
-            pk.layout_t.ctypes.data, pk.layout_t.size, pk.ldw, pk.ldv, pk.depth,
-            int(dtype == "bfloat16"), int(sigma_only), act.data_ptr(), partials.data_ptr(),
-            n_w, n_b, grid, dweights.data_ptr(), dbiases.data_ptr(),
+            g_sigma.data_ptr(), pk.weights.data_ptr(),
+            None if pk.mma_w is None else pk.mma_w.data_ptr(), pk.mma_wt.data_ptr(),
+            pk.mma_wt.shape[1] if pk.mma_wt.dim() == 2 else 0, pk.biases.data_ptr(),
+            pk.layout.ctypes.data, pk.layout.size, pk.layout_mma.ctypes.data,
+            pk.layout_mma.size, pk.ldw, pk.ldv, pk.depth, int(dtype == "bfloat16"),
+            int(sigma_only), ws.data_ptr(), partials.data_ptr(), n_w, n_b, grid,
+            dweights.data_ptr(), dbiases.data_ptr(),
             dpts.data_ptr() if input_grads else None, ddirs.data_ptr() if input_grads else None,
             dev.index or 0, _stream(dev))
         if err != 0:
             raise RuntimeError(f"fused MLP backward kernel launch failed with CUDA error {err}")
         fused_nerf_mlp_backward.launches += 1
+        fused_nerf_mlp_backward.bf16_launches += int(dtype == "bfloat16")
     if not input_grads:
         return dweights, dbiases, None, None
     return dweights, dbiases, dpts.view(*batch, 3), ddirs.view(*batch, 3)
 
 
 fused_nerf_mlp_backward.launches = 0
+fused_nerf_mlp_backward.bf16_launches = 0
 
 
 class _FusedMLP(torch.autograd.Function):

@@ -1,7 +1,7 @@
 """PyTorch port on the card: the fused MLP kernels (forward K1, f32 on the
-CUDA cores and bf16 on the tensor cores; backward K2), the fused resampler
-(K3), the hash encode and the int8 MLP kernel against their plain
-versions, and the packed accel render against the unpacked one.
+CUDA cores and bf16 on the tensor cores; backward K2 on the tensor cores),
+the fused resampler (K3), the hash encode and the int8 MLP kernel against
+their plain versions, and the packed accel render against the unpacked one.
 
 Needs an NVIDIA card and nvcc, and skips elsewhere. Imports no JAX, so it
 runs on a machine without it:
@@ -167,37 +167,64 @@ def cotangents(shape, seed, device):
 
 @pytest.mark.parametrize("sigma_only", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", [SMALL, ArchConfig(width=100, v_width=36, depth=3, skip_at=5)],
-                         ids=["small", "unaligned_noskip"])
+@pytest.mark.parametrize("arch", [SMALL, ArchConfig(width=100, v_width=36, depth=3, skip_at=5),
+                                  "lego_fine"], ids=["small", "unaligned_noskip", "lego_fine"])
 def test_backward_kernel_matches_plain_ragged(card, arch, dtype, sigma_only):
     """K2 on a ragged sample count (37 x 29, not a tile multiple) with one
-    dir per ray: every leaf's gradient, d(points) and d(dirs)."""
-    net = NerfMLP(np_params(arch, 4), device=card)
-    pts, dirs = inputs(37, 29, 5, card)
+    dir per ray: every leaf's gradient, d(points) and d(dirs). The lego
+    fine network runs at the training shape, 4096 rays x 192 samples
+    (6144 tiles of 128, more than the card's SMs, so the persistent CTAs
+    loop); there f32 is held, as chip_smoke.py's phase 8 holds it, to the
+    float64 evaluation: within max(1e-4, 1.5 x the plain version's
+    distance) of it."""
+    if arch == "lego_fine":
+        net = NerfMLP(load_nerf_params(LEGO / "fine"), device=card)
+        pts, dirs = inputs(4096, 192, 5, card)
+        pts = pts * 0.4
+    else:
+        net = NerfMLP(np_params(arch, 4), device=card)
+        pts, dirs = inputs(37, 29, 5, card)
     g_rgb, g_sig = cotangents(pts.shape[:-1], 6, card)
     got, want = backward_pair(net, pts, dirs, g_rgb, g_sig, dtype, sigma_only)
+    exact = None
+    if arch == "lego_fine" and dtype == "float32":
+        exact = fused_nerf_mlp_backward_reference(net, pts.double(), dirs.double(), g_rgb.double(),
+                                                  g_sig.double(), sigma_only=sigma_only)
+
+    def close(g_k, g_p, g_64=None):
+        if g_64 is None:
+            return rel_err(g_k, g_p) <= BWD_TOL[dtype]
+        return (rel_err(g_k.double(), g_64)
+                <= max(BWD_TOL[dtype], 1.5 * rel_err(g_p.double(), g_64)))
+
     pk = net.packed(dtype)
     tree_k, tree_p = unpack_grads(pk, got[0], got[1]), unpack_grads(pk, want[0], want[1])
+    tree_64 = unpack_grads(pk, exact[0], exact[1]) if exact is not None else None
     for layer in tree_p:
         for part in ("kernel", "bias"):
             want_leaf = tree_p[layer][part]
             if sigma_only and layer in ("bottleneck", "viewdirs", "rgb"):
                 assert not tree_k[layer][part].any() and not want_leaf.any()
             else:
-                assert rel_err(tree_k[layer][part], want_leaf) <= BWD_TOL[dtype], (layer, part)
-    assert rel_err(got[2], want[2]) <= BWD_TOL[dtype]
+                g_64 = tree_64[layer][part] if tree_64 is not None else None
+                assert close(tree_k[layer][part], want_leaf, g_64), (layer, part)
+    assert close(got[2], want[2], exact[2] if exact is not None else None)
     if sigma_only:
         assert not got[3].any()
     else:
-        assert rel_err(got[3], want[3]) <= BWD_TOL[dtype]
+        assert close(got[3], want[3], exact[3] if exact is not None else None)
 
 
-def test_backward_kernel_is_deterministic(card):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernel_is_deterministic(card, dtype):
+    """Two calls bitwise equal: each CTA adds its tiles into its own
+    partial in a fixed order, and the partials are summed in a fixed
+    order."""
     net = NerfMLP(np_params(SMALL, 7), device=card)
-    pts, dirs = inputs(64, 48, 8, card)
+    pts, dirs = inputs(512, 48, 8, card)
     g_rgb, g_sig = cotangents(pts.shape[:-1], 9, card)
-    a = fused_nerf_mlp_backward(net, pts, dirs, g_rgb, g_sig)
-    b = fused_nerf_mlp_backward(net, pts, dirs, g_rgb, g_sig)
+    a = fused_nerf_mlp_backward(net, pts, dirs, g_rgb, g_sig, dtype=dtype)
+    b = fused_nerf_mlp_backward(net, pts, dirs, g_rgb, g_sig, dtype=dtype)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
@@ -205,10 +232,10 @@ def test_backward_kernel_is_deterministic(card):
 def test_autograd_through_kernels_matches_plain_autograd(card, dtype):
     """fused_nerf_mlp's gradients on the card (K1 + K2) against the plain
     path's, leaf by leaf: f32 against torch autograd of the plain oracle;
-    bf16 (K1 on the tensor cores, K2 recomputing that forward on the CUDA
-    cores in another summation order) against fused_nerf_mlp on CPU
-    tensors, the plain forward and backward. Sigma-only leaves the color
-    branch at exactly zero."""
+    bf16 (K1 and K2 both on the tensor cores, K2 recomputing the forward
+    in K1's k-order) against fused_nerf_mlp on CPU tensors, the plain
+    forward and backward. Sigma-only leaves the color branch at exactly
+    zero."""
     from nerf_rs_tpu_torch.models.mlp import nerf_mlp
 
     plain = (nerf_mlp, card) if dtype == "float32" else (fused_nerf_mlp, torch.device("cpu"))

@@ -180,19 +180,158 @@ def test_unpack_grads_inverts_pack(arch):
             assert torch.equal(tree[layer][part], t), f"{layer}/{part}"
 
 
+def untile_mma(flat, off, k, n, dtype):
+    """The (k, n) matrix at ``off`` of a tensor-core pack, read element by
+    element back from the B-fragment order csrc/fused_mlp_bwd_tc.cu loads
+    (lane 4 g + t of block (kb, nb) holds column 8 nb + g, four rows)."""
+    kk, nn = np.meshgrid(np.arange(k), np.arange(n), indexing="ij")
+    r = kk % 16
+    if dtype == "float32":                      # row t + 4 j
+        t, j = r % 4, r // 4
+    else:                                       # row 2 t + (j & 1) + 8 (j >> 1)
+        t, j = (r % 8) // 2, (r % 2) + 2 * (r // 8)
+    lane = 4 * (nn % 8) + t
+    idx = off + (((kk // 16) * (n // 8) + nn // 8) * 32 + lane) * 4 + j
+    return flat[idx], idx
+
+
+def mma_segments(pk, arch):
+    """{name: (index in the table, rows K, ld N)} of the product segments."""
+    out = {f"dense{i}": (i, *pk.segments[f"dense{i}"][1:]) for i in range(arch.depth)}
+    out.update({f"dense{i}_enc": (16 + i, *pk.segments[f"dense{i}_enc"][1:])
+                for i in range(1, arch.depth) if f"dense{i}_enc" in pk.segments})
+    out.update({name: (32 + j, *pk.segments[name][1:])
+                for j, name in enumerate(("bottleneck", "viewdirs", "viewdirs_dir"))})
+    return out
+
+
 def test_transposed_pack_holds_every_product_segment(small):
-    """weights_t holds each segment but the heads transposed, at layout_t's
-    offsets, in the pack's dtype."""
+    """The backward kernel's packs: mma_wt holds the transpose of each
+    segment but the heads, and a bf16 pack's mma_w the segment itself (the
+    f32 recompute reads ``weights``), at layout_mma's offsets, read back
+    through the inverse of their tiling (K padded to a multiple of 16 with
+    zeros); f32 as hi + lo, bf16 as the bf16 weights; every element of a
+    pack belongs to exactly one segment."""
     params = params_to_torch(small, "cpu")
     for dtype in ("float32", "bfloat16"):
         pk = pack_params(params, dtype)
-        assert pk.weights_t.dtype == pk.weights.dtype
-        names = [f"dense{i}" for i in range(SMALL.depth)] + ["dense3_enc"]
-        offsets = list(pk.layout_t[:SMALL.depth]) + [pk.layout_t[16 + 3]]
-        names += ["bottleneck", "viewdirs", "viewdirs_dir"]
-        offsets += list(pk.layout_t[32:35])
-        for name, off in zip(names, offsets):
-            _, k, ld = pk.segments[name]
-            got = pk.weights_t[off:off + k * ld].view(ld, k).to(torch.float32)
-            assert torch.equal(got, pk.mat(name).t()), (dtype, name)
-        assert (pk.layout_t[SMALL.depth:16] == -1).all()
+        segs = mma_segments(pk, SMALL)
+        assert pk.layout_mma.size == 70 and (pk.layout_mma[35 + SMALL.depth:35 + 16] == -1).all()
+        if dtype == "float32":
+            assert pk.mma_w is None and (pk.layout_mma[:35] == -1).all()
+            assert pk.mma_wt.dtype == torch.float32 and pk.mma_wt.shape[0] == 2
+            packs = ((pk.mma_wt.sum(0), 35, True),)          # hi + lo, exact in float32
+        else:
+            assert pk.mma_w.dtype == pk.mma_wt.dtype == torch.bfloat16
+            assert (pk.layout_mma[SMALL.depth:16] == -1).all()
+            packs = ((pk.mma_w, 0, False), (pk.mma_wt, 35, True))
+        for pack, base, transpose in packs:
+            flat = pack.float().numpy()
+            covered = np.zeros(flat.size, np.int64)
+            for name, (slot, k, ld) in segs.items():
+                want = pk.mat(name).numpy()
+                if transpose:
+                    want = want.T
+                kp, n = -(-want.shape[0] // 16) * 16, want.shape[1]
+                got, idx = untile_mma(flat, int(pk.layout_mma[base + slot]), kp, n, dtype)
+                np.add.at(covered, idx.reshape(-1), 1)
+                np.testing.assert_allclose(got[:want.shape[0]], want, rtol=2.0 ** -21, atol=0,
+                                           err_msg=(dtype, name, transpose))
+                assert not got[want.shape[0]:].any(), (dtype, name)
+            assert (covered == 1).all(), (dtype, transpose)
+
+
+@pytest.mark.parametrize("arch", [SMALL, ArchConfig(), ArchConfig(width=100, v_width=36, depth=3,
+                                                                    skip_at=5)],
+                         ids=["small", "lego", "unaligned_noskip"])
+def test_mma_pack_split_round_trip(arch):
+    """The f32 tensor-core pack splits each weight into tf32 hi and lo:
+    both have their low 13 mantissa bits zero, hi + lo is within 2^-22 |w|
+    of w, hi is w rounded to nearest tf32, and the padding of both is
+    zero; the tiling inverts (test above)."""
+    params = params_to_torch(np_params(arch, 9), "cpu")
+    pk = pack_params(params, "float32")
+    for pack, base, transpose in ((pk.mma_wt, 35, True),):
+        hi, lo = pack[0], pack[1]
+        assert not (hi.view(torch.int32) & 0x1FFF).any() and not (lo.view(torch.int32) & 0x1FFF).any()
+        for name, (slot, k, ld) in mma_segments(pk, arch).items():
+            want = pk.mat(name).double().numpy()
+            if transpose:
+                want = want.T
+            kp, n = -(-want.shape[0] // 16) * 16, want.shape[1]
+            off = int(pk.layout_mma[base + slot])
+            got_hi, _ = untile_mma(hi.double().numpy(), off, kp, n, "float32")
+            got_lo, _ = untile_mma(lo.double().numpy(), off, kp, n, "float32")
+            r = want.shape[0]
+            err = np.abs(got_hi[:r] + got_lo[:r] - want)
+            assert (err <= 2.0 ** -22 * np.abs(want)).all(), (name, transpose, float(err.max()))
+            # hi is the nearest tf32 (10 mantissa bits): within half its ulp.
+            ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 10)
+            assert (np.abs(got_hi[:r] - want) <= 0.5 * ulp).all(), (name, transpose)
+            assert not got_hi[r:].any() and not got_lo[r:].any(), name
+
+
+def tf32_rna(x):
+    """float32 rounded to tf32 (10 mantissa bits), to nearest, ties away
+    from zero, by bit operations."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+class ThreeTF32(torch.overrides.TorchFunctionMode):
+    """Every float32 matrix product as the backward kernel computes it on
+    the tensor cores: each operand split into tf32 hi and lo, the three
+    products lo.hi + hi.lo + hi.hi (each exact in float32), summed in
+    float32. Other dtypes and functions pass through."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if (func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
+                and all(a.dtype == torch.float32 for a in args[:2])):
+            a, b = args[:2]
+            ah, bh = tf32_rna(a), tf32_rna(b)
+            al, bl = tf32_rna(a - ah), tf32_rna(b - bh)
+            return (al @ bh + ah @ bl) + ah @ bh
+        return func(*args, **kwargs)
+
+
+@pytest.mark.parametrize("arch", ["small", "lego_fine"])
+def test_3xtf32_backward_meets_the_f32_bar(small, arch):
+    """The numeric design of the f32 backward kernel before the card sees
+    it: the backward reference's products through a 3xTF32 emulation, on a
+    few hundred samples, hold every gradient (leaves, d(points), d(dirs))
+    within max(1e-4, 1.5 x the plain f32 version's distance) of the float64
+    evaluation, chip_smoke.py's phase-8 bar."""
+    from pathlib import Path
+
+    from nerf_rs_tpu_torch.io.weights import load_nerf_params
+
+    if arch == "small":
+        params, scale = params_to_torch(small, "cpu"), 1.0
+    else:
+        lego = Path(__file__).resolve().parents[1] / "assets" / "lego_rust" / "fine"
+        params, scale = params_to_torch(load_nerf_params(lego), "cpu"), 0.4
+    pts, dirs, g_rgb, g_sig = (torch.from_numpy(a) for a in np_rays(8, 40, 12))
+    pts = pts * scale
+    pk = pack_params(params, "float32")
+    args = (pts, dirs, g_rgb, g_sig)
+    plain = fused_nerf_mlp_backward_reference(pk, *args)
+    with ThreeTF32():
+        emulated = fused_nerf_mlp_backward_reference(pk, *args)
+    exact = fused_nerf_mlp_backward_reference(pk, *(a.double() for a in args))
+
+    def grads(out):
+        tree = unpack_grads(pk, out[0], out[1])
+        g = {f"{layer}/{part}": tree[layer][part].double() for layer in tree
+             for part in ("kernel", "bias")}
+        g["d(points)"], g["d(dirs)"] = out[2].double(), out[3].double()
+        return g
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+    ge, gp, g64 = grads(emulated), grads(plain), grads(exact)
+    assert not torch.equal(emulated[0], plain[0])      # the emulation ran
+    for k in g64:
+        assert rel(ge[k], g64[k]) <= max(1e-4, 1.5 * rel(gp[k], g64[k])), \
+            (k, rel(ge[k], g64[k]), rel(gp[k], g64[k]))
