@@ -28,8 +28,8 @@ forward (``train --impl int8qat``). Phases, each reported on its own line:
    hash encode and the int8 MLP kernel are compiled from the checkout's
    sources (one nvcc per source, in parallel); ``cuobjdump --dump-sass``
    must show HGMMA (``wgmma``) instructions in both variants of the
-   tensor-core K1, and HMMA (``mma.sync``) instructions in all four of K2,
-   every one tf32 in its f32 variants and bf16 in its bf16 ones;
+   tensor-core K1 and of K2's bf16 kernel, and HMMA (``mma.sync``)
+   instructions, every one tf32, in both variants of K2's f32 kernel;
 3. K1 against its plain PyTorch version at the render's shapes (8192 rays
    x 64 samples sigma-only, 8192 x 192 full), f32 and bf16, two calls
    bitwise equal; bf16 sigma held to the float64 evaluation, no further
@@ -52,9 +52,10 @@ forward (``train --impl int8qat``). Phases, each reported on its own line:
     a step and K1 four times (teacher and student, coarse and fine); then
     BF16_STEPS steps of the bf16 training path (``train --dtype
     bfloat16``): the loss stays finite, every K2 launch is bf16, two a step;
-11. K2 times at the fine shape in both modes against their plain versions,
-    the f32 call against its library yardstick (autograd through
-    ``models.mlp.nerf_mlp``), K2's peak scratch and its bounds by route,
+11. K2 times at the fine shape in both modes against their plain versions
+    and their library yardsticks (autograd through ``models.mlp.nerf_mlp``
+    in the same dtype), K1 f32 on the same samples (the f32 recompute's
+    arithmetic alone), K2's peak scratch and its bounds by route,
     ms per step and rays/s for the kernel and the plain training paths,
     and one kernel step under ``torch.profiler`` (idle share, top kernels);
 12. K3 against its plain version on what the render hands it (the f32
@@ -117,8 +118,10 @@ Any failed phase exits non-zero. The line before the last is a JSON
 summary of the kernels, each with its bound (the larger of its bytes over
 the memory rate and its operations over the peak for their type — f32 on
 the CUDA cores, bf16 for the tensor-core K1 and K2's bf16 mode, tf32 for
-the 3xTF32 products of K2's f32 mode, int8 for the int8 kernel — from
-this run's shapes); the last line is the JSON device record.
+K2's f32 mode, whose route is 3xTF32 (its entry also carries the bound
+with the recompute on the CUDA cores, as the kernel runs it, and the
+all-CUDA-core bound), int8 for the int8 kernel — from this run's
+shapes); the last line is the JSON device record.
 Never imports JAX.
 """
 
@@ -242,6 +245,7 @@ def phase_build():
         injected = 0
         for line in log.read_text().splitlines():
             entry = re.search(r"entry function '.*?(fused_mlp_bwd_tc_kernel|fused_mlp_tc_kernel|"
+                              r"fused_mlp_bwd_bf16_kernel|"
                               r"fused_mlp_kernel|reduce_partials|resample_kernel|"
                               r"hash_encode_kernel|int8_mlp_kernel)"
                               r"(I\w*?Lb[01]E)?", line)
@@ -254,29 +258,31 @@ def phase_build():
         say("2 build", f"ptxas: {injected} warpgroup.arrive injected before wgmmas (C7519)")
     sass = tensor_core_instructions(_build)
     say("2 build", "tensor-core instructions in the SASS: " + ", ".join(
-        f"{re.search(r'fused_mlp(?:_bwd)?_tc_kernel(?:I(?:Lb[01]E)+)?', fn).group(0)} {count} {kind}"
-        for (fn, kind), count in sass.items()))
-    # K1 bf16: HGMMA in both variants; K2: HMMA in all four, .TF32 in the
-    # two f32 variants (template argument kBf16 = false, "Lb0" first) and
-    # .BF16 in the two bf16 ones.
-    k1 = [count for (_, kind), count in sass.items() if kind == "HGMMA"]
+        f"{re.search(r'fused_mlp(?:_bwd)?_(?:tc|bf16)_kernel(?:I(?:Lb[01]E)+)?', fn).group(0)} "
+        f"{count} {kind}" for (fn, kind), count in sass.items()))
+    # K1 bf16 and K2 bf16: HGMMA in both variants (sigma_only or not); K2
+    # f32: HMMA in both, every one .TF32.
+    hgmma = {kernel: [count for (fn, kind), count in sass.items()
+                      if kind == "HGMMA" and kernel in fn]
+             for kernel in ("fused_mlp_tc_kernel", "fused_mlp_bwd_bf16_kernel")}
     k2 = {fn: count for (fn, kind), count in sass.items() if kind == "HMMA"}
-    k2_ok = len(k2) == 4 and all(
-        count and sass.get((fn, "TF32" if "ILb0E" in fn else "BF16"), 0) == count
-        for fn, count in k2.items())
-    if len(k1) != 2 or not all(k1):
-        raise PhaseFailure("the tensor-core K1 (fused_mlp_tc_kernel, both variants) has no HGMMA "
-                           "instructions in the built library")
+    k2_ok = len(k2) == 2 and all(count and sass.get((fn, "TF32"), 0) == count
+                                 for fn, count in k2.items())
+    for kernel, counts in hgmma.items():
+        if len(counts) != 2 or not all(counts):
+            raise PhaseFailure(f"{kernel} (both variants) has no HGMMA instructions in the built "
+                               f"library")
     if not k2_ok:
-        raise PhaseFailure("K2 (fused_mlp_bwd_tc_kernel, four variants) lacks HMMA instructions, "
-                           "or tf32 ones in f32, or bf16 ones in bf16")
+        raise PhaseFailure("K2's f32 kernel (fused_mlp_bwd_tc_kernel, both variants) lacks HMMA "
+                           "instructions, or has some that are not tf32")
 
 
 def tensor_core_instructions(build) -> dict:
     """{(function, kind): count} from ``cuobjdump --dump-sass`` of the built
-    library: HGMMA instructions of each fused_mlp_tc_kernel instance, and
-    HMMA instructions of each fused_mlp_bwd_tc_kernel instance, also
-    counted by operand type (kind "TF32" or "BF16")."""
+    library: HGMMA instructions of each fused_mlp_tc_kernel and
+    fused_mlp_bwd_bf16_kernel instance, and HMMA instructions of each
+    fused_mlp_bwd_tc_kernel instance, also counted by operand type (kind
+    "TF32" or "BF16")."""
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(build.library_path())],
                           capture_output=True, text=True, timeout=300)
@@ -287,7 +293,8 @@ def tensor_core_instructions(build) -> dict:
         head = re.search(r"Function : (\S+)", line)
         if head:
             name = head.group(1)
-            fn, op = ((name, "HGMMA") if "fused_mlp_tc_kernel" in name else
+            fn, op = ((name, "HGMMA")
+                      if "fused_mlp_tc_kernel" in name or "fused_mlp_bwd_bf16_kernel" in name else
                       (name, "HMMA") if "fused_mlp_bwd_tc_kernel" in name else (None, None))
             if fn:
                 counts[(fn, op)] = 0
@@ -641,11 +648,12 @@ def phase_train_bf16(dev):
     return counts
 
 
-def library_backward_ms(net, pts, viewdirs, g_rgb, g_sigma) -> float:
-    """K2's library yardstick: the forward of ``models.mlp.nerf_mlp`` (f32,
-    cuBLAS products with TF32 off) with grad on, and ``torch.autograd.grad``
-    of sum(g_rgb rgb) + sum(g_sigma sigma) to the parameters, the function
-    K2 computes (parameter gradients, recompute included); median ms. The
+def library_backward_ms(net, pts, viewdirs, g_rgb, g_sigma, dtype: str = "float32") -> float:
+    """K2's library yardstick: the forward of ``models.mlp.nerf_mlp`` in
+    ``dtype`` (cuBLAS products, TF32 off; bf16 on a bf16 tree and inputs, as
+    ``library_mlp_ms``) with grad on, and ``torch.autograd.grad`` of
+    sum(g_rgb rgb) + sum(g_sigma sigma) to the parameters, the function K2
+    computes (parameter gradients, recompute included); median ms. The
     port's kernel path never calls it."""
     import torch
 
@@ -653,13 +661,15 @@ def library_backward_ms(net, pts, viewdirs, g_rgb, g_sigma) -> float:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    tree = {layer: {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    tree = {layer: {k: v.detach().to(dt).clone().requires_grad_() for k, v in p.items()}
             for layer, p in net.tree().items()}
     leaves = [t for p in tree.values() for t in p.values()]
+    p, d, gr, gs = (x.to(dt) for x in (pts, viewdirs, g_rgb, g_sigma))
 
     def run():
-        rgb, sigma = nerf_mlp(tree, pts, viewdirs)
-        loss = (rgb * g_rgb.reshape(rgb.shape)).sum() + (sigma * g_sigma.reshape(sigma.shape)).sum()
+        rgb, sigma = nerf_mlp(tree, p, d)
+        loss = (rgb * gr.reshape(rgb.shape)).sum() + (sigma * gs.reshape(sigma.shape)).sum()
         return torch.autograd.grad(loss, leaves)
 
     return timed_ms(run)
@@ -1024,10 +1034,11 @@ def backward_bounds(net, pts, viewdirs, g_rgb, g_sigma) -> dict:
     """K2's bounds for one full call at these inputs, (ms, "bytes" or
     "operations") by route: points, dirs and cotangents read once, the
     weights read and their gradients written once (4 or 2 bytes a weight);
-    three forwards of products. "float32" is the kernel's f32 route: the
-    recompute's products on the CUDA cores, the dW and W dz products as
-    three tf32 products each; "3xtf32" all three forwards so, "cuda_cores"
-    all three on the CUDA cores; "bfloat16" all three in bf16."""
+    three forwards of products. "3xtf32" is the f32 mode's route, every
+    product as three tf32 products; "recompute_cuda_cores" as the f32
+    kernel runs it, the recompute's products on the CUDA cores and the dW
+    and W dz products as 3xTF32; "cuda_cores" all three forwards on the
+    CUDA cores; "bfloat16" all three in bf16."""
     n = pts.numel() // 3
     fwd = mlp_flops(net, False) * n
     io = 4 * (pts.numel() + viewdirs.numel() + g_rgb.numel() + g_sigma.numel())
@@ -1037,7 +1048,8 @@ def backward_bounds(net, pts, viewdirs, g_rgb, g_sigma) -> dict:
         t_bytes = n_bytes / HBM_BYTES_S * 1e3
         return (t_bytes, "bytes") if t_bytes >= ms else (ms, "operations")
 
-    return {"float32": at(io + 8 * n_w, (fwd / F32_FLOP_S + 3 * 2 * fwd / TF32_FLOP_S) * 1e3),
+    return {"recompute_cuda_cores": at(io + 8 * n_w,
+                                       (fwd / F32_FLOP_S + 3 * 2 * fwd / TF32_FLOP_S) * 1e3),
             "3xtf32": at(io + 8 * n_w, 3 * 3 * fwd / TF32_FLOP_S * 1e3),
             "cuda_cores": at(io + 8 * n_w, 3 * fwd / F32_FLOP_S * 1e3),
             "bfloat16": at(io + 6 * n_w, 3 * fwd / BF16_FLOP_S * 1e3)}
@@ -1726,16 +1738,19 @@ def main() -> int:
     bf16_train_counts = phase_train_bf16(dev)
 
     # K2 as the training path calls it (parameter gradients only) in both
-    # modes, its plain version, its library yardstick, its peak scratch.
+    # modes, its plain version, its library yardstick, its peak scratch;
+    # K1 f32 on the same samples, the arithmetic of K2's f32 recompute.
     saved = save_counts()
-    k2_ms = {}
+    k2_ms, lib_bwd_ms = {}, {}
     for dtype in ("float32", "bfloat16"):
         args = (net, pts, vd_f, g_rgb, g_sigma)
         k2_ms[dtype] = (
             timed_ms(lambda: fused_nerf_mlp_backward(*args, dtype=dtype, input_grads=False)),
             timed_ms(lambda: fused_nerf_mlp_backward_reference(*args, dtype=dtype,
                                                                input_grads=False)))
-    lib_bwd_ms = library_backward_ms(net, pts, vd_f, g_rgb, g_sigma)
+        lib_bwd_ms[dtype] = library_backward_ms(*args, dtype=dtype)
+    with torch.no_grad():
+        k1_same_ms = timed_ms(lambda: fused_nerf_mlp(net, pts, vd_f))
     torch.cuda.synchronize()
     base_bytes = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1744,20 +1759,27 @@ def main() -> int:
     scratch_gib = (torch.cuda.max_memory_allocated() - base_bytes) / 2 ** 30
     restore_counts(saved)                          # timing launches do not count
     kb_ms, pb_ms = k2_ms["float32"]
+    kt2_ms, pt2_ms = k2_ms["bfloat16"]
     say("11 times", f"{card}: K2 fine {tuple(pts.shape[:-1])}, parameter gradients (median of 3): "
         f"float32 kernel {kb_ms:.3f} ms, plain {pb_ms:.3f} ms, library yardstick (autograd "
-        f"through models.mlp.nerf_mlp, f32, TF32 off) {lib_bwd_ms:.3f} ms -> the kernel is "
-        f"{'faster' if kb_ms < min(pb_ms, lib_bwd_ms) else 'NOT faster'} than both; bfloat16 "
-        f"kernel {k2_ms['bfloat16'][0]:.3f} ms, plain {k2_ms['bfloat16'][1]:.3f} ms; peak "
-        f"scratch of a float32 call {scratch_gib:.3f} GiB")
+        f"through models.mlp.nerf_mlp, f32, TF32 off) {lib_bwd_ms['float32']:.3f} ms -> the "
+        f"kernel is {'faster' if kb_ms < min(pb_ms, lib_bwd_ms['float32']) else 'NOT faster'} "
+        f"than both; bfloat16 kernel {kt2_ms:.3f} ms, plain {pt2_ms:.3f} ms, library yardstick "
+        f"(the same in bf16) {lib_bwd_ms['bfloat16']:.3f} ms; peak scratch of a float32 call "
+        f"{scratch_gib:.3f} GiB")
+    say("11 times", f"{card}: K1 f32 forward on the same samples (K2 f32's recompute runs its "
+        f"arithmetic) {k1_same_ms:.3f} ms: {k1_same_ms / kb_ms:.1%} of the f32 K2 call; the rest, "
+        f"{kb_ms - k1_same_ms:.3f} ms, holds the 3xTF32 dW and W dz products, the heads, the "
+        f"workspace and the partials")
     k2_bounds = backward_bounds(net, pts, vd_f, g_rgb, g_sigma)
-    say("11 times", f"{card}: K2 bounds from this call's shapes: float32 "
-        f"{k2_bounds['float32'][0]:.3f} ms ({k2_bounds['float32'][1]}; the recompute's f32 "
-        f"products at {F32_FLOP_S / 1e12:g} TFLOP/s on the CUDA cores plus the dW and W dz "
-        f"products as 3xTF32 at {TF32_FLOP_S / 1e12:g}), {k2_bounds['float32'][0] / kb_ms:.1%} "
-        f"of it; all products as 3xTF32 {k2_bounds['3xtf32'][0]:.3f} ms; all on the CUDA cores "
+    say("11 times", f"{card}: K2 bounds from this call's shapes: float32 through its route, "
+        f"every product as 3xTF32 at {TF32_FLOP_S / 1e12:g} TFLOP/s, "
+        f"{k2_bounds['3xtf32'][0]:.3f} ms ({k2_bounds['3xtf32'][1]}), "
+        f"{k2_bounds['3xtf32'][0] / kb_ms:.1%} of it; with the recompute on the CUDA cores at "
+        f"{F32_FLOP_S / 1e12:g} TFLOP/s, as the kernel runs it, "
+        f"{k2_bounds['recompute_cuda_cores'][0]:.3f} ms; all on the CUDA cores "
         f"{k2_bounds['cuda_cores'][0]:.3f} ms; bfloat16 {k2_bounds['bfloat16'][0]:.3f} ms "
-        f"({k2_bounds['bfloat16'][1]}), {k2_bounds['bfloat16'][0] / k2_ms['bfloat16'][0]:.1%} of it")
+        f"({k2_bounds['bfloat16'][1]}), {k2_bounds['bfloat16'][0] / kt2_ms:.1%} of it")
     saved = save_counts()
     step_ms = {impl: time_steps(dev, impl) for impl in ("pallas", "xla")}
     restore_counts(saved)
@@ -1829,11 +1851,11 @@ def main() -> int:
                     INT8_OPS_S)
     q_ms, q_plain_ms, q_lib_ms = int8_times["fine"]
 
-    def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms):
+    def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms, **extra):
         return {"name": name, "route": "cuda", "source": f"nerf_rs_tpu_torch/ops/kernels/csrc/{source}",
                 "replaces": replaces, "launches": n_launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-                "library_ms": library_ms}
+                "library_ms": library_ms, **extra}
 
     print(json.dumps({"kernels": [
         entry("fused_nerf_mlp", "fused_mlp.cu", "nerf_rs_tpu/ops/kernels/fused_mlp.py:779",
@@ -1843,11 +1865,14 @@ def main() -> int:
               libt_ms),
         entry("fused_nerf_mlp_backward", "fused_mlp_bwd_tc.cu",
               "nerf_rs_tpu/ops/kernels/fused_mlp.py:663", launches["fused_nerf_mlp_backward"],
-              bwd_errs["float32"], kb_ms, pb_ms, k2_bounds["float32"], lib_bwd_ms),
-        entry("fused_nerf_mlp_backward_bf16", "fused_mlp_bwd_tc.cu",
+              bwd_errs["float32"], kb_ms, pb_ms, k2_bounds["3xtf32"], lib_bwd_ms["float32"],
+              bound_ms_recompute_cuda_cores=k2_bounds["recompute_cuda_cores"][0],
+              bound_ms_cuda_cores=k2_bounds["cuda_cores"][0]),
+        entry("fused_nerf_mlp_backward_bf16", "fused_mlp_bwd_bf16.cu",
               "nerf_rs_tpu/ops/kernels/fused_mlp.py:663",
               bf16_train_counts["fused_nerf_mlp_backward_bf16"], bwd_errs["bfloat16"],
-              *k2_ms["bfloat16"], k2_bounds["bfloat16"], None),
+              kt2_ms, pt2_ms, k2_bounds["bfloat16"], lib_bwd_ms["bfloat16"],
+              bound_ms_cuda_cores=k2_bounds["cuda_cores"][0]),
         entry("fused_resample", "resample.cu", "nerf_rs_tpu/ops/kernels/resample.py:207",
               accel_launches["fused_resample"], k3_err, k3_ms, k3_plain_ms, k3_bound, None),
         entry("hash_encode", "hash_encode.cu", "tools/pallas_gather_probe.py:81",

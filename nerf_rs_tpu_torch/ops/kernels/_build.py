@@ -91,9 +91,13 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare the C entry points' signatures
+    """Build if needed, load, and declare the C entry points' signatures."""
+    return declare(ctypes.CDLL(str(build())))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' signatures on a loaded library
     (``c_void_p`` for every pointer and the stream)."""
-    lib = ctypes.CDLL(str(build()))
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fwd = lib.nerf_fused_mlp_forward
     fwd.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, p, p, i, p]
@@ -102,9 +106,13 @@ def load_library() -> ctypes.CDLL:
     tc.argtypes = fwd.argtypes
     tc.restype = ctypes.c_int
     bwd = lib.nerf_fused_mlp_backward
-    bwd.argtypes = [p, p, ll, ll, p, p, p, p, p, ll, p, p, i, p, i, i, i, i, i, i, p, p, ll, ll,
-                    i, p, p, p, p, i, p]
+    bwd.argtypes = [p, p, ll, ll, p, p, p, p, ll, p, p, i, p, i, i, i, i, i, p, p, ll, ll, i, p, p,
+                    p, p, i, p]
     bwd.restype = ctypes.c_int
+    bwd16 = lib.nerf_fused_mlp_backward_bf16
+    bwd16.argtypes = [p, p, ll, ll, p, p, p, p, p, p, i, i, i, i, i, p, p, ll, ll, i, p, p, p, p, i,
+                      p]
+    bwd16.restype = ctypes.c_int
     f = ctypes.c_float
     res = lib.nerf_fused_resample
     res.argtypes = [p, p, p, p, ll, f, ll, i, i, f, f, f, p, i, p]

@@ -11,7 +11,7 @@
 // What bounds it on the H100: arithmetic. A fine sample costs about
 // 1.2 MFLOP of products against 24 bytes of input and 16 bytes of output,
 // and the packed weights (about 2.9 MB in f32, 1.5 MB in bf16) stay in the
-// 50 MB L2. This first version keeps to CUDA cores with f32 accumulation:
+// 50 MB L2. It runs on the CUDA cores with f32 accumulation:
 // - one CTA of 256 threads per tile of 64 samples;
 // - the tile's encode and its activations stay in shared memory, the
 //   activations ping-ponging between two buffers;

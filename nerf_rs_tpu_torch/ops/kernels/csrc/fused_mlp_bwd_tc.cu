@@ -1,48 +1,48 @@
-// Fused NeRF MLP backward for Hopper (sm_90a), its products on the tensor
-// cores: per tile of 128 samples, recompute the forward, backpropagate
-// through the rgb head, the view layer, the bottleneck, the sigma head and
-// the trunk with its skip layer, and sum every layer's weight and bias
-// gradient over the samples; with input gradients requested, also
-// d(points) and d(dirs) through the encode.
+// Fused NeRF MLP backward in float32 for Hopper (sm_90a), K2's f32 mode,
+// its products on the tensor cores: per tile of 128 samples, recompute the
+// forward, backpropagate through the rgb head, the view layer, the
+// bottleneck, the sigma head and the trunk with its skip layer, and sum
+// every layer's weight and bias gradient over the samples; with input
+// gradients requested, also d(points) and d(dirs) through the encode. The
+// bf16 mode is fused_mlp_bwd_bf16.cu.
 //
 // Replaces nerf_rs_tpu/ops/kernels/fused_mlp.py::_backward_t (:663, the
-// Pallas call at :675) and its kernel body _kernel_bwd (:505), in both of
-// its modes. The JAX kernel runs every f32 product at Precision.HIGHEST,
-// f32 emulated in bf16 passes on the MXU; its counterpart here is 3xTF32:
-// each f32 operand x splits into hi = tf32_rna(x) and lo = tf32_rna(x - hi)
-// (cvt.rna.tf32.f32; the weights come split from pack_params), and a
-// product is lo*hi + hi*lo + hi*hi, summed in f32 by the tensor cores.
-// bf16 mode multiplies bf16 and accumulates in f32.
+// Pallas call at :675) and its kernel body _kernel_bwd (:505) for
+// dtype="float32". The JAX kernel runs every f32 product at
+// Precision.HIGHEST, f32 emulated in bf16 passes on the MXU; its
+// counterpart here is 3xTF32: each f32 operand x splits into hi =
+// tf32_rna(x) and lo = tf32_rna(x - hi) (cvt.rna.tf32.f32; the weights
+// come split from pack_params), and a product is lo*hi + hi*lo + hi*hi,
+// summed in f32 by the tensor cores.
 //
-// The products are mma.sync (m16n8k8 tf32, m16n8k16 bf16): A from
-// registers loaded from shared memory, B from registers loaded from L2
-// (the packs) or from the CTA's workspace, a block or two ahead of its
-// use. So each operand can be read in either orientation from one copy,
-// which the two uses of every activation and gradient need (reduced over
-// features in the recompute and in W dz, over samples in dW = H^T dZ):
-// tf32 wgmma takes K-major operands only, and a 128 x 256 f32 tile split
-// into hi and lo (256 KB) would not fit the 227 KB a block may use.
+// The products are mma.sync m16n8k8 tf32: A from registers loaded from
+// shared memory, B from registers loaded from L2 (the pack) or from the
+// CTA's workspace, a block or two ahead of its use. So each operand can be
+// read in either orientation from one copy, which the two uses of every
+// activation and gradient need (reduced over features in W dz, over
+// samples in dW = H^T dZ): tf32 wgmma takes K-major operands only, and a
+// 128 x 256 f32 tile split into hi and lo (256 KB) would not fit the
+// 227 KB a block may use. mma.sync is the first tensor-core step the
+// design allows for tf32; wgmma with a transposed staging copy is not
+// built yet.
 //
-// The f32 recompute is not on the tensor cores: it repeats the f32
-// forward's own arithmetic on the CUDA cores (fused_mlp_common.cuh::dense
-// order, K1 f32's sigma sum), so its ReLU masks are bit for bit those of
-// the forward that made the loss. A 3xTF32 recompute (products kept to
+// The recompute is not on the tensor cores: it repeats the f32 forward's
+// own arithmetic on the CUDA cores (fused_mlp_common.cuh::dense's order:
+// per output one fmaf a k, k ascending, from zero; the skip layer's trunk
+// part first; K1 f32's sigma sum), so its ReLU masks are bit for bit those
+// of the forward that made the loss. A 3xTF32 recompute (products kept to
 // about 2^-21) flipped a mask at a pre-activation of -9.2e-8 among
-// summands of 2.1, and every trunk gradient moved by 1-3%. The bf16
-// recompute keeps the bf16 forward's k-order (encode part first in the
-// skip layer, k ascending in 16-k steps, f32 sums) on the tensor cores.
+// summands of 2.1, and every trunk gradient moved by 1-3%.
 //
 // What bounds it on the H100: operations. A fine sample costs three
-// forwards, 3 x 1.187 MFLOP: in f32 the recompute's at 67 TFLOP/s on the
-// CUDA cores (13.9 ms a 4096 x 192 call) plus dW and W dz as three tf32
-// products each at 495 TFLOP/s (11.3 ms); all three forwards as 3xTF32
-// would be 16.97 ms, all on the CUDA cores 41.79 ms; bf16 2.83 ms at
-// 989 TFLOP/s. What held the CUDA-core version back, and what this design
-// does about it:
-// 1. CUDA-core FMAs only: dW and W dz in both modes, and the bf16
-//    recompute, are on the tensor cores; the CUDA cores keep the f32
-//    recompute (above), the encode, the two heads (N = 1, 3), the masks,
-//    roundings and operand splits.
+// forwards, 3 x 1.187 MFLOP. Through the route it takes, all products as
+// 3xTF32 at 495 TFLOP/s (three tf32 products each), 16.97 ms a 4096 x 192
+// call; the recompute kept on the CUDA cores makes it 25.24 ms (13.9 ms of
+// it the recompute at 67 TFLOP/s); all on the CUDA cores 41.79 ms. What
+// held the CUDA-core version back, and what this design does about it:
+// 1. CUDA-core FMAs only: dW and W dz are on the tensor cores; the CUDA
+//    cores keep the recompute (above), the encode, the two heads (N = 1,
+//    3), the masks and the operand splits.
 // 2. A read-modify-write of the whole dW partial every 64 samples, 59 GB a
 //    fine call: the dW products take 128-sample tiles, and each CTA adds
 //    its tile sums into its own partial with fire-and-forget reductions
@@ -53,30 +53,24 @@
 //    a fixed order.
 // 3. The activation round trip: the recompute writes the tile's encodes,
 //    trunk outputs and bottleneck output to the CTA's workspace (1.23 MB a
-//    tile in f32: 15.1 GB a fine call written and read, 7.5 GB in bf16;
-//    before, 12.9 GB of trunk outputs), tiled in B-fragment order, so the
-//    dW products load a block with one vector load a lane, two blocks
-//    ahead, and stage nothing behind a barrier.
+//    tile: 15.1 GB a fine call written and read; before, 12.9 GB of trunk
+//    outputs), tiled in B-fragment order, so the dW products load a block
+//    with one vector load a lane, two blocks ahead, and stage nothing
+//    behind a barrier.
 // 4. No overlap: the reductions and workspace stores retire in the memory
 //    system while the warps issue the next products, and each warp issues
 //    the products of all its tiles of a k step together.
-// Shared memory, one CTA of 256 threads an SM, both modes (bf16 values are
-// held as floats): the tile's activation or gradient buffer (128 x 260
-// f32, 130 KB), the point encode or its gradient (128 x 68, 34 KB), the dir
-// encode or its gradient (128 x 36, 18 KB), inputs and head cotangents
-// (5 KB): 187 KB. The packs stay in L2: for the lego fine network the
-// f32 forward pack (2.4 MB) and the transposed pack as hi and lo (4.8 MB);
-// in bf16 the two packs, 2.4 MB.
+// Shared memory, one CTA of 256 threads an SM: the tile's activation or
+// gradient buffer (128 x 260 f32, 130 KB), the point encode or its
+// gradient (128 x 68, 34 KB), the dir encode or its gradient (128 x 36,
+// 18 KB), inputs and head cotangents (5 KB): 187 KB. The packs stay in L2:
+// for the lego fine network the forward pack (2.4 MB) and the transposed
+// pack as hi and lo (4.8 MB).
 //
-// Numerics, the JAX kernel's: bf16 rounds each layer's output gradient to
-// bf16 after the ReLU mask (and the heads' gradients after the sigmoid
-// and ReLU derivatives) and accumulates dW, db and the encode gradient in
-// f32. Samples past n in the ragged last tile get zero cotangents and add
+// Samples past n in the ragged last tile get zero cotangents and add
 // exactly zero.
 
 #include "fused_mlp_common.cuh"
-
-#include <type_traits>
 
 namespace {
 
@@ -92,37 +86,23 @@ constexpr int kNt = kMaxWidth / 8 / kWarps; // n8 tiles a warp owns: nb = warp +
 constexpr int kSx = kMaxWidth + 4;
 constexpr int kSe = kEncX + 4;
 constexpr int kSd = kEncD + 4;
-constexpr int kSegs = 2 * kMaxDepth + 3;    // product segments a table holds
-constexpr int kMmaLen = 2 * kSegs;
+constexpr int kSegs = 2 * kMaxDepth + 3;    // product segments the table holds
+constexpr int kMmaLen = kSegs;
 constexpr size_t kSmemBytes =
     sizeof(float) * (kRows * (kSx + kSe + kSd) + 6 * kRows + kRows + 3 * kRows);
 static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
 
-// Offsets of the tensor-core packs (pack_params' layout_mma): [0, 16)
-// dense layer i, [16, 32) its encode part (-1 if not a skip layer), 32
-// bottleneck, 33 viewdirs, 34 viewdirs' dir-encode part; w: the segments,
-// wt: their transposes.
+// Offsets of the transposed tensor-core pack (pack_params' layout_mma):
+// [0, 16) dense layer i, [16, 32) its encode part (-1 if not a skip
+// layer), 32 bottleneck, 33 viewdirs, 34 viewdirs' dir-encode part.
 struct LayoutMma {
-  long long w[kSegs];
   long long wt[kSegs];
 };
 constexpr int kBneck = 2 * kMaxDepth, kView = kBneck + 1, kViewDir = kBneck + 2;
 
-// The element of the packs and the workspace: f32 (tf32 bits in the split
-// pack) or bf16.
-template <bool kBf16>
-using Elem = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
-
-// The B fragments of one n8 tile: bf16 one 16-k block, f32 one k8 step.
-template <bool kBf16>
-struct BFrag;
-template <>
-struct BFrag<false> {
+// The B fragments of one n8 tile for one k8 step, split.
+struct BFrag {
   uint32_t hi[2], lo[2];        // registers b0, b1
-};
-template <>
-struct BFrag<true> {
-  uint32_t b[2];
 };
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -136,24 +116,9 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
-// Two floats (bf16 values, or rounded here) as a bf16x2 register, the
-// first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float first, float second) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(first, second);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
       "{%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -176,25 +141,6 @@ __device__ __forceinline__ void a_rows(const float* buf, int s, int r0, int k0, 
   split(p[8 * s + 4], hi[3], lo[3]);
 }
 
-// bf16: rows r0 + g (+ 8), k columns k0 + 2 t (+ 1) and, when `upper`,
-// k0 + 8 + 2 t (+ 1); columns past the operand read 0.
-__device__ __forceinline__ void a_rows(const float* buf, int s, int r0, int k0, bool upper,
-                                       uint32_t (&a)[4]) {
-  const int g = lane_id() >> 2, t = lane_id() & 3;
-  const float* p = buf + (r0 + g) * s + k0 + 2 * t;
-  const float2 v0 = *reinterpret_cast<const float2*>(p);
-  const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * s);
-  a[0] = pack_bf16(v0.x, v0.y);
-  a[1] = pack_bf16(v1.x, v1.y);
-  a[2] = a[3] = 0u;
-  if (upper) {
-    const float2 v2 = *reinterpret_cast<const float2*>(p + 8);
-    const float2 v3 = *reinterpret_cast<const float2*>(p + 8 * s + 8);
-    a[2] = pack_bf16(v2.x, v2.y);
-    a[3] = pack_bf16(v3.x, v3.y);
-  }
-}
-
 // The transpose: A[m][k] = buf[k][m], rows m0 + g (+ 8) of A (columns of
 // buf; the second eight read 0 unless `second`), k rows of buf from k0.
 __device__ __forceinline__ void a_cols(const float* buf, int s, int m0, int k0, bool second,
@@ -210,26 +156,12 @@ __device__ __forceinline__ void a_cols(const float* buf, int s, int m0, int k0, 
   }
 }
 
-__device__ __forceinline__ void a_cols(const float* buf, int s, int m0, int k0, bool second,
-                                       uint32_t (&a)[4]) {
-  const int g = lane_id() >> 2, t = lane_id() & 3;
-  const float* p = buf + (k0 + 2 * t) * s + m0 + g;
-  a[0] = pack_bf16(p[0], p[s]);
-  a[2] = pack_bf16(p[8 * s], p[9 * s]);
-  a[1] = a[3] = 0u;
-  if (second) {
-    a[1] = pack_bf16(p[8], p[s + 8]);
-    a[3] = pack_bf16(p[8 * s + 8], p[9 * s + 8]);
-  }
-}
-
 // ---- B fragments ----
 
 // Block (kb, nb) of a pack tiled by fused_mlp.py::mma_tile, n8 blocks a
-// k block: f32 its k8 step st (lo: element offset of the lo row), bf16
-// the whole block.
-__device__ __forceinline__ void b_pack(BFrag<false>& b, const float* w, long long lo, int kb,
-                                       int st, int n8, int nb) {
+// k block: its k8 step st (lo: element offset of the lo row).
+__device__ __forceinline__ void b_pack(BFrag& b, const float* w, long long lo, int kb, int st,
+                                       int n8, int nb) {
   const float* p = w + (static_cast<long long>(kb * n8 + nb) * 32 + lane_id()) * 4 + 2 * st;
   const uint2 h = __ldg(reinterpret_cast<const uint2*>(p));
   const uint2 l = __ldg(reinterpret_cast<const uint2*>(p + lo));
@@ -239,54 +171,26 @@ __device__ __forceinline__ void b_pack(BFrag<false>& b, const float* w, long lon
   b.lo[1] = l.y;
 }
 
-__device__ __forceinline__ void b_pack(BFrag<true>& b, const __nv_bfloat16* w, long long, int kb,
-                                       int, int n8, int nb) {
-  const uint2 v = __ldg(reinterpret_cast<const uint2*>(
-      w + (static_cast<long long>(kb * n8 + nb) * 32 + lane_id()) * 4));
-  b.b[0] = v.x;
-  b.b[1] = v.y;
-}
-
 // Workspace slots hold the tile's samples (k) x f features (n) in the
 // B-fragment order of fused_mlp.py::mma_tile (blocks of 16 samples x 8
 // features; lane 4 g + t holds four samples of feature 8 nb + g), so that
 // the dW products load a block with one vector load a lane. The index of
 // (sample row, feature col) in a slot of n8 feature blocks:
-template <bool kBf16>
 __device__ __forceinline__ int ws_index(int row, int col, int n8) {
   const int r = row & 15;
-  const int t = kBf16 ? (r & 7) >> 1 : r & 3;
-  const int j = kBf16 ? (r & 1) | ((r >> 3) << 1) : r >> 2;
-  return (((row >> 4) * n8 + (col >> 3)) * 32 + 4 * (col & 7) + t) * 4 + j;
+  return (((row >> 4) * n8 + (col >> 3)) * 32 + 4 * (col & 7) + (r & 3)) * 4 + (r >> 2);
 }
 
-// A workspace entry, which this kernel wrote: loads through L2 (__ldcg),
-// never the read-only path.
-__device__ __forceinline__ float ld_ws(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float ld_ws(const __nv_bfloat16* p) {
-  return __uint_as_float(static_cast<uint32_t>(__ldcg(reinterpret_cast<const unsigned short*>(p)))
-                         << 16);
+// A lane's part of block (kb, nb) of a workspace slot, which this kernel
+// wrote: loads through L2 (__ldcg), never the read-only path.
+__device__ __forceinline__ float4 ld_block(const float* ws, int n8, int kb, int nb) {
+  return __ldcg(reinterpret_cast<const float4*>(ws) + (kb * n8 + nb) * 32 + lane_id());
 }
 
-// A lane's part of block (kb, nb) of a workspace slot, as loaded (Raw) and
-// as B fragments.
-template <bool kBf16>
-using Raw = typename std::conditional<kBf16, uint2, float4>::type;
-
-template <bool kBf16>
-__device__ __forceinline__ Raw<kBf16> ld_block(const Elem<kBf16>* ws, int n8, int kb,
-                                               int nb) {
-  return __ldcg(reinterpret_cast<const Raw<kBf16>*>(ws) + (kb * n8 + nb) * 32 + lane_id());
-}
-
-// f32: k8 step st of the block (its samples t + 8 st and t + 8 st + 4).
-__device__ __forceinline__ void to_frag(BFrag<false>& b, const float4& v, int st) {
+// k8 step st of a loaded block (its samples t + 8 st and t + 8 st + 4).
+__device__ __forceinline__ void to_frag(BFrag& b, const float4& v, int st) {
   split(st ? v.z : v.x, b.hi[0], b.lo[0]);
   split(st ? v.w : v.y, b.hi[1], b.lo[1]);
-}
-__device__ __forceinline__ void to_frag(BFrag<true>& b, const uint2& v, int) {
-  b.b[0] = v.x;
-  b.b[1] = v.y;
 }
 
 __device__ __forceinline__ void zero(float (&acc)[kMi][kNt][4]) {
@@ -305,20 +209,13 @@ __device__ __forceinline__ void zero(float (&acc)[kMi][kNt][4]) {
 // before the next, so no product waits on the one before it.
 template <int NT>
 __device__ __forceinline__ void mma_row(float (&acc)[kNt][4], const uint32_t (&ah)[4],
-                                        const uint32_t (&al)[4], const BFrag<false> (&b)[kNt]) {
+                                        const uint32_t (&al)[4], const BFrag (&b)[kNt]) {
 #pragma unroll
   for (int j = 0; j < NT; ++j) mma_tf32(acc[j], al, b[j].hi[0], b[j].hi[1]);
 #pragma unroll
   for (int j = 0; j < NT; ++j) mma_tf32(acc[j], ah, b[j].lo[0], b[j].lo[1]);
 #pragma unroll
   for (int j = 0; j < NT; ++j) mma_tf32(acc[j], ah, b[j].hi[0], b[j].hi[1]);
-}
-
-template <int NT>
-__device__ __forceinline__ void mma_row(float (&acc)[kNt][4], const uint32_t (&a)[4],
-                                        const BFrag<true> (&b)[kNt]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) mma_bf16(acc[j], a, b[j].b[0], b[j].b[1]);
 }
 
 // The number of n8 tiles warp `warp` owns of n8 (nb = warp + 8 j).
@@ -329,53 +226,41 @@ __device__ __forceinline__ int tiles_of(int warp, int n8) {
 // acc (the tile's 128 samples x this warp's NT n8 tiles) += A (shared,
 // rows = samples, k_valid columns, a multiple of 8) . B (a pack segment
 // of ceil(k_valid / 16) k blocks x n8 n blocks).
-template <bool kBf16, int NT>
+template <int NT>
 __device__ __forceinline__ void rows_mma_nt(float (&acc)[kMi][kNt][4], const float* buf, int s,
-                                            int k_valid, const Elem<kBf16>* w,
-                                            long long lo, int n8, int warp) {
-  // Steps of 16 k (bf16) or 8 k (f32); the next step's B is in flight.
-  constexpr int kStep = kBf16 ? 16 : 8;
-  const int steps = (k_valid + kStep - 1) / kStep;
-  BFrag<kBf16> b[kNt], nxt[kNt];
+                                            int k_valid, const float* w, long long lo, int n8,
+                                            int warp) {
+  // Steps of 8 k; the next step's B is in flight.
+  const int steps = (k_valid + 7) / 8;
+  BFrag b[kNt], nxt[kNt];
 #pragma unroll
   for (int j = 0; j < NT; ++j) b_pack(b[j], w, lo, 0, 0, n8, warp + kWarps * j);
   for (int k = 0; k < steps; ++k) {
     if (k + 1 < steps) {
-      const int kb = kBf16 ? k + 1 : (k + 1) >> 1, st = kBf16 ? 0 : (k + 1) & 1;
 #pragma unroll
-      for (int j = 0; j < NT; ++j) b_pack(nxt[j], w, lo, kb, st, n8, warp + kWarps * j);
+      for (int j = 0; j < NT; ++j) {
+        b_pack(nxt[j], w, lo, (k + 1) >> 1, (k + 1) & 1, n8, warp + kWarps * j);
+      }
     }
-    if constexpr (kBf16) {
-      const bool upper = 16 * k + 8 < k_valid;
 #pragma unroll
-      for (int mi = 0; mi < kMi; ++mi) {
-        uint32_t a[4];
-        a_rows(buf, s, 16 * mi, 16 * k, upper, a);
-        mma_row<NT>(acc[mi], a, b);
-      }
-    } else {
-#pragma unroll
-      for (int mi = 0; mi < kMi; ++mi) {
-        uint32_t ah[4], al[4];
-        a_rows(buf, s, 16 * mi, 8 * k, ah, al);
-        mma_row<NT>(acc[mi], ah, al, b);
-      }
+    for (int mi = 0; mi < kMi; ++mi) {
+      uint32_t ah[4], al[4];
+      a_rows(buf, s, 16 * mi, 8 * k, ah, al);
+      mma_row<NT>(acc[mi], ah, al, b);
     }
 #pragma unroll
     for (int j = 0; j < NT; ++j) b[j] = nxt[j];
   }
 }
 
-template <bool kBf16>
 __device__ __forceinline__ void rows_mma(float (&acc)[kMi][kNt][4], const float* buf, int s,
-                                         int k_valid, const Elem<kBf16>* w,
-                                         long long lo, int n8) {
+                                         int k_valid, const float* w, long long lo, int n8) {
   const int warp = warp_id();
   switch (tiles_of(warp, n8)) {
-    case 4: rows_mma_nt<kBf16, 4>(acc, buf, s, k_valid, w, lo, n8, warp); break;
-    case 3: rows_mma_nt<kBf16, 3>(acc, buf, s, k_valid, w, lo, n8, warp); break;
-    case 2: rows_mma_nt<kBf16, 2>(acc, buf, s, k_valid, w, lo, n8, warp); break;
-    case 1: rows_mma_nt<kBf16, 1>(acc, buf, s, k_valid, w, lo, n8, warp); break;
+    case 4: rows_mma_nt<4>(acc, buf, s, k_valid, w, lo, n8, warp); break;
+    case 3: rows_mma_nt<3>(acc, buf, s, k_valid, w, lo, n8, warp); break;
+    case 2: rows_mma_nt<2>(acc, buf, s, k_valid, w, lo, n8, warp); break;
+    case 1: rows_mma_nt<1>(acc, buf, s, k_valid, w, lo, n8, warp); break;
     default: break;
   }
 }
@@ -384,39 +269,32 @@ __device__ __forceinline__ void rows_mma(float (&acc)[kMi][kNt][4], const float*
 // of the layer, x this warp's NT n8 tiles of its input features) = dZ^T .
 // H over the tile's samples, dZ (shared, n_valid columns) and H (a
 // workspace slot of n8 feature blocks).
-template <bool kBf16, int NT>
+template <int NT>
 __device__ __forceinline__ void cols_mma_nt(float (&acc)[kMi][kNt][4], const float* dz,
-                                            int n_valid, int m0,
-                                            const Elem<kBf16>* ws, int n8, int warp) {
+                                            int n_valid, int m0, const float* ws, int n8,
+                                            int warp) {
   // Block kb + 1 is in flight while block kb is multiplied.
-  Raw<kBf16> q[kNt], qn[kNt];
+  float4 q[kNt], qn[kNt];
 #pragma unroll
-  for (int j = 0; j < NT; ++j) q[j] = ld_block<kBf16>(ws, n8, 0, warp + kWarps * j);
+  for (int j = 0; j < NT; ++j) q[j] = ld_block(ws, n8, 0, warp + kWarps * j);
 #pragma unroll 1
   for (int kb = 0; kb < kRows / 16; ++kb) {
     if (kb + 1 < kRows / 16) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) qn[j] = ld_block<kBf16>(ws, n8, kb + 1, warp + kWarps * j);
+      for (int j = 0; j < NT; ++j) qn[j] = ld_block(ws, n8, kb + 1, warp + kWarps * j);
     }
 #pragma unroll
-    for (int st = 0; st < (kBf16 ? 1 : 2); ++st) {
-      BFrag<kBf16> b[kNt];
+    for (int st = 0; st < 2; ++st) {
+      BFrag b[kNt];
 #pragma unroll
       for (int j = 0; j < NT; ++j) to_frag(b[j], q[j], st);
 #pragma unroll
       for (int mi = 0; mi < kMi; ++mi) {
         const int m = m0 + 16 * mi;
         if (m >= n_valid) break;
-        const bool second = m + 8 < n_valid;
-        if constexpr (kBf16) {
-          uint32_t a[4];
-          a_cols(dz, kSx, m, 16 * kb, second, a);
-          mma_row<NT>(acc[mi], a, b);
-        } else {
-          uint32_t ah[4], al[4];
-          a_cols(dz, kSx, m, 16 * kb + 8 * st, second, ah, al);
-          mma_row<NT>(acc[mi], ah, al, b);
-        }
+        uint32_t ah[4], al[4];
+        a_cols(dz, kSx, m, 16 * kb + 8 * st, m + 8 < n_valid, ah, al);
+        mma_row<NT>(acc[mi], ah, al, b);
       }
     }
 #pragma unroll
@@ -424,22 +302,20 @@ __device__ __forceinline__ void cols_mma_nt(float (&acc)[kMi][kNt][4], const flo
   }
 }
 
-template <bool kBf16>
 __device__ __forceinline__ void cols_mma(float (&acc)[kMi][kNt][4], const float* dz, int n_valid,
-                                         int m0, const Elem<kBf16>* ws, int f) {
+                                         int m0, const float* ws, int f) {
   const int warp = warp_id(), n8 = f >> 3;
   switch (tiles_of(warp, n8)) {
-    case 4: cols_mma_nt<kBf16, 4>(acc, dz, n_valid, m0, ws, n8, warp); break;
-    case 3: cols_mma_nt<kBf16, 3>(acc, dz, n_valid, m0, ws, n8, warp); break;
-    case 2: cols_mma_nt<kBf16, 2>(acc, dz, n_valid, m0, ws, n8, warp); break;
-    case 1: cols_mma_nt<kBf16, 1>(acc, dz, n_valid, m0, ws, n8, warp); break;
+    case 4: cols_mma_nt<4>(acc, dz, n_valid, m0, ws, n8, warp); break;
+    case 3: cols_mma_nt<3>(acc, dz, n_valid, m0, ws, n8, warp); break;
+    case 2: cols_mma_nt<2>(acc, dz, n_valid, m0, ws, n8, warp); break;
+    case 1: cols_mma_nt<1>(acc, dz, n_valid, m0, ws, n8, warp); break;
     default: break;
   }
 }
 
-// Calls fn(row, col, value) for every accumulator entry of this warp's
-// valid n8 tiles (row: 16 mi + g (+ 8); col: 8 nb + 2 t (+ 1)), pairs of
-// columns together: fn(row, col, v0, v1).
+// Calls fn(row, col, v0, v1) for every pair of accumulator entries of this
+// warp's valid n8 tiles (row: 16 mi + g (+ 8); col: 8 nb + 2 t, + 1).
 template <typename Fn>
 __device__ __forceinline__ void for_pairs(const float (&acc)[kMi][kNt][4], int n8, Fn fn) {
   const int warp = warp_id(), g = lane_id() >> 2, t = lane_id() & 3;
@@ -524,26 +400,16 @@ __device__ __forceinline__ void cc_product(float (&acc)[kMi][kNt][4], const floa
   }
 }
 
-// One recomputed layer: X = act(a1 . w1 [+ a2 . w2] + bias), rounded in
-// bf16 mode, n8 x 8 columns; a copy to the workspace slot `ws` (n8
-// feature blocks) unless null. bf16: w1, w2 are segments of the tensor-core
-// pack; f32: of the forward's own pack, and the layer is the f32
-// forward's, bit for bit.
-template <bool kBf16>
+// One recomputed layer, the f32 forward's bit for bit: X = act(a1 . w1
+// [+ a2 . w2] + bias), n8 x 8 columns, w1 and w2 segments of the forward's
+// pack; a copy to the workspace slot `ws` (n8 feature blocks) unless null.
 __device__ __forceinline__ void fwd_layer(float (&acc)[kMi][kNt][4], float* X, const float* a1,
-                                          int s1, int k1, const Elem<kBf16>* w1,
-                                          const float* a2, int s2, int k2,
-                                          const Elem<kBf16>* w2, int n8,
-                                          const float* __restrict__ bias, bool relu,
-                                          Elem<kBf16>* ws) {
+                                          int s1, int k1, const float* w1, const float* a2,
+                                          int s2, int k2, const float* w2, int n8,
+                                          const float* __restrict__ bias, bool relu, float* ws) {
   zero(acc);
-  if constexpr (kBf16) {
-    rows_mma<kBf16>(acc, a1, s1, k1, w1, 0, n8);
-    if (a2 != nullptr) rows_mma<kBf16>(acc, a2, s2, k2, w2, 0, n8);
-  } else {
-    cc_product(acc, a1, s1, k1, w1, n8);
-    if (a2 != nullptr) cc_product(acc, a2, s2, k2, w2, n8);
-  }
+  cc_product(acc, a1, s1, k1, w1, n8);
+  if (a2 != nullptr) cc_product(acc, a2, s2, k2, w2, n8);
   __syncthreads();   // every warp has read the buffer it overwrites
   for_pairs(acc, n8, [&](int row, int col, float v0, float v1) {
     const float2 b = __ldg(reinterpret_cast<const float2*>(bias + col));
@@ -553,12 +419,10 @@ __device__ __forceinline__ void fwd_layer(float (&acc)[kMi][kNt][4], float* X, c
       v0 = fmaxf(v0, 0.f);
       v1 = fmaxf(v1, 0.f);
     }
-    v0 = round_act<kBf16>(v0);
-    v1 = round_act<kBf16>(v1);
     *reinterpret_cast<float2*>(X + row * kSx + col) = make_float2(v0, v1);
     if (ws != nullptr) {
-      ws[ws_index<kBf16>(row, col, n8)] = static_cast<Elem<kBf16>>(v0);
-      ws[ws_index<kBf16>(row, col + 1, n8)] = static_cast<Elem<kBf16>>(v1);
+      ws[ws_index(row, col, n8)] = v0;
+      ws[ws_index(row, col + 1, n8)] = v1;
     }
   });
   __syncthreads();
@@ -566,18 +430,16 @@ __device__ __forceinline__ void fwd_layer(float (&acc)[kMi][kNt][4], float* X, c
 
 // One input-gradient product, acc = X . w (X: the output gradient, k_red
 // columns; w: a transposed segment, n8 blocks of the input), then either
-// into X (after a barrier), rounded: plus gs[row] * w_alpha[col] first
-// unless w_alpha is null, masked by a workspace slot's values > 0 (n8
-// feature blocks) unless `mask` is null; or, with `out` not null, added
-// into out (row stride s_out), unrounded.
-template <bool kBf16>
+// into X (after a barrier): plus gs[row] * w_alpha[col] first unless
+// w_alpha is null, masked by a workspace slot's values > 0 (n8 feature
+// blocks) unless `mask` is null; or, with `out` not null, added into out
+// (row stride s_out).
 __device__ __forceinline__ void din_layer(float (&acc)[kMi][kNt][4], float* X, int k_red,
-                                          const Elem<kBf16>* w, long long lo, int n8,
-                                          const Elem<kBf16>* mask,
-                                          const Elem<kBf16>* w_alpha,
-                                          const float* gs, float* out, int s_out) {
+                                          const float* w, long long lo, int n8, const float* mask,
+                                          const float* w_alpha, const float* gs, float* out,
+                                          int s_out) {
   zero(acc);
-  rows_mma<kBf16>(acc, X, kSx, k_red, w, lo, n8);
+  rows_mma(acc, X, kSx, k_red, w, lo, n8);
   if (out != nullptr) {
     for_pairs(acc, n8, [&](int row, int col, float v0, float v1) {
       float2* p = reinterpret_cast<float2*>(out + row * s_out + col);
@@ -593,11 +455,10 @@ __device__ __forceinline__ void din_layer(float (&acc)[kMi][kNt][4], float* X, i
       v1 = v1 + gs[row] * load1(w_alpha + col + 1);
     }
     if (mask != nullptr) {
-      if (!(ld_ws(mask + ws_index<kBf16>(row, col, n8)) > 0.f)) v0 = 0.f;
-      if (!(ld_ws(mask + ws_index<kBf16>(row, col + 1, n8)) > 0.f)) v1 = 0.f;
+      if (!(__ldcg(mask + ws_index(row, col, n8)) > 0.f)) v0 = 0.f;
+      if (!(__ldcg(mask + ws_index(row, col + 1, n8)) > 0.f)) v1 = 0.f;
     }
-    *reinterpret_cast<float2*>(X + row * kSx + col) =
-        make_float2(round_act<kBf16>(v0), round_act<kBf16>(v1));
+    *reinterpret_cast<float2*>(X + row * kSx + col) = make_float2(v0, v1);
   });
   __syncthreads();
 }
@@ -605,49 +466,27 @@ __device__ __forceinline__ void din_layer(float (&acc)[kMi][kNt][4], float* X, i
 // The dW products of one segment (K rows of input features from the
 // workspace slot ws, f = K floats a row; ld output features), in passes
 // of 128 output features.
-template <bool kBf16>
 __device__ __forceinline__ void dw_layer(float (&acc)[kMi][kNt][4], const float* X, int ld,
-                                         const Elem<kBf16>* ws, int f, float* dst) {
+                                         const float* ws, int f, float* dst) {
   for (int m0 = 0; m0 < ld; m0 += kRows) {
     zero(acc);
-    cols_mma<kBf16>(acc, X, ld, m0, ws, f);
+    cols_mma(acc, X, ld, m0, ws, f);
     add_dw(acc, f >> 3, m0, ld, dst);
   }
-}
-
-// d(input coordinate) of sample s from the encode gradient de (row stride
-// s_de): identity rows contribute 1, sin rows 2^b cos(2^b x), cos rows
-// -2^b sin(2^b x).
-__device__ __forceinline__ float encode_vjp(const float* de, int s_de, int s, int c, float x,
-                                            int bands) {
-  const float* d = de + s * s_de;
-  float v = d[c];
-  for (int b = 0; b < bands; ++b) {
-    const float scale = static_cast<float>(1 << b);
-    float sn, cs;
-    sincosf(x * scale, &sn, &cs);
-    v = v + d[3 + 6 * b + c] * (scale * cs);
-    v = v - d[6 + 6 * b + c] * (scale * sn);
-  }
-  return v;
 }
 
 // One CTA walks tiles [ntiles * b / grid, ntiles * (b + 1) / grid) and adds
 // into its partial: n_w weight-gradient floats in the packed weight layout,
 // then the bias gradients in the packed bias layout (part_stride apart).
-template <bool kBf16, bool kSigmaOnly>
+template <bool kSigmaOnly>
 __global__ void __launch_bounds__(kThreadsBwd, 1)
 fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__ dirs, long long n,
                         long long dir_div, const float* __restrict__ g_rgb,
-                        const float* __restrict__ g_sigma,
-                        const Elem<kBf16>* __restrict__ w,
-                        const Elem<kBf16>* __restrict__ mw,
-                        const Elem<kBf16>* __restrict__ mwt, long long lo_wt,
-                        const float* __restrict__ bias, const Layout L,
-                        const LayoutMma M, Elem<kBf16>* ws_all, float* partials,
-                        long long n_w, long long part_stride, long long ntiles,
-                        float* __restrict__ dpts, float* __restrict__ ddirs) {
-  using Ws = Elem<kBf16>;
+                        const float* __restrict__ g_sigma, const float* __restrict__ w,
+                        const float* __restrict__ mwt, long long lo_wt,
+                        const float* __restrict__ bias, const Layout L, const LayoutMma M,
+                        float* ws_all, float* partials, long long n_w, long long part_stride,
+                        long long ntiles, float* __restrict__ dpts, float* __restrict__ ddirs) {
   extern __shared__ float4 smem4[];
   float* X = reinterpret_cast<float*>(smem4);   // [kRows][kSx] activations, then gradients
   float* E = X + kRows * kSx;                   // [kRows][kSe] point encode, then its gradient
@@ -661,15 +500,13 @@ fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__
   const bool want_dx = dpts != nullptr;
   float* dW = partials + static_cast<long long>(blockIdx.x) * part_stride;
   float* dB = dW + n_w;
-  Ws* ws =
+  float* ws =
       ws_all + static_cast<long long>(blockIdx.x) * kRows * (kEncX + kEncD + (depth + 1) * ldw);
-  Ws* ws_ex = ws;
-  Ws* ws_ed = ws + kRows * kEncX;
+  float* ws_ex = ws;
+  float* ws_ed = ws + kRows * kEncX;
   auto ws_h = [&](int i) { return ws + kRows * (kEncX + kEncD + i * ldw); };   // i = depth: bneck
-  // Forward segment `slot` (LayoutMma's order): bf16 in the tensor-core
-  // pack, f32 in the forward's pack.
+  // Forward segment `slot` (LayoutMma's order) in the forward's pack.
   auto fw = [&](int slot) {
-    if (kBf16) return mw + M.w[slot];
     const long long off = slot < kMaxDepth ? L.w_dense[slot]
                           : slot < 2 * kMaxDepth ? L.w_skip[slot - kMaxDepth]
                           : slot == kBneck ? L.w_bneck : slot == kView ? L.w_view : L.w_view_dir;
@@ -712,50 +549,39 @@ fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__
         const float d[3] = {xin[3 * kRows + r], xin[4 * kRows + r], xin[5 * kRows + r]};
         v = encode(d, j - kEncX);
       }
-      v = round_act<kBf16>(v);
       if (j < kEncX) {
         E[r * kSe + j] = v;
-        ws_ex[ws_index<kBf16>(r, j, kEncX / 8)] = static_cast<Ws>(v);
+        ws_ex[ws_index(r, j, kEncX / 8)] = v;
       } else {
         D[r * kSd + j - kEncX] = v;
-        ws_ed[ws_index<kBf16>(r, j - kEncX, kEncD / 8)] = static_cast<Ws>(v);
+        ws_ed[ws_index(r, j - kEncX, kEncD / 8)] = v;
       }
     }
     __syncthreads();
 
     // Forward recompute; trunk layer i's output also goes to slot i. The
-    // skip layer sums in each forward's order: bf16 the encode part first,
-    // f32 the trunk part first.
-    fwd_layer<kBf16>(acc, X, E, kSe, kEncX, fw(0), nullptr, 0, 0, nullptr, nw8,
+    // skip layer sums in the f32 forward's order, the trunk part first.
+    fwd_layer(acc, X, E, kSe, kEncX, fw(0), nullptr, 0, 0, nullptr, nw8,
                      bias + L.b_dense[0], true, ws_h(0));
     for (int i = 1; i < depth; ++i) {
       if (L.w_skip[i] < 0) {
-        fwd_layer<kBf16>(acc, X, X, kSx, ldw, fw(i), nullptr, 0, 0, nullptr, nw8,
-                         bias + L.b_dense[i], true, ws_h(i));
-      } else if (kBf16) {
-        fwd_layer<kBf16>(acc, X, E, kSe, kEncX, fw(kMaxDepth + i), X, kSx, ldw, fw(i), nw8,
-                         bias + L.b_dense[i], true, ws_h(i));
+        fwd_layer(acc, X, X, kSx, ldw, fw(i), nullptr, 0, 0, nullptr, nw8, bias + L.b_dense[i],
+                  true, ws_h(i));
       } else {
-        fwd_layer<kBf16>(acc, X, X, kSx, ldw, fw(i), E, kSe, kEncX, fw(kMaxDepth + i), nw8,
-                         bias + L.b_dense[i], true, ws_h(i));
+        fwd_layer(acc, X, X, kSx, ldw, fw(i), E, kSe, kEncX, fw(kMaxDepth + i), nw8,
+                  bias + L.b_dense[i], true, ws_h(i));
       }
     }
     // Sigma head: gs becomes d(pre-ReLU sigma); then its dW and db.
     if (tid < kRows) {
-      // Each forward's sum: bf16 k ascending; f32 four strided parts,
-      // then (0 + 1) + (2 + 3), as its quad of threads adds them.
-      float a = 0.f;
-      if (kBf16) {
-        for (int k = 0; k < ldw; ++k) a = fmaf(X[tid * kSx + k], load1(w + L.w_alpha + k), a);
-      } else {
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int k = 0; k < ldw; ++k) {
-          part[k & 3] = fmaf(load1(w + L.w_alpha + k), X[tid * kSx + k], part[k & 3]);
-        }
-        a = (part[0] + part[1]) + (part[2] + part[3]);
+      // The f32 forward's sum: four strided parts, then (0 + 1) + (2 + 3),
+      // as its quad of threads adds them.
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = 0; k < ldw; ++k) {
+        part[k & 3] = fmaf(load1(w + L.w_alpha + k), X[tid * kSx + k], part[k & 3]);
       }
-      const float pre = a + __ldg(bias + L.b_alpha);
-      gs[tid] = round_act<kBf16>(pre > 0.f ? gs[tid] : 0.f);
+      const float pre = (part[0] + part[1]) + (part[2] + part[3]) + __ldg(bias + L.b_alpha);
+      if (!(pre > 0.f)) gs[tid] = 0.f;
     }
     __syncthreads();
     for (int k = tid; k < ldw; k += kThreadsBwd) {
@@ -772,10 +598,10 @@ fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__
     if (!kSigmaOnly) {
       // Bottleneck (no activation; its output to the workspace), then the
       // view layer: bottleneck part plus dir-encode part, ReLU, into X.
-      fwd_layer<kBf16>(acc, X, X, kSx, ldw, fw(kBneck), nullptr, 0, 0, nullptr, nw8,
-                       bias + L.b_bneck, false, ws_h(depth));
-      fwd_layer<kBf16>(acc, X, X, kSx, ldw, fw(kView), D, kSd, kEncD, fw(kViewDir), nv8,
-                       bias + L.b_view, true, nullptr);
+      fwd_layer(acc, X, X, kSx, ldw, fw(kBneck), nullptr, 0, 0, nullptr, nw8, bias + L.b_bneck,
+                false, ws_h(depth));
+      fwd_layer(acc, X, X, kSx, ldw, fw(kView), D, kSd, kEncD, fw(kViewDir), nv8, bias + L.b_view,
+                true, nullptr);
       // Rgb head: gr becomes d(pre-sigmoid rgb); sigmoid' = sg (1 - sg),
       // with 1 - sg as sigmoid(-pre): no cancellation where it saturates.
       for (int idx = tid; idx < 3 * kRows; idx += kThreadsBwd) {
@@ -785,7 +611,7 @@ fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__
         const float pre = a + __ldg(bias + L.b_rgb + c);
         const float sg = 1.f / (1.f + expf(-pre));
         const float sg_neg = 1.f / (1.f + expf(pre));
-        gr[idx] = round_act<kBf16>(gr[idx] * sg * sg_neg);
+        gr[idx] = gr[idx] * sg * sg_neg;
       }
       __syncthreads();
       for (int idx = tid; idx < 3 * ldv; idx += kThreadsBwd) {
@@ -809,21 +635,21 @@ fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__
           v = fmaf(gr[r * 3 + 1], load1(w + L.w_rgb + k * 3 + 1), v);
           v = fmaf(gr[r * 3 + 2], load1(w + L.w_rgb + k * 3 + 2), v);
         }
-        X[r * kSx + k] = round_act<kBf16>(v);
+        X[r * kSx + k] = v;
       }
       __syncthreads();
       // View layer: inputs the bottleneck and the dir encode (workspace).
-      dw_layer<kBf16>(acc, X, ldv, ws_h(depth), ldw, dW + L.w_view);
-      dw_layer<kBf16>(acc, X, ldv, ws_ed, kEncD, dW + L.w_view_dir);
+      dw_layer(acc, X, ldv, ws_h(depth), ldw, dW + L.w_view);
+      dw_layer(acc, X, ldv, ws_ed, kEncD, dW + L.w_view_dir);
       add_db(X, ldv, dB + L.b_view);
       if (want_dx) {   // d(dir encode) into D, which the recompute no longer reads
         for (int idx = tid; idx < kRows * kSd; idx += kThreadsBwd) D[idx] = 0.f;
         __syncthreads();
-        din_layer<kBf16>(acc, X, ldv, mwt + M.wt[kViewDir], lo_wt, kEncD >> 3, nullptr, nullptr,
+        din_layer(acc, X, ldv, mwt + M.wt[kViewDir], lo_wt, kEncD >> 3, nullptr, nullptr,
                          nullptr, D, kSd);
       }
       // d(bottleneck), no activation.
-      din_layer<kBf16>(acc, X, ldv, mwt + M.wt[kView], lo_wt, nw8, nullptr, nullptr, nullptr,
+      din_layer(acc, X, ldv, mwt + M.wt[kView], lo_wt, nw8, nullptr, nullptr, nullptr,
                        nullptr, 0);
       if (want_dx) {
         for (int idx = tid; idx < 3 * kRows; idx += kThreadsBwd) {
@@ -834,9 +660,9 @@ fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__
         }
       }
       // Bottleneck: input h_last; then d(h_last) from it and the sigma head.
-      dw_layer<kBf16>(acc, X, ldw, ws_h(depth - 1), ldw, dW + L.w_bneck);
+      dw_layer(acc, X, ldw, ws_h(depth - 1), ldw, dW + L.w_bneck);
       add_db(X, ldw, dB + L.b_bneck);
-      din_layer<kBf16>(acc, X, ldw, mwt + M.wt[kBneck], lo_wt, nw8, ws_h(depth - 1),
+      din_layer(acc, X, ldw, mwt + M.wt[kBneck], lo_wt, nw8, ws_h(depth - 1),
                        w + L.w_alpha, gs, nullptr, 0);
     } else {
       // Sigma head only: d(h_last) = round(gs w_alpha^T masked by h_last).
@@ -844,7 +670,7 @@ fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__
       for (int idx = tid; idx < kRows * ldw; idx += kThreadsBwd) {
         const int r = idx / ldw, k = idx % ldw;
         const float v = gs[r] * load1(w + L.w_alpha + k);
-        X[r * kSx + k] = round_act<kBf16>(X[r * kSx + k] > 0.f ? v : 0.f);
+        X[r * kSx + k] = X[r * kSx + k] > 0.f ? v : 0.f;
       }
       if (want_dx) {
         for (int idx = tid; idx < 3 * kRows; idx += kThreadsBwd) {
@@ -862,21 +688,21 @@ fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__
     }
     for (int i = depth - 1; i >= 1; --i) {
       const bool skip = L.w_skip[i] >= 0;
-      dw_layer<kBf16>(acc, X, ldw, ws_h(i - 1), ldw, dW + L.w_dense[i]);
-      if (skip) dw_layer<kBf16>(acc, X, ldw, ws_ex, kEncX, dW + L.w_skip[i]);
+      dw_layer(acc, X, ldw, ws_h(i - 1), ldw, dW + L.w_dense[i]);
+      if (skip) dw_layer(acc, X, ldw, ws_ex, kEncX, dW + L.w_skip[i]);
       add_db(X, ldw, dB + L.b_dense[i]);
       if (want_dx && skip) {
-        din_layer<kBf16>(acc, X, ldw, mwt + M.wt[kMaxDepth + i], lo_wt, kEncX >> 3, nullptr,
+        din_layer(acc, X, ldw, mwt + M.wt[kMaxDepth + i], lo_wt, kEncX >> 3, nullptr,
                          nullptr, nullptr, E, kSe);
       }
-      din_layer<kBf16>(acc, X, ldw, mwt + M.wt[i], lo_wt, nw8, ws_h(i - 1), nullptr, nullptr,
+      din_layer(acc, X, ldw, mwt + M.wt[i], lo_wt, nw8, ws_h(i - 1), nullptr, nullptr,
                        nullptr, 0);
     }
     // Layer 0: input the point encode.
-    dw_layer<kBf16>(acc, X, ldw, ws_ex, kEncX, dW + L.w_dense[0]);
+    dw_layer(acc, X, ldw, ws_ex, kEncX, dW + L.w_dense[0]);
     add_db(X, ldw, dB + L.b_dense[0]);
     if (want_dx) {
-      din_layer<kBf16>(acc, X, ldw, mwt + M.wt[0], lo_wt, kEncX >> 3, nullptr, nullptr, nullptr,
+      din_layer(acc, X, ldw, mwt + M.wt[0], lo_wt, kEncX >> 3, nullptr, nullptr, nullptr,
                        E, kSe);
       __syncthreads();
       for (int idx = tid; idx < 3 * kRows; idx += kThreadsBwd) {
@@ -890,83 +716,57 @@ fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__
   }
 }
 
-// out[e] = sum over p of partials[p * stride + e], p in order; the first
-// n_w sums are the weight gradients, the rest the bias gradients.
-__global__ void reduce_partials(const float* __restrict__ partials, int parts, long long stride,
-                                long long n_w, float* __restrict__ dweights,
-                                float* __restrict__ dbiases) {
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < stride;
-       e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float s = 0.f;
-    for (int p = 0; p < parts; ++p) s += partials[p * stride + e];
-    if (e < n_w) {
-      dweights[e] = s;
-    } else {
-      dbiases[e - n_w] = s;
-    }
-  }
-}
-
-template <bool kBf16, bool kSigmaOnly>
+template <bool kSigmaOnly>
 cudaError_t launch(const float* pts, const float* dirs, long long n, long long dir_div,
-                   const float* g_rgb, const float* g_sigma, const void* w, const void* mw,
-                   const void* mwt, long long lo_wt, const float* bias,
-                   const Layout& L, const LayoutMma& M, void* ws, float* partials, long long n_w,
-                   long long n_b, int grid, float* dweights, float* dbiases, float* dpts,
-                   float* ddirs, cudaStream_t stream) {
-  using W = Elem<kBf16>;
-  auto kernel = fused_mlp_bwd_tc_kernel<kBf16, kSigmaOnly>;
+                   const float* g_rgb, const float* g_sigma, const float* w, const float* mwt,
+                   long long lo_wt, const float* bias, const Layout& L, const LayoutMma& M,
+                   float* ws, float* partials, long long n_w, long long n_b, int grid,
+                   float* dweights, float* dbiases, float* dpts, float* ddirs,
+                   cudaStream_t stream) {
+  auto kernel = fused_mlp_bwd_tc_kernel<kSigmaOnly>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
   const long long ntiles = (n + kRows - 1) / kRows;
   const long long stride = n_w + n_b;
-  kernel<<<grid, kThreadsBwd, kSmemBytes, stream>>>(
-      pts, dirs, n, dir_div, g_rgb, g_sigma, static_cast<const W*>(w), static_cast<const W*>(mw),
-      static_cast<const W*>(mwt), lo_wt, bias, L, M,
-      static_cast<Elem<kBf16>*>(ws), partials, n_w, stride, ntiles, dpts, ddirs);
+  kernel<<<grid, kThreadsBwd, kSmemBytes, stream>>>(pts, dirs, n, dir_div, g_rgb, g_sigma, w, mwt,
+                                                    lo_wt, bias, L, M, ws, partials, n_w, stride,
+                                                    ntiles, dpts, ddirs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long blocks = (stride + 255) / 256;
-  reduce_partials<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
-      partials, grid, stride, n_w, dweights, dbiases);
-  return cudaGetLastError();
+  return launch_reduce_partials(partials, grid, stride, n_w, dweights, dbiases, stream);
 }
 
 }  // namespace
 
 // pts (n, 3) f32; dirs (ceil(n / dir_div), 3) f32, sample s reads row
 // s / dir_div; g_rgb (n, 3) and g_sigma (n,) f32 cotangents; weights and
-// biases as packed by pack_params (the compute dtype; the f32 recompute
-// and both modes' heads read weights), with its host int64 offset table
-// layout (kLayoutLen); mma_w (bf16 only, else null) and mma_wt, the
-// tensor-core packs (f32: mma_wt's lo row lo_wt elements after its hi
-// row), with layout_mma (kMmaLen); ws: grid * 128 * (96 + (depth + 1) *
-// ldw) elements of the compute dtype; partials: grid * (n_w + n_b) f32,
+// biases (f32) as packed by pack_params, with its host int64 offset table
+// layout (kLayoutLen); mma_wt, the transposed tensor-core pack, its lo row
+// lo_wt elements after its hi row, with layout_mma (kMmaLen); ws: grid *
+// 128 * (96 + (depth + 1) * ldw) f32; partials: grid * (n_w + n_b) f32,
 // zeroed; dweights (n_w) and dbiases (n_b) f32 outputs; dpts and ddirs
 // (n, 3) f32 outputs (per sample), or both null for no input gradients.
-// 1 <= grid. Returns a cudaError_t value (0 = launched).
+// 1 <= grid. Returns a cudaError_t value (0 = launched). bf16 packs go to
+// nerf_fused_mlp_backward_bf16 (fused_mlp_bwd_bf16.cu).
 extern "C" int nerf_fused_mlp_backward(
     const void* pts, const void* dirs, long long n, long long dir_div, const void* g_rgb,
-    const void* g_sigma, const void* weights, const void* mma_w, const void* mma_wt,
-    long long lo_wt, const void* biases, const long long* layout, int layout_len,
-    const long long* layout_mma, int layout_mma_len, int ldw, int ldv, int depth, int bf16,
-    int sigma_only, void* ws, void* partials, long long n_w, long long n_b, int grid,
-    void* dweights, void* dbiases, void* dpts, void* ddirs, int device, void* stream) {
+    const void* g_sigma, const void* weights, const void* mma_wt, long long lo_wt,
+    const void* biases, const long long* layout, int layout_len, const long long* layout_mma,
+    int layout_mma_len, int ldw, int ldv, int depth, int sigma_only, void* ws, void* partials,
+    long long n_w, long long n_b, int grid, void* dweights, void* dbiases, void* dpts,
+    void* ddirs, int device, void* stream) {
   Layout L;
   if (!parse_layout(layout, layout_len, ldw, ldv, depth, &L) || layout_mma_len != kMmaLen ||
       dir_div < 1 || n < 1 || grid < 1 || n_w < 1 || n_b < 1 ||
-      (dpts == nullptr) != (ddirs == nullptr) || (!bf16 && lo_wt < 1) ||
-      reinterpret_cast<uintptr_t>(mma_w) % 16 != 0 ||
+      (dpts == nullptr) != (ddirs == nullptr) || lo_wt < 1 ||
       reinterpret_cast<uintptr_t>(mma_wt) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   LayoutMma M;
   for (int i = 0; i < kSegs; ++i) {
-    M.w[i] = layout_mma[i];
-    M.wt[i] = layout_mma[kSegs + i];
-    const bool needed = i < depth || i >= 2 * kMaxDepth;
-    if (needed && ((bf16 && M.w[i] < 0) || M.wt[i] < 0)) {
+    M.wt[i] = layout_mma[i];
+    if ((i < depth || i >= 2 * kMaxDepth) && M.wt[i] < 0) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -976,27 +776,19 @@ extern "C" int nerf_fused_mlp_backward(
   const float* d = static_cast<const float*>(dirs);
   const float* gr = static_cast<const float*>(g_rgb);
   const float* gsg = static_cast<const float*>(g_sigma);
+  const float* w = static_cast<const float*>(weights);
+  const float* wt = static_cast<const float*>(mma_wt);
   const float* b = static_cast<const float*>(biases);
+  float* wsf = static_cast<float*>(ws);
   float* part = static_cast<float*>(partials);
   float* dw = static_cast<float*>(dweights);
   float* db = static_cast<float*>(dbiases);
   float* dp = static_cast<float*>(dpts);
   float* dd = static_cast<float*>(ddirs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    err = sigma_only ? launch<true, true>(p, d, n, dir_div, gr, gsg, weights, mma_w, mma_wt,
-                                          lo_wt, b, L, M, ws, part, n_w, n_b, grid, dw, db, dp, dd,
-                                          s)
-                     : launch<true, false>(p, d, n, dir_div, gr, gsg, weights, mma_w, mma_wt,
-                                           lo_wt, b, L, M, ws, part, n_w, n_b, grid, dw, db, dp, dd,
-                                           s);
-  } else {
-    err = sigma_only ? launch<false, true>(p, d, n, dir_div, gr, gsg, weights, mma_w, mma_wt,
-                                           lo_wt, b, L, M, ws, part, n_w, n_b, grid, dw, db, dp, dd,
-                                           s)
-                     : launch<false, false>(p, d, n, dir_div, gr, gsg, weights, mma_w, mma_wt,
-                                            lo_wt, b, L, M, ws, part, n_w, n_b, grid, dw, db,
-                                            dp, dd, s);
-  }
+  err = sigma_only ? launch<true>(p, d, n, dir_div, gr, gsg, w, wt, lo_wt, b, L, M, wsf, part, n_w,
+                                  n_b, grid, dw, db, dp, dd, s)
+                   : launch<false>(p, d, n, dir_div, gr, gsg, w, wt, lo_wt, b, L, M, wsf, part,
+                                   n_w, n_b, grid, dw, db, dp, dd, s);
   return static_cast<int>(err);
 }

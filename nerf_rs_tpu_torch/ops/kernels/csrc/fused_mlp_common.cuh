@@ -1,8 +1,9 @@
 // Pieces shared by the fused NeRF MLP kernels (fused_mlp.cu and
-// fused_mlp_tc.cu, K1; fused_mlp_bwd_tc.cu, K2): the packed-weight layout,
-// weight loads, the bf16 rounding of activations, the positional encode,
-// and the f32 forward's CUDA-core product with an 8-output x 8-sample
-// register tile per thread.
+// fused_mlp_tc.cu, K1; fused_mlp_bwd_tc.cu and fused_mlp_bwd_bf16.cu, K2):
+// the packed-weight layout, weight loads, the bf16 rounding of
+// activations, the positional encode and its gradient, the f32 forward's
+// CUDA-core product with an 8-output x 8-sample register tile per thread,
+// and the backward's fixed-order sum of per-CTA partials.
 //
 // Layout contract with ops/kernels/fused_mlp.py::pack_params: every weight
 // segment is a K-major (K, ld) matrix, w[k * ld + o], at an offset that is
@@ -152,6 +153,51 @@ __device__ __forceinline__ float encode(const float* xyz, int j) {
   const int o = (j - 3) % 6;
   const float arg = xyz[o % 3] * static_cast<float>(1 << band);  // exact scale
   return o < 3 ? sinf(arg) : cosf(arg);
+}
+
+// d(input coordinate c) of sample s from the encode gradient de (row
+// stride s_de): identity rows contribute 1, sin rows 2^b cos(2^b x), cos
+// rows -2^b sin(2^b x).
+__device__ __forceinline__ float encode_vjp(const float* de, int s_de, int s, int c, float x,
+                                            int bands) {
+  const float* d = de + s * s_de;
+  float v = d[c];
+  for (int b = 0; b < bands; ++b) {
+    const float scale = static_cast<float>(1 << b);
+    float sn, cs;
+    sincosf(x * scale, &sn, &cs);
+    v = v + d[3 + 6 * b + c] * (scale * cs);
+    v = v - d[6 + 6 * b + c] * (scale * sn);
+  }
+  return v;
+}
+
+// The backward kernels' second launch: out[e] = sum over p of
+// partials[p * stride + e], p in order; the first n_w sums are the weight
+// gradients, the rest the bias gradients. (A template, so that each
+// kernel source may instantiate it.)
+template <typename F>
+__global__ void reduce_partials(const F* __restrict__ partials, int parts, long long stride,
+                                long long n_w, F* __restrict__ dweights, F* __restrict__ dbiases) {
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < stride;
+       e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    F s = 0;
+    for (int p = 0; p < parts; ++p) s += partials[p * stride + e];
+    if (e < n_w) {
+      dweights[e] = s;
+    } else {
+      dbiases[e - n_w] = s;
+    }
+  }
+}
+
+template <typename F>
+cudaError_t launch_reduce_partials(const F* partials, int parts, long long stride, long long n_w,
+                                   F* dweights, F* dbiases, cudaStream_t stream) {
+  const long long blocks = (stride + 255) / 256;
+  reduce_partials<F><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+      partials, parts, stride, n_w, dweights, dbiases);
+  return cudaGetLastError();
 }
 
 }  // namespace nerf

@@ -9,11 +9,13 @@ layer as two summed products, the ReLU sigma head and, unless
 the sigmoid rgb head, with activations kept on chip. It has two kernels:
 float32 on the CUDA cores (``csrc/fused_mlp.cu``) and bfloat16 on the
 tensor cores (``csrc/fused_mlp_tc.cu``: ``wgmma`` on weights bulk-copied
-into shared memory). The backward kernel K2 (``csrc/fused_mlp_bwd_tc.cu``)
-replaces ``_backward_t`` / ``_kernel_bwd``: it recomputes the forward per
-tile, backpropagates, and sums every layer's weight and bias gradient
-over the samples, with every product on the tensor cores (``mma.sync``:
-3xTF32 in float32, bf16 in bfloat16).
+into shared memory). The backward kernel K2 replaces ``_backward_t`` /
+``_kernel_bwd``: it recomputes the forward per tile, backpropagates, and
+sums every layer's weight and bias gradient over the samples. It too has
+two kernels: float32 (``csrc/fused_mlp_bwd_tc.cu``: the recompute in K1
+f32's CUDA-core arithmetic, dW and W·dz as 3xTF32 ``mma.sync``) and
+bfloat16 (``csrc/fused_mlp_bwd_bf16.cu``: every product a ``wgmma``, the
+recompute K1 bf16's own device code on its own pack).
 
 - :func:`pack_params` lays the weights out for the kernels, once per
   network and dtype (``models.mlp.NerfMLP.packed`` keeps the pack).
@@ -55,7 +57,7 @@ MAX_DEPTH = 16              # kMaxDepth in csrc/fused_mlp_common.cuh
 MAX_WIDTH = 256             # kMaxWidth: widest trunk or view branch served
 _ALIGN = 8                  # segment offsets: 16-byte aligned bf16 loads
 _TC_PIECE = 64              # kPiece in csrc/fused_mlp_tc.cu: tensor-core widths pad to it
-_BWD_TILE = 128             # kRows in csrc/fused_mlp_bwd_tc.cu: samples a backward tile
+_BWD_TILE = 128             # kRows in csrc/fused_mlp_bwd_{tc,bf16}.cu: samples a backward tile
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -103,27 +105,25 @@ class PackedMLP:
     layer) and ``rgb``. Every padding entry is zero. ``layout`` is the
     int64 offset table in the order ``csrc/fused_mlp_common.cuh`` reads it.
 
-    ``mma_wt`` and, in bf16 packs, ``mma_w`` are the backward kernel's
-    tensor-core packs (``csrc/fused_mlp_bwd_tc.cu``): the transpose of
-    every segment but the two heads (for the input-gradient products),
-    and the segment itself (for the bf16 recompute; the f32 recompute
-    reads ``weights``), tiled by :func:`mma_tile` into ``mma.sync``
-    B-fragment order, at the offsets of ``layout_mma`` (35 entries for
-    ``mma_w`` in the order dense{i}, dense{i}_enc, bottleneck, viewdirs,
-    viewdirs_dir, -1 in f32 packs, then 35 for ``mma_wt``). A segment's K
-    (its rows) pads to a multiple of 16, its N stays ``ld``; a
-    transpose's K is the segment's ``ld`` padded to 16, its N the
-    segment's rows. f32 ``mma_wt`` holds two rows, ``hi = tf32_rna(w)``
-    and ``lo = tf32_rna(w - hi)`` (:func:`tf32_split`), for the kernel's
-    3xTF32 products; bf16 packs hold bf16 weights.
+    f32 packs hold ``mma_wt``, the f32 backward kernel's tensor-core pack
+    (``csrc/fused_mlp_bwd_tc.cu``): the transpose of every segment but the
+    two heads (for the input-gradient products), tiled by :func:`mma_tile`
+    into ``mma.sync`` B-fragment order, at the offsets of ``layout_mma``
+    (35 entries in the order dense{i}, dense{i}_enc, bottleneck, viewdirs,
+    viewdirs_dir). A transpose's K is the segment's ``ld`` padded to 16,
+    its N the segment's rows. It holds two rows, ``hi = tf32_rna(w)`` and
+    ``lo = tf32_rna(w - hi)`` (:func:`tf32_split`), for the kernel's 3xTF32
+    products.
 
-    bf16 packs also hold ``weights_tc``, the tensor-core forward's own
-    pack (``csrc/fused_mlp_tc.cu``), with ``layout_tc``, an offset table
-    in ``layout``'s order (the same bias offsets). Its layer segments are
-    tiled by :func:`tc_tile`: trunk and view widths pad to multiples of
-    64, and so does the K of the layers that read the trunk; the encodes
-    keep K = 64 and 32. Its two head segments are those of ``weights``.
-    f32 packs hold ``None`` there.
+    bf16 packs hold ``weights_tc`` instead, the tensor-core pack that the
+    bf16 forward (``csrc/fused_mlp_tc.cu``) and the bf16 backward
+    (``csrc/fused_mlp_bwd_bf16.cu``, which reads each layer chunk also
+    transposed) share, with ``layout_tc``, an offset table in ``layout``'s
+    order (the same bias offsets). Its layer segments are tiled by
+    :func:`tc_tile`: trunk and view widths pad to multiples of 64, and so
+    does the K of the layers that read the trunk; the encodes keep K = 64
+    and 32. Its two head segments are those of ``weights``. Each pack
+    holds ``None`` in the other's fields.
     """
 
     weights: torch.Tensor
@@ -131,9 +131,8 @@ class PackedMLP:
     segments: Dict[str, Tuple[int, int, int]]
     bias_slots: Dict[str, Tuple[int, int]]
     layout: np.ndarray
-    mma_w: Optional[torch.Tensor]
-    mma_wt: torch.Tensor
-    layout_mma: np.ndarray
+    mma_wt: Optional[torch.Tensor]
+    layout_mma: Optional[np.ndarray]
     width: int
     v_width: int
     depth: int
@@ -206,10 +205,9 @@ def pack_params(params, dtype: str) -> PackedMLP:
              ("rgb", kern("rgb"), ldv, 3)]
 
     segments: Dict[str, Tuple[int, int, int]] = {}
-    pieces, pieces_w, pieces_wt = [], [], []
-    offsets_w: Dict[str, int] = {}
+    pieces, pieces_wt = [], []
     offsets_wt: Dict[str, int] = {}
-    off = off_w = off_wt = 0
+    off = off_wt = 0
     for name, m, rows, ld in mats:
         padded = torch.zeros((rows, ld), dtype=torch.float32, device=device)
         padded[:m.shape[0], :m.shape[1]] = m
@@ -217,20 +215,11 @@ def pack_params(params, dtype: str) -> PackedMLP:
         pieces.append(torch.nn.functional.pad(padded.reshape(-1), (0, size - rows * ld)))
         segments[name] = (off, rows, ld)
         off += size
-        if name not in ("alpha", "rgb"):        # rows and ld are multiples of 8
-            w_rnd = padded.to(_DTYPES[dtype]).to(torch.float32)
-            if dtype == "bfloat16":
-                pieces_w.append(mma_tile(w_rnd, _round_up(rows, 16), ld, dtype))
-                offsets_w[name] = off_w
-                off_w += pieces_w[-1].numel()
-            pieces_wt.append(mma_tile(w_rnd.t(), _round_up(ld, 16), rows, dtype))
+        if dtype == "float32" and name not in ("alpha", "rgb"):   # rows, ld: multiples of 8
+            pieces_wt.append(mma_tile(padded.t(), _round_up(ld, 16), rows))
             offsets_wt[name] = off_wt
             off_wt += pieces_wt[-1].numel()
     weights = torch.cat(pieces).to(_DTYPES[dtype])
-    if dtype == "float32":
-        mma_w, mma_wt = None, torch.stack(tf32_split(torch.cat(pieces_wt)))
-    else:
-        mma_w, mma_wt = (torch.cat(p).to(torch.bfloat16) for p in (pieces_w, pieces_wt))
 
     bias_slots: Dict[str, Tuple[int, int]] = {}
     bpieces = []
@@ -256,14 +245,15 @@ def pack_params(params, dtype: str) -> PackedMLP:
             dtype=np.int64)
 
     layout = table({name: off for name, (off, _, _) in segments.items()})
-    layout_mma = np.array(
-        [x for offsets in (offsets_w, offsets_wt) for x in (
-            [offsets.get(f"dense{i}", -1) for i in range(MAX_DEPTH)]
-            + [offsets.get(f"dense{i}_enc", -1) for i in range(MAX_DEPTH)]
-            + [offsets.get(n, -1) for n in ("bottleneck", "viewdirs", "viewdirs_dir")])],
-        dtype=np.int64)
-    weights_tc = layout_tc = None
-    if dtype == "bfloat16":
+    mma_wt = layout_mma = weights_tc = layout_tc = None
+    if dtype == "float32":
+        mma_wt = torch.stack(tf32_split(torch.cat(pieces_wt)))
+        layout_mma = np.array(
+            [offsets_wt.get(f"dense{i}", -1) for i in range(MAX_DEPTH)]
+            + [offsets_wt.get(f"dense{i}_enc", -1) for i in range(MAX_DEPTH)]
+            + [offsets_wt[n] for n in ("bottleneck", "viewdirs", "viewdirs_dir")],
+            dtype=np.int64)
+    else:
         ldw_tc, ldv_tc = _round_up(ldw, _TC_PIECE), _round_up(ldv, _TC_PIECE)
         offsets_tc: Dict[str, int] = {}
         pieces_tc = []
@@ -280,7 +270,7 @@ def pack_params(params, dtype: str) -> PackedMLP:
         weights_tc = torch.cat(pieces_tc).to(torch.bfloat16)
         layout_tc = table(offsets_tc)
     return PackedMLP(weights=weights, biases=biases, segments=segments,
-                     bias_slots=bias_slots, layout=layout, mma_w=mma_w, mma_wt=mma_wt,
+                     bias_slots=bias_slots, layout=layout, mma_wt=mma_wt,
                      layout_mma=layout_mma, width=width, v_width=v_width, depth=depth,
                      ldw=ldw, ldv=ldv, dtype=dtype, weights_tc=weights_tc,
                      layout_tc=layout_tc)
@@ -303,22 +293,21 @@ def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def mma_tile(m: torch.Tensor, k: int, n: int, dtype: str) -> torch.Tensor:
-    """A (K, N) matrix zero-padded to (k, n), flat in the order the backward
-    kernel loads ``mma.sync`` B fragments (``csrc/fused_mlp_bwd_tc.cu``):
-    one block of 16 k x 8 n per (k // 16, n // 8), row-major over blocks;
-    in a block, lane ``4 g + t`` of a warp holds its four elements at
-    ``4 (4 g + t) + j``, all at column ``8 nb + g`` and rows
-    ``16 kb + t + 4 j`` (f32: j = 0, 1 are ``m16n8k8``'s b0, b1 for the
-    first eight k, j = 2, 3 for the next) or ``16 kb + 2 t + (j & 1) + 8 (j >> 1)``
-    (bf16: ``m16n8k16``'s b0 = (j0, j1), b1 = (j2, j3)). k must be a
-    multiple of 16, n of 8. Returns float32; the caller casts or splits."""
+def mma_tile(m: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """A (K, N) matrix zero-padded to (k, n), flat in the order the f32
+    backward kernel loads ``mma.sync`` tf32 B fragments
+    (``csrc/fused_mlp_bwd_tc.cu``): one block of 16 k x 8 n per (k // 16,
+    n // 8), row-major over blocks; in a block, lane ``4 g + t`` of a warp
+    holds its four elements at ``4 (4 g + t) + j``, all at column
+    ``8 nb + g`` and rows ``16 kb + t + 4 j`` (j = 0, 1 are ``m16n8k8``'s
+    b0, b1 for the first eight k, j = 2, 3 for the next). k must be a
+    multiple of 16, n of 8. Returns float32; the caller splits."""
     if k % 16 or n % 8 or m.shape[0] > k or m.shape[1] > n:
         raise ValueError(f"cannot tile a {tuple(m.shape)} matrix to ({k}, {n})")
     padded = torch.zeros((k, n), dtype=torch.float32, device=m.device)
     padded[:m.shape[0], :m.shape[1]] = m
     t, j = np.meshgrid(np.arange(4), np.arange(4), indexing="ij")
-    rows = t + 4 * j if dtype == "float32" else 2 * t + (j & 1) + 8 * (j >> 1)
+    rows = t + 4 * j
     blocks = padded.reshape(k // 16, 16, n // 8, 8).permute(0, 2, 3, 1)   # kb, nb, g, row
     idx = torch.as_tensor(rows.reshape(-1), device=m.device)
     return blocks[..., idx].reshape(-1)
@@ -677,22 +666,34 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
     if n > 0:
         tiles = -(-n // _BWD_TILE)
         grid = min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
-        # Per CTA: the tile's encodes, trunk outputs and bottleneck output,
-        # in the compute dtype (csrc/fused_mlp_bwd_tc.cu's workspace).
-        ws = torch.empty(grid * _BWD_TILE * (_ENC_X + _ENC_D + (pk.depth + 1) * pk.ldw),
-                         dtype=_DTYPES[dtype], device=dev)
         partials = torch.zeros(grid * (n_w + n_b), dtype=torch.float32, device=dev)
-        err = _build.load_library().nerf_fused_mlp_backward(
-            points.data_ptr(), dirs.data_ptr(), n, dir_div, g_rgb.data_ptr(),
-            g_sigma.data_ptr(), pk.weights.data_ptr(),
-            None if pk.mma_w is None else pk.mma_w.data_ptr(), pk.mma_wt.data_ptr(),
-            pk.mma_wt.shape[1] if pk.mma_wt.dim() == 2 else 0, pk.biases.data_ptr(),
-            pk.layout.ctypes.data, pk.layout.size, pk.layout_mma.ctypes.data,
-            pk.layout_mma.size, pk.ldw, pk.ldv, pk.depth, int(dtype == "bfloat16"),
-            int(sigma_only), ws.data_ptr(), partials.data_ptr(), n_w, n_b, grid,
-            dweights.data_ptr(), dbiases.data_ptr(),
-            dpts.data_ptr() if input_grads else None, ddirs.data_ptr() if input_grads else None,
-            dev.index or 0, _stream(dev))
+        lib = _build.load_library()
+        ptrs = (points.data_ptr(), dirs.data_ptr(), n, dir_div, g_rgb.data_ptr(),
+                g_sigma.data_ptr())
+        outs = (dweights.data_ptr(), dbiases.data_ptr(),
+                dpts.data_ptr() if input_grads else None,
+                ddirs.data_ptr() if input_grads else None, dev.index or 0, _stream(dev))
+        if dtype == "bfloat16":
+            # Per CTA: the tile's trunk outputs and bottleneck output as
+            # shared-memory images (widths padded to 64), then 128 x 64 f32
+            # of encode gradient (csrc/fused_mlp_bwd_bf16.cu's workspace).
+            nw = _round_up(pk.ldw, _TC_PIECE)
+            ws = torch.empty(grid * _BWD_TILE * ((pk.depth + 1) * nw + 2 * _ENC_X),
+                             dtype=torch.bfloat16, device=dev)
+            err = lib.nerf_fused_mlp_backward_bf16(
+                *ptrs, pk.weights_tc.data_ptr(), pk.biases.data_ptr(), pk.layout_tc.ctypes.data,
+                pk.layout.ctypes.data, pk.layout.size, pk.ldw, pk.ldv, pk.depth,
+                int(sigma_only), ws.data_ptr(), partials.data_ptr(), n_w, n_b, grid, *outs)
+        else:
+            # Per CTA: the tile's encodes, trunk outputs and bottleneck
+            # output (csrc/fused_mlp_bwd_tc.cu's workspace).
+            ws = torch.empty(grid * _BWD_TILE * (_ENC_X + _ENC_D + (pk.depth + 1) * pk.ldw),
+                             dtype=torch.float32, device=dev)
+            err = lib.nerf_fused_mlp_backward(
+                *ptrs, pk.weights.data_ptr(), pk.mma_wt.data_ptr(), pk.mma_wt.shape[1],
+                pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout.size,
+                pk.layout_mma.ctypes.data, pk.layout_mma.size, pk.ldw, pk.ldv, pk.depth,
+                int(sigma_only), ws.data_ptr(), partials.data_ptr(), n_w, n_b, grid, *outs)
         if err != 0:
             raise RuntimeError(f"fused MLP backward kernel launch failed with CUDA error {err}")
         fused_nerf_mlp_backward.launches += 1

@@ -1,5 +1,6 @@
 """PyTorch port on the card: the fused MLP kernels (forward K1, f32 on the
-CUDA cores and bf16 on the tensor cores; backward K2 on the tensor cores),
+CUDA cores and bf16 on the tensor cores; backward K2 on the tensor cores,
+``mma.sync`` 3xTF32 in f32 and ``wgmma`` in bf16),
 the fused resampler (K3), the hash encode and the int8 MLP kernel against
 their plain versions, and the packed accel render against the unpacked one.
 
@@ -26,6 +27,7 @@ from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
     fused_nerf_mlp_backward,
     fused_nerf_mlp_backward_reference,
     fused_nerf_mlp_reference,
+    pack_params,
     unpack_grads,
 )
 from nerf_rs_tpu_torch.render import render_image
@@ -229,12 +231,49 @@ def test_backward_kernel_is_deterministic(card, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_recomputes_the_forwards_activations(card, dtype):
+    """K2's recompute gives K1's trunk activations bit for bit, so K2
+    differentiates the activations and ReLU masks that made the loss. With
+    the sigma head's weights at zero and its bias at 1 (every mask on) and
+    a sigma cotangent of 1 on sample s alone, K2's alpha gradient is the
+    recomputed last trunk output of s, exactly; with the sigma head's
+    weights at the unit vector e_k and its bias at 0, K1's sigma is that
+    output's entry k, exactly (one non-zero product in each sum)."""
+    params = np_params(SMALL, 12)
+    rays, samples = 37, 29
+    pts, dirs = inputs(rays, samples, 13, card)
+
+    def tree(w_alpha, b_alpha):
+        t = {layer: {k: torch.from_numpy(v).to(card) for k, v in p.items()}
+             for layer, p in params.items()}
+        t["alpha"] = {"kernel": w_alpha.reshape(-1, 1).to(card),
+                      "bias": torch.full((1,), b_alpha, device=card)}
+        return t
+
+    width = SMALL.width
+    h = torch.empty((rays * samples, width), device=card)
+    for k in range(width):
+        _, sig = fused_nerf_mlp(tree(torch.eye(width)[k], 0.0), pts, dirs, dtype=dtype,
+                                sigma_only=True)
+        h[:, k] = sig.reshape(-1)
+    pk = pack_params(tree(torch.zeros(width), 1.0), dtype)
+    g_rgb = torch.zeros((rays, samples, 3), device=card)
+    for s in (0, 500, rays * samples - 1):            # first tile, a middle one, the ragged last
+        g_sig = torch.zeros(rays * samples, device=card)
+        g_sig[s] = 1.0
+        dw, db, _, _ = fused_nerf_mlp_backward(pk, pts, dirs, g_rgb, g_sig.reshape(rays, samples),
+                                               dtype=dtype, sigma_only=True, input_grads=False)
+        got = unpack_grads(pk, dw, db)["alpha"]["kernel"][:, 0]
+        assert torch.equal(got, h[s]), (s, float((got - h[s]).abs().max()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_autograd_through_kernels_matches_plain_autograd(card, dtype):
     """fused_nerf_mlp's gradients on the card (K1 + K2) against the plain
     path's, leaf by leaf: f32 against torch autograd of the plain oracle;
-    bf16 (K1 and K2 both on the tensor cores, K2 recomputing the forward
-    in K1's k-order) against fused_nerf_mlp on CPU tensors, the plain
-    forward and backward. Sigma-only leaves the color branch at exactly
+    bf16 (K1 and K2 both wgmma on the tensor cores, K2 recomputing the
+    forward with K1's own device code) against fused_nerf_mlp on CPU
+    tensors, the plain forward and backward. Sigma-only leaves the color branch at exactly
     zero."""
     from nerf_rs_tpu_torch.models.mlp import nerf_mlp
 

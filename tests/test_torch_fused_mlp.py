@@ -189,13 +189,14 @@ def test_tc_pack_round_trip_and_padding(arch):
     zero-padded to K and N multiples of 64 (the encodes keep K = 64 and
     32, multiples of 16); the two heads are ``weights``' head segments; the
     segments cover the copy exactly once; its table has the order and the
-    bias offsets of ``layout``. Its ``weights`` are the f32 pack's in bf16,
-    and its transposed backward pack sits at the f32 pack's offsets."""
+    bias offsets of ``layout``. Its ``weights`` are the f32 pack's in bf16;
+    it holds no transposed backward pack (the bf16 backward reads this copy
+    transposed), the f32 pack holds no tensor-core copy."""
     params = params_to_torch(np_params(arch, 8), "cpu")
     bf, f32 = pack_params(params, "bfloat16"), pack_params(params, "float32")
     assert f32.weights_tc is None and f32.layout_tc is None
     assert torch.equal(bf.weights, f32.weights.to(torch.bfloat16))
-    np.testing.assert_array_equal(bf.layout_mma[35:], f32.layout_mma[35:])
+    assert bf.mma_wt is None and bf.layout_mma is None and f32.layout_mma.size == 35
     assert bf.weights_tc.dtype == torch.bfloat16
     flat = bf.weights_tc.float().numpy()
     nw, nv = -(-arch.width // 64) * 64, -(-arch.v_width // 64) * 64
