@@ -23,25 +23,29 @@ networks quantized after training and rendered through the int8 MLP kernel
 forward (``train --impl int8qat``). Phases, each reported on its own line:
 
 1. device: a CUDA card is required; its name and power limit are printed;
-2. build: the fused MLP kernels K1 (f32 on the CUDA cores, bf16 on the
-   tensor cores) and K2 (on the tensor cores), the fused resampler K3, the
-   hash encode and the int8 MLP kernel are compiled from the checkout's
-   sources (one nvcc per source, in parallel); ``cuobjdump --dump-sass``
-   must show HGMMA (``wgmma``) instructions in both variants of the
-   tensor-core K1 and of K2's bf16 kernel, and HMMA (``mma.sync``)
-   instructions, every one tf32, in both variants of K2's f32 kernel;
+2. build: the fused MLP kernels K1 and K2 (both on the tensor cores, f32
+   and bf16), the fused resampler K3, the hash encode and the int8 MLP
+   kernel are compiled from the checkout's sources (one nvcc per source, in
+   parallel); ``cuobjdump --dump-sass`` must show HGMMA (``wgmma``)
+   instructions in both variants (sigma_only or not) of K1 f32 and bf16,
+   of K1 f32's record mode (K2 f32's recompute) and of K2's bf16 kernel,
+   and HMMA (``mma.sync``) instructions, every one tf32, in both variants
+   of K2's f32 kernel;
 3. K1 against its plain PyTorch version at the render's shapes (8192 rays
    x 64 samples sigma-only, 8192 x 192 full), f32 and bf16, two calls
-   bitwise equal; bf16 sigma held to the float64 evaluation, no further
-   from it than the plain version (``fused_mlp.bf16_sigma_agrees``);
+   bitwise equal; the kernel's and the plain version's f32 distance from
+   the float64 evaluation (reported); bf16 sigma held to the float64
+   evaluation, no further from it than the plain version
+   (``fused_mlp.bf16_sigma_agrees``);
 4. the f32 frame with K1: PSNR against the committed golden > 45 dB, and
-   2 K1 launches per ray chunk, none on the tensor cores;
+   2 K1 launches per ray chunk, every one on the tensor cores;
 5. the bf16 frame against the f32 frame, at BF16_FRAME_BAR_DB, every K1
    launch (2 a chunk) on the tensor cores;
 6. the plain-PyTorch f32 frame against the kernel frame, >= 60 dB;
 7. K1, plain and library-yardstick (``models.mlp.nerf_mlp`` in the same
-   dtype) times at the phase-3 shapes, f32 and bf16, and the 256x256 frame
-   times (medians of 3) with the kernels and plain, f32 and bf16;
+   dtype) times at the phase-3 shapes, f32 and bf16, their shares of
+   their bounds, and the 256x256 frame times (medians of 3) with the
+   kernels and plain, f32 and bf16;
 8. K2 against its plain version on what the training path hands it (the
    lego networks as students: coarse at 4096 x 64 and fine at 4096 x 192,
    both full), f32 and bf16: every leaf's gradient, d(points) and d(dirs),
@@ -55,7 +59,7 @@ forward (``train --impl int8qat``). Phases, each reported on its own line:
 11. K2 times at the fine shape in both modes against their plain versions
     and their library yardsticks (autograd through ``models.mlp.nerf_mlp``
     in the same dtype), K1 f32 on the same samples (the f32 recompute's
-    arithmetic alone), K2's peak scratch and its bounds by route,
+    code alone), K2's peak scratch and its bounds by route,
     ms per step and rays/s for the kernel and the plain training paths,
     and one kernel step under ``torch.profiler`` (idle share, top kernels);
 12. K3 against its plain version on what the render hands it (the f32
@@ -116,12 +120,13 @@ forward (``train --impl int8qat``). Phases, each reported on its own line:
 
 Any failed phase exits non-zero. The line before the last is a JSON
 summary of the kernels, each with its bound (the larger of its bytes over
-the memory rate and its operations over the peak for their type — f32 on
-the CUDA cores, bf16 for the tensor-core K1 and K2's bf16 mode, tf32 for
-K2's f32 mode, whose route is 3xTF32 (its entry also carries the bound
-with the recompute on the CUDA cores, as the kernel runs it, and the
-all-CUDA-core bound), int8 for the int8 kernel — from this run's
-shapes); the last line is the JSON device record.
+the memory rate and its operations over the peak for their type through
+the kernel's route — K1 f32 six bf16 passes a product (split-f32), bf16
+for K1 bf16 and K2's bf16 mode, K2's f32 mode its recompute as K1 f32
+and its dW and W dz as 3xTF32 at the tf32 peak (the f32 entries also
+carry their all-CUDA-core bound), f32 on the CUDA cores for K3 and the
+hash encode, int8 for the int8 kernel — from this run's shapes); the last
+line is the JSON device record.
 Never imports JAX.
 """
 
@@ -246,7 +251,7 @@ def phase_build():
         for line in log.read_text().splitlines():
             entry = re.search(r"entry function '.*?(fused_mlp_bwd_tc_kernel|fused_mlp_tc_kernel|"
                               r"fused_mlp_bwd_bf16_kernel|"
-                              r"fused_mlp_kernel|reduce_partials|resample_kernel|"
+                              r"fused_mlp_f32tc_kernel|reduce_partials|resample_kernel|"
                               r"hash_encode_kernel|int8_mlp_kernel)"
                               r"(I\w*?Lb[01]E)?", line)
             if "(C7519)" in line:              # an arrive ptxas adds before a wgmma
@@ -258,14 +263,17 @@ def phase_build():
         say("2 build", f"ptxas: {injected} warpgroup.arrive injected before wgmmas (C7519)")
     sass = tensor_core_instructions(_build)
     say("2 build", "tensor-core instructions in the SASS: " + ", ".join(
-        f"{re.search(r'fused_mlp(?:_bwd)?_(?:tc|bf16)_kernel(?:I(?:Lb[01]E)+)?', fn).group(0)} "
-        f"{count} {kind}" for (fn, kind), count in sass.items()))
-    # K1 bf16 and K2 bf16: HGMMA in both variants (sigma_only or not); K2
-    # f32: HMMA in both, every one .TF32.
+        f"{re.search(MLP_KERNEL, fn).group(0)} {count} {kind}"
+        for (fn, kind), count in sass.items() if count))
+    # K1 (f32 forward and record mode, bf16) and K2 bf16: HGMMA in every
+    # instance (sigma_only or not); K2 f32: HMMA in both, every one .TF32.
     hgmma = {kernel: [count for (fn, kind), count in sass.items()
-                      if kind == "HGMMA" and kernel in fn]
-             for kernel in ("fused_mlp_tc_kernel", "fused_mlp_bwd_bf16_kernel")}
-    k2 = {fn: count for (fn, kind), count in sass.items() if kind == "HMMA"}
+                      if kind == "HGMMA" and re.search(kernel, fn)]
+             for kernel in ("fused_mlp_f32tc_kernelILb[01]ELb0E",   # K1 f32
+                            "fused_mlp_f32tc_kernelILb[01]ELb1E",   # its record mode
+                            "fused_mlp_tc_kernel", "fused_mlp_bwd_bf16_kernel")}
+    k2 = {fn: count for (fn, kind), count in sass.items()
+          if kind == "HMMA" and "fused_mlp_bwd_tc_kernel" in fn}
     k2_ok = len(k2) == 2 and all(count and sass.get((fn, "TF32"), 0) == count
                                  for fn, count in k2.items())
     for kernel, counts in hgmma.items():
@@ -277,32 +285,33 @@ def phase_build():
                            "instructions, or has some that are not tf32")
 
 
+MLP_KERNEL = r"fused_mlp(?:_bwd)?_(?:tc|bf16|f32tc)_kernel(?:I(?:Lb[01]E)+)?"
+
+
 def tensor_core_instructions(build) -> dict:
     """{(function, kind): count} from ``cuobjdump --dump-sass`` of the built
-    library: HGMMA instructions of each fused_mlp_tc_kernel and
-    fused_mlp_bwd_bf16_kernel instance, and HMMA instructions of each
-    fused_mlp_bwd_tc_kernel instance, also counted by operand type (kind
+    library: HGMMA and HMMA instructions of each instance of the fused MLP
+    kernels (MLP_KERNEL), the HMMA ones also counted by operand type (kind
     "TF32" or "BF16")."""
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(build.library_path())],
                           capture_output=True, text=True, timeout=300)
     if sass.returncode != 0:
         raise PhaseFailure(f"cuobjdump failed: {sass.stderr.strip()[-500:]}")
-    counts, fn, op = {}, None, None
+    counts, fn = {}, None
     for line in sass.stdout.splitlines():
         head = re.search(r"Function : (\S+)", line)
         if head:
-            name = head.group(1)
-            fn, op = ((name, "HGMMA")
-                      if "fused_mlp_tc_kernel" in name or "fused_mlp_bwd_bf16_kernel" in name else
-                      (name, "HMMA") if "fused_mlp_bwd_tc_kernel" in name else (None, None))
+            fn = head.group(1) if re.search(MLP_KERNEL, head.group(1)) else None
             if fn:
-                counts[(fn, op)] = 0
-        elif fn and re.search(rf"\b{op}\.", line):
-            counts[(fn, op)] += 1
-            for kind in ("TF32", "BF16"):
-                if op == "HMMA" and f".{kind}" in line:
-                    counts[(fn, kind)] = counts.get((fn, kind), 0) + 1
+                counts[(fn, "HGMMA")] = counts[(fn, "HMMA")] = 0
+            continue
+        for op in ("HGMMA", "HMMA"):
+            if fn and re.search(rf"\b{op}\.", line):
+                counts[(fn, op)] += 1
+                for kind in ("TF32", "BF16"):
+                    if op == "HMMA" and f".{kind}" in line:
+                        counts[(fn, kind)] = counts.get((fn, kind), 0) + 1
     return counts
 
 
@@ -372,6 +381,15 @@ def phase_kernel_vs_plain(coarse, fine, cam, dev):
                         f"[{float(sig_r.min()):.3g}, {float(sig_r.max()):.3g}]")
                 if dtype == "float32":
                     ok = rgb_err <= tol["rgb_atol"] and sig_excess <= tol["sigma_atol"]
+                    rgb_64, sig_64 = fused_nerf_mlp_reference(net, pts.double(), vd.double(), **kw)
+
+                    def dist(x, ref):
+                        return float((x.double() - ref).abs().max())
+
+                    line += (f"; max distance from the float64 evaluation: kernel rgb "
+                             f"{dist(rgb_k, rgb_64):.3e} sigma {dist(sig_k, sig_64):.3e}, plain "
+                             f"rgb {dist(rgb_r, rgb_64):.3e} sigma {dist(sig_r, sig_64):.3e}")
+                    del rgb_64, sig_64
                 else:
                     _, sig_64 = fused_nerf_mlp_reference(net, pts.double(), vd.double(), **kw)
                     sig_ok, counts = bf16_sigma_agrees(sig_k, sig_r, sig_64)
@@ -1004,6 +1022,7 @@ HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 TF32_FLOP_S = 495e12           # dense tf32 tensor-core peak
 BF16_FLOP_S = 989e12           # dense bf16 tensor-core peak
+SPLIT_F32_PASSES = 6           # bf16 products an f32 product takes on K1 f32's route
 # The acceptance bar of the tensor-core K1: a bf16 fine call at most a
 # quarter of the CUDA-core bf16 kernel's 64.741 ms (PERF.md, PR 5).
 BF16_FINE_TARGET_MS = 16.0
@@ -1020,25 +1039,25 @@ def bound(n_bytes: float, ops: float, peak_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mlp_bound(net, pts, viewdirs, peak_ops: float, weight_bytes: int):
+def mlp_bound(net, pts, viewdirs, peak_ops: float, weight_bytes: int, passes: int = 1):
     """K1's bound for one full call of ``net`` at these inputs: points,
     dirs and the weights (``weight_bytes`` each, f32 biases) read once,
-    rgb and sigma written once; the products at ``peak_ops``."""
+    rgb and sigma written once; the products at ``peak_ops``, ``passes``
+    operations a product operation (SPLIT_F32_PASSES for split-f32)."""
     n, rays = pts.numel() // 3, viewdirs.numel() // 3
     w = sum(int(p["kernel"].numel()) * weight_bytes + 4 * int(p["bias"].numel())
             for p in net.tree().values())
-    return bound(4 * (n * 7 + rays * 3) + w, mlp_flops(net, False) * n, peak_ops)
+    return bound(4 * (n * 7 + rays * 3) + w, passes * mlp_flops(net, False) * n, peak_ops)
 
 
 def backward_bounds(net, pts, viewdirs, g_rgb, g_sigma) -> dict:
     """K2's bounds for one full call at these inputs, (ms, "bytes" or
     "operations") by route: points, dirs and cotangents read once, the
     weights read and their gradients written once (4 or 2 bytes a weight);
-    three forwards of products. "3xtf32" is the f32 mode's route, every
-    product as three tf32 products; "recompute_cuda_cores" as the f32
-    kernel runs it, the recompute's products on the CUDA cores and the dW
-    and W dz products as 3xTF32; "cuda_cores" all three forwards on the
-    CUDA cores; "bfloat16" all three in bf16."""
+    three forwards of products. "float32" is the f32 mode's route: the
+    recompute as K1 f32 (six bf16 passes a product) and the dW and W dz
+    products as 3xTF32 (three tf32 products each); "cuda_cores" all three
+    forwards on the CUDA cores; "bfloat16" all three in bf16."""
     n = pts.numel() // 3
     fwd = mlp_flops(net, False) * n
     io = 4 * (pts.numel() + viewdirs.numel() + g_rgb.numel() + g_sigma.numel())
@@ -1048,9 +1067,8 @@ def backward_bounds(net, pts, viewdirs, g_rgb, g_sigma) -> dict:
         t_bytes = n_bytes / HBM_BYTES_S * 1e3
         return (t_bytes, "bytes") if t_bytes >= ms else (ms, "operations")
 
-    return {"recompute_cuda_cores": at(io + 8 * n_w,
-                                       (fwd / F32_FLOP_S + 3 * 2 * fwd / TF32_FLOP_S) * 1e3),
-            "3xtf32": at(io + 8 * n_w, 3 * 3 * fwd / TF32_FLOP_S * 1e3),
+    return {"float32": at(io + 8 * n_w, (SPLIT_F32_PASSES * fwd / BF16_FLOP_S
+                                         + 3 * 2 * fwd / TF32_FLOP_S) * 1e3),
             "cuda_cores": at(io + 8 * n_w, 3 * fwd / F32_FLOP_S * 1e3),
             "bfloat16": at(io + 6 * n_w, 3 * fwd / BF16_FLOP_S * 1e3)}
 
@@ -1675,10 +1693,11 @@ def main() -> int:
         f"to {out_dir}")
     if not golden_db > GOLDEN_BAR_DB:
         raise PhaseFailure(f"f32 frame PSNR {golden_db:.2f} dB <= {GOLDEN_BAR_DB}")
-    if (f32_counts["fused_nerf_mlp"] != 2 * n_chunks or f32_counts["fused_nerf_mlp_tc"] != 0
+    if (f32_counts["fused_nerf_mlp"] != 2 * n_chunks
+            or f32_counts["fused_nerf_mlp_tc"] != 2 * n_chunks
             or f32_counts["fused_nerf_mlp_backward"] != 0):
-        raise PhaseFailure(f"K1 launches {f32_counts} (expected {2 * n_chunks} K1, none on the "
-                           f"tensor cores, no K2)")
+        raise PhaseFailure(f"K1 launches {f32_counts} (expected {2 * n_chunks} K1, every one on "
+                           f"the tensor cores, no K2)")
 
     # The bf16 render path's main run: every K1 launch on the tensor cores.
     torch.cuda.synchronize()
@@ -1720,6 +1739,15 @@ def main() -> int:
     say("7 times", f"{card}: frame {H}x{W} {N_COARSE}+{N_FINE} (medians of 3): " + ", ".join(
         f"{'kernel' if impl == 'pallas' else 'plain'} {dtype} {frame_ms[(impl, dtype)]:.1f} ms"
         for impl, dtype in frame_kinds))
+    f32_fine = times[("fine", "float32")]
+    f32_pts = next(c[3] for c in timing_cases if c[:2] == ("fine", "float32"))
+    f32_bound = mlp_bound(fine, f32_pts, vd, BF16_FLOP_S, 4, passes=SPLIT_F32_PASSES)
+    f32_cc_bound = mlp_bound(fine, f32_pts, vd, F32_FLOP_S, 4)
+    say("7 times", f"{card}: f32 fine call {f32_fine[0]:.3f} ms: {f32_bound[0] / f32_fine[0]:.1%} "
+        f"of its {f32_bound[0]:.3f} ms bound through its route ({f32_bound[1]}; six bf16 passes "
+        f"a product at {BF16_FLOP_S / 1e12:g} TFLOP/s), {f32_cc_bound[0] / f32_fine[0]:.1%} of "
+        f"the {f32_cc_bound[0]:.3f} ms CUDA-core bound; {f32_fine[0] / f32_fine[2]:.2f}x the "
+        f"library yardstick's time")
     bf16_fine = times[("fine", "bfloat16")]
     bf16_bound = mlp_bound(fine, next(c[3] for c in timing_cases if c[:2] == ("fine", "bfloat16")),
                            vd, BF16_FLOP_S, 2)
@@ -1768,18 +1796,17 @@ def main() -> int:
         f"(the same in bf16) {lib_bwd_ms['bfloat16']:.3f} ms; peak scratch of a float32 call "
         f"{scratch_gib:.3f} GiB")
     say("11 times", f"{card}: K1 f32 forward on the same samples (K2 f32's recompute runs its "
-        f"arithmetic) {k1_same_ms:.3f} ms: {k1_same_ms / kb_ms:.1%} of the f32 K2 call; the rest, "
+        f"code) {k1_same_ms:.3f} ms: {k1_same_ms / kb_ms:.1%} of the f32 K2 call; the rest, "
         f"{kb_ms - k1_same_ms:.3f} ms, holds the 3xTF32 dW and W dz products, the heads, the "
         f"workspace and the partials")
     k2_bounds = backward_bounds(net, pts, vd_f, g_rgb, g_sigma)
-    say("11 times", f"{card}: K2 bounds from this call's shapes: float32 through its route, "
-        f"every product as 3xTF32 at {TF32_FLOP_S / 1e12:g} TFLOP/s, "
-        f"{k2_bounds['3xtf32'][0]:.3f} ms ({k2_bounds['3xtf32'][1]}), "
-        f"{k2_bounds['3xtf32'][0] / kb_ms:.1%} of it; with the recompute on the CUDA cores at "
-        f"{F32_FLOP_S / 1e12:g} TFLOP/s, as the kernel runs it, "
-        f"{k2_bounds['recompute_cuda_cores'][0]:.3f} ms; all on the CUDA cores "
-        f"{k2_bounds['cuda_cores'][0]:.3f} ms; bfloat16 {k2_bounds['bfloat16'][0]:.3f} ms "
-        f"({k2_bounds['bfloat16'][1]}), {k2_bounds['bfloat16'][0] / kt2_ms:.1%} of it")
+    say("11 times", f"{card}: K2 bounds from this call's shapes: float32 through its route (the "
+        f"recompute as six bf16 passes at {BF16_FLOP_S / 1e12:g} TFLOP/s, dW and W dz as 3xTF32 "
+        f"at {TF32_FLOP_S / 1e12:g}) {k2_bounds['float32'][0]:.3f} ms "
+        f"({k2_bounds['float32'][1]}), {k2_bounds['float32'][0] / kb_ms:.1%} of it; all on the "
+        f"CUDA cores {k2_bounds['cuda_cores'][0]:.3f} ms; bfloat16 "
+        f"{k2_bounds['bfloat16'][0]:.3f} ms ({k2_bounds['bfloat16'][1]}), "
+        f"{k2_bounds['bfloat16'][0] / kt2_ms:.1%} of it")
     saved = save_counts()
     step_ms = {impl: time_steps(dev, impl) for impl in ("pallas", "xla")}
     restore_counts(saved)
@@ -1830,8 +1857,6 @@ def main() -> int:
     # output written once; operations at the peak of their type).
     k_ms, p_ms, lib_ms = times[("fine", "float32")]
     kt_ms, pt_ms, libt_ms = times[("fine", "bfloat16")]
-    _, _, k1_net, k1_pts, _ = next(c for c in timing_cases if c[:2] == ("fine", "float32"))
-    k1_bound = mlp_bound(k1_net, k1_pts, vd, F32_FLOP_S, 4)
     width = 1 << (N_COARSE + N_FINE - 1).bit_length()            # the bitonic row
     lg = width.bit_length() - 1
     k3_bound = bound(4 * BENCH_CHUNK * (3 * N_COARSE + 2 * N_FINE),
@@ -1858,15 +1883,15 @@ def main() -> int:
                 "library_ms": library_ms, **extra}
 
     print(json.dumps({"kernels": [
-        entry("fused_nerf_mlp", "fused_mlp.cu", "nerf_rs_tpu/ops/kernels/fused_mlp.py:779",
-              launches["fused_nerf_mlp"], k1_errs["float32"], k_ms, p_ms, k1_bound, lib_ms),
+        entry("fused_nerf_mlp", "fused_mlp_f32tc.cu", "nerf_rs_tpu/ops/kernels/fused_mlp.py:779",
+              launches["fused_nerf_mlp"], k1_errs["float32"], k_ms, p_ms, f32_bound, lib_ms,
+              bound_ms_cuda_cores=f32_cc_bound[0]),
         entry("fused_nerf_mlp_bf16", "fused_mlp_tc.cu", "nerf_rs_tpu/ops/kernels/fused_mlp.py:779",
               bf16_counts["fused_nerf_mlp_tc"], k1_errs["bfloat16"], kt_ms, pt_ms, bf16_bound,
               libt_ms),
         entry("fused_nerf_mlp_backward", "fused_mlp_bwd_tc.cu",
               "nerf_rs_tpu/ops/kernels/fused_mlp.py:663", launches["fused_nerf_mlp_backward"],
-              bwd_errs["float32"], kb_ms, pb_ms, k2_bounds["3xtf32"], lib_bwd_ms["float32"],
-              bound_ms_recompute_cuda_cores=k2_bounds["recompute_cuda_cores"][0],
+              bwd_errs["float32"], kb_ms, pb_ms, k2_bounds["float32"], lib_bwd_ms["float32"],
               bound_ms_cuda_cores=k2_bounds["cuda_cores"][0]),
         entry("fused_nerf_mlp_backward_bf16", "fused_mlp_bwd_bf16.cu",
               "nerf_rs_tpu/ops/kernels/fused_mlp.py:663",

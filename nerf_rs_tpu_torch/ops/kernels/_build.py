@@ -99,16 +99,22 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points' signatures on a loaded library
     (``c_void_p`` for every pointer and the stream)."""
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fwd = lib.nerf_fused_mlp_forward
-    fwd.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, p, p, i, p]
+    fwd = lib.nerf_fused_mlp_f32tc_forward
+    fwd.argtypes = [p, p, ll, ll, p, p, p, p, p, i, i, i, i, i, p, p, i, p]
     fwd.restype = ctypes.c_int
     tc = lib.nerf_fused_mlp_tc_forward
-    tc.argtypes = fwd.argtypes
+    tc.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, p, p, i, p]
     tc.restype = ctypes.c_int
+    rec = lib.nerf_fused_mlp_f32tc_record
+    rec.argtypes = [p, p, ll, ll, p, p, p, p, p, i, i, i, i, i, ll, ll, p, i, p]
+    rec.restype = ctypes.c_int
     bwd = lib.nerf_fused_mlp_backward
-    bwd.argtypes = [p, p, ll, ll, p, p, p, p, ll, p, p, i, p, i, i, i, i, i, p, p, ll, ll, i, p, p,
+    bwd.argtypes = [p, p, ll, ll, p, p, p, p, ll, p, p, i, p, i, i, i, i, i, p, ll, i, p, ll, ll, i,
                     p, p, i, p]
     bwd.restype = ctypes.c_int
+    bsum = lib.nerf_fused_mlp_backward_sum
+    bsum.argtypes = [p, i, ll, ll, p, p, i, p]
+    bsum.restype = ctypes.c_int
     bwd16 = lib.nerf_fused_mlp_backward_bf16
     bwd16.argtypes = [p, p, ll, ll, p, p, p, p, p, p, i, i, i, i, i, p, p, ll, ll, i, p, p, p, p, i,
                       p]

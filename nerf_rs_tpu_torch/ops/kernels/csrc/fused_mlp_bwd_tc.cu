@@ -15,7 +15,7 @@
 // come split from pack_params), and a product is lo*hi + hi*lo + hi*hi,
 // summed in f32 by the tensor cores.
 //
-// The products are mma.sync m16n8k8 tf32: A from registers loaded from
+// The dW and W dz products are mma.sync m16n8k8 tf32: A from registers loaded from
 // shared memory, B from registers loaded from L2 (the pack) or from the
 // CTA's workspace, a block or two ahead of its use. So each operand can be
 // read in either orientation from one copy, which the two uses of every
@@ -26,23 +26,27 @@
 // design allows for tf32; wgmma with a transposed staging copy is not
 // built yet.
 //
-// The recompute is not on the tensor cores: it repeats the f32 forward's
-// own arithmetic on the CUDA cores (fused_mlp_common.cuh::dense's order:
-// per output one fmaf a k, k ascending, from zero; the skip layer's trunk
-// part first; K1 f32's sigma sum), so its ReLU masks are bit for bit those
-// of the forward that made the loss. A 3xTF32 recompute (products kept to
-// about 2^-21) flipped a mask at a pre-activation of -9.2e-8 among
-// summands of 2.1, and every trunk gradient moved by 1-3%.
+// The recompute is K1 f32 itself: its kernel (fused_mlp_f32tc.cu, the
+// split-f32 wgmma layers on PackedMLP.weights_f32tc) runs first in record
+// mode over a round of tiles and writes every layer's output to those
+// tiles' workspace, which this kernel reads back. So the activations and
+// ReLU masks are bit for bit those of the forward that made the loss (a
+// recompute in other arithmetic, 3xTF32 with products kept to about
+// 2^-21, flipped a mask at a pre-activation of -9.2e-8 among summands of
+// 2.1, and every trunk gradient moved by 1-3%), and this kernel's
+// registers serve its mma.sync products alone: with the wgmma recompute
+// inlined beside them, ptxas spilled and the call took 157 ms instead of
+// 96.
 //
 // What bounds it on the H100: operations. A fine sample costs three
-// forwards, 3 x 1.187 MFLOP. Through the route it takes, all products as
-// 3xTF32 at 495 TFLOP/s (three tf32 products each), 16.97 ms a 4096 x 192
-// call; the recompute kept on the CUDA cores makes it 25.24 ms (13.9 ms of
-// it the recompute at 67 TFLOP/s); all on the CUDA cores 41.79 ms. What
-// held the CUDA-core version back, and what this design does about it:
-// 1. CUDA-core FMAs only: dW and W dz are on the tensor cores; the CUDA
-//    cores keep the recompute (above), the encode, the two heads (N = 1,
-//    3), the masks and the operand splits.
+// forwards, 3 x 1.187 MFLOP. Through the route it takes, the recompute as
+// six bf16 passes at 989 TFLOP/s and dW and W dz as 3xTF32 at 495 (three
+// tf32 products each), 16.98 ms a 4096 x 192 call; all on the CUDA cores
+// 41.79 ms. What held the CUDA-core version back, and what this design
+// does about it:
+// 1. CUDA-core FMAs only: every product is on the tensor cores; the CUDA
+//    cores keep the encode, the two heads (N = 1, 3), the masks and the
+//    operand splits.
 // 2. A read-modify-write of the whole dW partial every 64 samples, 59 GB a
 //    fine call: the dW products take 128-sample tiles, and each CTA adds
 //    its tile sums into its own partial with fire-and-forget reductions
@@ -51,26 +55,32 @@
 //    to one thread, which adds tile after tile in program order, so the
 //    sums' order and bits are fixed; a second launch sums the partials in
 //    a fixed order.
-// 3. The activation round trip: the recompute writes the tile's encodes,
-//    trunk outputs and bottleneck output to the CTA's workspace (1.23 MB a
-//    tile: 15.1 GB a fine call written and read; before, 12.9 GB of trunk
-//    outputs), tiled in B-fragment order, so the dW products load a block
-//    with one vector load a lane, two blocks ahead, and stage nothing
-//    behind a barrier.
+// 3. The activation round trip: the tile's encodes (this kernel) and its
+//    trunk, bottleneck and view outputs (the record pass) go to the tile's
+//    workspace (1.3 MB a tile, written and read once), tiled in B-fragment
+//    order, so the dW products load a block with one vector load a lane,
+//    two blocks ahead, and stage nothing behind a barrier; X takes h_last
+//    and the view output back from it.
 // 4. No overlap: the reductions and workspace stores retire in the memory
 //    system while the warps issue the next products, and each warp issues
 //    the products of all its tiles of a k step together.
 // Shared memory, one CTA of 256 threads an SM: the tile's activation or
-// gradient buffer (128 x 260 f32, 130 KB), the point encode or its
-// gradient (128 x 68, 34 KB), the dir encode or its gradient (128 x 36,
-// 18 KB), inputs and head cotangents (5 KB): 187 KB. The packs stay in L2:
-// for the lego fine network the forward pack (2.4 MB) and the transposed
-// pack as hi and lo (4.8 MB).
+// gradient buffer (128 x 260 f32, 130 KB), the point encode gradient (128
+// x 68, 34 KB), the dir encode gradient (128 x 36, 18 KB), inputs and head
+// cotangents (5 KB): 187 KB. The packs stay in L2: for the lego fine
+// network the heads of the forward pack and the transposed pack as hi and
+// lo (4.8 MB).
+//
+// The workspace holds a round of tiles (grid x tiles_per_cta), each its
+// encodes, trunk outputs, bottleneck output and view output; the wrapper
+// walks the tiles round by round (record pass, then this kernel), each CTA
+// taking the same tiles of each round, so every partial sums its tiles in
+// a fixed order.
 //
 // Samples past n in the ragged last tile get zero cotangents and add
 // exactly zero.
 
-#include "fused_mlp_common.cuh"
+#include "fused_mlp_f32tc.cuh"
 
 namespace {
 
@@ -171,15 +181,9 @@ __device__ __forceinline__ void b_pack(BFrag& b, const float* w, long long lo, i
   b.lo[1] = l.y;
 }
 
-// Workspace slots hold the tile's samples (k) x f features (n) in the
-// B-fragment order of fused_mlp.py::mma_tile (blocks of 16 samples x 8
-// features; lane 4 g + t holds four samples of feature 8 nb + g), so that
-// the dW products load a block with one vector load a lane. The index of
-// (sample row, feature col) in a slot of n8 feature blocks:
-__device__ __forceinline__ int ws_index(int row, int col, int n8) {
-  const int r = row & 15;
-  return (((row >> 4) * n8 + (col >> 3)) * 32 + 4 * (col & 7) + (r & 3)) * 4 + (r >> 2);
-}
+// Workspace slots (f32tc::ws_index's order) hold the tile's samples (k)
+// x features (n) in B-fragment order.
+using f32tc::ws_index;
 
 // A lane's part of block (kb, nb) of a workspace slot, which this kernel
 // wrote: loads through L2 (__ldcg), never the read-only path.
@@ -357,74 +361,13 @@ __device__ __forceinline__ void add_db(const float* buf, int n, float* dst) {
   }
 }
 
-// acc (the tile's 128 samples x this warp's n8 tiles) += A (shared, rows =
-// samples, k columns, a multiple of 4) . w (f32, K-major (K, 8 n8)) on the
-// CUDA cores, in the arithmetic of the f32 forward
-// (fused_mlp_common.cuh::dense): per output, one fmaf a k, k ascending.
-// Four k a step: one 16-byte load of A a row feeds 32 FMAs.
-__device__ __forceinline__ void cc_product(float (&acc)[kMi][kNt][4], const float* a, int s, int k,
-                                           const float* __restrict__ w, int n8) {
-  const int warp = warp_id(), g = lane_id() >> 2, t = lane_id() & 3;
-  if (warp >= n8) return;
-  const int ld = 8 * n8;
-#pragma unroll 1
-  for (int kk = 0; kk < k; kk += 4) {
-    float2 wv[4][kNt];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-#pragma unroll
-      for (int j = 0; j < kNt; ++j) {
-        wv[q][j] = make_float2(0.f, 0.f);
-        if (warp + kWarps * j < n8) {
-          wv[q][j] = __ldg(reinterpret_cast<const float2*>(w + (kk + q) * ld +
-                                                           8 * (warp + kWarps * j) + 2 * t));
-        }
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < kMi; ++mi) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float4 av = *reinterpret_cast<const float4*>(a + (16 * mi + g + 8 * r) * s + kk);
-        const float x[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-        for (int j = 0; j < kNt; ++j) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            acc[mi][j][2 * r] = fmaf(wv[q][j].x, x[q], acc[mi][j][2 * r]);
-            acc[mi][j][2 * r + 1] = fmaf(wv[q][j].y, x[q], acc[mi][j][2 * r + 1]);
-          }
-        }
-      }
-    }
+// X (rows 0-127, columns < ld) from a workspace slot of ld / 8 feature
+// blocks; ends behind a barrier.
+__device__ __forceinline__ void x_from_slot(float* X, const float* slot, int ld) {
+  for (int i = threadIdx.x; i < kRows * ld; i += kThreadsBwd) {
+    const int r = i / ld, c = i % ld;
+    X[r * kSx + c] = __ldcg(slot + ws_index(r, c, ld >> 3));
   }
-}
-
-// One recomputed layer, the f32 forward's bit for bit: X = act(a1 . w1
-// [+ a2 . w2] + bias), n8 x 8 columns, w1 and w2 segments of the forward's
-// pack; a copy to the workspace slot `ws` (n8 feature blocks) unless null.
-__device__ __forceinline__ void fwd_layer(float (&acc)[kMi][kNt][4], float* X, const float* a1,
-                                          int s1, int k1, const float* w1, const float* a2,
-                                          int s2, int k2, const float* w2, int n8,
-                                          const float* __restrict__ bias, bool relu, float* ws) {
-  zero(acc);
-  cc_product(acc, a1, s1, k1, w1, n8);
-  if (a2 != nullptr) cc_product(acc, a2, s2, k2, w2, n8);
-  __syncthreads();   // every warp has read the buffer it overwrites
-  for_pairs(acc, n8, [&](int row, int col, float v0, float v1) {
-    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + col));
-    v0 += b.x;
-    v1 += b.y;
-    if (relu) {
-      v0 = fmaxf(v0, 0.f);
-      v1 = fmaxf(v1, 0.f);
-    }
-    *reinterpret_cast<float2*>(X + row * kSx + col) = make_float2(v0, v1);
-    if (ws != nullptr) {
-      ws[ws_index(row, col, n8)] = v0;
-      ws[ws_index(row, col + 1, n8)] = v1;
-    }
-  });
   __syncthreads();
 }
 
@@ -475,9 +418,11 @@ __device__ __forceinline__ void dw_layer(float (&acc)[kMi][kNt][4], const float*
   }
 }
 
-// One CTA walks tiles [ntiles * b / grid, ntiles * (b + 1) / grid) and adds
-// into its partial: n_w weight-gradient floats in the packed weight layout,
-// then the bias gradients in the packed bias layout (part_stride apart).
+// One CTA walks tiles tile0 + per_cta b + j, j < per_cta (below ntiles),
+// whose workspace (ws_stride floats a tile, from tile0's) the record pass
+// has filled, and adds into its partial: n_w weight-gradient floats in the
+// packed weight layout, then the bias gradients in the packed bias layout
+// (part_stride apart).
 template <bool kSigmaOnly>
 __global__ void __launch_bounds__(kThreadsBwd, 1)
 fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__ dirs, long long n,
@@ -485,39 +430,34 @@ fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__
                         const float* __restrict__ g_sigma, const float* __restrict__ w,
                         const float* __restrict__ mwt, long long lo_wt,
                         const float* __restrict__ bias, const Layout L, const LayoutMma M,
-                        float* ws_all, float* partials, long long n_w, long long part_stride,
-                        long long ntiles, float* __restrict__ dpts, float* __restrict__ ddirs) {
+                        float* ws_all, long long ws_stride, long long tile0, int per_cta,
+                        float* partials, long long n_w, long long part_stride, long long ntiles,
+                        float* __restrict__ dpts, float* __restrict__ ddirs) {
   extern __shared__ float4 smem4[];
   float* X = reinterpret_cast<float*>(smem4);   // [kRows][kSx] activations, then gradients
-  float* E = X + kRows * kSx;                   // [kRows][kSe] point encode, then its gradient
-  float* D = E + kRows * kSe;                   // [kRows][kSd] dir encode, then its gradient
+  float* E = X + kRows * kSx;                   // [kRows][kSe] point encode gradient
+  float* D = E + kRows * kSe;                   // [kRows][kSd] dir encode gradient
   float* xin = D + kRows * kSd;                 // [6][kRows] points, dirs
   float* gs = xin + 6 * kRows;                  // [kRows] sigma cotangent, then d(pre-ReLU)
   float* gr = gs + kRows;                       // [kRows][3] rgb cotangent, then d(pre-sigmoid)
   const int tid = threadIdx.x;
   const int ldw = L.ldw, ldv = L.ldv, depth = L.depth;
-  const int nw8 = ldw >> 3, nv8 = ldv >> 3;
+  const int nw8 = ldw >> 3;
   const bool want_dx = dpts != nullptr;
   float* dW = partials + static_cast<long long>(blockIdx.x) * part_stride;
   float* dB = dW + n_w;
-  float* ws =
-      ws_all + static_cast<long long>(blockIdx.x) * kRows * (kEncX + kEncD + (depth + 1) * ldw);
-  float* ws_ex = ws;
-  float* ws_ed = ws + kRows * kEncX;
-  auto ws_h = [&](int i) { return ws + kRows * (kEncX + kEncD + i * ldw); };   // i = depth: bneck
-  // Forward segment `slot` (LayoutMma's order) in the forward's pack.
-  auto fw = [&](int slot) {
-    const long long off = slot < kMaxDepth ? L.w_dense[slot]
-                          : slot < 2 * kMaxDepth ? L.w_skip[slot - kMaxDepth]
-                          : slot == kBneck ? L.w_bneck : slot == kView ? L.w_view : L.w_view_dir;
-    return w + off;
-  };
-  const long long t_begin = ntiles * blockIdx.x / gridDim.x;
-  const long long t_end = ntiles * (blockIdx.x + 1) / gridDim.x;
+  const long long t_begin = tile0 + static_cast<long long>(per_cta) * blockIdx.x;
+  const long long t_end = min(t_begin + per_cta, ntiles);
   float acc[kMi][kNt][4];
 
   for (long long tile = t_begin; tile < t_end; ++tile) {
     const long long base = tile * kRows;
+    float* ws = ws_all + (tile - tile0) * ws_stride;
+    float* ws_ex = ws;
+    float* ws_ed = ws + kRows * kEncX;
+    // Slot i: trunk layer i's output; i = depth the bottleneck's, depth + 1
+    // the view layer's (ldv columns).
+    auto ws_h = [&](int i) { return f32tc::ws_slot(ws, i, ldw); };
     // Inputs and cotangents; samples past n read zeros.
     for (int idx = tid; idx < 6 * kRows; idx += kThreadsBwd) {
       const int c = idx / kRows, r = idx % kRows;
@@ -537,51 +477,26 @@ fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__
         gs[idx / 4] = v;
       }
     }
-    __syncthreads();
-    // Encode, into E and D and the workspace.
+    // The encodes, into the workspace for the dW products (the record
+    // pass rebuilt them for its products with the same enc_at).
     for (int idx = tid; idx < kRows * kEncRows; idx += kThreadsBwd) {
       const int r = idx % kRows, j = idx / kRows;
-      float v = 0.f;
-      if (j < 63) {
-        const float p[3] = {xin[r], xin[kRows + r], xin[2 * kRows + r]};
-        v = encode(p, j);
-      } else if (j >= kEncX && j < kEncX + 27) {
-        const float d[3] = {xin[3 * kRows + r], xin[4 * kRows + r], xin[5 * kRows + r]};
-        v = encode(d, j - kEncX);
-      }
       if (j < kEncX) {
-        E[r * kSe + j] = v;
-        ws_ex[ws_index(r, j, kEncX / 8)] = v;
+        ws_ex[ws_index(r, j, kEncX / 8)] =
+            f32tc::enc_at(xin[r], xin[kRows + r], xin[2 * kRows + r], j, 3 + 6 * tc::kXBands);
       } else {
-        D[r * kSd + j - kEncX] = v;
-        ws_ed[ws_index(r, j - kEncX, kEncD / 8)] = v;
+        ws_ed[ws_index(r, j - kEncX, kEncD / 8)] =
+            f32tc::enc_at(xin[3 * kRows + r], xin[4 * kRows + r], xin[5 * kRows + r], j - kEncX,
+                          3 + 6 * tc::kDBands);
       }
     }
-    __syncthreads();
-
-    // Forward recompute; trunk layer i's output also goes to slot i. The
-    // skip layer sums in the f32 forward's order, the trunk part first.
-    fwd_layer(acc, X, E, kSe, kEncX, fw(0), nullptr, 0, 0, nullptr, nw8,
-                     bias + L.b_dense[0], true, ws_h(0));
-    for (int i = 1; i < depth; ++i) {
-      if (L.w_skip[i] < 0) {
-        fwd_layer(acc, X, X, kSx, ldw, fw(i), nullptr, 0, 0, nullptr, nw8, bias + L.b_dense[i],
-                  true, ws_h(i));
-      } else {
-        fwd_layer(acc, X, X, kSx, ldw, fw(i), E, kSe, kEncX, fw(kMaxDepth + i), nw8,
-                  bias + L.b_dense[i], true, ws_h(i));
-      }
-    }
-    // Sigma head: gs becomes d(pre-ReLU sigma); then its dW and db.
-    if (tid < kRows) {
-      // The f32 forward's sum: four strided parts, then (0 + 1) + (2 + 3),
-      // as its quad of threads adds them.
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int k = 0; k < ldw; ++k) {
-        part[k & 3] = fmaf(load1(w + L.w_alpha + k), X[tid * kSx + k], part[k & 3]);
-      }
-      const float pre = (part[0] + part[1]) + (part[2] + part[3]) + __ldg(bias + L.b_alpha);
-      if (!(pre > 0.f)) gs[tid] = 0.f;
+    x_from_slot(X, ws_h(depth - 1), ldw);   // h_last, recorded
+    // Sigma head, K1's sum: gs becomes d(pre-ReLU sigma); then its dW and db.
+    const int hr = f32tc::head_row();
+    auto x_row = [&](int i) { return X[hr * kSx + i]; };
+    {
+      const float pre = f32tc::head_sum(x_row, ldw, w + L.w_alpha, 1, 0) + __ldg(bias + L.b_alpha);
+      if (!(tid & 1) && !(pre > 0.f)) gs[hr] = 0.f;
     }
     __syncthreads();
     for (int k = tid; k < ldw; k += kThreadsBwd) {
@@ -596,22 +511,18 @@ fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__
     }
 
     if (!kSigmaOnly) {
-      // Bottleneck (no activation; its output to the workspace), then the
-      // view layer: bottleneck part plus dir-encode part, ReLU, into X.
-      fwd_layer(acc, X, X, kSx, ldw, fw(kBneck), nullptr, 0, 0, nullptr, nw8, bias + L.b_bneck,
-                false, ws_h(depth));
-      fwd_layer(acc, X, X, kSx, ldw, fw(kView), D, kSd, kEncD, fw(kViewDir), nv8, bias + L.b_view,
-                true, nullptr);
-      // Rgb head: gr becomes d(pre-sigmoid rgb); sigmoid' = sg (1 - sg),
-      // with 1 - sg as sigmoid(-pre): no cancellation where it saturates.
-      for (int idx = tid; idx < 3 * kRows; idx += kThreadsBwd) {
-        const int r = idx / 3, c = idx % 3;
-        float a = 0.f;
-        for (int k = 0; k < ldv; ++k) a = fmaf(X[r * kSx + k], load1(w + L.w_rgb + k * 3 + c), a);
-        const float pre = a + __ldg(bias + L.b_rgb + c);
+      __syncthreads();   // every read of h_last before X takes the view output
+      x_from_slot(X, ws_h(depth + 1), ldv);
+      // Rgb head, K1's sums: gr becomes d(pre-sigmoid rgb); sigmoid' =
+      // sg (1 - sg), with 1 - sg as sigmoid(-pre): no cancellation where it
+      // saturates.
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float pre =
+            f32tc::head_sum(x_row, ldv, w + L.w_rgb, 3, c) + __ldg(bias + L.b_rgb + c);
         const float sg = 1.f / (1.f + expf(-pre));
         const float sg_neg = 1.f / (1.f + expf(pre));
-        gr[idx] = gr[idx] * sg * sg_neg;
+        if (!(tid & 1)) gr[hr * 3 + c] = gr[hr * 3 + c] * sg * sg_neg;
       }
       __syncthreads();
       for (int idx = tid; idx < 3 * ldv; idx += kThreadsBwd) {
@@ -642,7 +553,7 @@ fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__
       dw_layer(acc, X, ldv, ws_h(depth), ldw, dW + L.w_view);
       dw_layer(acc, X, ldv, ws_ed, kEncD, dW + L.w_view_dir);
       add_db(X, ldv, dB + L.b_view);
-      if (want_dx) {   // d(dir encode) into D, which the recompute no longer reads
+      if (want_dx) {   // d(dir encode) into D
         for (int idx = tid; idx < kRows * kSd; idx += kThreadsBwd) D[idx] = 0.f;
         __syncthreads();
         din_layer(acc, X, ldv, mwt + M.wt[kViewDir], lo_wt, kEncD >> 3, nullptr, nullptr,
@@ -720,45 +631,47 @@ template <bool kSigmaOnly>
 cudaError_t launch(const float* pts, const float* dirs, long long n, long long dir_div,
                    const float* g_rgb, const float* g_sigma, const float* w, const float* mwt,
                    long long lo_wt, const float* bias, const Layout& L, const LayoutMma& M,
-                   float* ws, float* partials, long long n_w, long long n_b, int grid,
-                   float* dweights, float* dbiases, float* dpts, float* ddirs,
-                   cudaStream_t stream) {
+                   float* ws, long long tile0, int per_cta, float* partials, long long n_w,
+                   long long n_b, int grid, float* dpts, float* ddirs, cudaStream_t stream) {
   auto kernel = fused_mlp_bwd_tc_kernel<kSigmaOnly>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
   const long long ntiles = (n + kRows - 1) / kRows;
-  const long long stride = n_w + n_b;
+  const long long ws_stride = f32tc::ws_stride(L.depth, L.ldw, L.ldv);
   kernel<<<grid, kThreadsBwd, kSmemBytes, stream>>>(pts, dirs, n, dir_div, g_rgb, g_sigma, w, mwt,
-                                                    lo_wt, bias, L, M, ws, partials, n_w, stride,
-                                                    ntiles, dpts, ddirs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_reduce_partials(partials, grid, stride, n_w, dweights, dbiases, stream);
+                                                    lo_wt, bias, L, M, ws, ws_stride, tile0,
+                                                    per_cta, partials, n_w, n_w + n_b, ntiles,
+                                                    dpts, ddirs);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// pts (n, 3) f32; dirs (ceil(n / dir_div), 3) f32, sample s reads row
-// s / dir_div; g_rgb (n, 3) and g_sigma (n,) f32 cotangents; weights and
-// biases (f32) as packed by pack_params, with its host int64 offset table
-// layout (kLayoutLen); mma_wt, the transposed tensor-core pack, its lo row
-// lo_wt elements after its hi row, with layout_mma (kMmaLen); ws: grid *
-// 128 * (96 + (depth + 1) * ldw) f32; partials: grid * (n_w + n_b) f32,
-// zeroed; dweights (n_w) and dbiases (n_b) f32 outputs; dpts and ddirs
-// (n, 3) f32 outputs (per sample), or both null for no input gradients.
-// 1 <= grid. Returns a cudaError_t value (0 = launched). bf16 packs go to
+// One round of the f32 backward: tiles tile0 + per_cta b + j (j <
+// per_cta, below ceil(n / 128)) for CTA b of grid, whose workspace ws
+// (from tile0's; 128 * (96 + (depth + 1) * ldw + ldv) f32 a tile) the
+// record pass (nerf_fused_mlp_f32tc_record) has filled. pts (n, 3) f32;
+// dirs (ceil(n / dir_div), 3) f32, sample s reads row s / dir_div; g_rgb
+// (n, 3) and g_sigma (n,) f32 cotangents; weights and biases (f32) as
+// packed by pack_params, with its host int64 offset table layout
+// (kLayoutLen); mma_wt, the transposed tensor-core pack, its lo row lo_wt
+// elements after its hi row, with layout_mma (kMmaLen); partials: grid *
+// (n_w + n_b) f32, zeroed before the first round, each CTA adding into its
+// own; dpts and ddirs (n, 3) f32 outputs (per sample), or both null for no
+// input gradients. Returns a cudaError_t value (0 = launched). Then, once,
+// nerf_fused_mlp_backward_sum. bf16 packs go to
 // nerf_fused_mlp_backward_bf16 (fused_mlp_bwd_bf16.cu).
 extern "C" int nerf_fused_mlp_backward(
     const void* pts, const void* dirs, long long n, long long dir_div, const void* g_rgb,
     const void* g_sigma, const void* weights, const void* mma_wt, long long lo_wt,
     const void* biases, const long long* layout, int layout_len, const long long* layout_mma,
-    int layout_mma_len, int ldw, int ldv, int depth, int sigma_only, void* ws, void* partials,
-    long long n_w, long long n_b, int grid, void* dweights, void* dbiases, void* dpts,
-    void* ddirs, int device, void* stream) {
+    int layout_mma_len, int ldw, int ldv, int depth, int sigma_only, void* ws, long long tile0,
+    int per_cta, void* partials, long long n_w, long long n_b, int grid, void* dpts, void* ddirs,
+    int device, void* stream) {
   Layout L;
   if (!parse_layout(layout, layout_len, ldw, ldv, depth, &L) || layout_mma_len != kMmaLen ||
-      dir_div < 1 || n < 1 || grid < 1 || n_w < 1 || n_b < 1 ||
+      dir_div < 1 || n < 1 || grid < 1 || per_cta < 1 || tile0 < 0 || n_w < 1 || n_b < 1 ||
       (dpts == nullptr) != (ddirs == nullptr) || lo_wt < 1 ||
       reinterpret_cast<uintptr_t>(mma_wt) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -781,14 +694,25 @@ extern "C" int nerf_fused_mlp_backward(
   const float* b = static_cast<const float*>(biases);
   float* wsf = static_cast<float*>(ws);
   float* part = static_cast<float*>(partials);
-  float* dw = static_cast<float*>(dweights);
-  float* db = static_cast<float*>(dbiases);
   float* dp = static_cast<float*>(dpts);
   float* dd = static_cast<float*>(ddirs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = sigma_only ? launch<true>(p, d, n, dir_div, gr, gsg, w, wt, lo_wt, b, L, M, wsf, part, n_w,
-                                  n_b, grid, dw, db, dp, dd, s)
-                   : launch<false>(p, d, n, dir_div, gr, gsg, w, wt, lo_wt, b, L, M, wsf, part,
-                                   n_w, n_b, grid, dw, db, dp, dd, s);
+  err = sigma_only ? launch<true>(p, d, n, dir_div, gr, gsg, w, wt, lo_wt, b, L, M, wsf, tile0,
+                                  per_cta, part, n_w, n_b, grid, dp, dd, s)
+                   : launch<false>(p, d, n, dir_div, gr, gsg, w, wt, lo_wt, b, L, M, wsf, tile0,
+                                   per_cta, part, n_w, n_b, grid, dp, dd, s);
   return static_cast<int>(err);
+}
+
+// After the last round: dweights (n_w) and dbiases (n_b) f32 from the
+// grid partials, summed in a fixed order. Returns a cudaError_t value.
+extern "C" int nerf_fused_mlp_backward_sum(const void* partials, int grid, long long n_w,
+                                           long long n_b, void* dweights, void* dbiases,
+                                           int device, void* stream) {
+  if (grid < 1 || n_w < 1 || n_b < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_reduce_partials(
+      static_cast<const float*>(partials), grid, n_w + n_b, n_w, static_cast<float*>(dweights),
+      static_cast<float*>(dbiases), static_cast<cudaStream_t>(stream)));
 }

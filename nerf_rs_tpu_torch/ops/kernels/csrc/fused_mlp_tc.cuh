@@ -176,8 +176,8 @@ struct Producer {
   }
 };
 
-// The consumers' walk through the ring.
-template <int S>
+// The consumers' walk through the ring (stages of kBytes).
+template <int S, int kBytes = kStageBytes>
 struct Pipe {
   uint32_t ring, bars;   // as Producer's
   int stage;
@@ -189,7 +189,7 @@ struct Pipe {
     mbar_wait(bars + 8 * stage, phase);
     __syncwarp();   // the spin may exit lane by lane; wgmma wants the warp converged
     wgmma_fence();
-    return ring + stage * kStageBytes;
+    return ring + stage * kBytes;
   }
 
   // After the wgmmas on the acquired chunk are committed: releases the

@@ -6,24 +6,26 @@ The forward kernel K1 replaces the JAX package's Pallas kernel
 tile of samples it encodes points and dirs, runs the trunk with the skip
 layer as two summed products, the ReLU sigma head and, unless
 ``sigma_only``, the bottleneck, the view layer (two summed products) and
-the sigmoid rgb head, with activations kept on chip. It has two kernels:
-float32 on the CUDA cores (``csrc/fused_mlp.cu``) and bfloat16 on the
-tensor cores (``csrc/fused_mlp_tc.cu``: ``wgmma`` on weights bulk-copied
-into shared memory). The backward kernel K2 replaces ``_backward_t`` /
-``_kernel_bwd``: it recomputes the forward per tile, backpropagates, and
-sums every layer's weight and bias gradient over the samples. It too has
-two kernels: float32 (``csrc/fused_mlp_bwd_tc.cu``: the recompute in K1
-f32's CUDA-core arithmetic, dW and W·dz as 3xTF32 ``mma.sync``) and
-bfloat16 (``csrc/fused_mlp_bwd_bf16.cu``: every product a ``wgmma``, the
-recompute K1 bf16's own device code on its own pack).
+the sigmoid rgb head, with activations kept on chip. It has two kernels,
+both on the tensor cores with weights bulk-copied into shared memory:
+float32 (``csrc/fused_mlp_f32tc.cu``: split-f32, every product six bf16
+``wgmma`` passes, :func:`split_f32_dense`) and bfloat16
+(``csrc/fused_mlp_tc.cu``). The backward kernel K2 replaces
+``_backward_t`` / ``_kernel_bwd``: it recomputes the forward per tile,
+backpropagates, and sums every layer's weight and bias gradient over the
+samples. Each mode recomputes with its K1's own device code on its K1's
+pack: float32 runs K1 f32's kernel in record mode over a round of tiles
+(every layer's output into a workspace), then ``csrc/fused_mlp_bwd_tc.cu``
+(dW and W·dz as 3xTF32 ``mma.sync``) over the same tiles; bfloat16 is one
+kernel, ``csrc/fused_mlp_bwd_bf16.cu`` (every product a ``wgmma``).
 
 - :func:`pack_params` lays the weights out for the kernels, once per
   network and dtype (``models.mlp.NerfMLP.packed`` keeps the pack).
 - :func:`fused_nerf_mlp` is differentiable on every device, through
   :class:`_FusedMLP` (the counterpart of ``_make_op``'s ``custom_vjp``).
   On CUDA tensors its forward launches K1 (counted in
-  ``fused_nerf_mlp.launches``, the bf16 tensor-core launches also in
-  ``fused_nerf_mlp.tc_launches``) and its backward K2 (counted in
+  ``fused_nerf_mlp.launches``, and, being on the tensor cores in both
+  dtypes, in ``fused_nerf_mlp.tc_launches``) and its backward K2 (counted in
   ``fused_nerf_mlp_backward.launches``); on CPU tensors they run the plain
   versions instead. A CUDA tensor never reaches a plain version.
 - :func:`fused_nerf_mlp_reference` and
@@ -31,12 +33,14 @@ recompute K1 bf16's own device code on its own pack).
   same functions from the same packed weights, with the kernels' casting.
 - :func:`unpack_grads` maps the packed gradient layout to the param tree.
 
-Numerics: ``float32`` is true f32 throughout, with exact sin/cos.
-``bfloat16`` rounds the encode, the weights and each layer's input
-activations to bf16 and accumulates in f32; the heads read the rounded
-activations and return f32. The bf16 backward also rounds each layer's
-output gradient to bf16 (after the ReLU mask) and accumulates weight,
-bias and encode gradients in f32, as the JAX kernel does.
+Numerics: ``float32`` is f32 throughout, with exact sin/cos; the kernels'
+layer products are split-f32 (within about 2^-22 of f32 products), their
+plain versions' cuBLAS f32. ``bfloat16`` rounds the encode, the weights
+and each layer's input activations to bf16 and accumulates in f32; the
+heads read the rounded activations and return f32. The bf16 backward also
+rounds each layer's output gradient to bf16 (after the ReLU mask) and
+accumulates weight, bias and encode gradients in f32, as the JAX kernel
+does.
 """
 
 from __future__ import annotations
@@ -56,7 +60,12 @@ _ENC_X, _ENC_D = 64, 32     # the kernel's padded encode rows
 MAX_DEPTH = 16              # kMaxDepth in csrc/fused_mlp_common.cuh
 MAX_WIDTH = 256             # kMaxWidth: widest trunk or view branch served
 _ALIGN = 8                  # segment offsets: 16-byte aligned bf16 loads
-_TC_PIECE = 64              # kPiece in csrc/fused_mlp_tc.cu: tensor-core widths pad to it
+_TC_PIECE = 64              # kPiece in csrc/fused_mlp_tc.cuh: tensor-core widths pad to it
+_STEP_K = 16                # kStepK in csrc/fused_mlp_f32tc.cuh: k rows a split-f32 chunk
+# The split-f32 product's six (x piece, w piece) pairs of a k-step, in the
+# order csrc/fused_mlp_f32tc.cuh issues them (0 hi, 1 mid, 2 lo); the last,
+# hi.hi, into its own accumulator.
+SPLIT_F32_ORDER = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
 _BWD_TILE = 128             # kRows in csrc/fused_mlp_bwd_{tc,bf16}.cu: samples a backward tile
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -115,6 +124,14 @@ class PackedMLP:
     ``lo = tf32_rna(w - hi)`` (:func:`tf32_split`), for the kernel's 3xTF32
     products.
 
+    f32 packs also hold ``weights_f32tc``, the split pack that the f32
+    forward (``csrc/fused_mlp_f32tc.cu``) and the f32 backward's recompute
+    read: every layer segment (not the heads, which the kernels read from
+    ``weights``) tiled by :func:`f32tc_tile` as bf16 hi, mid and lo planes,
+    widths and the K of the layers that read the trunk padded to multiples
+    of 64, with ``layout_f32tc``, an offset table in ``layout``'s order
+    (its head entries -1, its bias entries ``layout``'s).
+
     bf16 packs hold ``weights_tc`` instead, the tensor-core pack that the
     bf16 forward (``csrc/fused_mlp_tc.cu``) and the bf16 backward
     (``csrc/fused_mlp_bwd_bf16.cu``, which reads each layer chunk also
@@ -141,6 +158,8 @@ class PackedMLP:
     dtype: str
     weights_tc: Optional[torch.Tensor] = None
     layout_tc: Optional[np.ndarray] = None
+    weights_f32tc: Optional[torch.Tensor] = None
+    layout_f32tc: Optional[np.ndarray] = None
 
     def mat(self, name: str) -> torch.Tensor:
         """Segment ``name`` as a float32 (K, ld) matrix."""
@@ -245,7 +264,30 @@ def pack_params(params, dtype: str) -> PackedMLP:
             dtype=np.int64)
 
     layout = table({name: off for name, (off, _, _) in segments.items()})
-    mma_wt = layout_mma = weights_tc = layout_tc = None
+
+    def tensor_core_pack(tile, heads: bool):
+        """The layer segments tiled by ``tile`` (widths, and the K of the
+        layers that read the trunk, padded to 64), with the heads as
+        ``weights`` holds them or absent (-1); -> (flat f32, table)."""
+        nw, nv = _round_up(ldw, _TC_PIECE), _round_up(ldv, _TC_PIECE)
+        offsets: Dict[str, int] = {}
+        flats = []
+        off = 0
+        for (name, m, rows, ld), flat in zip(mats, pieces):
+            if name in ("alpha", "rgb"):          # the heads run on the CUDA cores
+                if not heads:
+                    offsets[name] = -1
+                    continue
+                piece = flat
+            else:
+                encoded = name in ("dense0", "viewdirs_dir") or name.endswith("_enc")
+                piece = tile(m, rows if encoded else nw, nw if ld == ldw else nv)
+            flats.append(piece)
+            offsets[name] = off
+            off += piece.numel()
+        return torch.cat(flats), table(offsets)
+
+    mma_wt = layout_mma = weights_tc = layout_tc = weights_f32tc = layout_f32tc = None
     if dtype == "float32":
         mma_wt = torch.stack(tf32_split(torch.cat(pieces_wt)))
         layout_mma = np.array(
@@ -253,27 +295,17 @@ def pack_params(params, dtype: str) -> PackedMLP:
             + [offsets_wt.get(f"dense{i}_enc", -1) for i in range(MAX_DEPTH)]
             + [offsets_wt[n] for n in ("bottleneck", "viewdirs", "viewdirs_dir")],
             dtype=np.int64)
+        weights_f32tc, layout_f32tc = tensor_core_pack(f32tc_tile, heads=False)
+        weights_f32tc = weights_f32tc.to(torch.bfloat16)    # exact: the pieces are bf16 values
     else:
-        ldw_tc, ldv_tc = _round_up(ldw, _TC_PIECE), _round_up(ldv, _TC_PIECE)
-        offsets_tc: Dict[str, int] = {}
-        pieces_tc = []
-        off_tc = 0
-        for (name, m, rows, ld), flat in zip(mats, pieces):
-            if name in ("alpha", "rgb"):          # the heads run on the CUDA cores
-                piece = flat
-            else:
-                encoded = name in ("dense0", "viewdirs_dir") or name.endswith("_enc")
-                piece = tc_tile(m, rows if encoded else ldw_tc, ldw_tc if ld == ldw else ldv_tc)
-            pieces_tc.append(piece)
-            offsets_tc[name] = off_tc
-            off_tc += piece.numel()
-        weights_tc = torch.cat(pieces_tc).to(torch.bfloat16)
-        layout_tc = table(offsets_tc)
+        weights_tc, layout_tc = tensor_core_pack(tc_tile, heads=True)
+        weights_tc = weights_tc.to(torch.bfloat16)
     return PackedMLP(weights=weights, biases=biases, segments=segments,
                      bias_slots=bias_slots, layout=layout, mma_wt=mma_wt,
                      layout_mma=layout_mma, width=width, v_width=v_width, depth=depth,
                      ldw=ldw, ldv=ldv, dtype=dtype, weights_tc=weights_tc,
-                     layout_tc=layout_tc)
+                     layout_tc=layout_tc, weights_f32tc=weights_f32tc,
+                     layout_f32tc=layout_f32tc)
 
 
 def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -329,6 +361,60 @@ def tc_tile(m: torch.Tensor, k: int, n: int) -> torch.Tensor:
     return padded.reshape(k // 8, 8, n // 8, 8).permute(0, 2, 3, 1).reshape(-1)
 
 
+def bf16_split3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(hi, mid, lo) of float32 ``x``, each a float32 that bf16 holds
+    exactly: ``hi = bf16(x)``, ``mid = bf16(x - hi)``, ``lo = bf16(x - hi -
+    mid)``, rounded to nearest even, as ``csrc/fused_mlp_f32tc.cuh::split3``
+    splits. Both subtractions are exact and ``hi + mid + lo == x`` (but
+    where ``lo`` would fall below bf16's smallest normal)."""
+    def bf16(v):
+        return v.to(torch.bfloat16).to(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = bf16(x)
+    mid = bf16(x - hi)
+    return hi, mid, bf16(x - hi - mid)
+
+
+def f32tc_tile(m: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """A (K, N) weight matrix zero-padded to (k, n), split by
+    :func:`bf16_split3`, flat in the order the f32 tensor-core kernels copy
+    it: per chunk of 16 k rows (one ``wgmma`` k-step, one bulk copy), its
+    hi, mid and lo planes back to back, each in :func:`tc_tile`'s
+    core-matrix order. k must be a multiple of 16, n of 64. Returns
+    float32 (bf16 values)."""
+    if k % _STEP_K or n % _TC_PIECE or m.shape[0] > k or m.shape[1] > n:
+        raise ValueError(f"cannot tile a {tuple(m.shape)} matrix to ({k}, {n})")
+    padded = torch.zeros((k, n), dtype=torch.float32, device=m.device)
+    padded[:m.shape[0], :m.shape[1]] = m
+    planes = torch.stack(bf16_split3(padded))                  # plane, k, n
+    blocks = planes.reshape(3, k // _STEP_K, 2, 8, n // 8, 8)   # plane, chunk, kg, k%8, ng, n%8
+    return blocks.permute(1, 0, 2, 4, 5, 3).reshape(-1)
+
+
+def split_f32_dense(sources, b: torch.Tensor) -> torch.Tensor:
+    """:func:`_dense` in the f32 kernels' arithmetic as built
+    (``csrc/fused_mlp_f32tc.cuh``), for the CPU tests: each operand split by
+    :func:`bf16_split3`; the sources in order, each in k-steps of 16 (zero
+    padding adds nothing); per k-step the six piece products of
+    ``SPLIT_F32_ORDER``, each added with one rounding (its 16 products
+    summed in float64) to its float32 accumulator: hi.hi to the big one,
+    the other five to the small one; then (big + small) + b. Float32 in
+    and out."""
+    acc = {}
+
+    def add(key, term):
+        acc[key] = term.float() if key not in acc else (acc[key].double() + term).float()
+
+    for a, w in sources:
+        xs, ws = bf16_split3(a), bf16_split3(w)
+        for k0 in range(0, a.shape[-1], _STEP_K):
+            for i, j in SPLIT_F32_ORDER:
+                add("big" if i == j == 0 else "small",
+                    xs[i][:, k0:k0 + _STEP_K].double() @ ws[j][k0:k0 + _STEP_K].double())
+    return (acc["big"] + acc["small"]) + b
+
+
 def _packed(params, dtype: str) -> PackedMLP:
     """A pack itself, the pack of a NerfMLP (kept by the module), or the
     pack of a param tree."""
@@ -380,15 +466,35 @@ def _flat_inputs(points: torch.Tensor, viewdirs: torch.Tensor, dt=torch.float32)
     return pts, dirs
 
 
+def _dense(sources, b: torch.Tensor) -> torch.Tensor:
+    """A layer's pre-activation, sum of ``a @ w`` over its (a, w)
+    sources, in the kernels' order (a skip layer's encode part first, the
+    view layer's trunk part first), plus the bias ``b``. The CPU tests swap
+    in :func:`split_f32_dense` to run the f32 kernels' arithmetic."""
+    acc = sources[0][0] @ sources[0][1]
+    for a, w in sources[1:]:
+        acc = acc + a @ w
+    return acc + b
+
+
 def _trunk(mat, bias, enc_x: torch.Tensor, rnd, depth: int, skips):
     """Every trunk layer's output, as the kernels compute them."""
-    hs = [rnd(torch.relu(enc_x @ mat("dense0") + bias("dense0")))]
+    hs = [rnd(torch.relu(_dense([(enc_x, mat("dense0"))], bias("dense0"))))]
     for i in range(1, depth):
-        acc = hs[-1] @ mat(f"dense{i}")
+        sources = [(hs[-1], mat(f"dense{i}"))]
         if f"dense{i}_enc" in skips:
-            acc = acc + enc_x @ mat(f"dense{i}_enc")
-        hs.append(rnd(torch.relu(acc + bias(f"dense{i}"))))
+            sources.insert(0, (enc_x, mat(f"dense{i}_enc")))
+        hs.append(rnd(torch.relu(_dense(sources, bias(f"dense{i}")))))
     return hs
+
+
+def _color_branch(mat, bias, h: torch.Tensor, enc_d: torch.Tensor, rnd):
+    """The bottleneck's output (no activation) and the view layer's, as
+    the kernels compute them."""
+    bneck = rnd(_dense([(h, mat("bottleneck"))], bias("bottleneck")))
+    hv = rnd(torch.relu(_dense([(bneck, mat("viewdirs")), (enc_d, mat("viewdirs_dir"))],
+                               bias("viewdirs"))))
+    return bneck, hv
 
 
 def fused_nerf_mlp_reference(params, points: torch.Tensor, viewdirs: torch.Tensor, *,
@@ -422,9 +528,7 @@ def fused_nerf_mlp_reference(params, points: torch.Tensor, viewdirs: torch.Tenso
         rgb = torch.zeros((pts.shape[0], 3), dtype=dt, device=pts.device)
     else:
         enc_d = rnd(_encode(dirs, d_freqs, _ENC_D))
-        bneck = rnd(h @ mat("bottleneck") + bias("bottleneck"))
-        hv = rnd(torch.relu(bneck @ mat("viewdirs") + enc_d @ mat("viewdirs_dir")
-                            + bias("viewdirs")))
+        bneck, hv = _color_branch(mat, bias, h, enc_d, rnd)
         rgb = torch.sigmoid(hv @ mat("rgb") + bias("rgb"))
     return rgb.reshape(*batch, 3), sigma.reshape(batch)
 
@@ -513,9 +617,7 @@ def fused_nerf_mlp_backward_reference(params, points: torch.Tensor, viewdirs: to
         de_d = None
         if not sigma_only:
             enc_d = rnd(_encode(dirs, d_freqs, _ENC_D))
-            bneck = rnd(h @ mat("bottleneck") + bias("bottleneck"))
-            hv = rnd(torch.relu(bneck @ mat("viewdirs") + enc_d @ mat("viewdirs_dir")
-                                + bias("viewdirs")))
+            bneck, hv = _color_branch(mat, bias, h, enc_d, rnd)
             pre = hv @ mat("rgb") + bias("rgb")
             # sigmoid' = sg (1 - sg), with 1 - sg as sigmoid(-pre): no
             # cancellation where the sigmoid saturates (JAX subtracts).
@@ -608,27 +710,70 @@ def _stream(device: torch.device) -> int:
 def _forward_kernel(pk: PackedMLP, points: torch.Tensor, viewdirs: torch.Tensor,
                     sigma_only: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 on CUDA tensors, on the current stream, without synchronizing:
-    f32 packs launch the CUDA-core kernel (``csrc/fused_mlp.cu``), bf16
-    packs the tensor-core kernel (``csrc/fused_mlp_tc.cu``, also counted
-    in ``fused_nerf_mlp.tc_launches``)."""
+    f32 packs launch the split-f32 kernel (``csrc/fused_mlp_f32tc.cu``),
+    bf16 packs ``csrc/fused_mlp_tc.cu``; both on the tensor cores, counted
+    also in ``fused_nerf_mlp.tc_launches``."""
     dirs, dir_div, batch, n = _kernel_inputs(pk, points, viewdirs)
     rgb = torch.empty((*batch, 3), dtype=torch.float32, device=points.device)
     sigma = torch.empty(batch, dtype=torch.float32, device=points.device)
     if n == 0:
         return rgb, sigma
     lib = _build.load_library()
-    tc = pk.dtype == "bfloat16"
-    entry, weights, layout = ((lib.nerf_fused_mlp_tc_forward, pk.weights_tc, pk.layout_tc) if tc
-                              else (lib.nerf_fused_mlp_forward, pk.weights, pk.layout))
-    err = entry(points.data_ptr(), dirs.data_ptr(), n, dir_div, weights.data_ptr(),
-                pk.biases.data_ptr(), layout.ctypes.data, layout.size, pk.ldw, pk.ldv, pk.depth,
-                int(sigma_only), rgb.data_ptr(), sigma.data_ptr(), points.device.index or 0,
-                _stream(points.device))
+    head = (points.data_ptr(), dirs.data_ptr(), n, dir_div)
+    tail = (pk.ldw, pk.ldv, pk.depth, int(sigma_only), rgb.data_ptr(), sigma.data_ptr(),
+            points.device.index or 0, _stream(points.device))
+    if pk.dtype == "bfloat16":
+        err = lib.nerf_fused_mlp_tc_forward(*head, pk.weights_tc.data_ptr(), pk.biases.data_ptr(),
+                                            pk.layout_tc.ctypes.data, pk.layout_tc.size, *tail)
+    else:
+        err = lib.nerf_fused_mlp_f32tc_forward(
+            *head, pk.weights.data_ptr(), pk.weights_f32tc.data_ptr(), pk.biases.data_ptr(),
+            pk.layout.ctypes.data, pk.layout_f32tc.ctypes.data, pk.layout.size, *tail)
     if err != 0:
         raise RuntimeError(f"fused MLP kernel launch failed with CUDA error {err}")
     fused_nerf_mlp.launches += 1
-    fused_nerf_mlp.tc_launches += int(tc)
+    fused_nerf_mlp.tc_launches += 1
     return rgb, sigma
+
+
+_F32_ROUND_TILES = 8         # 128-sample tiles a CTA takes a round in the f32 backward
+
+
+def _backward_f32(lib, pk: PackedMLP, ptrs, partials, grid: int, tiles: int, sigma_only: bool,
+                  outs) -> int:
+    """K2's f32 mode: round by round, K1 f32's record pass
+    (``nerf_fused_mlp_f32tc_record``: the recompute, every layer's output
+    into the round's workspace) and the backward over the same tiles
+    (``csrc/fused_mlp_bwd_tc.cu``), each CTA taking the same tiles of each
+    round, then the fixed-order sum of the partials. The workspace holds a
+    round: grid x _F32_ROUND_TILES tiles of 128 samples, each its encodes,
+    trunk, bottleneck and view outputs. -> a cudaError_t value."""
+    points, dirs, n, dir_div = ptrs[:4]
+    per_round = grid * _F32_ROUND_TILES
+    ws = torch.empty(min(tiles, per_round) * _BWD_TILE
+                     * (_ENC_X + _ENC_D + (pk.depth + 1) * pk.ldw + pk.ldv),
+                     dtype=torch.float32, device=partials.device)
+    n_w, n_b = pk.weights.numel(), pk.biases.numel()
+    device, stream = outs[-2:]
+    pack = (pk.weights.data_ptr(), pk.weights_f32tc.data_ptr(), pk.biases.data_ptr(),
+            pk.layout.ctypes.data, pk.layout_f32tc.ctypes.data, pk.layout.size, pk.ldw, pk.ldv,
+            pk.depth, int(sigma_only))
+    for tile0 in range(0, tiles, per_round):
+        rows = min(tiles - tile0, per_round) * _BWD_TILE
+        err = lib.nerf_fused_mlp_f32tc_record(points, dirs, n, dir_div, *pack,
+                                              tile0 * _BWD_TILE, rows, ws.data_ptr(), device,
+                                              stream)
+        if err == 0:
+            err = lib.nerf_fused_mlp_backward(
+                *ptrs, pk.weights.data_ptr(), pk.mma_wt.data_ptr(), pk.mma_wt.shape[1],
+                pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout.size,
+                pk.layout_mma.ctypes.data, pk.layout_mma.size, pk.ldw, pk.ldv, pk.depth,
+                int(sigma_only), ws.data_ptr(), tile0, _F32_ROUND_TILES, partials.data_ptr(),
+                n_w, n_b, grid, *outs[2:])
+        if err != 0:
+            return err
+    return lib.nerf_fused_mlp_backward_sum(partials.data_ptr(), grid, n_w, n_b, *outs[:2],
+                                           device, stream)
 
 
 def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor,
@@ -685,15 +830,7 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
                 pk.layout.ctypes.data, pk.layout.size, pk.ldw, pk.ldv, pk.depth,
                 int(sigma_only), ws.data_ptr(), partials.data_ptr(), n_w, n_b, grid, *outs)
         else:
-            # Per CTA: the tile's encodes, trunk outputs and bottleneck
-            # output (csrc/fused_mlp_bwd_tc.cu's workspace).
-            ws = torch.empty(grid * _BWD_TILE * (_ENC_X + _ENC_D + (pk.depth + 1) * pk.ldw),
-                             dtype=torch.float32, device=dev)
-            err = lib.nerf_fused_mlp_backward(
-                *ptrs, pk.weights.data_ptr(), pk.mma_wt.data_ptr(), pk.mma_wt.shape[1],
-                pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout.size,
-                pk.layout_mma.ctypes.data, pk.layout_mma.size, pk.ldw, pk.ldv, pk.depth,
-                int(sigma_only), ws.data_ptr(), partials.data_ptr(), n_w, n_b, grid, *outs)
+            err = _backward_f32(lib, pk, ptrs, partials, grid, tiles, sigma_only, outs)
         if err != 0:
             raise RuntimeError(f"fused MLP backward kernel launch failed with CUDA error {err}")
         fused_nerf_mlp_backward.launches += 1

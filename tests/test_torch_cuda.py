@@ -1,6 +1,7 @@
-"""PyTorch port on the card: the fused MLP kernels (forward K1, f32 on the
-CUDA cores and bf16 on the tensor cores; backward K2 on the tensor cores,
-``mma.sync`` 3xTF32 in f32 and ``wgmma`` in bf16),
+"""PyTorch port on the card: the fused MLP kernels (forward K1 on the
+tensor cores, split-f32 ``wgmma`` in f32 and ``wgmma`` in bf16; backward K2
+on the tensor cores, ``mma.sync`` 3xTF32 in f32 with K1 f32's recompute,
+and ``wgmma`` in bf16),
 the fused resampler (K3), the hash encode and the int8 MLP kernel against
 their plain versions, and the packed accel render against the unpacked one.
 
@@ -73,14 +74,14 @@ def inputs(rays, samples, seed, device):
 
 
 def check(net, pts, dirs, dtype, sigma_only):
-    """One K1 launch (bf16 through the tensor-core kernel) against the
+    """One K1 launch (on the tensor cores in both dtypes) against the
     plain version; a second call bitwise equal."""
     rgb_atol, sig_atol, sig_rtol = TOL[dtype]
     before, before_tc = fused_nerf_mlp.launches, fused_nerf_mlp.tc_launches
     rgb, sig = fused_nerf_mlp(net, pts, dirs, dtype=dtype, sigma_only=sigma_only)
     torch.cuda.synchronize()
     assert fused_nerf_mlp.launches == before + 1
-    assert fused_nerf_mlp.tc_launches == before_tc + int(dtype == "bfloat16")
+    assert fused_nerf_mlp.tc_launches == before_tc + 1
     rgb_r, sig_r = fused_nerf_mlp_reference(net, pts, dirs, dtype=dtype, sigma_only=sigma_only)
     assert rgb.shape == rgb_r.shape and sig.shape == sig_r.shape
     torch.testing.assert_close(rgb, rgb_r, atol=rgb_atol, rtol=0)
@@ -118,6 +119,35 @@ def test_kernel_matches_plain_lego(card, net, dtype, sigma_only):
     module = NerfMLP(load_nerf_params(LEGO / net), device=card)
     pts, dirs = inputs(64, 96, 2, card)
     check(module, pts * 0.4, dirs, dtype, sigma_only)
+
+
+def test_f32_kernel_near_float64_lego_fine(card):
+    """K1 f32 (split-f32 on the tensor cores) on lego fine inputs at the
+    render's sample count, held to the float64 evaluation of the same
+    function: rgb and sigma each no further from it than twice the plain
+    f32 version (cuBLAS f32 products)."""
+    module = NerfMLP(load_nerf_params(LEGO / "fine"), device=card)
+    pts, dirs = inputs(1024, 192, 15, card)
+    pts = pts * 0.4
+    with torch.no_grad():
+        got = fused_nerf_mlp(module, pts, dirs)
+        plain = fused_nerf_mlp_reference(module, pts, dirs)
+        exact = fused_nerf_mlp_reference(module, pts.double(), dirs.double())
+    for name, g, p, e in zip(("rgb", "sigma"), got, plain, exact):
+        dist, plain_dist = (float((x.double() - e).abs().max()) for x in (g, p))
+        assert dist <= 2 * plain_dist, (name, dist, plain_dist)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_is_deterministic(card, dtype):
+    """Two K1 calls at the fine render shape (8192 x 192: the persistent
+    CTAs walk many tiles) give bitwise-equal outputs."""
+    module = NerfMLP(load_nerf_params(LEGO / "fine"), device=card)
+    pts, dirs = inputs(8192, 192, 16, card)
+    with torch.no_grad():
+        a = fused_nerf_mlp(module, pts * 0.4, dirs, dtype=dtype)
+        b = fused_nerf_mlp(module, pts * 0.4, dirs, dtype=dtype)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_kernel_refuses_what_it_does_not_take(card):

@@ -21,11 +21,13 @@ from nerf_rs_tpu_torch.config import ArchConfig
 from nerf_rs_tpu_torch.io.golden import golden_examples, load_golden
 from nerf_rs_tpu_torch.io.weights import load_nerf_params, params_to_torch
 from nerf_rs_tpu_torch.models.mlp import NerfMLP, arch_shapes, count_params, nerf_mlp
+import nerf_rs_tpu_torch.ops.kernels.fused_mlp as fm
 from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
     bf16_sigma_agrees,
     fused_nerf_mlp,
     fused_nerf_mlp_reference,
     pack_params,
+    split_f32_dense,
 )
 
 torch.set_num_threads(1)
@@ -233,6 +235,101 @@ def test_tc_pack_round_trip_and_padding(arch):
         np.testing.assert_array_equal(got[:rows, :cols], want, err_msg=name)
         assert not got[rows:].any() and not got[:, cols:].any(), name
     assert (covered == 1).all()
+
+
+def untile_f32tc(flat, off, k, n):
+    """The (3, k, n) hi, mid and lo planes at ``off`` of the split pack,
+    read element by element from the order csrc/fused_mlp_f32tc.cuh copies:
+    per chunk of 16 k rows its three planes, each in core-matrix order."""
+    q, kk, nn = np.meshgrid(np.arange(3), np.arange(k), np.arange(n), indexing="ij")
+    idx = (off + ((kk // 16) * 3 + q) * (16 * n) + (kk % 16 // 8) * (n * 8) + (nn // 8) * 64
+           + (nn % 8) * 8 + kk % 8)
+    return flat[idx], idx
+
+
+@pytest.mark.parametrize("arch", [SMALL, ArchConfig(), ArchConfig(width=100, v_width=36, depth=3,
+                                                                    skip_at=5)],
+                         ids=["small", "lego", "unaligned_noskip"])
+def test_f32tc_pack_round_trip_and_padding(arch):
+    """The f32 pack's split copy (the f32 tensor-core kernels' B operand):
+    each layer segment read back through the plain inverse of its tiling
+    gives three bf16 planes whose sum is the layer's weights within 2^-24
+    relative (hi the nearest bf16, mid and lo the rest), zero-padded to K
+    and N multiples of 64 (the encodes keep K = 64 and 32); the segments
+    cover the copy exactly once; its table has ``layout``'s order and bias
+    offsets, and no heads (the kernels read them from ``weights``)."""
+    params = params_to_torch(np_params(arch, 8), "cpu")
+    pk = pack_params(params, "float32")
+    assert pk.weights_f32tc.dtype == torch.bfloat16
+    assert pack_params(params, "bfloat16").weights_f32tc is None
+    flat = pk.weights_f32tc.double().numpy()
+    nw, nv = -(-arch.width // 64) * 64, -(-arch.v_width // 64) * 64
+    tab = pk.layout_f32tc
+    assert tab.shape == pk.layout.shape and (tab[[32, 36]] == -1).all()
+    np.testing.assert_array_equal(tab[37:], pk.layout[37:])
+    assert (tab[:16] >= 0).sum() == arch.depth
+
+    def kern(layer, rows=slice(None)):
+        return params[layer]["kernel"][rows].double().numpy()
+
+    segs = {"dense0": (tab[0], 64, nw, kern("dense0"))}
+    for i in range(1, arch.depth):
+        k = kern(f"dense{i}")
+        if tab[16 + i] >= 0:
+            segs[f"dense{i}_enc"] = (tab[16 + i], 64, nw, k[:63])
+            k = k[63:]
+        segs[f"dense{i}"] = (tab[i], nw, nw, k)
+    segs["bottleneck"] = (tab[33], nw, nw, kern("bottleneck"))
+    segs["viewdirs"] = (tab[34], nw, nv, kern("viewdirs", slice(0, arch.width)))
+    segs["viewdirs_dir"] = (tab[35], 32, nv, kern("viewdirs", slice(arch.width, None)))
+    covered = np.zeros(flat.size, np.int64)
+    for name, (off, k, n, want) in segs.items():
+        assert k % 16 == 0 and n % 64 == 0 and off % 8 == 0, name
+        planes, idx = untile_f32tc(flat, int(off), k, n)
+        np.add.at(covered, idx.reshape(-1), 1)
+        rows, cols = want.shape
+        got = planes.sum(0)
+        assert (np.abs(got[:rows, :cols] - want) <= 2.0 ** -24 * np.abs(want)).all(), name
+        hi = torch.from_numpy(want).float().to(torch.bfloat16).double().numpy()
+        np.testing.assert_array_equal(planes[0, :rows, :cols], hi, err_msg=name)
+        assert not got[rows:].any() and not got[:, cols:].any(), name
+        assert not planes[:, rows:].any() and not planes[:, :, cols:].any(), name
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("arch", ["small", "unaligned_noskip", "lego_fine"])
+def test_split_f32_forward_meets_the_f32_bars(small, lego, arch, monkeypatch):
+    """The f32 forward kernel's arithmetic as built, before the card sees
+    it: the plain version with every layer product in the kernel's split
+    (``split_f32_dense``: bf16x6, its k-step order, hi.hi in its own
+    accumulator), held to the JAX fused kernel (interpret mode) at
+    test_reference_matches_jax_fused_f32's bars (width 100 is not one the
+    JAX kernel takes: there the JAX package's plain MLP, which its CLI falls
+    back to), and to the float64 evaluation: no further from it than twice
+    the plain f32 version, rgb and sigma each."""
+    pts, dirs = np_inputs(320, 11)
+    if arch == "small":
+        params = small
+    elif arch == "unaligned_noskip":
+        params = np_params(ArchConfig(width=100, v_width=36, depth=3, skip_at=5), 4)
+    else:
+        params, pts = lego["fine"], pts * np.float32(0.4)
+    tree = params_to_torch(params, "cpu")
+    pk = pack_params(tree, "float32")
+    x, d = torch.from_numpy(pts), torch.from_numpy(dirs)
+    plain = fused_nerf_mlp_reference(pk, x, d)
+    exact = fused_nerf_mlp_reference(pk, x.double(), d.double())
+    monkeypatch.setattr(fm, "_dense", split_f32_dense)
+    emulated = fused_nerf_mlp_reference(pk, x, d)
+    monkeypatch.undo()
+    jax_fn = jax_nerf_mlp if arch == "unaligned_noskip" else jax_fused_nerf_mlp
+    rgb_j, sig_j = jax_fn(to_jax(params), jnp.asarray(pts), jnp.asarray(dirs))
+    np.testing.assert_allclose(emulated[0].numpy(), np.asarray(rgb_j), atol=1e-5)
+    np.testing.assert_allclose(emulated[1].numpy(), np.asarray(sig_j), atol=1e-4, rtol=1e-5)
+    assert not torch.equal(emulated[1], plain[1])      # the emulation ran
+    for got, want, ref in zip(emulated, plain, exact):
+        dist = float((got.double() - ref).abs().max())
+        assert dist <= 2 * float((want.double() - ref).abs().max()), dist
 
 
 @pytest.mark.parametrize("moved, ok", [(0, True), (2, True), (128, False)],

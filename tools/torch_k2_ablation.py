@@ -47,34 +47,41 @@ VARIANTS = [
 ]
 
 
-def build_variants(build_dir: Path):
+def build_variants(build_dir: Path, source: str = SOURCE, variants=VARIANTS):
     """{name: (library path, ptxas lines)}: the unchanged sources compiled
-    once, SOURCE once per variant, all nvcc processes at once."""
+    once, ``source`` once per variant, all nvcc processes at once. A
+    variant's patches are (text, replacement) pairs for ``source`` or
+    (file, text, replacement) triples for a header it includes; the
+    patched files are written to a directory of the variant's own, where
+    the compiler finds them before the checkout's."""
     from nerf_rs_tpu_torch.ops.kernels import _build
 
     nvcc = _build._nvcc()
     build_dir.mkdir(parents=True, exist_ok=True)
-    original = (_build.CSRC / SOURCE).read_text()
     jobs = {}
     for src in _build.sources():
-        if src.name != SOURCE:
+        if src.name != source:
             obj = build_dir / f"{src.stem}.o"
             jobs[obj] = subprocess.Popen([nvcc, *_build.COMPILE_FLAGS, "-c", "-o", str(obj),
                                           str(src)], stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT, text=True)
     variant_objs = {}
-    for k, (name, patches) in enumerate(VARIANTS):
-        text = original
-        for old, new in patches:
-            if old not in text:
-                raise RuntimeError(f"variant {name!r}: {old!r} not in {SOURCE}")
-            text = text.replace(old, new)
-        src = build_dir / f"variant{k}_{SOURCE}"
-        src.write_text(text)
+    for k, (name, patches) in enumerate(variants):
+        texts = {source: (_build.CSRC / source).read_text()}
+        for patch in patches:
+            file, old, new = patch if len(patch) == 3 else (source, *patch)
+            texts.setdefault(file, (_build.CSRC / file).read_text())
+            if old not in texts[file]:
+                raise RuntimeError(f"variant {name!r}: {old!r} not in {file}")
+            texts[file] = texts[file].replace(old, new)
+        vdir = build_dir / f"variant{k}"
+        vdir.mkdir(exist_ok=True)
+        for file, text in texts.items():
+            (vdir / file).write_text(text)
         obj = build_dir / f"variant{k}.o"
         variant_objs[name] = obj
         jobs[obj] = subprocess.Popen([nvcc, *_build.COMPILE_FLAGS, "-I", str(_build.CSRC), "-c",
-                                      "-o", str(obj), str(src)],
+                                      "-o", str(obj), str(vdir / source)],
                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     logs = {}
     for obj, proc in jobs.items():
@@ -89,7 +96,7 @@ def build_variants(build_dir: Path):
         subprocess.run([nvcc, *_build.ARCH_FLAGS, "-shared", "-o", str(so), *map(str, common),
                         str(obj)], check=True, capture_output=True, text=True)
         ptxas = [line.strip() for line in logs[obj].splitlines()
-                 if "spill" in line or "Used" in line or "C7520" in line]
+                 if "spill" in line or "Used" in line or "serialized" in line]
         libs[name] = (so, ptxas)
     return libs
 
