@@ -15,9 +15,9 @@
 // come split from pack_params), and a product is lo*hi + hi*lo + hi*hi,
 // summed in f32 by the tensor cores.
 //
-// The dW and W dz products are mma.sync m16n8k8 tf32: A from registers loaded from
-// shared memory, B from registers loaded from L2 (the pack) or from the
-// CTA's workspace, a block or two ahead of its use. So each operand can be
+// The dW and W dz products are mma.sync m16n8k8 tf32: A from registers
+// loaded from shared memory, B from registers loaded from L2 (the pack) or
+// from the tile's workspace, a block or two ahead of its use. So each operand can be
 // read in either orientation from one copy, which the two uses of every
 // activation and gradient need (reduced over features in W dz, over
 // samples in dW = H^T dZ): tf32 wgmma takes K-major operands only, and a
@@ -35,8 +35,8 @@
 // 2^-21, flipped a mask at a pre-activation of -9.2e-8 among summands of
 // 2.1, and every trunk gradient moved by 1-3%), and this kernel's
 // registers serve its mma.sync products alone: with the wgmma recompute
-// inlined beside them, ptxas spilled and the call took 157 ms instead of
-// 96.
+// inlined beside them, ptxas spilled and a fine call took 157 ms, against
+// 65 for the rest alone (PERF.md).
 //
 // What bounds it on the H100: operations. A fine sample costs three
 // forwards, 3 x 1.187 MFLOP. Through the route it takes, the recompute as
@@ -491,12 +491,14 @@ fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__
       }
     }
     x_from_slot(X, ws_h(depth - 1), ldw);   // h_last, recorded
-    // Sigma head, K1's sum: gs becomes d(pre-ReLU sigma); then its dW and db.
+    // Sigma head, K1's sum (rows hr and hr + 64): gs becomes d(pre-ReLU
+    // sigma); then its dW and db.
     const int hr = f32tc::head_row();
-    auto x_row = [&](int i) { return X[hr * kSx + i]; };
-    {
-      const float pre = f32tc::head_sum(x_row, ldw, w + L.w_alpha, 1, 0) + __ldg(bias + L.b_alpha);
-      if (!(tid & 1) && !(pre > 0.f)) gs[hr] = 0.f;
+    for (int b0 = 0; b0 < kRows; b0 += 64) {
+      auto x_row = [&](int i) { return X[(b0 + hr) * kSx + i]; };
+      const float pre =
+          f32tc::head_sum(x_row, ldw, w + L.w_alpha, 1, 0) + __ldg(bias + L.b_alpha);
+      if (!(tid & 3) && !(pre > 0.f)) gs[b0 + hr] = 0.f;
     }
     __syncthreads();
     for (int k = tid; k < ldw; k += kThreadsBwd) {
@@ -516,13 +518,16 @@ fused_mlp_bwd_tc_kernel(const float* __restrict__ pts, const float* __restrict__
       // Rgb head, K1's sums: gr becomes d(pre-sigmoid rgb); sigmoid' =
       // sg (1 - sg), with 1 - sg as sigmoid(-pre): no cancellation where it
       // saturates.
+      for (int b0 = 0; b0 < kRows; b0 += 64) {
+        auto x_row = [&](int i) { return X[(b0 + hr) * kSx + i]; };
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float pre =
-            f32tc::head_sum(x_row, ldv, w + L.w_rgb, 3, c) + __ldg(bias + L.b_rgb + c);
-        const float sg = 1.f / (1.f + expf(-pre));
-        const float sg_neg = 1.f / (1.f + expf(pre));
-        if (!(tid & 1)) gr[hr * 3 + c] = gr[hr * 3 + c] * sg * sg_neg;
+        for (int c = 0; c < 3; ++c) {
+          const float pre =
+              f32tc::head_sum(x_row, ldv, w + L.w_rgb, 3, c) + __ldg(bias + L.b_rgb + c);
+          const float sg = 1.f / (1.f + expf(-pre));
+          const float sg_neg = 1.f / (1.f + expf(pre));
+          if (!(tid & 3)) gr[(b0 + hr) * 3 + c] = gr[(b0 + hr) * 3 + c] * sg * sg_neg;
+        }
       }
       __syncthreads();
       for (int idx = tid; idx < 3 * ldv; idx += kThreadsBwd) {

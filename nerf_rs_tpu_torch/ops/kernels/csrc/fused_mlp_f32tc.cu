@@ -17,17 +17,17 @@
 // What bounds it on the H100: the tensor cores. A fine sample costs 1.187
 // MFLOP of f32 products, six bf16 passes each: 7.12 MFLOP at 989 TFLOP/s,
 // 11.3 ms a 8192 x 192 call (the CUDA cores' f32 peak would take 27.9 ms).
-// The design, K1 bf16's (fused_mlp_tc.cu) with an f32 activation buffer:
+// The design, K1 bf16's (fused_mlp_tc.cu) with split operands:
 // - a persistent grid, one CTA of 256 threads an SM, walking 64-sample
 //   tiles: two warpgroups, each on half of every layer's columns
 //   (fused_mlp_f32tc.cuh: two f32 accumulators a piece, so two pieces a
 //   warpgroup);
 // - thread 0 copies each layer's pieces, 16 K-rows of three bf16 planes
 //   (24 KB at width 256) at a time, with one cp.async.bulk onto an
-//   mbarrier, into a ring of 6 stages, as the warpgroups release them,
-//   running ahead across layers and tiles (f32tc::FedPipe: no producer
-//   warpgroup, whose launch bounds left the consumers too few registers
-//   for wgmma's pipeline);
+//   mbarrier, into a ring of 3 stages: the chunk in use, the one its
+//   wgmmas may still read, and the next, copied one ahead across layers
+//   and tiles (f32tc::FedPipe: no producer warpgroup, whose launch bounds
+//   would leave the consumers too few registers);
 // - the A operands are the block's activations and encodes as bf16 hi,
 //   mid and lo planes in shared memory (96 KB for the activations, which
 //   each layer overwrites, 36 KB for the encodes, filled once a tile),
@@ -117,8 +117,7 @@ fused_mlp_f32tc_kernel(const float* __restrict__ pts, const float* __restrict__ 
   FedPipe<kStages> q{{smem_u32(smem), bars, 0, 0u, -1}, 0, 0u, 0, {}, pw};
   q.start(segs, *n_segs,
           static_cast<int>((tiles - blockIdx.x + gridDim.x - 1) / gridDim.x));
-  const int hrow = head_row();               // threads 0-127: rows 0-63
-  const bool heads = tid < 2 * kBlock;
+  const int hrow = head_row();
   const long long rec_stride = ws_stride(L.depth, L.ldw, L.ldv);
   auto row = [&](int i) { return act.get(hrow, i); };
 
@@ -160,11 +159,11 @@ fused_mlp_f32tc_kernel(const float* __restrict__ pts, const float* __restrict__ 
       }
     }
 
-    // Sigma head, threads 0-127. Their reads end before the bottleneck's
-    // epilogue, behind its first barrier.
+    // Sigma head. Its reads end before the bottleneck's epilogue, behind
+    // its first barrier.
     const long long s = row0 + tile * kBlock + hrow;
-    const bool mine = !kRecord && heads && !(tid & 1) && s < n;   // the pair's even thread stores
-    if (heads && !kRecord) {
+    const bool mine = !kRecord && !(tid & 3) && s < n;   // the first of the four stores
+    if (!kRecord) {
       const float sig = fmaxf(head_sum(row, L.ldw, w_alpha, 1, 0) + __ldg(bias + L.b_alpha), 0.f);
       if (mine) sigma[s] = sig;
     }
@@ -183,9 +182,9 @@ fused_mlp_f32tc_kernel(const float* __restrict__ pts, const float* __restrict__ 
     layer_any(npv, q, act, nw, enc_d, kEncD, nv, bias + L.b_view, L.ldv, true,
               out(L.depth + 1, L.ldv));
 
-    // Rgb head with sigmoid, threads 0-127; their reads end before the next
-    // tile's first epilogue.
-    if (heads && !kRecord) {
+    // Rgb head with sigmoid; its reads end before the next tile's first
+    // epilogue.
+    if (!kRecord) {
       float out[3];
 #pragma unroll
       for (int c = 0; c < 3; ++c) {

@@ -57,7 +57,7 @@ using namespace tc;
 constexpr int kStepK = 16;                                     // k rows a chunk: one k-step
 constexpr int kPlanes = 3;                                     // hi, mid, lo
 constexpr int kStageBytesF = kPlanes * kStepK * kMaxWidth * 2; // 24 KB
-constexpr int kMaxSegs = 2 * (2 * kMaxDepth + 3);   // K2 reads the list twice
+constexpr int kMaxSegs = 2 * kMaxDepth + 3;           // segments a forward reads
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   uint32_t u;
@@ -264,19 +264,21 @@ __device__ __forceinline__ void layer_any(int np, Q& q, const Planes& a1, int k1
   }
 }
 
-// The row a consumer thread's head sums work on: threads 2 i and 2 i + 1
-// take row i.
-__device__ __forceinline__ int head_row() { return threadIdx.x >> 1; }
+// The row of a 64-row block a consumer thread's head sums work on:
+// threads 4 i .. 4 i + 3 take row i.
+__device__ __forceinline__ int head_row() { return (threadIdx.x & 255) >> 2; }
 
-// Head column c's sum for head_row(): the row (x(i), i < k, k even) dot
-// w[i * stride + c]; the thread pair sums one half each, in order, and
-// adds the two halves, so both hold the same value.
+// Head column c's sum for head_row(): the row (x(i), i < k, k a multiple
+// of 4) dot w[i * stride + c]; the four threads sum one quarter each, in
+// order, and add the quarters as (q0 + q1) + (q2 + q3), so all four hold
+// the same value.
 template <class Row>
 __device__ __forceinline__ float head_sum(const Row& x, int k, const float* w, int stride, int c) {
-  const int h = k >> 1, i0 = (threadIdx.x & 1) * h;
+  const int h = k >> 2, i0 = (threadIdx.x & 3) * h;
   float acc = 0.f;
   for (int i = i0; i < i0 + h; ++i) acc = fmaf(x(i), w[i * stride + c], acc);
-  return acc + __shfl_xor_sync(0xFFFFFFFFu, acc, 1);
+  acc += __shfl_xor_sync(0xFFFFFFFFu, acc, 1);
+  return acc + __shfl_xor_sync(0xFFFFFFFFu, acc, 2);
 }
 
 // ---- The f32 backward's workspace (fused_mlp_bwd_tc.cu) ----
@@ -370,12 +372,15 @@ __device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
 
 // The weight ring, fed by thread 0 of the 256 consumer threads: the
 // kernels have no producer warpgroup, so the launch bounds give every
-// thread the registers the two accumulators, the A pieces and wgmma's
-// pipeline need (with a producer warpgroup, ptxas serialized the wgmmas
-// for want of registers). Thread 0 copies a chunk into each stage the
-// consumers have released, without waiting, whenever it advances;
-// it waits for a stage only when the chunk it is about to acquire is not
-// copied yet. start() walks a segment table `laps` times.
+// thread the registers the two accumulators and wgmma's pipeline need
+// (with a producer warpgroup, the consumers have 168). Thread 0 copies in
+// acquire(), where its warp waits for the chunk anyway: the chunk about to
+// be acquired, if it is not copied yet (waiting for its stage), then the
+// next one if its stage is already free, so one chunk runs ahead. (Copies
+// issued as stages were released, in advance(), kept up to three ahead but
+// delayed warp 0, and with it its warpgroup's wgmmas: 33.7 ms a fine call
+// against 25.1, timed with tools/torch_k1_ablation.py.) start()
+// walks a segment table `laps` times.
 template <int S>
 struct FedPipe {
   Pipe<S, kStageBytesF> q;             // the consumers' side
@@ -387,13 +392,12 @@ struct FedPipe {
 
   __device__ __forceinline__ void start(const Seg* segs, int count, int laps) {
     ch = Chunks{segs, count, laps, 0, 0};
-    top_up();
   }
   // Thread 0: copies the next chunk into the fill stage, once it is free
-  // (at once, or not at all unless `wait`). -> whether it copied.
-  __device__ __forceinline__ bool put(bool wait) {
+  // (at once, or not at all unless `wait`).
+  __device__ __forceinline__ void put(bool wait) {
     const uint32_t full = q.bars + 8 * fill_stage, empty = q.bars + 8 * (S + fill_stage);
-    if (!wait && !mbar_test(empty, fill_phase ^ 1)) return false;
+    if (!wait && !mbar_test(empty, fill_phase ^ 1)) return;
     mbar_wait(empty, fill_phase ^ 1);
     mbar_expect_tx(full, ch.bytes());
     bulk_copy(q.ring + fill_stage * kStageBytesF, ch.src(w), ch.bytes(), full);
@@ -403,25 +407,18 @@ struct FedPipe {
       fill_stage = 0;
       fill_phase ^= 1;
     }
-    return true;
-  }
-  __device__ __forceinline__ void top_up() {
-    if (threadIdx.x == 0) {
-      while (ahead < S && ch.valid() && put(false)) {
-      }
-    }
-    __syncwarp();
   }
   __device__ __forceinline__ uint32_t acquire() {
     if (threadIdx.x == 0) {
       if (ahead == 0) put(true);
       --ahead;
+      if (ahead == 0 && ch.valid()) put(false);
     }
     return q.acquire();   // (its __syncwarp rejoins thread 0)
   }
   // After the wgmmas on the acquired chunk are committed: the chunk
-  // before retires (an unconditional wait, so that ptxas sees the A
-  // registers it read free again), is released, and thread 0 tops up.
+  // before retires (an unconditional wait, so that ptxas sees it), and is
+  // released.
   __device__ __forceinline__ void advance() {
     wgmma_wait<1>();
     if (q.pending >= 0) mbar_arrive(q.bars + 8 * (S + q.pending));
@@ -430,12 +427,8 @@ struct FedPipe {
       q.stage = 0;
       q.phase ^= 1;
     }
-    top_up();
   }
-  __device__ __forceinline__ void release() {
-    q.release();
-    top_up();
-  }
+  __device__ __forceinline__ void release() { q.release(); }
 };
 
 }  // namespace f32tc

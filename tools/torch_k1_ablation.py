@@ -3,7 +3,7 @@
 port's split-f32 forward (``csrc/fused_mlp_f32tc.cu`` and the device code
 it shares with K2, ``csrc/fused_mlp_f32tc.cuh``) with parts of its work
 taken out, each from a patched copy of those sources built beside the
-port's own library (``tools/torch_k2_ablation.py``'s builder). The answers
+port's own library (``tools/torch_k2_ablation.py``'s ``build_variants``). The answers
 of the patched kernels are wrong; only their times are read.
 
     python3 tools/torch_k1_ablation.py
@@ -12,7 +12,8 @@ Needs one CUDA card and nvcc. The shape is the render's fine call (the
 lego fine network, 8192 rays x 192 samples, rgb and sigma); each line
 gives the median of 5 calls beside the card's name and power limit, and
 the ptxas lines of the patched kernel (registers, spills, wgmma
-serialization).
+serialization). Removing work changes the data the later layers see, so a
+variant's time is read as what that work costs, not as a new design.
 """
 
 from __future__ import annotations
@@ -42,8 +43,14 @@ VARIANTS = [
         (SOURCE, "        act.put(r, col, v);", "        if (col < 0) act.put(r, col, v);")]),
     ("layer barriers out", [
         (HEADER, "  consumers_barrier();   // every wgmma of the block has read its A\n", ""),
-        (HEADER,
-         "  consumers_barrier();   // the block's outputs, whole, for what reads them next\n", "")]),
+        (HEADER, "  consumers_barrier();   // the block's outputs, whole, for what reads them "
+                 "next\n", "")]),
+    ("copies issued as stages are released, up to three ahead", [
+        (HEADER, "      if (ahead == 0 && ch.valid()) put(false);\n", ""),
+        (HEADER, "      q.phase ^= 1;\n    }\n  }\n",
+         "      q.phase ^= 1;\n    }\n    if (threadIdx.x == 0) {\n"
+         "      for (int a0 = -1; ahead < S && ch.valid() && ahead != a0;) {\n"
+         "        a0 = ahead;\n        put(false);\n      }\n    }\n    __syncwarp();\n  }\n")]),
     ("head sums out", [
         (HEADER, "  for (int i = i0; i < i0 + h; ++i) acc = fmaf(",
          "  for (int i = i0; i < i0 + 0 * h; ++i) acc = fmaf(")]),
