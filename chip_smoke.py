@@ -29,8 +29,9 @@ forward (``train --impl int8qat``). Phases, each reported on its own line:
    parallel); ``cuobjdump --dump-sass`` must show HGMMA (``wgmma``)
    instructions in both variants (sigma_only or not) of K1 f32 and bf16,
    of K1 f32's record mode (K2 f32's recompute) and of K2's bf16 kernel,
-   and HMMA (``mma.sync``) instructions, every one tf32, in both variants
-   of K2's f32 kernel;
+   HMMA (``mma.sync``) instructions, every one tf32, in both variants
+   of K2's f32 kernel, and IGMMA (s8 ``wgmma``) instructions in both
+   variants of the int8 kernel;
 3. K1 against its plain PyTorch version at the render's shapes (8192 rays
    x 64 samples sigma-only, 8192 x 192 full), f32 and bf16, two calls
    bitwise equal; the kernel's and the plain version's f32 distance from
@@ -116,7 +117,8 @@ forward (``train --impl int8qat``). Phases, each reported on its own line:
     against the lego teacher's (reported);
 24. times: the int8 kernel, its plain version and ``torch._int_mm`` of the
     same layers at the phase-21 shapes, the int8 frame with the kernel and
-    the plain version, the int8qat step and its peak memory.
+    the plain version, the int8 frame under ``torch.profiler`` (device busy,
+    idle share, top kernels), the int8qat step and its peak memory.
 
 Any failed phase exits non-zero. The line before the last is a JSON
 summary of the kernels, each with its bound (the larger of its bytes over
@@ -252,7 +254,7 @@ def phase_build():
             entry = re.search(r"entry function '.*?(fused_mlp_bwd_tc_kernel|fused_mlp_tc_kernel|"
                               r"fused_mlp_bwd_bf16_kernel|"
                               r"fused_mlp_f32tc_kernel|reduce_partials|resample_kernel|"
-                              r"hash_encode_kernel|int8_mlp_kernel)"
+                              r"hash_encode_kernel|int8_mlp_tc_kernel)"
                               r"(I\w*?Lb[01]E)?", line)
             if "(C7519)" in line:              # an arrive ptxas adds before a wgmma
                 injected += 1
@@ -263,7 +265,7 @@ def phase_build():
         say("2 build", f"ptxas: {injected} warpgroup.arrive injected before wgmmas (C7519)")
     sass = tensor_core_instructions(_build)
     say("2 build", "tensor-core instructions in the SASS: " + ", ".join(
-        f"{re.search(MLP_KERNEL, fn).group(0)} {count} {kind}"
+        f"{re.search(TC_KERNEL, fn).group(0)} {count} {kind}"
         for (fn, kind), count in sass.items() if count))
     # K1 (f32 forward and record mode, bf16) and K2 bf16: HGMMA in every
     # instance (sigma_only or not); K2 f32: HMMA in both, every one .TF32.
@@ -283,16 +285,24 @@ def phase_build():
     if not k2_ok:
         raise PhaseFailure("K2's f32 kernel (fused_mlp_bwd_tc_kernel, both variants) lacks HMMA "
                            "instructions, or has some that are not tf32")
+    # The int8 kernel: IGMMA (integer wgmma) in both instances.
+    igmma = [count for (fn, kind), count in sass.items()
+             if kind == "IGMMA" and re.search(INT8_KERNEL, fn)]
+    if len(igmma) != 2 or not all(igmma):
+        raise PhaseFailure("int8_mlp_tc_kernel (both variants) has no IGMMA instructions in the "
+                           "built library")
 
 
 MLP_KERNEL = r"fused_mlp(?:_bwd)?_(?:tc|bf16|f32tc)_kernel(?:I(?:Lb[01]E)+)?"
+INT8_KERNEL = r"int8_mlp_tc_kernelILb[01]E"
+TC_KERNEL = rf"(?:{MLP_KERNEL}|{INT8_KERNEL})"
 
 
 def tensor_core_instructions(build) -> dict:
     """{(function, kind): count} from ``cuobjdump --dump-sass`` of the built
-    library: HGMMA and HMMA instructions of each instance of the fused MLP
-    kernels (MLP_KERNEL), the HMMA ones also counted by operand type (kind
-    "TF32" or "BF16")."""
+    library: HGMMA, HMMA and IGMMA (integer ``wgmma``) instructions of each
+    instance of the fused MLP kernels and the int8 kernel (TC_KERNEL), the
+    HMMA ones also counted by operand type (kind "TF32" or "BF16")."""
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(build.library_path())],
                           capture_output=True, text=True, timeout=300)
@@ -302,11 +312,11 @@ def tensor_core_instructions(build) -> dict:
     for line in sass.stdout.splitlines():
         head = re.search(r"Function : (\S+)", line)
         if head:
-            fn = head.group(1) if re.search(MLP_KERNEL, head.group(1)) else None
+            fn = head.group(1) if re.search(TC_KERNEL, head.group(1)) else None
             if fn:
-                counts[(fn, "HGMMA")] = counts[(fn, "HMMA")] = 0
+                counts[(fn, "HGMMA")] = counts[(fn, "HMMA")] = counts[(fn, "IGMMA")] = 0
             continue
-        for op in ("HGMMA", "HMMA"):
+        for op in ("HGMMA", "HMMA", "IGMMA"):
             if fn and re.search(rf"\b{op}\.", line):
                 counts[(fn, op)] += 1
                 for kind in ("TF32", "BF16"):
@@ -1629,6 +1639,13 @@ def phase_int8_times(cases, vd, cam, dev, card):
         frame_ms["plain"] = timed_ms(lambda: render(coarse, fine, cam, dev, "int8", "float32"))
     say("24 int8 times", f"{card}: int8 frame {H}x{W} {N_COARSE}+{N_FINE}: kernel "
         f"{frame_ms['kernel']:.1f} ms, plain {frame_ms['plain']:.1f} ms (medians of 3)")
+    wall, busy, top = profile_frame(lambda: render(coarse, fine, cam, dev, "int8", "float32"))
+    if busy > 0:
+        kernels = "; ".join(f"{name[:60]} {t:.1f} ms" for name, t in top)
+        say("24 int8 times", f"{card}: int8 frame under torch.profiler: wall {wall:.1f} ms, device "
+            f"busy {busy:.1f} ms, idle share {1 - busy / wall:.4f}; top: {kernels}")
+    else:
+        say("24 int8 times", f"{card}: torch.profiler saw no device time: idle share not measured")
     state, dataset, cfg, key = distill_setup(dev, "int8qat")
     batch = next(dataset.batches(cfg.batch_rays, seed=cfg.seed))
     step_key = random.fold_in(key, torch.tensor(0))
@@ -1871,7 +1888,7 @@ def main() -> int:
     _, q_net, q_pts, _ = int8_cases[1]                             # fine, full
     q_n, q_rays = q_pts.numel() // 3, int8_vd.numel() // 3
     q_pk = pack_int8_params(q_net.tree())
-    q_bytes = 4 * (q_pk.weights.numel() + q_pk.scales.numel() + q_pk.biases.numel())
+    q_bytes = sum(t.numel() * t.element_size() for t in (q_pk.weights, q_pk.epilogue))
     q_bound = bound(4 * (q_n * 7 + q_rays * 3) + q_bytes, mlp_flops(q_net, False) * q_n,
                     INT8_OPS_S)
     q_ms, q_plain_ms, q_lib_ms = int8_times["fine"]
@@ -1902,7 +1919,7 @@ def main() -> int:
               accel_launches["fused_resample"], k3_err, k3_ms, k3_plain_ms, k3_bound, None),
         entry("hash_encode", "hash_encode.cu", "tools/pallas_gather_probe.py:81",
               hash_launches["fused_hash_encode"], hash_err, hk_ms, hp_ms, h_bound, hlib_ms),
-        entry("int8_mlp", "int8_mlp.cu", "tools/pallas_int8_probe.py:66",
+        entry("int8_mlp", "int8_mlp_tc.cu", "tools/pallas_int8_probe.py:66",
               int8_launches["fused_int8_mlp"], int8_err, q_ms, q_plain_ms, q_bound, q_lib_ms),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -127,6 +127,6 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     enc.argtypes = [p, ll, p, i, ll, i, i, i, p, p, p, f, f, p, i, p]
     enc.restype = ctypes.c_int
     q8 = lib.nerf_int8_mlp_forward
-    q8.argtypes = [p, p, ll, ll, p, p, p, p, i, i, i, i, i, p, p, i, p]
+    q8.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, p, p, i, p]
     q8.restype = ctypes.c_int
     return lib

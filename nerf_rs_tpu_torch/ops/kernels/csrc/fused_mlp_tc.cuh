@@ -1,7 +1,9 @@
 // The bf16 tensor-core device code of the fused NeRF MLP, shared by the
 // forward (fused_mlp_tc.cu, K1) and the backward (fused_mlp_bwd_bf16.cu,
 // K2's bf16 mode), so that K2 recomputes the forward with K1's own code:
-// the same wgmma k-order, the same roundings, the same activations.
+// the same wgmma k-order, the same roundings, the same activations. The
+// int8 kernel (int8_mlp_tc.cu) uses its mbarrier, bulk-copy, descriptor,
+// wgmma-fence and Pipe helpers.
 //
 // Roles: a producer warpgroup copies weight chunks (64 K-rows of a layer
 // segment pre-tiled by fused_mlp.py::tc_tile, one contiguous run) with one

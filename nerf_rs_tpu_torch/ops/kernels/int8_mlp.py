@@ -1,15 +1,17 @@
 """W8A8 NeRF MLP: the int8 CUDA kernel's wrapper, its weight packing and
 its plain PyTorch version.
 
-The kernel (``csrc/int8_mlp.cu``) is the port's counterpart of the JAX
+The kernel (``csrc/int8_mlp_tc.cu``) is the port's counterpart of the JAX
 package's int8 probe P2 (``tools/pallas_int8_probe.py:66``): a chain of
 int8 x int8 -> int32 products with the weights resident, each followed by
 an f32 epilogue and a per-sample absmax requantize to int8. Here that chain
 is the real W8A8 NeRF MLP, ``models.quant.int8_nerf_mlp(fake=False)``,
-both the full and the ``sigma_only`` variant, in one launch per call.
+both the full and the ``sigma_only`` variant, in one launch per call, with
+the products on s8 ``wgmma`` (Hopper's tensor cores).
 
 - :func:`pack_int8_params` quantizes every layer once with
-  ``models.quant.quantize_weights`` and lays the codes out for the kernel;
+  ``models.quant.quantize_weights`` and tiles the codes for ``wgmma``
+  (:func:`int8_tile`);
   ``models.mlp.NerfMLP.packed("int8")`` keeps the pack until a parameter
   changes.
 - :func:`fused_int8_mlp` launches the kernel on CUDA tensors (counted in
@@ -49,7 +51,8 @@ from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
     supports_arch,
 )
 
-_HEAD_LD = 8                # kHeadLd: column stride of the alpha and rgb heads
+_PIECE = 64                 # kPiece: the kernel's wgmma N; widths pad to it
+_HEAD_LD = 8                # the alpha and rgb heads' padded column count
 
 
 def _unserved(params) -> str:
@@ -62,18 +65,21 @@ def _unserved(params) -> str:
 class PackedInt8MLP:
     """A network's int8 codes in the kernel's layout.
 
-    ``weights`` (flat int32) holds one K-major (K / 4, ld) word matrix per
-    layer, word ``[k4, n]`` holding the codes of rows 4 k4 .. 4 k4 + 3 of
-    column n in its bytes 0..3 (``segments[name] = (offset, K, ld)``, K in
-    code rows). ``scales`` and ``biases`` (flat f32) hold each layer's
-    per-column weight scales and biases at ``slots[name] = (offset, n)``.
-    Every padding code, scale and bias is zero. ``layout`` is the int64
-    table in the order ``csrc/int8_mlp.cu`` reads it.
+    ``weights`` (flat int8) holds one (K, ld) code matrix per layer, tiled
+    by :func:`int8_tile` into ``wgmma``'s K-major core-matrix order
+    (``segments[name] = (byte offset, K, ld)``, K in code rows).
+    ``epilogue`` (flat f32) holds each layer's per-column weight scales
+    and biases, padded to ld, interleaved for the kernel's epilogue: the
+    columns 2 i and 2 i + 1 of the layer at ``slots[name] = (offset, n)``
+    as ``[sw, sw, b, b]`` at ``epilogue[2 offset + 4 i:]``, one 16-byte
+    load; ``scales`` and ``biases`` are views of it, flat like the slots.
+    Every padding code, scale and bias is zero. ``ldw`` and ``ldv`` are the trunk
+    and view widths padded to 64, the kernel's N. ``layout`` is the int64
+    table in the order ``csrc/int8_mlp_tc.cu`` reads it.
     """
 
     weights: torch.Tensor
-    scales: torch.Tensor
-    biases: torch.Tensor
+    epilogue: torch.Tensor
     segments: Dict[str, Tuple[int, int, int]]
     slots: Dict[str, Tuple[int, int]]
     layout: np.ndarray
@@ -83,18 +89,52 @@ class PackedInt8MLP:
     ldw: int
     ldv: int
 
+    @property
+    def scales(self) -> torch.Tensor:
+        return self.epilogue.view(-1, 4)[:, :2].reshape(-1)
+
+    @property
+    def biases(self) -> torch.Tensor:
+        return self.epilogue.view(-1, 4)[:, 2:].reshape(-1)
+
     def codes(self, name: str) -> torch.Tensor:
-        """Layer ``name``'s padded (K, ld) int8 codes, unpacked."""
+        """Layer ``name``'s padded (K, ld) int8 codes, untiled."""
         off, k, ld = self.segments[name]
-        words = self.weights[off:off + k // 4 * ld].view(k // 4, ld)
-        return words.view(torch.int8).view(k // 4, ld, 4).permute(0, 2, 1).reshape(k, ld)
+        tiles = self.weights[off:off + k * ld].view(k // 16, ld // 8, 8, 16)
+        return tiles.permute(0, 3, 1, 2).reshape(k, ld)
 
 
-def _pack_words(codes: torch.Tensor) -> torch.Tensor:
-    """(K, ld) int8 codes, K a multiple of 4 -> flat int32 words, word
-    [k4, n] holding rows 4 k4 .. 4 k4 + 3 of column n in bytes 0..3."""
-    k, ld = codes.shape
-    return codes.reshape(k // 4, 4, ld).permute(0, 2, 1).contiguous().view(torch.int32).reshape(-1)
+def int8_tile(codes: torch.Tensor) -> torch.Tensor:
+    """(K, N) int8 codes, K a multiple of 16 and N of 8 -> flat int8 in the
+    order the kernel copies them into shared memory and s8 ``wgmma`` reads
+    B: "K-major" 8 x 16 core matrices of 8 n-rows of 16 consecutive k (16
+    bytes a row, 128 a matrix), the core matrix of k group kg and n group
+    ng at byte ``(kg * N / 8 + ng) * 128``. Every 16 k-rows are one
+    contiguous run of ``16 * N`` bytes, so any run of k-rows is one bulk
+    copy."""
+    k, n = codes.shape
+    if k % 16 or n % 8:
+        raise ValueError(f"cannot tile a {tuple(codes.shape)} code matrix")
+    return codes.reshape(k // 16, 16, n // 8, 8).permute(0, 2, 3, 1).reshape(-1)
+
+
+def kernel_codes(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The kernel's requantize (``csrc/int8_mlp_tc.cu::quant``) in torch
+    ops: the quotient q = x * rs (rs = 1 / scale rounded to f32), corrected
+    twice by its remainder, q = q + (x - scale q) rs with each of the two
+    FMAs rounded once to f32 (emulated in float64, which holds the products
+    exactly); then round half to even and clamp to [-127, 127]. Equals
+    ``models.quant._codes(x, scale)`` wherever |x / scale| < 128, as it is
+    for a row's own scale (where |x / scale| <= 127 / (1 - 2^-24), so the
+    kernel leaves out the clamp)."""
+    def fma(a, b, c):
+        return (a.double() * b.double() + c.double()).float()
+
+    rs = torch.reciprocal(scale)
+    q = x * rs
+    for _ in range(2):
+        q = fma(fma(-scale, q, x), rs, q)
+    return torch.clamp(torch.round(q), -127.0, 127.0)
 
 
 def pack_int8_params(params) -> PackedInt8MLP:
@@ -105,14 +145,15 @@ def pack_int8_params(params) -> PackedInt8MLP:
     ``quantize_weights`` of its whole kernel, so the skip layer's scales
     span all 63 + width rows and the view layer's all width + 27. Rows pad
     to the kernel's input layout: the encode 63 -> 64 (placed first in the
-    skip layer), widths to a multiple of 8, the dir encode 27 -> 32 after
-    the bottleneck's rows; columns pad to a multiple of 8. Serves what
-    ``fused_mlp.supports_arch`` serves; anything else raises ValueError.
+    skip layer), widths to a multiple of 64, the dir encode 27 -> 32 after
+    the bottleneck's rows; columns pad to a multiple of 64 (the heads' to
+    8). Serves what ``fused_mlp.supports_arch`` serves; anything else
+    raises ValueError.
     """
     if not supports_arch(params):
         raise ValueError(_unserved(params))
     width, v_width, depth, _ = infer_arch(params)
-    ldw, ldv = _round_up(width, 8), _round_up(v_width, 8)
+    ldw, ldv = _round_up(width, _PIECE), _round_up(v_width, _PIECE)
     device = params["dense0"]["kernel"].device
 
     def check(name, shape):
@@ -141,7 +182,7 @@ def pack_int8_params(params) -> PackedInt8MLP:
                ("viewdirs", [(0, width), (ldw, _ENC_D_RAW)], ldw + _ENC_D, ldv),
                ("rgb", [(0, v_width)], ldv, _HEAD_LD)]
 
-    words, scales, biases = [], [], []
+    codes_tc, epilogue = [], []
     segments: Dict[str, Tuple[int, int, int]] = {}
     slots: Dict[str, Tuple[int, int]] = {}
     off = soff = 0
@@ -153,12 +194,13 @@ def pack_int8_params(params) -> PackedInt8MLP:
         for row, rows in pieces:
             padded[row:row + rows, :n_out] = codes[src:src + rows]
             src += rows
-        words.append(_pack_words(padded))
+        codes_tc.append(int8_tile(padded))
         segments[name] = (off, k, ld)
-        off += k // 4 * ld              # ld is a multiple of 8: 32-byte aligned segments
-        scales.append(torch.nn.functional.pad(sw[0], (0, ld - n_out)))
-        bias = params[name]["bias"].detach().to(torch.float32)
-        biases.append(torch.nn.functional.pad(bias, (0, ld - n_out)))
+        off += k * ld                   # k a multiple of 16, ld of 8: 128-byte aligned segments
+        scales = torch.nn.functional.pad(sw[0], (0, ld - n_out))
+        bias = torch.nn.functional.pad(params[name]["bias"].detach().to(torch.float32),
+                                       (0, ld - n_out))
+        epilogue.append(torch.cat([scales.view(-1, 2), bias.view(-1, 2)], 1).reshape(-1))
         slots[name] = (soff, n_out)
         soff += ld
 
@@ -175,8 +217,8 @@ def pack_int8_params(params) -> PackedInt8MLP:
         + [seg(n) for n in ("alpha", "bottleneck", "viewdirs", "rgb")]
         + [slot(n) for n in ("alpha", "bottleneck", "viewdirs", "rgb")],
         dtype=np.int64)
-    return PackedInt8MLP(weights=torch.cat(words), scales=torch.cat(scales),
-                         biases=torch.cat(biases), segments=segments, slots=slots, layout=layout,
+    return PackedInt8MLP(weights=torch.cat(codes_tc), epilogue=torch.cat(epilogue),
+                         segments=segments, slots=slots, layout=layout,
                          width=width, v_width=v_width, depth=depth, ldw=ldw, ldv=ldv)
 
 
@@ -224,7 +266,7 @@ def fused_int8_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *, x_fr
         return rgb, sigma
     err = _build.load_library().nerf_int8_mlp_forward(
         points.data_ptr(), dirs.data_ptr(), n, dir_div, pk.weights.data_ptr(),
-        pk.scales.data_ptr(), pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout.size,
+        pk.epilogue.data_ptr(), pk.layout.ctypes.data, pk.layout.size,
         pk.ldw, pk.ldv, pk.depth, int(sigma_only), rgb.data_ptr(), sigma.data_ptr(),
         points.device.index or 0, _stream(points.device))
     if err != 0:

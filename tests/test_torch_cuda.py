@@ -527,6 +527,57 @@ def test_int8_kernel_matches_plain_lego(card, net):
     check_int8(module, pts * 0.4, dirs, net == "coarse")
 
 
+@pytest.mark.parametrize("sigma_only", [False, True])
+def test_int8_kernel_over_several_persistent_rounds(card, sigma_only):
+    """331 x 157 lego fine samples: 812 tiles of 64, so every CTA of the
+    persistent grid walks several rounds of two tiles, and the last tile is
+    ragged (63 samples); per-ray dirs."""
+    module = NerfMLP(load_nerf_params(LEGO / "fine"), device=card)
+    pts, dirs = inputs(331, 157, 36, card)
+    check_int8(module, pts * 0.4, dirs, sigma_only)
+
+
+def saturating_params(arch, seed):
+    """Weights of one magnitude a layer, every column but the last 8 all
+    positive, constant biases: the trunk's outputs are equal in 248 columns,
+    so 248 of each row's codes are 127 and the int32 sums reach 127^2 x 248
+    and more (the skip layer's K = 320 included)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for layer, (d_in, d_out) in arch_shapes(arch).items():
+        sign = np.where(rng.uniform(size=(d_in, d_out)) < 0.5, -1.0, 1.0)
+        sign[:, :max(1, d_out - 8)] = 1.0
+        out[layer] = {"kernel": (sign / d_in).astype(np.float32),
+                      "bias": np.ones(d_out, np.float32)}
+    return out
+
+
+def test_int8_kernel_exact_at_saturated_codes(card):
+    """Codes at 127 across whole rows in every trunk layer: the kernel's
+    int32 sums at their largest (over 127^2 x 248 in every layer after the
+    first, the skip layer's K = 320 included) still give sigma bit for bit
+    and rgb within INT8_RGB_ATOL."""
+    from nerf_rs_tpu_torch.models import quant
+    from nerf_rs_tpu_torch.models.encoding import positional_encoding
+
+    arch = ArchConfig(width=256, v_width=128, depth=8, skip_at=4)
+    net = NerfMLP(saturating_params(arch, 37), device=card)
+    pts, dirs = inputs(64, 96, 38, card)
+    pts = pts * 0.4
+    tree = net.tree()
+    h0 = positional_encoding(pts.reshape(-1, 3), 10)
+    h, sums = h0, []
+    for i in range(arch.depth):
+        x = torch.cat([h0, h], -1) if tree[f"dense{i}"]["kernel"].shape[0] == 256 + 63 else h
+        codes, _ = quant.quantize_weights(tree[f"dense{i}"]["kernel"])
+        acc = quant._codes(x, quant._row_scale(x)) @ codes.to(torch.float32)
+        sums.append((x.shape[-1], float(acc.abs().max())))
+        h = torch.relu(quant._qdense_real(tree, f"dense{i}", x))
+    assert (319, sums[5][1]) == sums[5] and all(m > 127 ** 2 * 248 for _, m in sums[1:]), sums
+    check_int8(net, pts, dirs, False)
+    check_int8(net, pts, dirs, True)
+
+
 def test_int8_kernel_refuses_what_it_does_not_serve(card):
     from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp
 

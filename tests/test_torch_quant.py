@@ -40,6 +40,7 @@ from nerf_rs_tpu_torch.ops import random
 from nerf_rs_tpu_torch.ops.kernels.int8_mlp import (
     fused_int8_mlp,
     fused_int8_mlp_reference,
+    kernel_codes,
     pack_int8_params,
 )
 from nerf_rs_tpu_torch.render import get_mlp_fn, render_image
@@ -202,7 +203,7 @@ def test_pack_holds_the_quantized_kernels(source):
     full kernel (the skip layer's all 63 + width rows)."""
     tree = port_tree(lego_np("fine") if source == "lego_fine" else np_params(RAGGED, 4))
     pk = pack_int8_params(tree)
-    assert pk.weights.dtype == torch.int32
+    assert pk.weights.dtype == torch.int8
     for name, p in tree.items():
         n_in, n_out = p["kernel"].shape
         codes = pk.codes(name)
@@ -221,35 +222,108 @@ def test_pack_holds_the_quantized_kernels(source):
         assert not pk.scales[off + n:off + ld].any() and not pk.biases[off + n:off + ld].any()
 
 
+@pytest.mark.parametrize("source", ["lego_fine", "ragged"])
+def test_pack_tiles_the_codes_for_wgmma(source):
+    """The tensor-core pack read byte by byte: code (k, n) of each layer's
+    padded (K, ld) matrix sits in core matrix (k // 16, n // 8), at byte
+    (k // 16 * ld / 8 + n // 8) * 128 + n % 8 * 16 + k % 16 of the layer's
+    segment; K pads to a multiple of 32 (an s8 wgmma k-step), every width
+    to a multiple of 64 (the kernel's N; the heads' to 8), segments start
+    on 128-byte boundaries and tile the buffer without gaps; every byte
+    that is not a real code is zero."""
+    tree = port_tree(lego_np("fine") if source == "lego_fine" else np_params(RAGGED, 16))
+    pk = pack_int8_params(tree)
+    flat = pk.weights.numpy()
+    assert pk.ldw % 64 == 0 and pk.ldv % 64 == 0
+    assert (pk.ldw, pk.ldv) == ((256, 128) if source == "lego_fine" else (128, 64))
+    ends = []
+    for name, p in tree.items():
+        off, k, ld = pk.segments[name]
+        assert off % 128 == 0 and k % 32 == 0, name
+        assert ld == (8 if name in ("alpha", "rgb") else pk.ldv if name == "viewdirs" else pk.ldw)
+        seg = flat[off:off + k * ld]
+        kk, nn = np.meshgrid(np.arange(k), np.arange(ld), indexing="ij")
+        at = (kk // 16 * (ld // 8) + nn // 8) * 128 + nn % 8 * 16 + kk % 16
+        want = np.zeros((k, ld), np.int8)
+        codes, _ = quant.quantize_weights(p["kernel"])
+        want[input_rows(pk, name), :p["kernel"].shape[1]] = codes.numpy()
+        np.testing.assert_array_equal(seg[at], want, err_msg=name)
+        ends.append((off, off + k * ld))
+    ends.sort()
+    assert ends[0][0] == 0 and ends[-1][1] == flat.size
+    assert all(a[1] == b[0] for a, b in zip(ends, ends[1:]))
+
+
+def test_kernel_requantize_equals_the_division():
+    """The kernel's requantize (a product with the rounded reciprocal,
+    corrected twice by its remainder) gives the codes of the rounded
+    quotient bit for bit: on ReLU'd and signed rows at their own scale, on
+    rows of zeros and at the 1e-12 floor, and on values placed within a few
+    ulps of every half-integer code boundary, where the product alone would
+    be wrong."""
+    rng = np.random.default_rng(17)
+    rows = [np.maximum(rng.normal(size=(2048, 256)), 0) * 3.0,
+            rng.normal(size=(2048, 320)) * rng.uniform(1e-6, 1e6, (2048, 1)),
+            np.zeros((4, 64)), rng.uniform(-1e-11, 1e-11, (4, 64))]
+    for x in rows:
+        x = torch.from_numpy(x.astype(np.float32))
+        sx = quant._row_scale(x)
+        assert torch.equal(kernel_codes(x, sx), quant._codes(x, sx))
+    s = torch.from_numpy(rng.uniform(1e-3, 10.0, (4096, 1)).astype(np.float32))
+    half = torch.arange(-127, 128, dtype=torch.float32) + 0.5
+    x = (half * s).repeat(1, 9)
+    for i, step in enumerate(range(-4, 5)):       # nextafter step times, both ways
+        cols = x[:, i * 255:(i + 1) * 255]
+        for _ in range(abs(step)):
+            cols = torch.nextafter(cols, torch.full_like(cols, np.sign(step) * np.inf))
+        x[:, i * 255:(i + 1) * 255] = cols
+    x = torch.cat([x, torch.full_like(s, 127.0) * s], 1)   # the absmax element
+    sx = s.expand(-1, 1)
+    fast = torch.clamp(torch.round(x * torch.reciprocal(sx)), -127.0, 127.0)
+    want = quant._codes(x, sx)
+    assert torch.equal(kernel_codes(x, sx), want)
+    assert not torch.equal(fast, want)     # the boundary cases are there
+
+
 def emulate_kernel(pk, points, dirs, sigma_only):
-    """The kernel's dataflow read off the pack, in plain torch: padded
-    encodes, each layer's input row in the kernel's padded order, its codes,
-    ((acc sx) sw) + b with the pack's scales and biases."""
+    """The kernel's dataflow read off the tensor-core pack, in plain torch:
+    the padded f32 encodes; each layer's int32 sums from the codes (the
+    kernel's requantize, ``kernel_codes``) of its input pieces (the skip layer's encode and trunk codes, the view layer's
+    bottleneck and dir-encode codes), all at one row scale, the epilogue's
+    absmax of the layer output combined with the encode's; ((acc sx) sw) +
+    b with the pack's scales and biases; the heads as integer dot products
+    of the codes with the heads' codes."""
     enc_x = torch.nn.functional.pad(positional_encoding(points, 10), (0, 1))
     enc_d = torch.nn.functional.pad(positional_encoding(dirs, 4), (0, 5))
 
-    def layer(name, x):
-        off, _, ld = pk.segments[name]
+    def absmax(x):
+        return torch.amax(torch.abs(x), dim=-1, keepdim=True)
+
+    def layer(name, *pieces):
         soff, _ = pk.slots[name]
-        sx = quant._row_scale(x)
-        acc = quant._codes(x, sx) @ pk.codes(name).to(torch.float32)
-        return acc * sx * pk.scales[soff:soff + ld] + pk.biases[soff:soff + ld]
+        ld = pk.segments[name][2]
+        m = torch.stack([absmax(x) for x in pieces]).amax(0)
+        sx = torch.clamp_min(m / m.new_full((), 127.0), 1e-12)
+        codes = torch.cat([kernel_codes(x, sx) for x in pieces], -1)
+        acc = codes.to(torch.int64) @ pk.codes(name).to(torch.int64)   # exact int sums
+        return acc.to(torch.float32) * sx * pk.scales[soff:soff + ld] + pk.biases[soff:soff + ld]
 
     h = torch.relu(layer("dense0", enc_x))
     for i in range(1, pk.depth):
-        h = torch.relu(layer(f"dense{i}", torch.cat([enc_x, h], -1) if pk.layout[32 + i] else h))
+        h = torch.relu(layer(f"dense{i}", enc_x, h) if pk.layout[32 + i] else
+                       layer(f"dense{i}", h))
     sigma = torch.relu(layer("alpha", h))[:, 0]
     if sigma_only:
         return torch.zeros_like(points), sigma
     bottleneck = layer("bottleneck", h)
-    hv = torch.relu(layer("viewdirs", torch.cat([bottleneck, enc_d], -1)))
+    hv = torch.relu(layer("viewdirs", bottleneck, enc_d))
     return torch.sigmoid(layer("rgb", hv))[:, :3], sigma
 
 
 @pytest.mark.parametrize("source, sigma_only", [("lego_coarse", True), ("lego_fine", False),
                                                 ("ragged", False), ("ragged", True)])
 def test_kernel_dataflow_on_the_pack_equals_the_plain_version(source, sigma_only):
-    """The layout contract of csrc/int8_mlp.cu, checked where a CPU can: its
+    """The layout contract of csrc/int8_mlp_tc.cu, checked where a CPU can: its
     dataflow read off the pack (zero padding rows and columns, the skip
     layer's encode rows first, the dir encode after the bottleneck's ldw
     rows) gives the plain version's outputs bit for bit."""
