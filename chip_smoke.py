@@ -31,7 +31,8 @@ forward (``train --impl int8qat``). Phases, each reported on its own line:
    of K1 f32's record mode (K2 f32's recompute) and of K2's bf16 kernel,
    HMMA (``mma.sync``) instructions, every one tf32, in both variants
    of K2's f32 kernel, and IGMMA (s8 ``wgmma``) instructions in both
-   variants of the int8 kernel;
+   variants of the int8 kernel; ptxas's registers and spills of the hash
+   encode's four instances and K3's seven are printed, and a spill fails;
 3. K1 against its plain PyTorch version at the render's shapes (8192 rays
    x 64 samples sigma-only, 8192 x 192 full), f32 and bf16, two calls
    bitwise equal; the kernel's and the plain version's f32 distance from
@@ -98,11 +99,13 @@ forward (``train --impl int8qat``). Phases, each reported on its own line:
     ``accel.hashgrid_grid_kwargs`` against the dense frame (>= 40 dB),
     PSNR against the lego teacher's frames (reported); two encode
     launches per rendered chunk;
-20. times: the encode kernel and its plain version per call at 16384 x
-    192, f32 and bf16, rows gathered per second, one ``index_select`` of
-    the same rows (the library yardstick), the train step with the kernel
-    and with the plain encode, the 800x800 frames dense and accel+K3 with
-    their idle shares and top device kernels;
+20. times: the encode kernel, its plain version, its bound and one
+    ``index_select`` of the same rows (the library yardstick) per call at
+    the main path's four shapes — the training step's 4096 rays x 64 and
+    x 192 along its own rays, the 800x800 frame's 16384 x 64 and x 192 a
+    chunk — f32 and bf16, rows gathered per second; the train step with
+    the kernel and with the plain encode, the 800x800 frames dense and
+    accel+K3 with their idle shares and top device kernels;
 21. the int8 kernel against its plain version on phase 3's inputs (coarse
     sigma-only at 8192 x 64, fine full at 8192 x 192): sigma bitwise
     equal, rgb within 2e-6, two calls bitwise equal;
@@ -127,8 +130,9 @@ the kernel's route — K1 f32 six bf16 passes a product (split-f32), bf16
 for K1 bf16 and K2's bf16 mode, K2's f32 mode its recompute as K1 f32
 and its dW and W dz as 3xTF32 at the tf32 peak (the f32 entries also
 carry their all-CUDA-core bound), f32 on the CUDA cores for K3 and the
-hash encode, int8 for the int8 kernel — from this run's shapes); the last
-line is the JSON device record.
+hash encode, int8 for the int8 kernel — from this run's shapes; the hash
+encode's entry also lists its four shapes in both dtypes); the last line
+is the JSON device record.
 Never imports JAX.
 """
 
@@ -263,6 +267,14 @@ def phase_build():
             elif "registers" in line or "spill" in line or "wgmma" in line:
                 say("2 build", "ptxas: " + line.strip())
         say("2 build", f"ptxas: {injected} warpgroup.arrive injected before wgmmas (C7519)")
+        usage = ptxas_usage(log.read_text(), GATHER_KERNELS)
+        say("2 build", "ptxas, the hash encode and K3: " + "; ".join(
+            f"{name} {regs} registers, spill stores {st} B, loads {ld} B"
+            for name, (regs, st, ld) in sorted(usage.items())))
+        spilled = [name for name, (_, st, ld) in usage.items() if st or ld]
+        if len(usage) != 4 + 7 or spilled:
+            raise PhaseFailure(f"the hash encode (4 instances) and K3 (7) as built: "
+                               f"{sorted(usage)}; spilled: {spilled}")
     sass = tensor_core_instructions(_build)
     say("2 build", "tensor-core instructions in the SASS: " + ", ".join(
         f"{re.search(TC_KERNEL, fn).group(0)} {count} {kind}"
@@ -291,6 +303,34 @@ def phase_build():
     if len(igmma) != 2 or not all(igmma):
         raise PhaseFailure("int8_mlp_tc_kernel (both variants) has no IGMMA instructions in the "
                            "built library")
+
+
+# The hash encode's instances (f32, bf16 x paired or generic) and K3's (K
+# values a lane: 1, 2, ..., 64), as ptxas names them.
+GATHER_KERNELS = r"(hash_encode_kernel|resample_kernel)(I\w+?E)E?v"
+
+
+def ptxas_usage(log: str, pattern: str) -> dict:
+    """{kernel instance: (registers, spill store bytes, spill load bytes)}
+    from ``ptxas -v`` output, for the entry functions matching ``pattern``
+    (named by its two groups)."""
+    usage, fn = {}, None
+    for line in log.splitlines():
+        head = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if head:
+            found = re.search(pattern, head.group(1))
+            fn = "".join(found.groups()) if found else None
+            continue
+        if fn is None:
+            continue
+        entry = usage.setdefault(fn, [0, 0, 0])
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            entry[1:] = [int(spill.group(1)), int(spill.group(2))]
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            entry[0] = int(regs.group(1))
+    return {fn: tuple(v) for fn, v in usage.items()}
 
 
 MLP_KERNEL = r"fused_mlp(?:_bwd)?_(?:tc|bf16|f32tc)_kernel(?:I(?:Lb[01]E)+)?"
@@ -1370,10 +1410,36 @@ def phase_hash_frames(field, hcfg, cam, dev, lego_256, lego_800, card):
     return grid, dense, acfg
 
 
+def step_points(batch, samples: int, dev):
+    """Points along a training batch's own rays: ``samples`` stratified t
+    a ray over [near, far] (the coarse pass's layout, and at 192 the fine
+    pass's count), ray-ordered as the step hands them to the encode."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.ops.sampling import stratified_samples
+
+    rays = batch["origins"].shape[0]
+    keys = random.fold_in(random.key(0, dev), torch.arange(rays, device=dev))
+    t = stratified_samples(keys, batch["near"], batch["far"], samples, (rays,))
+    return (batch["origins"][:, None, :] + batch["dirs"][:, None, :] * t[..., None]).contiguous()
+
+
+def encode_bound(hc, n: int, rows: int, element_bytes: int):
+    """The encode's bound for ``n`` samples: the points read once, the
+    ``rows`` distinct table rows the samples' corners touch read once, the
+    output written once; its operations at the f32 peak."""
+    return bound(12 * n + element_bytes * hc.features * (rows + n * hc.levels),
+                 n * hc.levels * (3 * 6 + 8 * 3 + 8 * 2 * hc.features), F32_FLOP_S)
+
+
 def phase_hash_times(field, cfg, cam, dev, grid, dense, acfg, card):
-    """The encode kernel, its plain version and one index_select of the
-    same rows per call at 16384 x 192; train-step times with the kernel and
-    the plain encode; the 800x800 frames with their idle shares."""
+    """The encode kernel, its plain version, its bound and one index_select
+    of the same rows per call at the main path's four shapes (the training
+    step's 4096 rays x 64 and x 192 along its own rays, the 800x800 frame's
+    16384 x 64 and x 192 a chunk), f32 and bf16; train-step times with the
+    kernel and the plain encode; the 800x800 frames with their idle
+    shares."""
     import torch
 
     from nerf_rs_tpu_torch.ops import random
@@ -1387,28 +1453,39 @@ def phase_hash_times(field, cfg, cam, dev, grid, dense, acfg, card):
 
     hcfg = cfg.render.hash
     saved = save_counts()
-    _, pts, _ = main_path_inputs(cam, dev, BENCH_CHUNK)
-    n = pts.numel() // 3
-    tables32 = field.weights["hash_tables"].detach()
-    times = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        tables = tables32.to(dtype)
-        k_ms = timed_ms(lambda: fused_hash_encode(tables, pts, hcfg), inner=10)
-        p_ms = timed_ms(lambda: hash_encode_reference(tables, pts, hcfg), inner=2)
-        times[dtype] = (k_ms, p_ms)
-        rows = n * hcfg.levels * 8
-        say("20 hash times", f"{card}: hash encode {BENCH_CHUNK} x {N_COARSE + N_FINE} "
-            f"{str(dtype)[6:]} (L={hcfg.levels}, F={hcfg.features}): kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.3f} ms per call (medians of 3); {rows / k_ms * 1e3:.4g} rows gathered per s")
-    corners = _Corners(_lattice(pts, hcfg), hcfg, 1 << hcfg.table_log2, dev)
-    idx = torch.cat([corners(c)[0].reshape(-1) for c in range(8)])
-    flat = tables32.reshape(-1, hcfg.features)
-    lib_ms = timed_ms(lambda: flat.index_select(0, idx), inner=10)
-    say("20 hash times", f"{card}: torch.index_select of the same {idx.numel()} rows from "
-        f"precomputed indices: {lib_ms:.4f} ms per call (median of 3)")
-    del idx, corners
     state, dataset, cfg, key = hash_setup(dev)
     batch = next(dataset.batches(cfg.batch_rays, seed=cfg.seed))
+    pts_c, pts_f, _ = main_path_inputs(cam, dev, BENCH_CHUNK)
+    shapes = {(TRAIN_RAYS, N_COARSE): step_points(batch, N_COARSE, dev),
+              (TRAIN_RAYS, N_COARSE + N_FINE): step_points(batch, N_COARSE + N_FINE, dev),
+              (BENCH_CHUNK, N_COARSE): pts_c, (BENCH_CHUNK, N_COARSE + N_FINE): pts_f}
+    tables32 = field.weights["hash_tables"].detach()
+    table_rows = hcfg.levels * (1 << hcfg.table_log2)
+    times = {}
+    for (rays, samples), pts in shapes.items():
+        n = pts.numel() // 3
+        corners = _Corners(_lattice(pts, hcfg), hcfg, 1 << hcfg.table_log2, dev)
+        idx = torch.cat([corners(c)[0].reshape(-1) for c in range(8)])
+        touched = torch.zeros(table_rows, dtype=torch.bool, device=dev)
+        touched[idx] = True
+        rows = int(touched.sum())
+        for dtype in (torch.float32, torch.bfloat16):
+            tables = tables32.to(dtype)
+            flat = tables.reshape(-1, hcfg.features)
+            k_ms = timed_ms(lambda: fused_hash_encode(tables, pts, hcfg), inner=10)
+            p_ms = timed_ms(lambda: hash_encode_reference(tables, pts, hcfg), inner=2)
+            lib_ms = timed_ms(lambda: flat.index_select(0, idx), inner=10)
+            bnd = encode_bound(hcfg, n, rows, tables.element_size())
+            times[(rays, samples, dtype)] = dict(shape=[rays, samples], dtype=str(dtype)[6:],
+                                                 ms=k_ms, plain_ms=p_ms, bound_ms=bnd[0],
+                                                 bound_by=bnd[1], library_ms=lib_ms)
+            say("20 hash times", f"{card}: hash encode {rays} x {samples} {str(dtype)[6:]} "
+                f"(L={hcfg.levels}, F={hcfg.features}): kernel {k_ms:.4f} ms, plain {p_ms:.3f} "
+                f"ms, index_select of the same {idx.numel()} rows {lib_ms:.4f} ms per call "
+                f"(medians of 3); bound {bnd[0]:.4f} ms ({bnd[1]}; {rows} distinct rows), "
+                f"{bnd[0] / k_ms:.1%} of it; {n * hcfg.levels * 8 / k_ms * 1e3:.4g} rows "
+                f"gathered per s")
+        del idx, corners, touched
     step_key = random.fold_in(key, torch.tensor(0))
     step_ms = {"kernel": timed_ms(lambda: train_step(state, batch, step_key, cfg))}
     with plain_encode():
@@ -1432,7 +1509,7 @@ def phase_hash_times(field, cfg, cam, dev, grid, dense, acfg, card):
             line += "; torch.profiler saw no device time: idle share not measured"
         say("20 hash times", line)
     restore_counts(saved)                      # timing launches do not count
-    return times[torch.float32], lib_ms, n
+    return times
 
 
 # The int8 W8A8 family (phases 21-24): the lego networks quantized after
@@ -1860,8 +1937,7 @@ def main() -> int:
     field = hstate.params["shared"]
     hgrid, hdense, hacfg = phase_hash_frames(field, hcfg.render.hash, cam, dev, img_f32, lego_800,
                                              card)
-    (hk_ms, hp_ms), hlib_ms, h_n = phase_hash_times(field, hcfg, cam, dev, hgrid, hdense, hacfg,
-                                                    card)
+    hash_times = phase_hash_times(field, hcfg, cam, dev, hgrid, hdense, hacfg, card)
 
     # The int8 family: the kernel against its plain version, the
     # post-training int8 frames, QAT distillation, times.
@@ -1874,15 +1950,13 @@ def main() -> int:
     # output written once; operations at the peak of their type).
     k_ms, p_ms, lib_ms = times[("fine", "float32")]
     kt_ms, pt_ms, libt_ms = times[("fine", "bfloat16")]
-    width = 1 << (N_COARSE + N_FINE - 1).bit_length()            # the bitonic row
-    lg = width.bit_length() - 1
+    # K3's work a ray, whatever implements it: the weights and CDF (about
+    # 10 operations a coarse sample), a bin search a fine sample, and one
+    # merge of the two sorted lists (Nc + Nf comparisons).
     k3_bound = bound(4 * BENCH_CHUNK * (3 * N_COARSE + 2 * N_FINE),
-                     BENCH_CHUNK * (width // 2 * lg * (lg + 1) // 2 + 10 * N_COARSE
-                                    + N_FINE * math.ceil(math.log2(N_COARSE))), F32_FLOP_S)
-    hc = hcfg.render.hash
-    h_bound = bound(4 * (h_n * 3 + hc.levels * (1 << hc.table_log2) * hc.features
-                         + h_n * hc.levels * hc.features),
-                    h_n * hc.levels * (3 * 6 + 8 * 3 + 8 * 2 * hc.features), F32_FLOP_S)
+                     BENCH_CHUNK * (10 * N_COARSE + N_FINE * math.ceil(math.log2(N_COARSE))
+                                    + N_COARSE + N_FINE), F32_FLOP_S)
+    h_main = hash_times[(BENCH_CHUNK, N_COARSE + N_FINE, torch.float32)]
     from nerf_rs_tpu_torch.ops.kernels.int8_mlp import pack_int8_params
 
     _, q_net, q_pts, _ = int8_cases[1]                             # fine, full
@@ -1918,7 +1992,9 @@ def main() -> int:
         entry("fused_resample", "resample.cu", "nerf_rs_tpu/ops/kernels/resample.py:207",
               accel_launches["fused_resample"], k3_err, k3_ms, k3_plain_ms, k3_bound, None),
         entry("hash_encode", "hash_encode.cu", "tools/pallas_gather_probe.py:81",
-              hash_launches["fused_hash_encode"], hash_err, hk_ms, hp_ms, h_bound, hlib_ms),
+              hash_launches["fused_hash_encode"], hash_err, h_main["ms"], h_main["plain_ms"],
+              (h_main["bound_ms"], h_main["bound_by"]), h_main["library_ms"],
+              shapes=list(hash_times.values())),
         entry("int8_mlp", "int8_mlp_tc.cu", "tools/pallas_int8_probe.py:66",
               int8_launches["fused_int8_mlp"], int8_err, q_ms, q_plain_ms, q_bound, q_lib_ms),
     ]}), flush=True)

@@ -163,7 +163,9 @@ def _launch(tables: torch.Tensor, points: torch.Tensor, cfg) -> torch.Tensor:
     res, np1, direct = level_constants(cfg, table_size)
     lo, hi = cfg.aabb
     bf16 = tables.dtype == torch.bfloat16
-    pair = features == 2 and tables.data_ptr() % (4 if bf16 else 8) == 0
+    # The paired loads read aligned pairs of rows (16 bytes in f32, 8 in bf16).
+    pair = (features == 2 and table_size % 2 == 0
+            and tables.data_ptr() % (8 if bf16 else 16) == 0)
     err = _build.load_library().nerf_hash_encode(
         pts.data_ptr(), n, tables.data_ptr(), levels, table_size, features, int(bf16), int(pair),
         res.ctypes.data_as(ctypes.c_void_p), np1.ctypes.data_as(ctypes.c_void_p),

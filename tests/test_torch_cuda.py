@@ -398,6 +398,58 @@ def test_resample_kernel_matches_plain(card, per_ray):
     assert float((err <= 5e-5 + 1e-5 * want.abs()).float().mean()) >= 0.99
 
 
+def check_resample(t_c, sigma, u, far):
+    """K3 against its plain version with tests/test_resample.py's bars (99%
+    of entries within 5e-5 + 1e-5 |t|, every entry within the widest
+    coarse bin), rows sorted, every coarse t kept exactly, two calls
+    bitwise equal, one launch each."""
+    from nerf_rs_tpu_torch.ops.kernels.resample import fused_resample, fused_resample_reference
+
+    n, nc = t_c.shape
+    m = nc + u.shape[1]
+    before = fused_resample.launches
+    got = fused_resample(t_c, sigma, u, far)
+    again = fused_resample(t_c, sigma, u, far)
+    torch.cuda.synchronize()
+    assert fused_resample.launches == before + 2
+    want = fused_resample_reference(t_c, sigma, u, far)
+    assert got.shape == (n, m) and torch.equal(got, again)
+    assert bool((got[:, 1:] >= got[:, :-1]).all())
+    slot = torch.searchsorted(got, t_c.contiguous()).clamp(max=m - 1)
+    assert torch.equal(torch.gather(got, 1, slot), t_c)
+    err = (got - want).abs()
+    widest = float((t_c.sort(dim=1).values.diff(dim=1)).max()) * 2
+    assert float(err.max()) <= max(widest, 4.0 / nc)
+    assert float((err <= 5e-5 + 1e-5 * want.abs()).float().mean()) >= 0.99
+    return got
+
+
+@pytest.mark.parametrize("nc, nf", [(33, 95), (3, 1), (5, 3), (64, 1984), (1000, 1048),
+                                    (2045, 3)])
+def test_resample_kernel_at_rows_off_powers_of_two_and_the_limit(card, nc, nf):
+    """K3 where Nc + Nf is not a power of two, Nf not a multiple of 32, and
+    at the 2048 limit (Nc + Nf = MAX_ROW, Nc or Nf alone near it)."""
+    t_c, sigma, u, far_rows = resample_inputs(1031, nc, nf, 23, card)
+    check_resample(t_c, sigma, u, far_rows)
+
+
+@pytest.mark.parametrize("coarse", ["sorted", "unsorted"])
+def test_resample_kernel_on_rows_with_ties(card, coarse):
+    """K3 on rows with ties: repeated coarse t (whose zero-width bins put
+    fine samples exactly on coarse values, ties across the two lists),
+    repeated uniforms (ties among the fine samples), and the coarse row
+    sorted or shuffled (the kernel sorts it where it is not sorted, as the
+    plain merge does)."""
+    rng = np.random.default_rng(24)
+    t_c, sigma, u, far_rows = resample_inputs(4096, 64, 128, 25, "cpu")
+    t_c[:, 1::2] = t_c[:, 0::2]                             # each t twice
+    u = torch.from_numpy(rng.choice(rng.uniform(size=9), size=u.shape).astype(np.float32))
+    if coarse == "unsorted":
+        t_c = torch.gather(t_c, 1, torch.from_numpy(np.argsort(rng.uniform(size=t_c.shape), 1)))
+    got = check_resample(*(x.to(card) for x in (t_c, sigma, u, far_rows)))
+    assert bool((got[:, 1:] == got[:, :-1]).any(dim=1).all())   # every row has ties
+
+
 @pytest.mark.parametrize("change", [dict(accel_compact="off", accel_aabb_probes=32),
                                     dict(accel_sample_aabb=True, accel_aabb_probes=32)],
                          ids=["off_probes", "aabb_probes_per_ray_far"])
@@ -467,6 +519,61 @@ def test_hash_encode_kernel_matches_plain(card, dtype, features):
     else:
         atol = 2 * 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def check_encode(tables, pts, cfg):
+    """The encode kernel against its plain version with
+    test_hash_encode_kernel_matches_plain's bars, two calls bitwise equal,
+    one launch each."""
+    from nerf_rs_tpu_torch.ops.kernels.hash_encode import fused_hash_encode, hash_encode_reference
+
+    before = fused_hash_encode.launches
+    got = fused_hash_encode(tables, pts, cfg)
+    again = fused_hash_encode(tables, pts, cfg)
+    torch.cuda.synchronize()
+    assert fused_hash_encode.launches == before + 2
+    want = hash_encode_reference(tables, pts, cfg)
+    assert got.shape == (*pts.shape[:-1], cfg.levels * cfg.features) and got.dtype == tables.dtype
+    assert torch.equal(got, again)
+    if tables.dtype == torch.float32:
+        atol = 1e-5 * float(tables.abs().max())
+    else:
+        atol = 2 * 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("n", [1, 31, 64, 100, 4097])
+@pytest.mark.parametrize("features", [2, 8], ids=["paper_f2", "wide_f8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_hash_encode_kernel_at_tail_tiles(card, dtype, features, n):
+    """The encode at n < 32, a whole tile, and tail tiles (n not a multiple
+    of the kernel's 64-sample tile), the first points NaN and inf."""
+    from nerf_rs_tpu_torch.config import HashGridConfig
+
+    cfg = HashGridConfig(features=features, levels=16 if features == 2 else 4)
+    tables, pts = hash_inputs(cfg, max(n, 3), 26, card, dtype)
+    check_encode(tables, pts[:n], cfg)
+
+
+@pytest.mark.parametrize("features", [2, 8], ids=["paper_f2", "wide_f8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_hash_encode_kernel_on_ray_ordered_points(card, dtype, features):
+    """The encode on points as the render hands them: 4096 rays x 192
+    samples sorted along each ray (where a warp's lanes share cells and
+    corner pairs share loads), rays from a sphere of radius 4 around the
+    paper config's box, through it."""
+    from nerf_rs_tpu_torch.config import HashGridConfig
+
+    cfg = HashGridConfig(features=features, levels=16 if features == 2 else 4)
+    tables, _ = hash_inputs(cfg, 3, 27, card, dtype)
+    rng = np.random.default_rng(28)
+    o = rng.normal(size=(4096, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o / 4.0 + rng.normal(size=(4096, 3)) * 0.18
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = 2.0 + 4.0 * (np.arange(192) + rng.uniform(size=(4096, 192))) / 192
+    pts = (o[:, None, :] + d[:, None, :] * t[..., None]).astype(np.float32)
+    check_encode(tables, torch.from_numpy(pts).to(card), cfg)
 
 
 def test_hash_encode_backward_on_card_matches_cpu(card):

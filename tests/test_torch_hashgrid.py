@@ -16,6 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import nerf_rs_tpu.accel as jax_accel
 from nerf_rs_tpu import train as jax_train
@@ -34,8 +36,10 @@ from nerf_rs_tpu_torch.io.golden import camera_from_golden, load_golden
 from nerf_rs_tpu_torch.models import hashgrid as hg
 from nerf_rs_tpu_torch.ops import random
 from nerf_rs_tpu_torch.ops.kernels.hash_encode import (
+    _Corners,
     fused_hash_encode,
     hash_encode_reference,
+    level_constants,
     supported,
 )
 from nerf_rs_tpu_torch.ops.rays import camera_rays
@@ -463,3 +467,184 @@ def test_cli_train_hashgrid_on_cpu(capsys):
                        out, flags=re.M)
     assert [int(s) for s, *_ in lines] == [0, 1, 2], out
     assert "distilling from the pretrained lego networks" in out
+
+
+# --- The encode kernel's design (csrc/hash_encode.cu), emulated on the CPU.
+
+TILE = 64                                  # kTile: samples a CTA
+U32 = 0xFFFFFFFF
+
+
+def ray_points(rays, samples, seed, half=1.0):
+    """Points along rays, samples sorted along each ray as the render makes
+    them: origins on a sphere of radius 2 half around the box (-half,
+    half)^3, directions at its centre jittered, t stratified over [half,
+    3 half]."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(rays, 3))
+    o = 2.0 * half * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o / np.linalg.norm(o, axis=-1, keepdims=True) + rng.normal(size=(rays, 3)) * 0.18
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = half * (1.0 + 2.0 * (np.arange(samples) + rng.uniform(size=(rays, samples))) / samples)
+    return (o[:, None, :] + d[:, None, :] * t[..., None]).astype(np.float32)
+
+
+def emulate_kernel_encode(tables, points, cfg, tile=TILE):
+    """The encode kernel's dataflow in torch ops -> (output, share of the
+    corner pairs fetched by one load). Tiles of ``tile`` samples, each
+    point normalized once (a tail tile's missing samples at 0); per level
+    the cells, the corner rows in uint32 arithmetic and the weights; with
+    F = 2 and T even, four corner pairs (the x pair on a hashed level, the z
+    pair on a direct one), both from one load of their aligned pair of rows
+    where they are its two rows, else each from its own row;
+    the sum in corner order; each tile's rows staged as bytes at a padded
+    pitch and copied out point-major in 16-byte chunks (4-byte words where
+    a row is not whole chunks). Other F: one load a feature, straight to
+    the output."""
+    levels, table_size, features = tables.shape
+    res, np1, direct = level_constants(cfg, table_size)
+    pts = points.reshape(-1, 3).to(torch.float32)
+    n = pts.shape[0]
+    n_tiles = -(-n // tile)
+    flat = tables.reshape(levels * table_size, features)
+    es = tables.element_size()
+    row_bytes = levels * features * es
+    pitch = ((row_bytes + 15) & ~15) + 16
+    pair = features == 2 and table_size % 2 == 0
+    lo, hi = cfg.aabb
+    xs = torch.zeros(n_tiles * tile, 3)
+    x = (pts - lo) / (hi - lo)
+    xs[:n] = torch.where(torch.isnan(x), torch.zeros_like(x), torch.clamp(x, 0.0, 1.0))
+    staged = torch.zeros((n_tiles * tile, pitch), dtype=torch.uint8)
+    direct_out = torch.zeros((n_tiles * tile, levels * features), dtype=tables.dtype)
+    py, pz = hg._PRIMES[1], hg._PRIMES[2]
+    one_load, pairs = 0, 0
+    for l in range(levels):
+        r = torch.tensor(res[l])
+        pos = r * xs
+        i0 = torch.minimum(torch.clamp(torch.floor(pos), min=0.0), r - 1.0)
+        cell, frac = i0.to(torch.int64), pos - i0
+        cx, cy, cz = cell.unbind(-1)
+        if direct[l]:
+            n1 = int(np1[l])
+            r0 = ((cx * n1 + cy) * n1 + cz) & U32
+            idx = [(r0 + (c >> 2) * n1 * n1 + ((c >> 1) & 1) * n1 + (c & 1)) & U32
+                   for c in range(8)]
+        else:
+            hy0, hz0 = (cy * py) & U32, (cz * pz) & U32
+            hy = (hy0, (hy0 + py) & U32)
+            hz = (hz0, (hz0 + pz) & U32)
+            idx = [((cx + (c >> 2)) ^ hy[(c >> 1) & 1] ^ hz[c & 1]) & (table_size - 1)
+                   for c in range(8)]
+        fx, fy, fz = frac.unbind(-1)
+        w = [((fx if c >> 2 else 1.0 - fx) * (fy if (c >> 1) & 1 else 1.0 - fy))
+             * (fz if c & 1 else 1.0 - fz) for c in range(8)]
+        level = flat[l * table_size:(l + 1) * table_size]
+        if pair:
+            v = [None] * 8
+            for p in range(4):
+                ca, cb = (2 * p, 2 * p + 1) if direct[l] else (p, p + 4)
+                ia, ib = idx[ca], idx[cb]
+                same = (ia ^ ib) == 1
+                q = level.reshape(table_size // 2, 2, 2)[ia >> 1]      # the aligned pair
+                v[ca] = torch.where(same[:, None],
+                                    torch.where((ia & 1).bool()[:, None], q[:, 1], q[:, 0]),
+                                    level[ia])
+                v[cb] = torch.where(same[:, None],
+                                    torch.where((ib & 1).bool()[:, None], q[:, 1], q[:, 0]),
+                                    level[ib])
+                one_load += int(same[:n].sum())
+                pairs += n
+            acc = v[0].to(torch.float32) * w[0][:, None]
+            for c in range(1, 8):
+                acc = acc + v[c].to(torch.float32) * w[c][:, None]
+            staged[:, l * 2 * es:(l + 1) * 2 * es] = \
+                acc.to(tables.dtype).contiguous().view(torch.uint8)
+        else:
+            for f in range(features):
+                acc = None
+                for c in range(8):
+                    term = flat[idx[c] + l * table_size, f].to(torch.float32) * w[c]
+                    acc = term if acc is None else acc + term
+                direct_out[:, l * features + f] = acc.to(tables.dtype)
+    if not pair:
+        return direct_out[:n].reshape(*points.shape[:-1], levels * features), 0.0
+    unit = 16 if row_bytes % 16 == 0 else 4
+    per_row = row_bytes // unit
+    dst = torch.zeros(n * row_bytes, dtype=torch.uint8)
+    span = torch.arange(unit)
+    for t in range(n_tiles):
+        s0, rows = t * tile, min(tile, n - t * tile)
+        i = torch.arange(rows * per_row)
+        r = i // per_row
+        src = staged[s0:s0 + tile].reshape(-1)
+        dst[s0 * row_bytes + (i * unit)[:, None] + span] = \
+            src[(r * pitch + (i - r * per_row) * unit)[:, None] + span]
+    out = dst.view(tables.dtype).reshape(*points.shape[:-1], levels * features)
+    return out, one_load / pairs
+
+
+PAPER = HashGridConfig()
+ENCODE_CASES = [
+    # (name, config kwargs, dtype, points)
+    ("tiny_f32_scattered_nan_inf", TINY_KW, torch.float32, lambda: encode_points(30)),
+    ("tiny_bf16_scattered_nan_inf", TINY_KW, torch.bfloat16, lambda: encode_points(31)),
+    ("tiny_f32_one_point", TINY_KW, torch.float32, lambda: encode_points(32)[5:6]),
+    ("tiny_bf16_rays_tail_tile", TINY_KW, torch.bfloat16, lambda: ray_points(3, 50, 33)),
+    ("paper_f32_rays", {}, torch.float32, lambda: ray_points(4, 64, 34, half=2.0)),
+    ("paper_bf16_rays", {}, torch.bfloat16, lambda: ray_points(2, 192, 35, half=2.0)),
+    ("wide_f8_f32", WIDE_KW, torch.float32, lambda: encode_points(36)),
+    ("wide_f8_bf16", WIDE_KW, torch.bfloat16, lambda: ray_points(3, 50, 37)),
+]
+
+
+@pytest.mark.parametrize("name, kw, dtype, make_points", ENCODE_CASES,
+                         ids=[c[0] for c in ENCODE_CASES])
+def test_kernel_dataflow_emulation_equals_the_plain_version(name, kw, dtype, make_points):
+    """The encode kernel's dataflow (level-major groups over a sample tile,
+    paired loads, the corner-order sum, the staged point-major write),
+    emulated in torch ops, is bitwise the plain version: at a tail tile,
+    at one point, with NaN and inf points, F = 8 on the generic path."""
+    cfg = HashGridConfig(**kw)
+    tables = torch.from_numpy(np_tree(kw, 38)["hash_tables"]).to(dtype)
+    pts = torch.from_numpy(make_points())
+    got, shared = emulate_kernel_encode(tables, pts, cfg)
+    want = hash_encode_reference(tables, pts, cfg)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.view(torch.int16) if dtype == torch.bfloat16 else got.view(torch.int32),
+                       want.view(torch.int16) if dtype == torch.bfloat16 else
+                       want.view(torch.int32))
+    if cfg.features == 2 and pts.reshape(-1, 3).shape[0] > 1:
+        assert 0.0 < shared < 1.0              # both kinds of pair are exercised
+
+
+@settings(max_examples=60, deadline=None, database=None, derandomize=True)
+@given(cells=st.lists(st.tuples(st.integers(0, 1023), st.integers(0, 1023),
+                                st.integers(0, 1023)), min_size=1, max_size=16))
+def test_paired_loads_rest_on_the_corner_rows(cells):
+    """The rule the encode kernel's paired loads rest on, through the
+    port's _Corners at the paper config (5 direct levels, 11 hashed): on a
+    hashed level with even cx the x pair's rows are 2k and 2k + 1 (in
+    either order: one aligned 16-byte chunk in f32); on a direct level the
+    z pair's rows are idx and idx + 1, one aligned chunk where idx is
+    even."""
+    table_size = 1 << PAPER.table_log2
+    _, _, direct = level_constants(PAPER, table_size)
+    direct = torch.from_numpy(direct.astype(bool))
+    assert bool(direct.any()) and not bool(direct.all())
+    c = torch.tensor(cells, dtype=torch.int64)
+    even = c.clone()
+    even[:, 0] &= ~1
+    c = torch.cat([c, even])              # each cell also with an even cx
+    ns = torch.tensor(hg.level_resolutions(PAPER), dtype=torch.int64)
+    comps = [(torch.minimum(c[:, a:a + 1], ns - 1), torch.zeros(len(c), PAPER.levels))
+             for a in range(3)]
+    rows = [_Corners(comps, PAPER, table_size, "cpu")(k)[0] for k in range(8)]
+    hashed_even = ~direct & (comps[0][0] % 2 == 0)
+    assert bool(hashed_even.any())
+    for p in range(4):
+        xa, xb = rows[p], rows[p + 4]
+        assert bool((((xa ^ xb) == 1) | ~hashed_even).all())
+        za, zb = rows[2 * p], rows[2 * p + 1]
+        assert bool(((zb == za + 1) | ~direct).all())
+        assert bool((((za ^ zb) == 1) | ~(direct & (za % 2 == 0))).all())

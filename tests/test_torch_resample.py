@@ -12,6 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from nerf_rs_tpu.accel import OccupancyGrid as JaxGrid
 from nerf_rs_tpu.config import RenderConfig as JaxRenderConfig
@@ -239,3 +241,146 @@ def test_reattach_backward_equals_sort_autograd():
     assert torch.equal(out, t_f)
     out.backward(g)
     assert torch.equal(a.grad, b.grad)
+
+
+# --- K3's merge (csrc/resample.cu), emulated on the CPU with the warp's
+# lanes as a tensor axis.
+
+LANES = torch.arange(32)
+
+
+def lane_values(k):
+    """K: values a lane, the smallest power of two with 32 K >= each of the
+    counts ``k``."""
+    per_lane = 1
+    while any(32 * per_lane < c for c in k):
+        per_lane *= 2
+    return per_lane
+
+
+def registers(x, per_lane):
+    """(rays, n) -> (rays, 32 lanes, K): sample k 32 + lane in register k
+    of its lane, +inf past n."""
+    rays, n = x.shape
+    v = torch.full((rays, 32 * per_lane), float("inf"))
+    v[:, :n] = x
+    return v.reshape(rays, per_lane, 32).transpose(1, 2).contiguous()
+
+
+def warp_sort(v):
+    """The kernel's bitonic network on (rays, 32, K): element l K + k in
+    register k of lane l; distances below K exchange two registers of a
+    lane, distances from K up register k of lanes l and l ^ (j / K)."""
+    per_lane = v.shape[-1]
+    v = v.clone()
+    log_n = (32 * per_lane).bit_length() - 1
+    for ls in range(1, log_n + 1):
+        size = 1 << ls
+        for lj in range(ls - 1, -1, -1):
+            j = 1 << lj
+            if j < per_lane:
+                ks = [k for k in range(per_lane) if k ^ j > k]
+                ps = [k ^ j for k in ks]
+                up = ((LANES[:, None] * per_lane + torch.tensor(ks)) & size) == 0
+                a, b = v[..., ks], v[..., ps]
+                lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+                v[..., ks], v[..., ps] = torch.where(up, lo, hi), torch.where(up, hi, lo)
+            else:
+                m = j // per_lane
+                other = v[:, LANES ^ m, :]
+                keep_min = (((LANES * per_lane) & size) == 0) == ((LANES & m) == 0)
+                v = torch.where(keep_min[:, None], torch.minimum(v, other),
+                                torch.maximum(v, other))
+    return v
+
+
+def ranks(s, x, or_equal):
+    """The kernel's branch-free binary search: per row, the count of the
+    sorted s below each x (strictly, or <=)."""
+    n = s.shape[1]
+    count = torch.zeros(x.shape, dtype=torch.int64)
+    step = 1 << (n.bit_length() - 1)
+    while step:
+        probe = count + step
+        y = torch.gather(s, 1, (probe - 1).clamp(max=n - 1))
+        hit = (probe <= n) & ((y <= x) if or_equal else (y < x))
+        count = torch.where(hit, probe, count)
+        step >>= 1
+    return count
+
+
+def emulate_rank_merge(t_c, t_f):
+    """K3's merge: the fine samples sorted in registers; the coarse row
+    sorted the same way only where a row is not sorted; each value to its
+    index in its own sorted list plus the other list's count below it (< for
+    fine against coarse, <= for coarse against fine), scattered to the row."""
+    rays, nc = t_c.shape
+    nf = t_f.shape[1]
+    per_lane = lane_values((nc, nf))
+    fs = warp_sort(registers(t_f, per_lane)).reshape(rays, -1)[:, :nf]
+    in_order = (t_c[:, :-1] <= t_c[:, 1:]).all(dim=1, keepdim=True)
+    cs = torch.where(in_order, t_c, warp_sort(registers(t_c, per_lane)).reshape(rays, -1)[:, :nc])
+    row = torch.full((rays, nc + nf), float("nan"))
+    row.scatter_(1, torch.arange(nf) + ranks(cs, fs, or_equal=False), fs)
+    row.scatter_(1, torch.arange(nc) + ranks(fs, cs, or_equal=True), cs)
+    return row
+
+
+@settings(max_examples=40, deadline=None, database=None, derandomize=True)
+@given(shape=st.sampled_from([(64, 128), (3, 1), (33, 95), (64, 1984), (32, 64), (130, 7)]),
+       seed=st.integers(0, 2 ** 31 - 1), pool=st.sampled_from([2, 5, 40, 0]),
+       coarse_sorted=st.booleans())
+def test_k3_register_sort_and_rank_merge_equal_torch_sort(shape, seed, pool, coarse_sorted):
+    """K3's register sort and rank merge, emulated with the lanes as an axis,
+    equal torch.sort of the concatenated row bit for bit: rows drawn from a
+    few values (repeats and ties across the two lists) or from a continuum,
+    the coarse row sorted or not, nf not a multiple of 32."""
+    nc, nf = shape
+    rng = np.random.default_rng(seed)
+    if pool:
+        values = rng.uniform(2.0, 6.0, pool).astype(np.float32)
+        t_c, t_f = rng.choice(values, (3, nc)), rng.choice(values, (3, nf))
+    else:
+        t_c, t_f = (rng.uniform(2.0, 6.0, (3, k)).astype(np.float32) for k in (nc, nf))
+    if coarse_sorted:
+        t_c = np.sort(t_c, axis=1)
+    t_c, t_f = torch.from_numpy(t_c), torch.from_numpy(t_f)
+    got = emulate_rank_merge(t_c, t_f)
+    assert torch.equal(got, torch.sort(torch.cat([t_c, t_f], dim=-1), dim=-1).values)
+
+
+def bin_search(cdf, u):
+    """The kernel's bin lookup: the largest j < n_bins with cdf[j] <= u, by
+    steps of decreasing powers of two."""
+    n_bins = cdf.shape[1] - 1
+    lo = torch.zeros(u.shape, dtype=torch.int64)
+    step = 1 << (n_bins - 1).bit_length() - 1 if n_bins > 1 else 0
+    while step:
+        probe = lo + step
+        y = torch.gather(cdf, 1, probe.clamp(max=n_bins - 1))
+        lo = torch.where((probe < n_bins) & (y <= u), probe, lo)
+        step >>= 1
+    return lo
+
+
+@settings(max_examples=40, deadline=None, database=None, derandomize=True)
+@given(nc=st.integers(3, 70), seed=st.integers(0, 2 ** 31 - 1), flat=st.booleans())
+def test_k3_bin_search_is_the_plain_versions_lookup(nc, seed, flat):
+    """K3's branch-free bin search finds the plain version's bin
+    (``inverse_cdf``: searchsorted right, less one, clamped to the bins) on
+    CDFs shaped as the kernel builds them (0, running sums over the total,
+    1), with plateaus, for uniforms on and between the entries."""
+    rng = np.random.default_rng(seed)
+    pdf = rng.uniform(0.0, 1.0, (4, nc - 2)).astype(np.float32)
+    if flat:
+        pdf[rng.uniform(size=pdf.shape) < 0.5] = 0.0
+    run = np.cumsum(pdf, axis=1, dtype=np.float32)
+    total = np.maximum(run[:, -1:], np.float32(1e-30))
+    cdf = np.concatenate([np.zeros((4, 1), np.float32), run[:, :-1] / total,
+                          np.ones((4, 1), np.float32)], axis=1).astype(np.float32)
+    u = np.concatenate([rng.uniform(size=(4, 16)), cdf[:, rng.integers(0, nc - 1, 8)]],
+                       axis=1).astype(np.float32)
+    u = np.minimum(u, np.float32(np.nextafter(np.float32(1.0), np.float32(0.0))))
+    cdf, u = torch.from_numpy(cdf), torch.from_numpy(u)
+    want = torch.clamp(torch.searchsorted(cdf, u, right=True) - 1, 0, nc - 3)
+    assert torch.equal(bin_search(cdf, u), want)
