@@ -25,18 +25,19 @@
 // arithmetic (0.39 ms without any table load) the rest; the 5 direct
 // levels' loads and the output's stores cost a few percent each.
 //
-// The design, against the sector model (counts reckoned on the CPU from
-// the port's _Corners on the render's ray-ordered points, paper config):
+// The design, against the sector model (counts reckoned on the CPU by
+// tools/torch_hash_sectors.py from the port's _Corners on the render's
+// ray-ordered points, paper config):
 // - A CTA takes kTile consecutive samples, which on the main path (64 and
 //   192 samples a ray) lie on one ray. It normalizes each sample's point
 //   once into shared memory (one IEEE division an axis, not one a level).
 // - Each warp takes one level for 32 consecutive samples (lane = sample),
-//   so its lanes fall in neighbouring cells and share sectors: 4.84
+//   so its lanes fall in neighbouring cells and share sectors: 4.96
 //   distinct sectors a (sample, level) over the 8 corner loads, against
-//   6.37 when a warp took 2 samples x 16 levels (the first kernel). The
-//   gain is on the coarse levels (0.9-2.3 sectors at levels 0-4); the
-//   finest stay near 8. The level's constants are kernel parameters, read
-//   at one address by the whole warp; the index arithmetic is 32-bit.
+//   6.43 when a warp took 2 samples x 16 levels (the first kernel), the
+//   gain on the coarse levels. The level's constants are kernel
+//   parameters, read at one address by the whole warp; the index
+//   arithmetic is 32-bit.
 // - Paired corner loads: the hash gives x the prime 1, so on a hashed level
 //   with even cx the corners (0, by, bz) and (1, by, bz) are rows 2k and
 //   2k + 1 (in either order); on a direct level the corners bz = 0 and 1 are
@@ -47,10 +48,13 @@
 //   (evict-first) stores; a level-major warp's own stores would land 128
 //   bytes apart (1.6x slower).
 // Against the first kernel, on the same card and inputs: bf16 13% faster
-// at 16384 x 192, f32 10% slower (PERF.md §6). With each corner loading
-// its own row, this kernel issues the first kernel's loads and takes 1.6x
-// its time in f32: what the level-major mapping costs f32 there, timing
-// with parts taken out does not show.
+// at 16384 x 192, f32 10% slower (PERF.md §6). What L2 must serve is the
+// distinct sectors a CTA's tile touches, once its L1 merges the reuse: 38
+// a sample in f32 for a 64-sample tile, 40 for the first kernel's
+// 16-sample CTA (34 and 36 in bf16), for both at 3.4-4.1 TB/s. Along a
+// ray the finest levels share nothing; tiles of 8 neighbouring rays x 8
+// samples would need 18 (13 in bf16), but the kernel is not told the
+// samples a ray.
 //
 // Numerics: every product and sum is an explicit IEEE intrinsic, so nvcc
 // contracts nothing into an FMA: frac is pos - floor(pos) of the rounded
@@ -237,7 +241,9 @@ hash_encode_kernel(const float* __restrict__ points, long long n,
       const unsigned np1 = static_cast<unsigned>(lv.np1[l]);
       const unsigned r0 = (cell[0] * np1 + cell[1]) * np1 + cell[2];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) idx[c] = r0 + (c >> 2) * np1 * np1 + ((c >> 1) & 1) * np1 + (c & 1);
+      for (int c = 0; c < 8; ++c) {
+        idx[c] = r0 + (c >> 2) * np1 * np1 + ((c >> 1) & 1) * np1 + (c & 1);
+      }
     } else {
       const unsigned hy0 = cell[1] * kPrimeY, hz0 = cell[2] * kPrimeZ;
       const unsigned hy1 = hy0 + kPrimeY, hz1 = hz0 + kPrimeZ;

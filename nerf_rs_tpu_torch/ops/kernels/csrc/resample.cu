@@ -31,9 +31,10 @@
 //   (they follow the uniforms), so they alone are sorted, in registers: K
 //   values a lane (the smallest power of two with 32 K >= Nc and Nf; the
 //   excess padded with +inf), a bitonic network whose distances below K
-//   are compare-exchanges inside a lane and above it __shfl_xor_sync. The coarse row is checked (a warp vote)
-//   and sorted the same way only where it is not sorted already, so the
-//   kernel computes the sorted merge for any input, as torch.sort does.
+//   are compare-exchanges inside a lane and above it __shfl_xor_sync.
+//   The coarse row is checked (a warp vote) and sorted the same way only
+//   where it is not sorted already, so the kernel computes the sorted
+//   merge for any input, as torch.sort does.
 //   Each value's slot in the output is its index in its own sorted list
 //   plus the count of the other list's values below it (< for a fine
 //   value against the coarse list, <= for a coarse value against the fine

@@ -648,3 +648,28 @@ def test_paired_loads_rest_on_the_corner_rows(cells):
         za, zb = rows[2 * p], rows[2 * p + 1]
         assert bool(((zb == za + 1) | ~direct).all())
         assert bool((((za ^ zb) == 1) | ~(direct & (za % 2 == 0))).all())
+
+
+def test_sector_reckoning_tool_counts_the_corner_rows():
+    """tools/torch_hash_sectors.py on a few rays: every corner row in the
+    table, distinct sectors a sample falling as tiles grow, and the
+    level-major warps' instruction sectors below the first kernel's."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "torch_hash_sectors.py"
+    spec = importlib.util.spec_from_file_location("torch_hash_sectors", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    rows = tool.corner_rows(256)
+    assert rows.shape == (256, tool.SAMPLES, PAPER.levels, 8)
+    assert int(rows.min()) >= 0 and int(rows.max()) < PAPER.levels << PAPER.table_log2
+    flat = (rows * 8 // 32).reshape(-1, PAPER.levels, 8)
+    n = flat.shape[0]
+    per_tile = [float(tool.distinct(flat.reshape(n // t, t, PAPER.levels, 8).transpose(1, 2)
+                                    .reshape(n // t, PAPER.levels, t * 8)).sum()) / n
+                for t in (1, 16, 64)]
+    assert per_tile[0] > per_tile[1] > per_tile[2] > 0
+    first = float(tool.distinct(flat.reshape(n // 2, 2 * PAPER.levels, 8).transpose(1, 2)).sum())
+    major = float(tool.distinct(flat.reshape(n // 32, 32, PAPER.levels, 8)
+                                .permute(0, 2, 3, 1)).sum())
+    assert major < first

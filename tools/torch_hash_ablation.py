@@ -45,14 +45,18 @@ VARIANTS = [
     ("encode: table loads out", ENCODE, [
         ("    q[p] = load_pair_if(pair, level, ia, policy);",
          "    q[p] = {make_float2(ia, ib), make_float2(ib, ia)};"),
-        ("    own_a[p] = load_row_if(!pair, level, ia, policy);", "    own_a[p] = make_float2(ib, ia);"),
-        ("    own_b[p] = load_row_if(!pair, level, ib, policy);", "    own_b[p] = make_float2(ia, ib);")]),
+        ("    own_a[p] = load_row_if(!pair, level, ia, policy);",
+         "    own_a[p] = make_float2(ib, ia);"),
+        ("    own_b[p] = load_row_if(!pair, level, ib, policy);",
+         "    own_b[p] = make_float2(ia, ib);")]),
     ("encode: hashed levels' loads out", ENCODE, [
         ("        gather_pairs<false>(level, idx, policy, v);",
          "#pragma unroll\n        for (int c = 0; c < 8; ++c) v[c] = make_float2(idx[c], 0.f);")]),
     ("encode: pairs out (each corner its own row)", ENCODE, [
-        ("    const bool pair = (ia ^ ib) == 1;\n    q[p]", "    const bool pair = false;\n    q[p]"),
-        ("    const bool pair = (ia ^ ib) == 1;\n    v[ca]", "    const bool pair = false;\n    v[ca]")]),
+        ("    const bool pair = (ia ^ ib) == 1;\n    q[p]",
+         "    const bool pair = false;\n    q[p]"),
+        ("    const bool pair = (ia ^ ib) == 1;\n    v[ca]",
+         "    const bool pair = false;\n    v[ca]")]),
     ("encode: the first corner always loads its aligned pair", ENCODE, [
         ("    q[p] = load_pair_if(pair, level, ia, policy);\n"
          "    own_a[p] = load_row_if(!pair, level, ia, policy);",
@@ -66,8 +70,10 @@ VARIANTS = [
          '"@p ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%5];')]),
     ("encode: bf16 with L2 evict-last hints", ENCODE, [
         ('"@p ld.global.nc.b32 %0, [%2];', '"@p ld.global.nc.L2::cache_hint.b32 %0, [%2], %3;'),
-        ('"@p ld.global.nc.v2.b32 {%0, %1}, [%3];', '"@p ld.global.nc.L2::cache_hint.v2.b32 {%0, %1}, [%3], %4;'),
-        ('"l"(t + 2 * static_cast<size_t>(row)));', '"l"(t + 2 * static_cast<size_t>(row)), "l"(policy));'),
+        ('"@p ld.global.nc.v2.b32 {%0, %1}, [%3];',
+         '"@p ld.global.nc.L2::cache_hint.v2.b32 {%0, %1}, [%3], %4;'),
+        ('"l"(t + 2 * static_cast<size_t>(row)));',
+         '"l"(t + 2 * static_cast<size_t>(row)), "l"(policy));'),
         ('"l"(t + 2 * static_cast<size_t>(row & ~1u)));',
          '"l"(t + 2 * static_cast<size_t>(row & ~1u)), "l"(policy));')]),
     ("encode: table loads bypass L1 (.cg)", ENCODE, [('"@p ld.global.nc.', '"@p ld.global.cg.')]),
