@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's five main paths and holds them to the repository's own
+Drives the port's six main paths and holds them to the repository's own
 bars: the render path — the pretrained lego coarse and fine networks
 rendering a 256x256 frame with 64 stratified + 128 importance samples on
 white, through ``nerf_rs_tpu_torch.render.render_image`` — the training
@@ -20,7 +20,11 @@ hashgrid`` does, then rendered dense and through a grid of its own sigma,
 through the hash-encode kernel — and the int8 W8A8 family — the lego
 networks quantized after training and rendered through the int8 MLP kernel
 (``render --impl int8``), and an 8x256 student distilled through the QAT
-forward (``train --impl int8qat``). Phases, each reported on its own line:
+forward (``train --impl int8qat``) — and the checkpoint, dataset and
+front-end slice — a nerf_synthetic scene learned through ``python -m
+nerf_rs_tpu_torch train --data`` with checkpoints, resume and SIGTERM, then
+rendered, exported, evaluated and served from its checkpoints. Phases, each
+reported on its own line:
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: the fused MLP kernels K1 and K2 (both on the tensor cores, f32
@@ -121,7 +125,23 @@ forward (``train --impl int8qat``). Phases, each reported on its own line:
 24. times: the int8 kernel, its plain version and ``torch._int_mm`` of the
     same layers at the phase-21 shapes, the int8 frame with the kernel and
     the plain version, the int8 frame under ``torch.profiler`` (device busy,
-    idle share, top kernels), the int8qat step and its peak memory.
+    idle share, top kernels), the int8qat step and its peak memory;
+25. checkpoints, data and front ends, through ``nerf_rs_tpu_torch.cli.main``
+    at the train defaults (8x256, 4096 rays, 64 + 128, f32, K1 and K2): a
+    scene of 16 200x200 views of the lego networks (K1 f32, the port's PNG
+    writer, ``transforms_train.json``); ``train --data`` for 40 steps with a
+    checkpoint every 20 (the loss falls, K1 and K2 twice a step: no
+    teacher), resumed to 60 ("resumed from ... at step 40"); ``render
+    --checkpoint`` bitwise the render of the in-memory state the CLI saved,
+    ``export`` + ``render --weights`` bitwise the same, ``evaluate
+    --checkpoint-dir`` (PSNR reported), one ``/render`` of ``serve``'s
+    handler after ``api.init_renderer(checkpoint=...)`` the same bytes; a
+    ``train`` subprocess stopped by SIGTERM after its first step (exit 0, a
+    final checkpoint of step >= 1, killed and failed at 120 s); ``train
+    --model hashgrid --data`` for 20 steps and its checkpoint rendered with
+    the encode kernel (2 launches a chunk) against the plain encode (>= 60
+    dB); times: the dataset load, a step on ``--data``, a checkpoint's save
+    and restore, SIGTERM to exit.
 
 Any failed phase exits non-zero. The line before the last is a JSON
 summary of the kernels, each with its bound (the larger of its bytes over
@@ -1738,6 +1758,417 @@ def phase_int8_times(cases, vd, cam, dev, card):
     return times
 
 
+# The checkpoint, dataset and front-end slice (phase 25): a nerf_synthetic
+# scene rendered from the lego networks, learned through the CLI as a user
+# runs it (`train --data`, resume, SIGTERM), then rendered, exported,
+# evaluated and served from its checkpoints.
+SCENE_VIEWS, SCENE_SIZE = 16, 200
+SCENE_ANGLE_X = 0.6911112070083618      # nerf_synthetic lego's camera_angle_x
+DATA_STEPS, DATA_RESUME_STEPS, DATA_CKPT_EVERY = 40, 60, 20
+HASH_DATA_STEPS = 20
+PAETH_VIEWS = 4                         # 800x800 frames whose PNG decode is timed
+STEP_RUN = 5                            # steps timed back to back
+SIGTERM_LIMIT_S = 120
+
+
+def write_scene(coarse, fine, dev, root: Path) -> None:
+    """SCENE_VIEWS views of SCENE_SIZE^2 of the lego networks through K1
+    f32 (64 + 128 samples), from the upper hemisphere at radius 4.03 looking
+    at the origin, z up: the PNGs by the port's own writer and a
+    ``transforms_train.json`` whose c2w columns are right, up, -forward and
+    the position."""
+    import numpy as np
+
+    from nerf_rs_tpu_torch.config import RenderConfig
+    from nerf_rs_tpu_torch.io.image import save_png
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.ops.rays import Camera
+    from nerf_rs_tpu_torch.render import render_image
+
+    cfg = RenderConfig(n_coarse=N_COARSE, n_fine=N_FINE, ray_chunk=BENCH_CHUNK, impl="pallas")
+    rng = np.random.default_rng(0)
+    half = np.float32(0.5 * SCENE_ANGLE_X)     # atan(0.5 w / focal)
+    frames = []
+    for i in range(SCENE_VIEWS):
+        theta, elev = 2.0 * math.pi * i / SCENE_VIEWS, rng.uniform(0.2, 1.2)
+        pos = (4.03 * np.array([math.cos(elev) * math.cos(theta),
+                                math.cos(elev) * math.sin(theta), math.sin(elev)])).astype(np.float32)
+        fwd = -pos / np.linalg.norm(pos)
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        up = np.cross(right, fwd)
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, up, -fwd, pos
+        cam = Camera(position=pos, forward=fwd.astype(np.float32), up=up.astype(np.float32),
+                     alpha_width=half, alpha_height=half, near=np.float32(2.0),
+                     far=np.float32(6.0))
+        img = render_image(coarse, fine, cam, SCENE_SIZE, SCENE_SIZE, random.key(i, dev), cfg,
+                           device=dev)
+        save_png(root / f"r_{i}.png", img, SCENE_SIZE, SCENE_SIZE)
+        frames.append({"file_path": f"r_{i}", "transform_matrix": c2w.tolist()})
+    (root / "transforms_train.json").write_text(
+        json.dumps({"camera_angle_x": SCENE_ANGLE_X, "frames": frames}))
+
+
+def cli_run(argv) -> str:
+    """``nerf_rs_tpu_torch.cli.main(argv)`` in this process: its standard
+    output; a non-zero exit fails the phase."""
+    import io
+
+    from nerf_rs_tpu_torch import cli
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    except SystemExit as e:
+        rc = e.code
+    if rc != 0:
+        raise PhaseFailure(f"`{' '.join(argv[:1])}` exited with {rc!r}:\n{buf.getvalue()[-2000:]}")
+    return buf.getvalue()
+
+
+def sigterm_train(scene: Path, ck: Path):
+    """``python -m nerf_rs_tpu_torch train --data`` as a subprocess with
+    --steps 100000, SIGTERM after its first step line: (exit code, output,
+    seconds from the signal to the exit, killed at SIGTERM_LIMIT_S)."""
+    import os
+    import signal
+    import threading
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nerf_rs_tpu_torch", "train", "--data", str(scene),
+         "--checkpoint-dir", str(ck), "--steps", "100000", "--log-every", "1"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    killed = []
+
+    def kill():
+        killed.append(True)
+        proc.kill()
+
+    timer = threading.Timer(SIGTERM_LIMIT_S, kill)
+    timer.start()
+    t_sig = None
+    try:
+        out = []
+        for line in proc.stdout:
+            out.append(line)
+            if line.startswith("step "):
+                t_sig = time.perf_counter()
+                proc.send_signal(signal.SIGTERM)
+                break
+        out.append(proc.stdout.read())
+        rc = proc.wait()
+        secs = time.perf_counter() - t_sig if t_sig is not None else float("nan")
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+    return rc, "".join(out), secs, bool(killed)
+
+
+def paeth_png(px) -> bytes:
+    """(H, W, C) u8 -> an 8-bit PNG with every row Paeth-filtered, as
+    encoders that pick a filter per row often write photographs."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, c = px.shape
+    p = px.astype(np.int16)
+    a, b, cc = np.zeros_like(p), np.zeros_like(p), np.zeros_like(p)
+    a[:, 1:], b[1:], cc[1:, 1:] = p[:, :-1], p[:-1], p[:-1, :-1]
+    pa, pb, pc = np.abs(b - cc), np.abs(a - cc), np.abs(a + b - 2 * cc)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
+    rows = np.concatenate([np.full((h, 1), 4, np.uint8),
+                           ((p - pred) & 0xFF).astype(np.uint8).reshape(h, -1)], axis=1)
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, {3: 2, 4: 6}[c], 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def pageable_batches(dataset, batch_rays: int, seed: int):
+    """``dataset``'s batches gathered in pageable host memory and copied
+    with a blocking ``.to``: the comparison side of phase 25's step times."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    near = torch.tensor(dataset.near, dtype=torch.float32, device=dataset.device)
+    far = torch.tensor(dataset.far, dtype=torch.float32, device=dataset.device)
+    while True:
+        idx = rng.integers(0, len(dataset), size=batch_rays)
+        yield {"origins": torch.from_numpy(dataset.frame_origins[dataset.frame_idx[idx]]).to(
+                   dataset.device),
+               "dirs": torch.from_numpy(dataset.dirs[idx]).to(dataset.device),
+               "rgb": torch.from_numpy(dataset.rgb[idx]).to(dataset.device),
+               "near": near, "far": far}
+
+
+def write_paeth_scene(scene: Path, out: Path, views: int):
+    """The first ``views`` frames of ``scene`` at nerf_synthetic's 800x800
+    (each pixel 4x4, the alpha 255 less the smallest channel) as RGBA PNGs
+    with every row Paeth: (the frames' pixels, the bytes of the first)."""
+    import numpy as np
+
+    from nerf_rs_tpu_torch.io.image import load_png
+
+    meta = json.loads((scene / "transforms_train.json").read_text())
+    meta["frames"] = meta["frames"][:views]
+    out.mkdir()
+    first, pixels = None, []
+    for frame in meta["frames"]:
+        rgb = load_png(scene / f"{frame['file_path']}.png")[..., :3].repeat(4, 0).repeat(4, 1)
+        px = np.concatenate([rgb, 255 - rgb.min(axis=-1, keepdims=True)], axis=-1)
+        data = paeth_png(px)
+        (out / f"{frame['file_path']}.png").write_bytes(data)
+        first = data if first is None else first
+        pixels.append(px)
+    (out / "transforms_train.json").write_text(json.dumps(meta))
+    return pixels, first
+
+
+def phase_data(coarse, fine, cam, dev, card):
+    """Phase 25 in a temporary directory, removed when the phase ends."""
+    with tempfile.TemporaryDirectory(prefix="nerf_rs_tpu_torch_data_") as tmp:
+        run_phase_data(Path(tmp), coarse, fine, cam, dev, card)
+
+
+def run_phase_data(root: Path, coarse, fine, cam, dev, card):
+    """Phase 25: the checkpoint, dataset and front-end slice through the
+    CLI, at the JAX CLI's train defaults (8x256, 4096 rays, 64 + 128, f32,
+    --impl pallas), with the launch counts set to 0 just before each run
+    and read just after."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from nerf_rs_tpu_torch import api, serve
+    from nerf_rs_tpu_torch.config import RenderConfig, TrainConfig
+    from nerf_rs_tpu_torch.data import BlenderDataset
+    from nerf_rs_tpu_torch.io import checkpoint as ckpt_io
+    from nerf_rs_tpu_torch.io.image import decode_png, load_ppm, save_ppm
+    from nerf_rs_tpu_torch.models.mlp import NerfMLP
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.render import render_image
+    from nerf_rs_tpu_torch.train import train_step
+
+    t_phase = time.perf_counter()
+    scene = root / "scene"
+    scene.mkdir()
+    t0 = time.perf_counter()
+    write_scene(coarse, fine, dev, scene)
+    torch.cuda.synchronize()
+    scene_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dataset = BlenderDataset(scene, device=dev)
+    load_s = time.perf_counter() - t0
+    say("25 data", f"scene: {SCENE_VIEWS} views of {SCENE_SIZE}x{SCENE_SIZE} rendered through K1 "
+        f"f32 and written as PNG in {scene_s:.2f} s; {card}: BlenderDataset load "
+        f"{load_s * 1e3:.1f} ms ({len(dataset):,} rays)")
+
+    # nerf_synthetic's own frames are 800x800 RGBA whose rows an encoder
+    # filters with Average and Paeth: the PNG reader's wavefront at that
+    # size, on this host.
+    big, first = write_paeth_scene(scene, root / "scene800", PAETH_VIEWS)
+    decode_ms = timed_ms(lambda: decode_png(first), warm=False)
+    exact = (decode_png(first) == big[0]).all()
+    t0 = time.perf_counter()
+    big_set = BlenderDataset(root / "scene800", device=dev)
+    big_s = time.perf_counter() - t0
+    exact = exact and len(big_set) == PAETH_VIEWS * big[0].shape[0] * big[0].shape[1]
+    say("25 data", f"{card} host: decode_png of an 800x800 RGBA PNG, every row Paeth "
+        f"{decode_ms:.1f} ms (median of 3), pixels exact and every ray loaded: {exact}; "
+        f"BlenderDataset of "
+        f"{PAETH_VIEWS} such frames {big_s * 1e3:.1f} ms, {big_s / PAETH_VIEWS * 1e3:.1f} ms a "
+        f"frame: lego's 100 train views would load in about {big_s / PAETH_VIEWS * 100:.1f} s "
+        f"(projected) -> {'ok' if exact else 'FAIL'}")
+    if not exact:
+        raise PhaseFailure("decode_png misread a Paeth-filtered frame")
+    del big, big_set
+
+    # Train, then resume; every state the CLI saves is kept here as well.
+    saved = {}
+    real_save = ckpt_io.save_checkpoint
+
+    def save_and_keep(directory, state, **kw):
+        saved[state.step] = {net: {layer: {part: t.detach().cpu().clone()
+                                           for part, t in parts.items()}
+                                   for layer, parts in m.tree().items()}
+                             for net, m in state.params.items()}
+        return real_save(directory, state, **kw)
+
+    ck = root / "ck"
+    train = ["train", "--data", str(scene), "--checkpoint-dir", str(ck), "--checkpoint-every",
+             str(DATA_CKPT_EVERY), "--log-every", "1"]
+    ckpt_io.save_checkpoint = save_and_keep
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        first = cli_run([*train, "--steps", str(DATA_STEPS)])
+        c_first = read_counts()
+        zero_counts()
+        second = cli_run([*train, "--steps", str(DATA_RESUME_STEPS)])
+        c_second = read_counts()
+    finally:
+        ckpt_io.save_checkpoint = real_save
+    losses = [float(v) for v in re.findall(r"^step \d+: loss ([0-9.]+)", first, re.M)]
+    head, tail = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    resumed = f"resumed from {ck / f'step_{DATA_STEPS:08d}'} at step {DATA_STEPS}" in second
+    n2 = DATA_RESUME_STEPS - DATA_STEPS
+    ok = (len(losses) == DATA_STEPS and all(math.isfinite(v) for v in losses) and tail < head
+          and c_first["fused_nerf_mlp_backward"] == 2 * DATA_STEPS
+          and c_first["fused_nerf_mlp"] == 2 * DATA_STEPS
+          and c_second["fused_nerf_mlp_backward"] == 2 * n2 and c_second["fused_nerf_mlp"] == 2 * n2
+          and resumed and sorted(saved) == list(range(DATA_CKPT_EVERY, DATA_RESUME_STEPS + 1,
+                                                      DATA_CKPT_EVERY)))
+    say("25 data", f"train --data {DATA_STEPS} steps: loss {losses[0]:.5f} -> {losses[-1]:.5f}, "
+        f"mean of the first 10 {head:.5f}, of the last 10 {tail:.5f}; launches K1 "
+        f"{c_first['fused_nerf_mlp']}, K2 {c_first['fused_nerf_mlp_backward']} (expected "
+        f"{2 * DATA_STEPS} each: no teacher); resume to {DATA_RESUME_STEPS}: 'resumed from ... "
+        f"at step {DATA_STEPS}' printed: {resumed}, K1 {c_second['fused_nerf_mlp']}, K2 "
+        f"{c_second['fused_nerf_mlp_backward']} (expected {2 * n2} each); states saved at "
+        f"{sorted(saved)} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("train --data did not learn, resume, or went around the kernels")
+
+    # Render from the checkpoint, from its export, and from the saved state.
+    last = ckpt_io.latest_checkpoint(ck)
+    render = ["render", "--width", str(W), "--height", str(H)]
+    zero_counts()
+    cli_run([*render, "--checkpoint", str(last), "-o", str(root / "ck.ppm")])
+    c_render = read_counts()
+    mem = saved[DATA_RESUME_STEPS]
+    img = render_image(NerfMLP(mem["coarse"], device=dev), NerfMLP(mem["fine"], device=dev), cam,
+                       H, W, random.key(0, dev), RenderConfig(ray_chunk=BENCH_CHUNK,
+                                                              impl="pallas"), device=dev)
+    save_ppm(root / "mem.ppm", img, H, W)
+    cli_run(["export", "--checkpoint", str(last), "-o", str(root / "exp")])
+    cli_run([*render, "--weights", str(root / "exp"), "-o", str(root / "exp.ppm")])
+    ck_bytes = (root / "ck.ppm").read_bytes()
+    same_mem = ck_bytes == (root / "mem.ppm").read_bytes()
+    same_exp = ck_bytes == (root / "exp.ppm").read_bytes()
+    chunks = -(-H * W // BENCH_CHUNK)
+    out = cli_run(["evaluate", "--checkpoint-dir", str(ck), "--size", str(H)])
+    m = re.search(r"PSNR vs teacher ([0-9.]+) dB", out)
+    eval_db = float(m.group(1)) if m else float("nan")
+
+    api._state.clear()
+    api.init_renderer(checkpoint=str(last), device=dev,
+                      cfg=RenderConfig(ray_chunk=BENCH_CHUNK, impl="pallas"))
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), serve.Handler)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.server_address[1]}/render?width={W}&height={H}&seed=0",
+            timeout=300).read()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        api._state.clear()
+    served = np.frombuffer(body, np.uint8).reshape(-1, 4)[:, :3].tobytes() == ck_bytes[-H * W * 3:]
+    ok = (same_mem and same_exp and served and math.isfinite(eval_db)
+          and c_render["fused_nerf_mlp"] == 2 * chunks)
+    say("25 data", f"render --checkpoint step {DATA_RESUME_STEPS} {W}x{H}: K1 launches "
+        f"{c_render['fused_nerf_mlp']} (expected {2 * chunks}); bitwise the render of the saved "
+        f"in-memory state: {same_mem}; export + render --weights bitwise: {same_exp}; one /render "
+        f"from serve's handler (init_renderer(checkpoint=...)) the same bytes: {served}; evaluate "
+        f"--checkpoint-dir {H}x{H}: PSNR vs the lego teacher {eval_db:.2f} dB (reported) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the checkpoint's renders differ between the front ends")
+
+    # SIGTERM: the step in flight, a checkpoint, exit 0.
+    rc, text, sig_s, killed = sigterm_train(scene, root / "ck_sigterm")
+    newest = ckpt_io.latest_checkpoint(root / "ck_sigterm")
+    step = ckpt_io.restore_params(newest)[1] if newest is not None else -1
+    ok = rc == 0 and not killed and "final checkpoint" in text and step >= 1
+    say("25 data", f"{card}: SIGTERM after the first step line: exit {rc}, killed at "
+        f"{SIGTERM_LIMIT_S} s: {killed}, 'final checkpoint' printed: {'final checkpoint' in text}, "
+        f"newest checkpoint step {step}; {sig_s:.2f} s from the signal to the exit -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure(f"train did not stop cleanly on SIGTERM:\n{text[-2000:]}")
+
+    # The hash grid: train --model hashgrid --data, its checkpoint rendered
+    # through the encode kernel and through the plain encode.
+    hck = root / "ck_hash"
+    zero_counts()
+    cli_run(["train", "--model", "hashgrid", "--data", str(scene), "--checkpoint-dir", str(hck),
+             "--steps", str(HASH_DATA_STEPS), "--log-every", "5"])
+    c_hash = read_counts()
+    hlast = ckpt_io.latest_checkpoint(hck)
+    zero_counts()
+    cli_run([*render, "--checkpoint", str(hlast), "-o", str(root / "hash.ppm")])
+    c_hrender = read_counts()
+    with plain_encode():
+        cli_run([*render, "--checkpoint", str(hlast), "-o", str(root / "hash_plain.ppm")])
+    hash_db = psnr(load_ppm(root / "hash.ppm"), load_ppm(root / "hash_plain.ppm"))
+    ok = (hash_db >= PLAIN_BAR_DB and c_hash["fused_hash_encode"] == 2 * HASH_DATA_STEPS
+          and c_hrender["fused_hash_encode"] == 2 * chunks and c_hrender["fused_nerf_mlp"] == 0)
+    say("25 data", f"train --model hashgrid --data {HASH_DATA_STEPS} steps: encode launches "
+        f"{c_hash['fused_hash_encode']} (expected {2 * HASH_DATA_STEPS}); render --checkpoint "
+        f"{W}x{H}: encode launches {c_hrender['fused_hash_encode']} (expected {2 * chunks}), "
+        f"kernel vs plain encode {hash_db:.2f} dB (bar >= {PLAIN_BAR_DB}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the hash-grid checkpoint's render misses its bar or its kernel")
+
+    # Times: a step on --data, one checkpoint's save and restore.
+    saved_counts = save_counts()
+    state = ckpt_io.restore_checkpoint(last, dev)
+    cfg = TrainConfig(batch_rays=TRAIN_RAYS, render=RenderConfig(
+        n_coarse=N_COARSE, n_fine=N_FINE, ray_chunk=TRAIN_RAYS, impl="pallas"))
+    batches = dataset.batches(TRAIN_RAYS, seed=1)
+    key = random.key(1, dev)
+    fixed = next(batches)
+    draw_ms = timed_ms(lambda: next(batches), inner=20)
+    # Runs of STEP_RUN steps with no synchronization between them, as the
+    # CLI's loop runs them between log lines, so the host may queue a step
+    # while the card runs the last: one fixed batch; fresh batches drawn
+    # beforehand; drawn in the loop into pinned memory and copied without
+    # blocking (BlenderDataset.batches); drawn in the loop and copied from
+    # pageable memory, which blocks the host until the card has run what
+    # was queued. Timed in that order and then in the reverse one; each
+    # figure is the mean of its two medians.
+    ready = [next(batches) for _ in range(8 * STEP_RUN)]
+    pageable = pageable_batches(dataset, TRAIN_RAYS, seed=2)
+    runs = {"fixed": lambda: fixed, "drawn before": ready.pop,
+            "pinned": lambda: next(batches), "pageable": lambda: next(pageable)}
+    run_ms = {name: [] for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            run_ms[name].append(timed_ms(lambda: train_step(state, runs[name](), key, cfg),
+                                         inner=STEP_RUN))
+    run_ms = {name: statistics.mean(v) for name, v in run_ms.items()}
+    step_ms = run_ms["pinned"]
+    save_ms = timed_ms(lambda: ckpt_io.save_checkpoint(root / "timed", state))
+    restore_ms = timed_ms(lambda: ckpt_io.restore_checkpoint(last, dev))
+    restore_counts(saved_counts)                   # timing launches do not count
+    size_mb = sum(p.stat().st_size for p in last.iterdir()) / 1e6
+    say("25 data", f"{card}: train step on --data, {TRAIN_RAYS} rays {N_COARSE}+{N_FINE}, f32: "
+        f"{step_ms:.1f} ms, {TRAIN_RAYS / step_ms * 1e3:,.0f} rays/s fwd+bwd; a step in runs of "
+        f"{STEP_RUN} with the batch " + ", ".join(f"{k} {v:.1f} ms" for k, v in run_ms.items())
+        + f"; a batch drawn and copied to the card {draw_ms:.3f} ms; checkpoint "
+        f"({size_mb:.1f} MB: params and Adam's moments) save {save_ms:.1f} ms, restore to the "
+        f"card {restore_ms:.1f} ms; dataset load {load_s * 1e3:.1f} ms; SIGTERM to exit "
+        f"{sig_s:.2f} s (the save and restore medians of 3; the load and SIGTERM one run "
+        f"each); phase 25 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1945,6 +2376,9 @@ def main() -> int:
     int8_launches = phase_int8_frames(coarse, fine, cam, dev, img_f32, grid)
     phase_qat(cam, dev, img_f32)
     int8_times = phase_int8_times(int8_cases, int8_vd, cam, dev, card)
+
+    # Checkpoints, the nerf_synthetic dataset and the CLI's front ends.
+    phase_data(coarse, fine, cam, dev, card)
 
     # Bounds from this run's shapes (bytes: each input read once, each
     # output written once; operations at the peak of their type).

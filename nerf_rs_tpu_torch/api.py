@@ -41,10 +41,13 @@ def init_renderer(assets_dir: Optional[str] = None, cfg: Optional[RenderConfig] 
     ``device`` (default ``cuda``) keeps the current one on a re-init that
     does not name it.
 
-    ``checkpoint`` serves a trained checkpoint in the JAX package; the port
-    has no checkpoints yet, so anything but None (the pretrained weights)
-    raises NotImplementedError. A failed init leaves the previous renderer
-    as it was.
+    ``checkpoint`` serves a training checkpoint (``io/checkpoint.py``, any
+    model family) instead of the pretrained weights; the camera still comes
+    from the scene assets, and a hash-grid checkpoint takes its config from
+    the ``model.json`` sidecar ``train`` writes. Left unset it keeps the
+    current one; ``checkpoint=None`` restores the pretrained weights. A
+    failed init (a missing checkpoint raises FileNotFoundError) leaves the
+    previous renderer as it was.
     """
     from nerf_rs_tpu_torch.io.golden import camera_from_golden
     from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_scene_assets
@@ -53,14 +56,12 @@ def init_renderer(assets_dir: Optional[str] = None, cfg: Optional[RenderConfig] 
     with _lock:
         if checkpoint is _KEEP:
             checkpoint = _state.get("checkpoint")
-        if checkpoint is not None:
-            raise NotImplementedError("serving a training checkpoint is not ported yet "
-                                      "(ROADMAP queue 1, item 10)")
         if device is None:
             device = _state.get("device", torch.device("cuda"))
         device = torch.device(device)
         if (_state.get("ready") and assets_dir is None and cfg is None
                 and device == _state.get("device")
+                and checkpoint == _state.get("checkpoint")
                 and (accel is None
                      or (accel == (_state.get("grid") is not None)
                          and (not accel or accel_res == _state.get("accel_res"))))):
@@ -78,15 +79,23 @@ def init_renderer(assets_dir: Optional[str] = None, cfg: Optional[RenderConfig] 
         # The grid is a function of the weights and the resolution: rebake
         # only when one of them changed.
         reuse_grid = (_state.get("grid") is not None and _state.get("accel_res") == accel_res
-                      and _state.get("assets") == assets and _state.get("device") == device)
+                      and _state.get("assets") == assets and _state.get("device") == device
+                      and _state.get("checkpoint") == checkpoint)
         # Everything that can fail runs on locals; _state is committed in
         # one block at the end.
         trees, golden = load_scene_assets(assets)
         camera = camera_from_golden(golden)
-        params = {net: as_module(trees[net], device) for net in ("coarse", "fine")}
         new_cfg = cfg or _state.get("cfg") or RenderConfig(ray_chunk=16384, accel_cull_rays=True)
         new_cfg = new_cfg.replace(model="mlp")
-        if new_cfg.impl == "pallas":
+        if checkpoint is not None:
+            from nerf_rs_tpu_torch.io.checkpoint import checkpoint_networks, restore_params
+
+            trees, _ = restore_params(checkpoint)
+            coarse, fine, new_cfg = checkpoint_networks(trees, checkpoint, new_cfg, device)
+            params = {"coarse": coarse, "fine": fine}
+        else:
+            params = {net: as_module(trees[net], device) for net in ("coarse", "fine")}
+        if new_cfg.model == "mlp" and new_cfg.impl == "pallas":
             from nerf_rs_tpu_torch.ops.kernels.fused_mlp import supports_arch
 
             if not supports_arch(params["coarse"]):
@@ -95,15 +104,17 @@ def init_renderer(assets_dir: Optional[str] = None, cfg: Optional[RenderConfig] 
             if reuse_grid:
                 grid = _state["grid"]
             else:
-                from nerf_rs_tpu_torch.accel import build_scene_grid
+                from nerf_rs_tpu_torch.accel import build_scene_grid, hashgrid_grid_kwargs
 
-                grid = build_scene_grid(params["coarse"], params["fine"], resolution=accel_res)
+                grid_kw = hashgrid_grid_kwargs(new_cfg) if new_cfg.model == "hashgrid" else {}
+                grid = build_scene_grid(params["coarse"], params["fine"], resolution=accel_res,
+                                        **grid_kw)
         else:
             grid = None
 
         # ---- commit (nothing below can fail) ----
         _state["assets"] = assets
-        _state["checkpoint"] = None
+        _state["checkpoint"] = checkpoint
         _state["device"] = device
         _state["params"] = params
         _state["camera"] = camera

@@ -1,20 +1,30 @@
 """Command-line front-end of the PyTorch port.
 
-    python -m nerf_rs_tpu_torch render --device cuda --width 256 --height 256 -o out.ppm
-    python -m nerf_rs_tpu_torch render --accel --sampling-impl pallas --device cuda
-    python -m nerf_rs_tpu_torch train --device cuda --impl pallas --steps 20
-    python -m nerf_rs_tpu_torch train --device cuda --model hashgrid --steps 300
-    python -m nerf_rs_tpu_torch render --impl int8 --device cuda -o int8.ppm
-    python -m nerf_rs_tpu_torch train --device cuda --impl int8qat --steps 50
+    python -m nerf_rs_tpu_torch render --width 256 --height 256 -o out.ppm
+    python -m nerf_rs_tpu_torch render --accel --sampling-impl pallas
+    python -m nerf_rs_tpu_torch train --steps 20
+    python -m nerf_rs_tpu_torch train --data lego/ --checkpoint-dir ck --steps 5000
+    python -m nerf_rs_tpu_torch train --model hashgrid --steps 300
+    python -m nerf_rs_tpu_torch train --impl int8qat --steps 50
+    python -m nerf_rs_tpu_torch render --checkpoint ck/step_00005000 -o trained.ppm
+    python -m nerf_rs_tpu_torch evaluate --checkpoint-dir ck
+    python -m nerf_rs_tpu_torch export --checkpoint ck/step_00005000 -o weights/
+    python -m nerf_rs_tpu_torch pack -o scene.npz
+    python -m nerf_rs_tpu_torch serve --checkpoint ck/step_00005000
+    python -m nerf_rs_tpu_torch info
 
-``render`` (with the occupancy-grid flags and the depth and opacity maps,
-and the W8A8 ``--impl int8`` / ``int8qat``) and ``train`` (distillation
-from the pretrained lego networks, of an MLP student, an int8 QAT student
-or a hash-grid field) are ported;
-the viewer is ``python -m nerf_rs_tpu_torch.serve``. The other
-subcommands of the JAX package's CLI, and render's ``--orbit``,
-``--checkpoint``, ``--sharded`` and ``--trace-dir``, are ROADMAP queue 1,
-items 10 and 11.
+Every subcommand runs on the CUDA card unless ``--device cpu`` is given.
+``render`` takes the occupancy-grid flags, the depth and opacity maps, the
+W8A8 ``--impl int8`` / ``int8qat`` and a training checkpoint of any
+family. ``train`` distills from the pretrained lego networks, or learns a
+nerf_synthetic scene (``--data``); it writes checkpoints in the port's own
+format (``io/checkpoint.py``), resumes from them, stops cleanly on SIGTERM
+or SIGINT, and can start from exported weights (``--init-weights``). Still
+to be ported: the ``verify``, ``benchmark`` and ``extract`` subcommands,
+render's ``--orbit`` and ``--trace-dir``, train's ``--camera``,
+``--sampling-impl`` and ``--ray-chunk`` (ROADMAP queue 1, item 10), the
+occupancy-culled training flags ``--accel-*`` (item 7) and ``--sharded``
+(item 11).
 """
 
 from __future__ import annotations
@@ -32,7 +42,12 @@ def _build_accel(args, cfg, params, camera, device):
     ``--accel-aabb``)."""
     import torch
 
-    from nerf_rs_tpu_torch.accel import build_scene_grid, calibrate_capacities, suggest_capacities
+    from nerf_rs_tpu_torch.accel import (
+        build_scene_grid,
+        calibrate_capacities,
+        hashgrid_grid_kwargs,
+        suggest_capacities,
+    )
     from nerf_rs_tpu_torch.ops import random
 
     t0 = time.perf_counter()
@@ -41,8 +56,9 @@ def _build_accel(args, cfg, params, camera, device):
         cfg = cfg.replace(accel_sample_aabb=True)
     if args.accel_cull_rays:
         cfg = cfg.replace(accel_cull_rays=True)
+    grid_kw = hashgrid_grid_kwargs(cfg) if cfg.model == "hashgrid" else {}
     grid = build_scene_grid(params["coarse"], params["fine"], resolution=args.accel_res,
-                            device=device)
+                            device=device, **grid_kw)
     note = ("packing/placement only (no per-sample culling)" if cfg.accel_compact == "off"
             else "mask-only (no capacities)")
     if cfg.accel_compact not in ("none", "off"):
@@ -73,36 +89,94 @@ def _impl_for_params(cfg, width: int, v_width: int, depth: int):
     return cfg
 
 
-def cmd_render(args) -> int:
-    import numpy as np
+def _device(name: str):
     import torch
 
-    from nerf_rs_tpu_torch.config import RenderConfig
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        sys.exit(f"error: --device {name} but torch.cuda.is_available() is false")
+    return device
+
+
+def _load_scene(args):
+    """(param trees, camera) of ``--weights`` (default: the lego assets):
+    a weight directory with its golden JSON or an ``.npz`` bundle, or a
+    bare export (``coarse/`` + ``fine/``, as ``export`` writes), whose
+    camera comes from ``--camera``, else from the lego assets."""
     from nerf_rs_tpu_torch.io.golden import camera_from_golden, load_golden
+    from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_nerf_params, load_scene_assets
+
+    assets = Path(args.weights) if getattr(args, "weights", None) else find_lego_assets()
+    if assets is None:
+        sys.exit("error: no weight assets found (set --weights or $NERF_RS_TPU_ASSETS)")
+    camera_json = getattr(args, "camera", None)
+    try:
+        trees, golden = load_scene_assets(assets)
+    except FileNotFoundError:
+        trees = {net: load_nerf_params(assets / net) for net in ("coarse", "fine")}
+        if not camera_json:
+            camera_json = (find_lego_assets() or assets) / "tf_reference_samples.json"
+            if not Path(camera_json).exists():
+                sys.exit(f"error: {assets} has no tf_reference_samples.json — pass --camera <json>")
+    if camera_json:
+        golden = load_golden(Path(camera_json))
+    return trees, camera_from_golden(golden)
+
+
+def _restore_params(path):
+    """``io.checkpoint.restore_params``, exiting with its message where
+    ``path`` is no checkpoint of the port (an orbax one among them)."""
+    from nerf_rs_tpu_torch.io.checkpoint import restore_params
+
+    try:
+        return restore_params(path)
+    except (FileNotFoundError, ValueError) as e:
+        sys.exit(f"error: {e}")
+
+
+def _checkpoint_networks(params, path, cfg, device, hint: str = ""):
+    """``io.checkpoint.checkpoint_networks``, exiting with its message
+    (and ``hint``) where a hash-grid checkpoint has no sidecar; an MLP
+    student the kernels do not serve runs ``impl="xla"`` with a note."""
+    from nerf_rs_tpu_torch.io.checkpoint import checkpoint_networks
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import infer_arch
+
+    try:
+        coarse, fine, cfg = checkpoint_networks(params, path, cfg, device)
+    except FileNotFoundError as e:
+        sys.exit(f"error: {e}{hint}")
+    if cfg.model == "mlp":
+        cfg = _impl_for_params(cfg, *infer_arch(params["coarse"])[:3])
+    return coarse, fine, cfg
+
+
+def cmd_render(args) -> int:
+    import numpy as np
+
+    from nerf_rs_tpu_torch.config import RenderConfig
     from nerf_rs_tpu_torch.io.image import save_png, save_ppm
-    from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_scene_assets
     from nerf_rs_tpu_torch.models.mlp import as_module
     from nerf_rs_tpu_torch.ops import random
     from nerf_rs_tpu_torch.ops.kernels.fused_mlp import infer_arch
     from nerf_rs_tpu_torch.render import render_image, render_image_aux
 
-    assets = Path(args.weights) if args.weights else find_lego_assets()
-    if assets is None:
-        sys.exit("error: no weight assets found (set --weights or $NERF_RS_TPU_ASSETS)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        sys.exit(f"error: --device {args.device} but torch.cuda.is_available() is false")
-    trees, golden = load_scene_assets(assets)
-    if args.camera:
-        golden = load_golden(Path(args.camera))
-    camera = camera_from_golden(golden)
-    params = {net: as_module(trees[net], device) for net in ("coarse", "fine")}
+    device = _device(args.device)
+    trees, camera = _load_scene(args)
     cfg = RenderConfig(n_coarse=args.coarse_samples, n_fine=args.fine_samples,
                        ray_chunk=args.ray_chunk, impl=args.impl, dtype=args.dtype,
                        sampling_impl=args.sampling_impl)
-    cfg = _impl_for_params(cfg, *infer_arch(trees["coarse"])[:3])
+    if args.checkpoint:
+        # A trained checkpoint of any family; the camera stays the scene's.
+        ckpt, step = _restore_params(args.checkpoint)
+        coarse, fine, cfg = _checkpoint_networks(ckpt, args.checkpoint, cfg, device)
+        params = {"coarse": coarse, "fine": fine}
+        print(f"rendering checkpoint {args.checkpoint} (step {step})")
+    else:
+        params = {net: as_module(trees[net], device) for net in ("coarse", "fine")}
+        cfg = _impl_for_params(cfg, *infer_arch(trees["coarse"])[:3])
+    label = cfg.impl if cfg.model == "mlp" else cfg.model
     print(f"Rendering {args.width}x{args.height} with {cfg.n_coarse} coarse and "
-          f"{cfg.n_fine} fine samples per ray ({cfg.impl}/{cfg.dtype}, sampling "
+          f"{cfg.n_fine} fine samples per ray ({label}/{cfg.dtype}, sampling "
           f"{cfg.sampling_impl}, on {device})")
     if args.accel_aabb and not args.accel:
         print("note: --accel-aabb implies --accel")
@@ -146,42 +220,127 @@ _ACCEL_FLAGS = ("every", "res", "warmup", "explore", "probes", "pad")
 
 
 def _refuse_unported(args) -> None:
-    """Exit non-zero, naming the ROADMAP item, for train flags the port
-    does not serve yet."""
-    refused = [
-        (args.data is not None, "--data (the nerf_synthetic dataset)", 10),
-        (args.checkpoint_dir is not None, "--checkpoint-dir", 10),
-        (args.init_weights is not None, "--init-weights", 10),
-        (args.accel_aabb or any(getattr(args, f"accel_{f}") is not None for f in _ACCEL_FLAGS),
-         "--accel-* (occupancy-culled training)", 7),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            sys.exit(f"error: {what} is not ported yet (ROADMAP item {item})")
+    """Exit non-zero, naming the ROADMAP item, for the train flags the port
+    does not serve yet: occupancy-culled training."""
+    if args.accel_aabb or any(getattr(args, f"accel_{f}") is not None for f in _ACCEL_FLAGS):
+        sys.exit("error: --accel-* (occupancy-culled training) is not ported yet "
+                 "(ROADMAP item 7)")
+
+
+def _model_info(args, cfg) -> dict:
+    """The ``model.json`` sidecar of a run: the family, and the hash grid's
+    hyper-parameters, normalized through JSON (tuples become lists, as in a
+    sidecar read back)."""
+    import dataclasses
+    import json
+
+    info = {"model": args.model}
+    if args.model == "hashgrid":
+        info["hash"] = dataclasses.asdict(cfg.render.hash)
+    return json.loads(json.dumps(info))
+
+
+def _structural(info):
+    """A sidecar without ``grad_impl``: which gradient computes the table's
+    does not shape the params, so a change of it must not strand a
+    checkpoint directory."""
+    import json
+
+    if info is None or "hash" not in info:
+        return info
+    info = json.loads(json.dumps(info))
+    info["hash"].pop("grad_impl", None)
+    return info
+
+
+def _resume(args, arch, want_info, device):
+    """The state of the newest checkpoint in ``--checkpoint-dir`` after the
+    JAX CLI's guards, read from metadata alone, or None where there is no
+    checkpoint yet; exits on a family, sidecar or architecture mismatch."""
+    from nerf_rs_tpu_torch.io.checkpoint import (
+        checkpoint_kernel_shapes,
+        checkpoint_param_keys,
+        latest_checkpoint,
+        load_model_config,
+        restore_checkpoint,
+    )
+    from nerf_rs_tpu_torch.models.mlp import arch_shapes
+
+    ckpt = latest_checkpoint(args.checkpoint_dir)
+    if ckpt is None:
+        return None
+    try:
+        got_keys = checkpoint_param_keys(ckpt)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+    want_keys = {"shared"} if args.model == "hashgrid" else {"coarse", "fine"}
+    if got_keys != want_keys:
+        sys.exit(f"error: checkpoint {ckpt} holds params {sorted(got_keys)} but --model "
+                 f"{args.model} trains {sorted(want_keys)} — match the --model flag to the "
+                 "checkpoint or use a fresh --checkpoint-dir.")
+    have_info = load_model_config(Path(args.checkpoint_dir))
+    if have_info is not None and _structural(have_info) != _structural(want_info):
+        sys.exit(f"error: {args.checkpoint_dir}/model.json holds a different model config "
+                 f"than the flags request.\n  checkpoint: {have_info}\n  requested:  "
+                 f"{want_info}\nMatch the flags or use a fresh --checkpoint-dir.")
+    if args.model != "hashgrid":
+        want, got = arch_shapes(arch), checkpoint_kernel_shapes(ckpt)
+        if got != want:
+            sys.exit(f"error: checkpoint {ckpt} holds a different architecture than the "
+                     f"requested --width/--v-width/--depth/--skip-at ({arch}).\n  checkpoint "
+                     f"layers: {sorted(got.items())}\n  requested layers:  "
+                     f"{sorted(want.items())}\nMatch the flags to the checkpoint or use a fresh "
+                     "--checkpoint-dir.")
+    state = restore_checkpoint(ckpt, device)
+    print(f"resumed from {ckpt} at step {state.step}")
+    return state
+
+
+def _init_weights(args, arch, device):
+    """``--init-weights``: a state at step 0 with fresh Adam moments from a
+    reference-format directory or an ``.npz`` bundle, both networks checked
+    against the requested architecture."""
+    from nerf_rs_tpu_torch.io.weights import load_bundle, load_nerf_params
+    from nerf_rs_tpu_torch.models.mlp import arch_shapes
+    from nerf_rs_tpu_torch.train import train_state_from_params
+
+    if args.model == "hashgrid":
+        sys.exit("error: --init-weights supports the MLP family only "
+                 "(hashgrid checkpoints resume via --checkpoint-dir)")
+    iw = Path(args.init_weights)
+    if iw.suffix == ".npz":
+        trees, _ = load_bundle(iw)
+    else:
+        trees = {net: load_nerf_params(iw / net) for net in ("coarse", "fine")}
+    want = arch_shapes(arch)
+    for net in ("fine", "coarse"):
+        got = {name: tuple(layer["kernel"].shape) for name, layer in trees[net].items()}
+        if got != want:
+            sys.exit(f"error: --init-weights {iw} {net}/ holds a different architecture than "
+                     f"the requested flags ({arch}).\n  weights layers:   "
+                     f"{sorted(got.items())}\n  requested layers: {sorted(want.items())}")
+    print(f"initialized params from {iw} (fresh optimizer, step 0)")
+    return train_state_from_params(trees, device)
 
 
 def cmd_train(args) -> int:
+    import signal
+
     import torch
 
     from nerf_rs_tpu_torch.config import ArchConfig, HashGridConfig, RenderConfig, TrainConfig
-    from nerf_rs_tpu_torch.data import DistillationDataset
-    from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_nerf_params
+    from nerf_rs_tpu_torch.io.checkpoint import save_checkpoint, save_model_config
     from nerf_rs_tpu_torch.ops import random
     from nerf_rs_tpu_torch.train import create_train_state, train_step
 
     _refuse_unported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        sys.exit(f"error: --device {args.device} but torch.cuda.is_available() is false")
-    assets = Path(args.weights) if args.weights else find_lego_assets()
-    if assets is None:
-        sys.exit("error: no weight assets found (set --weights or $NERF_RS_TPU_ASSETS)")
+    device = _device(args.device)
     arch = ArchConfig(width=args.width, v_width=args.v_width, depth=args.depth,
                       skip_at=args.skip_at)
     render_cfg = RenderConfig(n_coarse=args.coarse_samples, n_fine=args.fine_samples,
                               ray_chunk=args.batch_rays, impl=args.impl, dtype=args.dtype)
     cfg = TrainConfig(batch_rays=args.batch_rays, n_steps=args.steps, seed=args.seed,
-                      arch=arch, render=render_cfg)
+                      checkpoint_every=args.checkpoint_every, arch=arch, render=render_cfg)
     if args.model == "hashgrid":
         # One field for both passes; the paper's recipe: a higher lr and a
         # tiny Adam eps (table gradients are minute under the default).
@@ -203,37 +362,236 @@ def cmd_train(args) -> int:
                                                   arch.depth))
         if args.lr is not None:
             cfg = cfg.replace(lr_init=args.lr, lr_final=min(cfg.lr_final, args.lr))
-    state = create_train_state(torch.Generator(device=device).manual_seed(cfg.seed), cfg)
     print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})")
 
-    teacher = {net: load_nerf_params(assets / net) for net in ("coarse", "fine")}
-    # The teacher is the lego MLP on --impl, whatever the student's family
-    # or arch, except for the quantized impls: the student distills toward
-    # the exact f32 teacher through the fused kernel.
-    teacher_cfg = (render_cfg.replace(impl="pallas") if args.impl in ("int8", "int8qat")
-                   else render_cfg)
-    if args.teacher_samples:
-        tc, tf = (int(v) for v in args.teacher_samples.split(","))
-        teacher_cfg = teacher_cfg.replace(n_coarse=tc, n_fine=tf)
-    dataset = DistillationDataset(teacher, cfg=teacher_cfg, seed=cfg.seed, device=device)
-    print("no --data given: distilling from the pretrained lego networks"
-          + (f" (teacher targets at {teacher_cfg.n_coarse}+{teacher_cfg.n_fine} samples)"
-             if args.teacher_samples else ""))
+    state = None
+    if args.checkpoint_dir:
+        # The guards read existing checkpoints only, so a stale sidecar of
+        # a run that died before its first checkpoint does not block a
+        # retry; the sidecar is written only after every guard passed.
+        want_info = _model_info(args, cfg)
+        state = _resume(args, arch, want_info, device)
+        save_model_config(Path(args.checkpoint_dir), want_info)
+    if state is None and args.init_weights:
+        state = _init_weights(args, arch, device)
+    if state is None:
+        state = create_train_state(torch.Generator(device=device).manual_seed(cfg.seed), cfg)
 
+    if args.data:
+        from nerf_rs_tpu_torch.data import BlenderDataset
+
+        t0 = time.perf_counter()
+        dataset = BlenderDataset(args.data, device=device)
+        print(f"loaded {args.data}: {len(dataset):,} rays of {dataset.height}x{dataset.width} "
+              f"images in {time.perf_counter() - t0:.2f}s")
+    else:
+        from nerf_rs_tpu_torch.data import DistillationDataset
+        from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_nerf_params
+
+        assets = Path(args.weights) if args.weights else find_lego_assets()
+        if assets is None:
+            sys.exit("error: no weight assets found (set --weights or $NERF_RS_TPU_ASSETS)")
+        teacher = {net: load_nerf_params(assets / net) for net in ("coarse", "fine")}
+        # The teacher is the lego MLP on --impl, whatever the student's
+        # family or arch, except for the quantized impls: the student
+        # distills toward the exact f32 teacher through the fused kernel.
+        teacher_cfg = (render_cfg.replace(impl="pallas") if args.impl in ("int8", "int8qat")
+                       else render_cfg)
+        if args.teacher_samples:
+            tc, tf = (int(v) for v in args.teacher_samples.split(","))
+            teacher_cfg = teacher_cfg.replace(n_coarse=tc, n_fine=tf)
+        dataset = DistillationDataset(teacher, cfg=teacher_cfg, seed=cfg.seed, device=device)
+        print("no --data given: distilling from the pretrained lego networks"
+              + (f" (teacher targets at {teacher_cfg.n_coarse}+{teacher_cfg.n_fine} samples)"
+                 if args.teacher_samples else ""))
+
+    # SIGTERM and SIGINT finish the step in flight, checkpoint and exit 0,
+    # so that a restarted job resumes from the same directory.
+    stop = []
+
+    def request_stop(signum, frame):
+        print(f"received signal {signum}: checkpointing and stopping", flush=True)
+        stop.append(signum)
+
+    old_handlers = {s: signal.signal(s, request_stop) for s in (signal.SIGTERM, signal.SIGINT)}
     key = random.key(cfg.seed + 1, device)
+    start_step = state.step
     t0 = time.perf_counter()
-    batches = dataset.batches(cfg.batch_rays, seed=cfg.seed)
-    for step, batch in enumerate(batches):
-        if step >= cfg.n_steps:
-            break
-        state, metrics = train_step(state, batch, random.fold_in(key, torch.tensor(step)), cfg)
-        if step % args.log_every == 0 or step + 1 == cfg.n_steps:
-            m = {k: float(v) for k, v in metrics.items()}
-            rays_s = cfg.batch_rays * (step + 1) / (time.perf_counter() - t0)
-            print(f"step {step}: loss {m['loss']:.5f} psnr {m['psnr']:.2f} "
-                  f"({rays_s:,.0f} rays/s fwd+bwd)", flush=True)
+    try:
+        # A resumed run draws fresh batches (the seed folds in the resume
+        # step) and keys by the absolute step; Adam's restored count carries
+        # the learning-rate schedule on.
+        batches = dataset.batches(cfg.batch_rays, seed=cfg.seed + start_step)
+        for step, batch in enumerate(batches, start=start_step):
+            if step >= cfg.n_steps or stop:
+                break
+            state, metrics = train_step(state, batch, random.fold_in(key, torch.tensor(step)),
+                                        cfg)
+            if step % args.log_every == 0 or step + 1 == cfg.n_steps:
+                m = {k: float(v) for k, v in metrics.items()}
+                rays_s = cfg.batch_rays * (step - start_step + 1) / (time.perf_counter() - t0)
+                print(f"step {step}: loss {m['loss']:.5f} psnr {m['psnr']:.2f} "
+                      f"({rays_s:,.0f} rays/s fwd+bwd)", flush=True)
+            if args.checkpoint_dir and (step + 1) % cfg.checkpoint_every == 0:
+                print(f"checkpointed {save_checkpoint(args.checkpoint_dir, state)}", flush=True)
+    finally:
+        for s, h in old_handlers.items():
+            signal.signal(s, h)
+        if args.checkpoint_dir:
+            print(f"final checkpoint {save_checkpoint(args.checkpoint_dir, state)}", flush=True)
     return 0
 
+
+def cmd_evaluate(args) -> int:
+    """Render a view with a checkpoint's (or an export's) networks and
+    report its PSNR against the pretrained teacher's render of the view."""
+    import numpy as np
+
+    from nerf_rs_tpu_torch.config import RenderConfig
+    from nerf_rs_tpu_torch.io.checkpoint import latest_checkpoint
+    from nerf_rs_tpu_torch.io.weights import load_nerf_params
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import infer_arch
+    from nerf_rs_tpu_torch.render import render_image
+
+    if args.checkpoint is None and args.checkpoint_dir is None and args.weights_dir is None:
+        sys.exit("error: pass --checkpoint, --checkpoint-dir, or --weights-dir")
+    device = _device(args.device)
+    teacher, camera = _load_scene(args)
+    cfg = RenderConfig(n_coarse=args.coarse_samples, n_fine=args.fine_samples,
+                       ray_chunk=args.ray_chunk, impl=args.impl, dtype=args.dtype,
+                       sampling_impl=args.sampling_impl)
+    if args.weights_dir:
+        # Exported .bin weights of any ArchConfig member (assets/trained/*).
+        wd = Path(args.weights_dir)
+        params = {net: load_nerf_params(wd / net) for net in ("coarse", "fine")}
+        step, ckpt = -1, wd
+    else:
+        ckpt = args.checkpoint or latest_checkpoint(args.checkpoint_dir)
+        if ckpt is None:
+            sys.exit("error: no checkpoint found (--checkpoint or --checkpoint-dir)")
+        params, step = _restore_params(ckpt)
+    # The reference is the exact teacher: --impl int8 says how the
+    # checkpoint renders, not how the reference does.
+    teacher_cfg = cfg.replace(impl="pallas") if cfg.impl in ("int8", "int8qat") else cfg
+    if args.ref_samples:
+        rc, rf = (int(v) for v in args.ref_samples.split(","))
+        teacher_cfg = teacher_cfg.replace(n_coarse=rc, n_fine=rf)
+    teacher_cfg = _impl_for_params(teacher_cfg, *infer_arch(teacher["coarse"])[:3])
+    pc, pf, cfg = _checkpoint_networks(
+        params, ckpt, cfg, device, hint=" — re-run train with --checkpoint-dir to write one")
+    grid = None
+    if args.accel_probes:
+        # The checkpoint under the serving preset's probe-refined placement,
+        # on a grid of its own field.
+        from nerf_rs_tpu_torch.accel import build_scene_grid, hashgrid_grid_kwargs
+
+        grid_kw = hashgrid_grid_kwargs(cfg) if cfg.model == "hashgrid" else {}
+        grid = build_scene_grid(pc, pf, resolution=args.accel_res, device=device, **grid_kw)
+        cfg = cfg.replace(accel_sample_aabb=True, accel_compact="off",
+                          accel_aabb_probes=args.accel_probes,
+                          accel_range_stride=args.accel_stride or 1)
+    key = random.key(args.seed, device)
+    ref = render_image(teacher["coarse"], teacher["fine"], camera, args.size, args.size, key,
+                       teacher_cfg, device=device).cpu().numpy()
+    img = render_image(pc, pf, camera, args.size, args.size, key, cfg, device=device,
+                       grid=grid).cpu().numpy()
+    mse = float(np.mean((img - ref) ** 2))
+    psnr = -10.0 * np.log10(max(mse, 1e-12))
+    print(f"step {step}: {args.size}x{args.size} PSNR vs teacher {psnr:.2f} dB (mse {mse:.3e})")
+    return 0
+
+
+def cmd_export(args) -> int:
+    """A checkpoint's networks in the reference ``.bin`` format (any
+    ArchConfig member; ``shapes.txt`` records the dims)."""
+    from nerf_rs_tpu_torch.io.checkpoint import export_reference_format
+
+    params, step = _restore_params(args.checkpoint)
+    if "shared" in params:
+        sys.exit("error: hashgrid checkpoints have no reference .bin equivalent (the reference "
+                 "loader consumes dense-MLP layers only, src/lib.rs:108-174) — use "
+                 "evaluate/render with --checkpoint instead")
+    export_reference_format(args.output, params)
+    print(f"exported step {step} params to {args.output} (reference shapes.txt + .bin format)")
+    return 0
+
+
+def cmd_pack(args) -> int:
+    """The scene (both networks and the golden JSON) as one ``.npz``
+    bundle, loadable through ``--weights``, ``api.init_renderer`` and
+    ``$NERF_RS_TPU_ASSETS`` in both packages."""
+    import json
+
+    from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_scene_assets, save_bundle
+
+    assets = Path(args.weights) if args.weights else find_lego_assets()
+    if assets is None:
+        sys.exit("error: no weight assets found (set --weights or $NERF_RS_TPU_ASSETS)")
+    params, golden = load_scene_assets(assets)
+    save_bundle(args.output, params["coarse"], params["fine"], json.dumps(golden))
+    size_mb = Path(args.output).stat().st_size / 1e6
+    print(f"packed {assets} -> {args.output} ({size_mb:.1f} MB, coarse + fine + camera/golden "
+          "JSON)")
+    return 0
+
+
+def cmd_info(args) -> int:
+    """The torch and CUDA versions, the cards (name, count, power limit)
+    and the lego assets."""
+    import subprocess
+
+    import torch
+
+    from nerf_rs_tpu_torch.io.weights import find_lego_assets
+
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if torch.cuda.is_available():
+        n = torch.cuda.device_count()
+        print(f"devices ({n}): " + ", ".join(torch.cuda.get_device_name(i) for i in range(n)))
+        try:
+            smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                  "--format=csv,noheader"], capture_output=True, text=True,
+                                 timeout=args.device_timeout)
+            print("power limit: " + ("; ".join(smi.stdout.split("\n")).strip("; ")
+                                     if smi.returncode == 0 else "unread (nvidia-smi failed)"))
+        except (OSError, subprocess.TimeoutExpired) as e:
+            print(f"power limit: unread ({e})")
+    else:
+        print("devices: no CUDA card (torch.cuda.is_available() is false)")
+    print(f"lego assets: {find_lego_assets()}")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    from nerf_rs_tpu_torch import serve
+
+    return serve.main(["--port", str(args.port), "--host", args.host, "--device", args.device]
+                      + (["--warmup"] if args.warmup else [])
+                      + (["--accel", "--accel-res", str(args.accel_res)] if args.accel else [])
+                      + (["--checkpoint", args.checkpoint] if args.checkpoint else []))
+
+
+def _add_common(p):
+    """The render flags that evaluate shares with the JAX CLI's
+    ``_add_common``, and the port's ``--device``."""
+    p.add_argument("--weights",
+                   help="teacher weight directory or .npz bundle (default: auto-discover)")
+    p.add_argument("--camera", help="camera JSON (default: the weight directory's golden JSON)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device, e.g. cuda, cuda:1 or cpu")
+    p.add_argument("--impl", default="pallas", choices=["xla", "pallas", "int8", "int8qat"],
+                   help="MLP: 'pallas' = the fused CUDA kernel, 'xla' = plain PyTorch, "
+                        "'int8' = real W8A8 inference through the int8 CUDA kernel, "
+                        "'int8qat' = the QAT fake-quant forward")
+    p.add_argument("--sampling-impl", default="xla", choices=["xla", "pallas"],
+                   help="resampling chain: 'pallas' = the fused CUDA kernel, 'xla' = plain "
+                        "PyTorch")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--coarse-samples", type=int, default=64)
+    p.add_argument("--fine-samples", type=int, default=128)
+    p.add_argument("--ray-chunk", type=int, default=16384)
+    p.add_argument("--seed", type=int, default=0)
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="nerf_rs_tpu_torch", description=__doc__,
@@ -281,10 +639,13 @@ def main(argv=None) -> int:
     p.add_argument("--depth-output",
                    help="also write the depth map (expected t, near = white) as PNG/PPM here")
     p.add_argument("--acc-output", help="also write the accumulated-opacity map here")
+    p.add_argument("--checkpoint",
+                   help="render a training checkpoint (any model family) instead of the "
+                        "pretrained weights; the camera stays the scene's")
     p.set_defaults(fn=cmd_render)
 
-    p = sub.add_parser("train", help="train coarse+fine networks, distilling from the "
-                                     "pretrained lego networks")
+    p = sub.add_parser("train", help="train coarse+fine networks on a nerf_synthetic scene, "
+                                     "or distilling from the pretrained lego networks")
     p.add_argument("--weights", "--weights-dir", dest="weights",
                    help="teacher weight directory with coarse/ and fine/ (default: auto-discover)")
     p.add_argument("--device", default="cuda",
@@ -322,13 +683,65 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--batch-rays", type=int, default=4096)
     p.add_argument("--log-every", type=int, default=20)
+    p.add_argument("--data", help="nerf_synthetic scene directory (default: distill)")
+    p.add_argument("--checkpoint-dir",
+                   help="write checkpoints here, and resume from the newest one it holds")
+    p.add_argument("--checkpoint-every", type=int, default=500)
+    p.add_argument("--init-weights",
+                   help="start from exported weights (a coarse/ + fine/ .bin directory, as "
+                        "export writes, or an .npz bundle) of the same --width/--v-width/"
+                        "--depth/--skip-at, with a fresh optimizer at step 0; ignored when "
+                        "--checkpoint-dir already holds a checkpoint. MLP family only")
     # Accepted so that they can be refused by name (_refuse_unported).
-    p.add_argument("--data")
-    p.add_argument("--checkpoint-dir")
-    p.add_argument("--init-weights")
     for flag in _ACCEL_FLAGS:
         p.add_argument(f"--accel-{flag}", type=float)
     p.add_argument("--accel-aabb", action="store_true")
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("evaluate", help="checkpoint PSNR vs the pretrained teacher")
+    _add_common(p)
+    p.add_argument("--checkpoint", help="checkpoint path (default: the newest in the dir)")
+    p.add_argument("--checkpoint-dir")
+    p.add_argument("--size", type=int, default=64)
+    p.add_argument("--weights-dir",
+                   help="evaluate an exported weight directory (coarse/ + fine/ .bin) instead "
+                        "of a checkpoint, e.g. assets/trained/*")
+    p.add_argument("--ref-samples", metavar="NC,NF",
+                   help="render the teacher reference at these sample counts instead of the "
+                        "checkpoint's")
+    p.add_argument("--accel-probes", type=int, default=0,
+                   help="render the checkpoint under the serving preset's probe placement "
+                        "(a grid of its own field) instead of uniform [near, far] sampling")
+    p.add_argument("--accel-stride", type=int, default=4,
+                   help="with --accel-probes: probe a stride-subsampled ray grid")
+    p.add_argument("--accel-res", type=int, default=128,
+                   help="with --accel-probes: occupancy grid resolution")
+    p.set_defaults(fn=cmd_evaluate)
+
+    p = sub.add_parser("export", help="checkpoint -> reference .bin format")
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("-o", "--output", required=True)
+    p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("pack", help="scene -> single self-contained .npz bundle")
+    p.add_argument("--weights", help="weight directory (default: auto-discover)")
+    p.add_argument("-o", "--output", required=True)
+    p.set_defaults(fn=cmd_pack)
+
+    p = sub.add_parser("serve", help="HTTP browser viewer (python -m nerf_rs_tpu_torch.serve)")
+    p.add_argument("--port", type=int, default=8400)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--warmup", action="store_true")
+    p.add_argument("--accel", action="store_true",
+                   help="serve through the occupancy-grid fast path")
+    p.add_argument("--accel-res", type=int, default=128)
+    p.add_argument("--checkpoint", help="serve a training checkpoint (any model family)")
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("info", help="versions, cards and assets")
+    p.add_argument("--device-timeout", type=float, default=60.0,
+                   help="seconds to wait for nvidia-smi")
+    p.set_defaults(fn=cmd_info)
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -61,9 +61,9 @@ class RenderConfig:
     (``ops.kernels.resample.fused_resample``; its plain version on CPU
     tensors), on the inference path.
 
-    Values the port does not serve yet raise ``NotImplementedError`` where
-    they would take effect: ``impl="int8"`` / ``"int8qat"`` of the MLP
-    family (ROADMAP queue 1, item 12). Every ``accel_*`` field acts
+    ``impl="int8"`` serves the W8A8 family through the int8 CUDA kernel,
+    ``impl="int8qat"`` its fake-quant STE forward (``models/quant.py``),
+    both within the MLP family. Every ``accel_*`` field acts
     only with an occupancy grid (``accel.py``), with the JAX package's
     meanings: ``accel_compact`` "off" (the grid steers ray packing and
     sample placement only), "none" (mask-only culling), "scatter" /
@@ -127,8 +127,8 @@ class TrainConfig:
     decaying exponentially to 5e-6 over ``lr_decay_steps``. ``adam_eps``
     is the JAX package's default; the CLI's hash-grid recipe sets lr 1e-2
     decaying to 1e-4 and ``adam_eps`` 1e-15 (table gradients are minute
-    under the default eps). ``checkpoint_every`` keeps its place for item
-    10's checkpoints."""
+    under the default eps). ``checkpoint_every`` is the CLI's
+    ``--checkpoint-every`` (``io/checkpoint.py``)."""
 
     batch_rays: int = 4096
     lr_init: float = 5e-4

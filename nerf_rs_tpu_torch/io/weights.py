@@ -1,4 +1,4 @@
-"""Checkpoint I/O for the reference `.bin` weight format and `.npz` bundles.
+"""Weight I/O for the reference `.bin` format and `.npz` bundles.
 
 Each network is a directory of raw little-endian f32 row-major tensors plus
 a ``shapes.txt`` manifest (one ``name dim0 [dim1]`` per line); a bundle
@@ -118,6 +118,26 @@ def _to_numpy(x) -> np.ndarray:
 
 def _tree(params):
     return params.tree() if hasattr(params, "tree") else params
+
+
+def save_nerf_params(directory: os.PathLike, params) -> None:
+    """Write one network (a param tree or a NerfMLP) in the reference
+    format: ``{layer}_kernel.bin`` and ``{layer}_bias.bin`` as raw
+    little-endian f32, and the ``shapes.txt`` manifest, layer by layer in
+    :func:`param_layer_names` order — the bytes the JAX package's
+    ``save_nerf_params`` writes for the same tree."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    params = _tree(params)
+    lines = []
+    for layer in param_layer_names(params):
+        kernel = _to_numpy(params[layer]["kernel"])
+        bias = _to_numpy(params[layer]["bias"])
+        kernel.tofile(directory / f"{layer}_kernel.bin")
+        bias.tofile(directory / f"{layer}_bias.bin")
+        lines.append(f"{layer}_kernel {kernel.shape[0]} {kernel.shape[1]}")
+        lines.append(f"{layer}_bias {bias.shape[0]}")
+    (directory / "shapes.txt").write_text("\n".join(lines) + "\n")
 
 
 def save_bundle(path: os.PathLike, coarse_params, fine_params, golden_json_text: str) -> None:

@@ -122,8 +122,8 @@ def main(argv=None) -> int:
     parser.add_argument("--accel-res", type=int, default=128,
                         help="occupancy grid resolution per axis")
     parser.add_argument("--checkpoint",
-                        help="serve a training checkpoint instead of the pretrained weights "
-                             "(not ported yet: ROADMAP queue 1, item 10)")
+                        help="serve a training checkpoint (any model family) instead of the "
+                             "pretrained weights")
     args = parser.parse_args(argv)
     from nerf_rs_tpu_torch.api import init_renderer
 

@@ -119,6 +119,21 @@ def _flat(tree) -> Dict[str, object]:
     return out
 
 
+def _modules(params, device) -> Dict[str, torch.nn.Module]:
+    return {net: (HashGridField if is_hashgrid_params(tree) else NerfMLP)(
+                tree, device=device, requires_grad=True)
+            for net, tree in params.items()}
+
+
+def train_state_from_params(params, device) -> TrainState:
+    """A state that starts from the given param trees ({"coarse", "fine"}
+    or {"shared"}; numpy arrays or tensors) with zero Adam moments, count
+    and step 0: a new run from trained weights (``train
+    --init-weights``), not a resume."""
+    modules = _modules(params, device)
+    return TrainState(params=modules, mu=_zeros_like(modules), nu=_zeros_like(modules))
+
+
 def train_state_from_numpy(params, mu, nu, count: int, step: int, device) -> TrainState:
     """The port's state from a JAX ``TrainState`` taken to numpy:
     ``params``, ``mu`` and ``nu`` are {"coarse": tree, "fine": tree} with
@@ -126,9 +141,7 @@ def train_state_from_numpy(params, mu, nu, count: int, step: int, device) -> Tra
     hash-grid tree (optax's Adam moments have the params' structure);
     ``count`` is the Adam count, ``step`` the step. Lets a run continue
     from a JAX run."""
-    modules = {net: (HashGridField if is_hashgrid_params(tree) else NerfMLP)(
-                   tree, device=device, requires_grad=True)
-               for net, tree in params.items()}
+    modules = _modules(params, device)
 
     def moments(trees):
         return {net: {name: torch.as_tensor(np.asarray(arr), dtype=torch.float32,

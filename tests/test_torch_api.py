@@ -139,7 +139,7 @@ def test_failed_init_preserves_renderer(tmp_path):
     snapshot = dict(api._state)
     with pytest.raises(FileNotFoundError):
         api.init_renderer(assets_dir=str(tmp_path / "nonexistent"), cfg=SMALL)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(FileNotFoundError):
         api.init_renderer(checkpoint=str(tmp_path / "ckpt"))
     assert api._state == snapshot
     np.testing.assert_array_equal(api.render_image_rgba(8, 8, seed=0), before)
@@ -184,9 +184,38 @@ def test_serve_page_render_and_errors(server, monkeypatch):
     assert e.value.code == 500 and "synthetic render failure" in e.value.read().decode()
 
 
-def test_serve_main_refuses_checkpoints():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        serve.main(["--checkpoint", "step_00000001", "--device", "cpu"])
+def test_serve_main_refuses_checkpoints(tmp_path, monkeypatch):
+    """serve.main --checkpoint initializes the renderer with the
+    checkpoint (here a hash-grid one, its config from the sidecar) and
+    serves it; a missing checkpoint fails before the server starts."""
+    from nerf_rs_tpu_torch.config import HashGridConfig, TrainConfig
+    from nerf_rs_tpu_torch.io.checkpoint import save_checkpoint, save_model_config
+    from nerf_rs_tpu_torch.train import create_train_state
+
+    hcfg = HashGridConfig(levels=2, table_log2=8, res_max=16)
+    state = create_train_state(torch.Generator().manual_seed(0), TrainConfig(
+        render=RenderConfig(model="hashgrid", hash=hcfg)))
+    path = save_checkpoint(tmp_path, state)
+    save_model_config(tmp_path, {"model": "hashgrid", "hash": {"levels": 2, "table_log2": 8,
+                                                               "res_max": 16}})
+    started = []
+
+    class NoServer:
+        def __init__(self, address, handler):
+            started.append((address, handler))
+
+        def serve_forever(self):
+            pass
+
+    monkeypatch.setattr(serve, "ThreadingHTTPServer", NoServer)
+    assert serve.main(["--checkpoint", str(path), "--device", "cpu", "--port", "0"]) == 0
+    assert started == [(("127.0.0.1", 0), serve.Handler)]
+    assert api._state["checkpoint"] == str(path)
+    assert api._state["cfg"].model == "hashgrid" and api._state["cfg"].hash == hcfg
+    assert api._state["params"]["coarse"] is api._state["params"]["fine"]
+    with pytest.raises(FileNotFoundError):
+        serve.main(["--checkpoint", str(tmp_path / "step_00000007"), "--device", "cpu"])
+    assert len(started) == 1
 
 
 def test_cli_render_accel_k3_writes_three_images(tmp_path, capsys):

@@ -718,3 +718,97 @@ def test_int8_render_on_card_matches_plain(card):
         im.fused_int8_mlp = real
     mse = float(((got.double() - plain.double()) ** 2).mean())
     assert -10 * np.log10(max(mse, 1e-20)) >= 60.0
+
+
+@pytest.mark.parametrize("family", ["mlp", "hashgrid"])
+def test_checkpoint_of_a_card_state_restores_bitwise_on_the_cpu_and_back(card, tmp_path, family):
+    """A state trained one step on the card, saved, restored on the CPU and
+    saved again from there, restores on the card bitwise: params, moments,
+    count and step."""
+    from nerf_rs_tpu_torch.config import HashGridConfig, TrainConfig
+    from nerf_rs_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint
+    from nerf_rs_tpu_torch.train import create_train_state, train_step
+
+    render = RenderConfig(n_coarse=8, n_fine=8, ray_chunk=64, impl="pallas")
+    if family == "hashgrid":
+        render = render.replace(model="hashgrid",
+                                hash=HashGridConfig(levels=4, table_log2=12, res_max=64))
+    cfg = TrainConfig(batch_rays=64, arch=SMALL, render=render)
+    state = create_train_state(torch.Generator(device=card).manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    dirs = rng.normal(size=(64, 3)).astype(np.float32)
+    batch = {"origins": torch.zeros(64, 3, device=card),
+             "dirs": torch.from_numpy(dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)).to(card),
+             "rgb": torch.from_numpy(rng.uniform(size=(64, 3)).astype(np.float32)).to(card),
+             "near": torch.tensor(2.0, device=card), "far": torch.tensor(6.0, device=card)}
+    state, _ = train_step(state, batch, random.key(1, card), cfg)
+    on_cpu = restore_checkpoint(save_checkpoint(tmp_path / "a", state), "cpu")
+    back = restore_checkpoint(save_checkpoint(tmp_path / "b", on_cpu), card)
+    for restored in (on_cpu, back):
+        assert (restored.step, restored.count) == (1, 1)
+        for net, module in state.params.items():
+            for name, p in module.weights.items():
+                for got, want in ((restored.params[net].weights[name], p),
+                                  (restored.mu[net][name], state.mu[net][name]),
+                                  (restored.nu[net][name], state.nu[net][name])):
+                    assert torch.equal(got.detach().cpu(), want.detach().cpu()), (net, name)
+    assert back.params[next(iter(back.params))].weights["dense0_kernel" if family == "mlp"
+                                                        else "hash_tables"].device.type == "cuda"
+
+
+def test_render_checkpoint_equals_render_of_its_export_on_the_card(card, tmp_path):
+    """``render --checkpoint --device cuda`` writes the bytes of ``render
+    --weights <export> --device cuda``: the same networks through K1."""
+    from nerf_rs_tpu_torch.cli import main as cli_main
+    from nerf_rs_tpu_torch.config import TrainConfig
+    from nerf_rs_tpu_torch.io.checkpoint import save_checkpoint
+    from nerf_rs_tpu_torch.train import create_train_state
+
+    state = create_train_state(torch.Generator(device=card).manual_seed(4), TrainConfig())
+    ck = save_checkpoint(tmp_path / "ck", state)
+    assert cli_main(["export", "--checkpoint", str(ck), "-o", str(tmp_path / "exp")]) == 0
+    base = ["render", "--device", "cuda", "--width", "64", "--height", "64", "--coarse-samples",
+            "32", "--fine-samples", "64"]
+    before = fused_nerf_mlp.launches
+    assert cli_main([*base, "--checkpoint", str(ck), "-o", str(tmp_path / "ck.ppm")]) == 0
+    assert fused_nerf_mlp.launches == before + 2
+    assert cli_main([*base, "--weights", str(tmp_path / "exp"), "-o", str(tmp_path / "w.ppm")]) == 0
+    assert (tmp_path / "ck.ppm").read_bytes() == (tmp_path / "w.ppm").read_bytes()
+
+
+def test_blender_dataset_on_the_card_equals_the_cpus(card, tmp_path):
+    """A nerf_synthetic scene loaded for the card (ray directions computed
+    there, batches gathered in pinned memory and copied without blocking)
+    against the same scene loaded for the CPU: origins, frame indices and
+    colours bitwise, directions within 1e-6 (tests/test_torch_data.py's
+    bar against JAX); the first three batches of a seed likewise, on the
+    card."""
+    import json
+
+    from nerf_rs_tpu_torch.data import BlenderDataset
+    from nerf_rs_tpu_torch.io.image import save_png
+
+    rng = np.random.default_rng(0)
+    frames = []
+    for i in range(3):
+        save_png(tmp_path / f"r_{i}.png", rng.uniform(size=(24, 32, 4)).astype(np.float32), 24, 32)
+        pos = np.array([4 * np.sin(i), -4 * np.cos(i), 1.0], np.float32)
+        fwd = -pos / np.linalg.norm(pos)
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, np.cross(right, fwd), -fwd, pos
+        frames.append({"file_path": f"r_{i}", "transform_matrix": c2w.tolist()})
+    (tmp_path / "transforms_train.json").write_text(
+        json.dumps({"camera_angle_x": 0.69, "frames": frames}))
+    on_card, on_cpu = (BlenderDataset(tmp_path, device=d) for d in (card, "cpu"))
+    for name in ("frame_origins", "frame_idx", "rgb"):
+        np.testing.assert_array_equal(getattr(on_card, name), getattr(on_cpu, name), err_msg=name)
+    np.testing.assert_allclose(on_card.dirs, on_cpu.dirs, rtol=0, atol=1e-6)
+    card_batches, cpu_batches = on_card.batches(512, seed=3), on_cpu.batches(512, seed=3)
+    for _ in range(3):
+        got, want = next(card_batches), next(cpu_batches)
+        assert all(v.device.type == "cuda" for v in got.values())
+        for name in ("origins", "rgb", "near", "far"):
+            assert torch.equal(got[name].cpu(), want[name]), name
+        torch.testing.assert_close(got["dirs"].cpu(), want["dirs"], rtol=0, atol=1e-6)

@@ -144,15 +144,41 @@ def test_cli_render_int8_cpu_writes_image(tmp_path, capsys):
     assert "(int8/float32" in capsys.readouterr().out
 
 
-def test_unserved_checkpoint_raises():
-    """Serving a training checkpoint waits for item 10, and the refusal
-    leaves the renderer's state untouched."""
+def test_unserved_checkpoint_raises(tmp_path):
+    """api.init_renderer(checkpoint=...) serves a training checkpoint: the
+    frames are render_image's of the restored networks; the same
+    checkpoint again is a cached no-op, a missing one raises
+    FileNotFoundError and leaves the renderer as it was, and
+    checkpoint=None goes back to the pretrained weights."""
     from nerf_rs_tpu_torch import api
+    from nerf_rs_tpu_torch.config import ArchConfig, RenderConfig, TrainConfig
+    from nerf_rs_tpu_torch.io.checkpoint import restore_params, save_checkpoint
+    from nerf_rs_tpu_torch.io.image import pixels_to_rgba
+    from nerf_rs_tpu_torch.train import create_train_state
 
-    before = dict(api._state)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        api.init_renderer(checkpoint="step_00000001", device="cpu")
-    assert api._state == before
+    cfg = TrainConfig(arch=ArchConfig(width=64, v_width=32, depth=3, skip_at=1))
+    state = create_train_state(torch.Generator().manual_seed(3), cfg)
+    state.step = 5
+    path = save_checkpoint(tmp_path, state)
+    small = RenderConfig(n_coarse=4, n_fine=4, ray_chunk=64, impl="pallas")
+    api._state.clear()
+    try:
+        api.init_renderer(checkpoint=str(path), cfg=small, device="cpu")
+        served = api._state["params"]
+        trees, _ = restore_params(path)
+        want = render_image(trees["coarse"], trees["fine"], api._state["camera"], 8, 8,
+                            random.key(2, "cpu"), small)
+        np.testing.assert_array_equal(api.render_image_rgba(8, 8, seed=2), pixels_to_rgba(want))
+        api.init_renderer(checkpoint=str(path))
+        assert api._state["params"] is served
+        before = dict(api._state)
+        with pytest.raises(FileNotFoundError):
+            api.init_renderer(checkpoint=str(tmp_path / "step_00000009"))
+        assert api._state == before
+        api.init_renderer(checkpoint=None)
+        assert api._state["checkpoint"] is None and api._state["params"] is not served
+    finally:
+        api._state.clear()
 
 
 @pytest.mark.parametrize("nc, nf", [(2, 8), (8, 0), (1024, 1025)])

@@ -309,9 +309,6 @@ def test_cli_train_int8_is_inference_only():
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--data", "scene"], 10),
-    (["--checkpoint-dir", "ckpt"], 10),
-    (["--init-weights", "w"], 10),
     (["--accel-every", "8"], 7),
     (["--accel-aabb"], 7),
 ])
