@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's six main paths and holds them to the repository's own
+Drives the port's seven main paths and holds them to the repository's own
 bars: the render path — the pretrained lego coarse and fine networks
 rendering a 256x256 frame with 64 stratified + 128 importance samples on
 white, through ``nerf_rs_tpu_torch.render.render_image`` — the training
@@ -23,8 +23,11 @@ networks quantized after training and rendered through the int8 MLP kernel
 forward (``train --impl int8qat``) — and the checkpoint, dataset and
 front-end slice — a nerf_synthetic scene learned through ``python -m
 nerf_rs_tpu_torch train --data`` with checkpoints, resume and SIGTERM, then
-rendered, exported, evaluated and served from its checkpoints. Phases, each
-reported on its own line:
+rendered, exported, evaluated and served from its checkpoints — and
+occupancy-culled, placement-aware training with the rest of the front ends
+— the teacher_sp30 fine-tune through ``train --accel-every --accel-aabb
+--accel-probes``, then ``verify``, ``extract`` and ``render --orbit
+--trace-dir``. Phases, each reported on its own line:
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: the fused MLP kernels K1 and K2 (both on the tensor cores, f32
@@ -141,7 +144,30 @@ reported on its own line:
     --model hashgrid --data`` for 20 steps and its checkpoint rendered with
     the encode kernel (2 launches a chunk) against the plain encode (>= 60
     dB); times: the dataset load, a step on ``--data``, a checkpoint's save
-    and restore, SIGTERM to exit.
+    and restore, SIGTERM to exit;
+26. occupancy-culled, placement-aware training and the rest of the front
+    ends, through ``nerf_rs_tpu_torch.cli.main``: the teacher_sp30 recipe
+    (``train --init-weights assets/lego_rust --fine-samples 0
+    --teacher-samples 64,128 --accel-every 25 --accel-warmup 0 --accel-aabb
+    --accel-probes 128 --accel-pad 4 --lr 1e-4``, 8x256, 4096 rays, f32)
+    for SP_STEPS steps: the loss falls, a grid refresh every 25 steps (each
+    a rebuild or one of JAX's dense fallbacks), K1 three times a step, 16
+    times a refresh and twice for the batch the loop draws past its last
+    step, K2 once a step; the
+    single-pass probe-placed 256x256 frame against the teacher's 64+128
+    before and after (``evaluate``, reported); one culled step from the same
+    state, batch and 128^3 grid, kernels against the plain MLP (64+128
+    mask-only, and the recipe's 64+0 under 128-probe placement: phase 9's
+    bars); times, ABBA: the dense step, the culled step mask-only and with
+    scatter and gather compaction (capacities from
+    ``accel.capacities_from_occupancy`` and from the live rows), one grid
+    refresh; ``train --model hashgrid`` and ``--impl int8qat`` under
+    ``--accel-every`` (the refreshes ran, the encode's launches); ``verify
+    --impl pallas --image --image-full`` in f32 and ``--image`` in bf16;
+    ``extract`` at 128^3 (K1 bf16 sigma-only: cells on the other side of the
+    iso level against the plain f32 lattice, at most EXTRACT_FLIP_BAR of
+    the cells next to the surface); ``render --orbit 4 --trace-dir``: frame
+    0 bitwise the plain render, K1's kernel in the Chrome trace.
 
 Any failed phase exits non-zero. The line before the last is a JSON
 summary of the kernels, each with its bound (the larger of its bytes over
@@ -2169,6 +2195,311 @@ def run_phase_data(root: Path, coarse, fine, cam, dev, card):
         f"each); phase 25 took {time.perf_counter() - t_phase:.1f} s")
 
 
+
+# Occupancy-culled, placement-aware training and the rest of the front ends
+# (phase 26): the teacher_sp30 recipe (assets/trained/README.md: `train
+# --init-weights assets/lego_rust --fine-samples 0 --teacher-samples 64,128
+# --accel-aabb --accel-probes 128`, lr 1e-4, --accel-pad 4 for the stride-4
+# serving preset), cut to SP_STEPS steps; then verify, extract and render
+# --orbit/--trace-dir through the CLI.
+SP_STEPS, SP_EVERY = 100, 25
+SP_RECIPE = ["--fine-samples", "0", "--teacher-samples", "64,128", "--accel-every", str(SP_EVERY),
+             "--accel-warmup", "0", "--accel-aabb", "--accel-probes", "128", "--accel-pad", "4",
+             "--lr", "1e-4", "--batch-rays", str(TRAIN_RAYS)]
+SP_EVAL = ["--size", str(H), "--coarse-samples", str(N_COARSE), "--fine-samples", "0",
+           "--ref-samples", f"{N_COARSE},{N_FINE}", "--accel-probes", "128"]
+HASH_ACCEL_STEPS, QAT_ACCEL_STEPS = 30, 10
+EXTRACT_RES, EXTRACT_ISO = 128, 10.0
+# Lattice cells on the other side of the iso level between K1 bf16's
+# lattice and the plain f32 one, as a share of the cells next to the f32
+# surface: a bf16 sigma within about 1% of the level flips (the plain bf16
+# version flips 0.18% at 64^3 on a CPU).
+EXTRACT_FLIP_BAR = 0.01
+ORBIT_FRAMES = 4
+VERIFY_BF16_TOLERANCE = 4.0
+
+
+def step_losses(out: str):
+    return [float(v) for v in re.findall(r"^step \d+: loss ([0-9.]+)", out, re.M)]
+
+
+def near_surface_flips(sig, plain, iso: float):
+    """(cells on the other side of ``iso`` between two lattices, cells of
+    ``plain`` next to its iso surface)."""
+    side, side_plain = sig > iso, plain > iso
+    near = side_plain != side_plain.roll(1, 0)
+    for ax in (1, 2):
+        near |= side_plain != side_plain.roll(1, ax)
+    return int((side != side_plain).sum()), int(near.sum())
+
+
+def phase_culled(coarse, fine, cam, dev, card):
+    """Phase 26 in a temporary directory, removed when the phase ends."""
+    with tempfile.TemporaryDirectory(prefix="nerf_rs_tpu_torch_culled_") as tmp:
+        return run_phase_culled(Path(tmp), coarse, fine, cam, dev, card)
+
+
+def run_phase_culled(root: Path, coarse, fine, cam, dev, card):
+    """Phase 26: occupancy-culled, placement-aware training through the CLI
+    and on the same state with the kernels against the plain MLP, its
+    times, the hash-grid and int8qat students under --accel-every, then
+    verify, extract and render --orbit --trace-dir; the launch counts set
+    to 0 just before each run and read just after."""
+    import torch
+
+    from nerf_rs_tpu_torch.accel import (
+        _oracle_sigma,
+        build_scene_grid,
+        capacities_from_occupancy,
+        density_grid,
+        field_grid_kwargs,
+    )
+    from nerf_rs_tpu_torch.config import RenderConfig, TrainConfig
+    from nerf_rs_tpu_torch.data import DistillationDataset
+    from nerf_rs_tpu_torch.io.image import load_ppm
+    from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_nerf_params
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.train import refresh_grid, train_state_from_params, train_step
+
+    t_phase = time.perf_counter()
+    assets = find_lego_assets()
+    lego = {net: load_nerf_params(assets / net) for net in ("coarse", "fine")}
+
+    # 1. The culled, placement-aware fine-tune through the CLI.
+    def sp_psnr(argv):
+        m = re.search(r"PSNR vs teacher ([0-9.]+) dB", cli_run(["evaluate", *argv, *SP_EVAL]))
+        return float(m.group(1)) if m else float("nan")
+
+    before_db = sp_psnr(["--weights-dir", str(assets)])
+    ck = root / "sp"
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = cli_run(["train", "--init-weights", str(assets), *SP_RECIPE, "--steps", str(SP_STEPS),
+                   "--checkpoint-dir", str(ck), "--checkpoint-every", str(10 * SP_STEPS),
+                   "--log-every", "1"])
+    sp_s = time.perf_counter() - t0
+    c_sp = read_counts()
+    after_db = sp_psnr(["--checkpoint-dir", str(ck)])
+    losses = step_losses(out)
+    refreshes = re.findall(r"^accel: .*$", out, re.M)
+    loads = re.findall(r"accel-load ([0-9.]+)/([0-9.]+)", out)
+    head, tail = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    # A step: the teacher's 64+128 batch (K1 twice), the student's single
+    # pass (K1 once, K2 once); a refresh: two 128^3 sweeps of 262144-row
+    # chunks (coarse and fine), K1 f32 sigma-only; and the teacher's batch
+    # the loop draws before it sees the last step, as the JAX CLI's does.
+    sweep = 2 * -(-GRID_RES ** 3 // 262_144)
+    want_k1 = 3 * SP_STEPS + 2 + sweep * (SP_STEPS // SP_EVERY)
+    ok = (len(losses) == SP_STEPS and all(math.isfinite(v) for v in losses) and tail < head
+          and len(refreshes) == SP_STEPS // SP_EVERY
+          and c_sp["fused_nerf_mlp"] == want_k1 and c_sp["fused_nerf_mlp_backward"] == SP_STEPS)
+    say("26 culled", f"train --init-weights lego {' '.join(SP_RECIPE)} --steps {SP_STEPS}: "
+        f"{sp_s:.1f} s; loss {losses[0]:.5f} -> {losses[-1]:.5f}, mean of the first 10 {head:.5f}, "
+        f"of the last 10 {tail:.5f}; {len(refreshes)} grid refreshes (expected "
+        f"{SP_STEPS // SP_EVERY}): {sorted(set(refreshes))}; steps logging accel-load "
+        f"{len(loads)}; launches K1 {c_sp['fused_nerf_mlp']} (expected {want_k1}: 3 a step, "
+        f"{sweep} a refresh, 2 for the batch drawn past the last step), K2 {c_sp['fused_nerf_mlp_backward']} (expected {SP_STEPS}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    say("26 culled", f"single-pass {N_COARSE}+0 probe-placed {W}x{H} frame vs the teacher's "
+        f"{N_COARSE}+{N_FINE} (evaluate, reported, no bar): before {before_db:.2f} dB, after "
+        f"{SP_STEPS} steps {after_db:.2f} dB")
+    if not ok:
+        raise PhaseFailure("the culled fine-tune did not learn, refresh its grid, or went around "
+                           "the kernels")
+
+    # 2. Kernels against plain, one culled step from one state, batch and
+    # grid: 8x256, 4096 rays, 64+128, f32, mask-only; and the recipe's
+    # single-pass step under 128-probe placement.
+    cfg = TrainConfig(batch_rays=TRAIN_RAYS, render=RenderConfig(
+        n_coarse=N_COARSE, n_fine=N_FINE, ray_chunk=TRAIN_RAYS, impl="pallas"))
+    teacher = {"coarse": coarse, "fine": fine}
+    batch = next(DistillationDataset(teacher, cfg=cfg.render, seed=3, device=dev).batches(
+        TRAIN_RAYS))
+    key = random.key(4, dev)
+    sweep_kw = field_grid_kwargs(cfg.render)
+    grid = build_scene_grid(coarse, fine, resolution=GRID_RES, **sweep_kw)
+    frac = float(grid.occ.float().mean())
+    sp_cfg = cfg.replace(render=cfg.render.replace(n_fine=0, accel_sample_aabb=True,
+                                                   accel_aabb_probes=128, accel_pad_probes=4.0))
+    live = {}
+    for label, step_cfg, bar_lr in (("64+128 mask-only", cfg, cfg.lr_init),
+                                    ("64+0 128-probe placement", sp_cfg, sp_cfg.lr_init)):
+        states, metrics = {}, {}
+        for impl in ("pallas", "xla"):
+            state = train_state_from_params(lego, dev)
+            zero_counts()
+            states[impl], m = train_step(state, batch, key, step_cfg.replace(
+                render=step_cfg.render.replace(impl=impl)), grid=grid)
+            metrics[impl] = {k: float(v) for k, v in m.items()}
+            if impl == "pallas":
+                c_step = read_counts()
+        live[label] = metrics["pallas"]
+        diffs = [(p.detach() - states["xla"].params[net].weights[name].detach()).abs()
+                 for net in ("coarse", "fine")
+                 for name, p in states["pallas"].params[net].weights.items()]
+        rel = abs(metrics["pallas"]["loss"] - metrics["xla"]["loss"]) / metrics["xla"]["loss"]
+        worst = max(float(d.max()) for d in diffs)
+        share = sum(int((d > 1e-5).sum()) for d in diffs) / sum(d.numel() for d in diffs)
+        passes = 1 if step_cfg.render.n_fine == 0 else 2
+        ok = (rel <= 1e-5 and worst < 2 * bar_lr and share < 1e-3
+              and c_step["fused_nerf_mlp"] == passes
+              and c_step["fused_nerf_mlp_backward"] == passes
+              and metrics["pallas"]["live_frac_coarse"] == metrics["xla"]["live_frac_coarse"])
+        say("26 culled", f"one culled step ({label}, grid {GRID_RES}^3 of the lego networks "
+            f"{frac:.4f} occupied), kernels vs plain MLP: loss {metrics['pallas']['loss']:.6f} vs "
+            f"{metrics['xla']['loss']:.6f} (relative {rel:.2e}, bar 1e-5); params max abs diff "
+            f"{worst:.2e} (bar < {2 * bar_lr:g}), share > 1e-5 {share:.2e} (bar < 1e-3); live "
+            f"coarse {metrics['pallas']['live_frac_coarse']:.4f} fine "
+            f"{metrics['pallas']['live_frac_fine']:.4f}; launches K1 {c_step['fused_nerf_mlp']}, "
+            f"K2 {c_step['fused_nerf_mlp_backward']} (expected {passes} each) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailure(f"the culled step ({label}) on the kernels misses the plain MLP's")
+
+    # 3. Times from one state, ABBA medians of 3: the dense step, the
+    # culled step in each accel_compact mode (capacities from
+    # capacities_from_occupancy, and from the mask-only step's live rows
+    # x 1.15), one refresh at 128^3.
+    saved_counts = save_counts()
+    state = train_state_from_params(lego, dev)
+    cap_c, cap_f = capacities_from_occupancy(frac, cfg.render)
+    lc, lf = live["64+128 mask-only"]["live_frac_coarse"], live["64+128 mask-only"]["live_frac_fine"]
+    meas_c, meas_f = (min(1.0, -(-1.15 * v // 0.125) * 0.125) for v in (lc, lf))
+
+    def culled(compact, c, f):
+        return cfg.replace(render=cfg.render.replace(accel_compact=compact,
+                                                     accel_coarse_capacity=c,
+                                                     accel_fine_capacity=f))
+
+    variants = {"dense": lambda: train_step(state, batch, key, cfg),
+                "mask-only": lambda: train_step(state, batch, key, culled("none", 1.0, 1.0),
+                                                grid=grid)}
+    for compact in ("scatter", "gather"):
+        variants[f"{compact} {cap_c:.3f}/{cap_f:.3f}"] = (
+            lambda c=compact: train_step(state, batch, key, culled(c, cap_c, cap_f), grid=grid))
+        variants[f"{compact} measured {meas_c:.3f}/{meas_f:.3f}"] = (
+            lambda c=compact: train_step(state, batch, key, culled(c, meas_c, meas_f), grid=grid))
+    variants[f"refresh {GRID_RES}^3"] = lambda: refresh_grid(
+        state.params, cfg, 0, resolution=GRID_RES, explore=0.01, sweep_kw=sweep_kw)
+    step_ms = {name: [] for name in variants}
+    for order in (list(variants), list(variants)[::-1]):
+        for name in order:
+            step_ms[name].append(timed_ms(variants[name]))
+    scatter = next(k for k in variants if k.startswith("scatter measured"))
+    profiles = {name: profile_frame(variants[name]) for name in ("dense", scatter)}
+    restore_counts(saved_counts)                   # timing launches do not count
+    step_ms = {name: statistics.mean(v) for name, v in step_ms.items()}
+    say("26 culled", f"{card}: step and refresh times, {TRAIN_RAYS} rays {N_COARSE}+{N_FINE} f32, "
+        f"8x256 lego state, grid {frac:.4f} occupied (ABBA, mean of two medians of 3): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in step_ms.items())
+        + f"; capacities_from_occupancy gives {cap_c:.3f}/{cap_f:.3f}")
+    for name, (wall, busy, top) in profiles.items():
+        say("26 culled", f"{card}: one {name} step under torch.profiler: {wall:.1f} ms wall, "
+            f"device busy {busy:.1f} ms, idle {1 - busy / wall:.2%}; top device kernels: "
+            + ", ".join(f"{k[:60]} {v:.1f} ms" for k, v in top))
+
+    # 4. The hash-grid and int8qat students under --accel-every.
+    runs = {"hashgrid": (["--model", "hashgrid", "--accel-every", "10"], HASH_ACCEL_STEPS),
+            "int8qat": (["--impl", "int8qat", "--accel-every", "5"], QAT_ACCEL_STEPS)}
+    for family, (flags, steps) in runs.items():
+        zero_counts()
+        out = cli_run(["train", *flags, "--accel-warmup", "0", "--steps", str(steps),
+                       "--log-every", "1"])
+        c = read_counts()
+        losses = step_losses(out)
+        refreshes = re.findall(r"^accel: .*$", out, re.M)
+        every = int(flags[-1])
+        ok = (len(losses) == steps and all(math.isfinite(v) for v in losses)
+              and len(refreshes) == -(-steps // every))
+        if family == "hashgrid":
+            # Two encode launches a step; a refresh sweeps the one field.
+            want = 2 * steps + len(refreshes) * -(-GRID_RES ** 3 // 262_144)
+            ok = ok and c["fused_hash_encode"] == want and c["fused_nerf_mlp_backward"] == 0
+            counts = f"encode {c['fused_hash_encode']} (expected {want})"
+        else:
+            # The teacher through K1 (two a step); the fake-quant student,
+            # its refresh sweeps too, in torch ops.
+            ok = ok and c["fused_nerf_mlp"] == 2 * steps + 2 \
+                and c["fused_nerf_mlp_backward"] == 0 and c["fused_int8_mlp"] == 0
+            counts = (f"K1 {c['fused_nerf_mlp']} (expected {2 * steps + 2}: the teacher, and its "
+                      f"batch drawn past the last step), K2 "
+                      f"{c['fused_nerf_mlp_backward']}, int8 {c['fused_int8_mlp']} (expected 0)")
+        say("26 culled", f"train {' '.join(flags)} --accel-warmup 0 --steps {steps}: loss "
+            f"{losses[0]:.5f} -> {losses[-1]:.5f}; {len(refreshes)} refreshes: "
+            f"{sorted(set(refreshes))}; launches {counts} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailure(f"train --accel-every of the {family} student failed")
+
+    # 5. verify through K1: f32 with both images, bf16 with the small one.
+    # The golden sigmas reach 213, where one bf16 ulp is 1.0: the JAX
+    # package's bf16 kernel misses the default 1e-2 there by 1.00 (its
+    # interpret mode on a CPU), so bf16 is held to 4 such ulps.
+    for flags in (["--impl", "pallas", "--image", "--image-full"],
+                  ["--impl", "pallas", "--dtype", "bfloat16", "--image", "--tolerance",
+                   str(VERIFY_BF16_TOLERANCE)]):
+        zero_counts()
+        out = cli_run(["verify", *flags])
+        c = read_counts()
+        worst = re.search(r"^worst error (\S+)", out, re.M).group(1)
+        images = re.findall(r"^(.*golden): ([0-9.]+) dB \[(OK|FAIL)\] \(bar (\d+) dB", out, re.M)
+        tol = re.search(r"\(tolerance (\S+)\)", out).group(1)
+        say("26 front ends", f"verify {' '.join(flags)}: exit 0, worst error {worst} (tolerance "
+            f"{tol}); " + "; ".join(f"{lab} {db} dB [{st}] (bar {bar})" for lab, db, st, bar in images)
+            + f"; K1 launches {c['fused_nerf_mlp']}, on the tensor cores {c['fused_nerf_mlp_tc']}")
+
+    # 6. extract at 128^3 on the lego networks (K1 bf16 sigma-only).
+    zero_counts()
+    t0 = time.perf_counter()
+    out = cli_run(["extract", "-o", str(root / "lego.ply"), "--resolution", str(EXTRACT_RES)])
+    extract_s = time.perf_counter() - t0
+    c = read_counts()
+    m = re.search(r": ([0-9,]+) vertices, ([0-9,]+) triangles", out)
+    with torch.no_grad():
+        sig = density_grid(fine, resolution=EXTRACT_RES)
+        plain = density_grid(fine, resolution=EXTRACT_RES, mlp_fn=_oracle_sigma)
+    flips, near = near_surface_flips(sig, plain, EXTRACT_ISO)
+    chunks = -(-EXTRACT_RES ** 3 // 262_144)
+    ok = (m is not None and flips <= EXTRACT_FLIP_BAR * near and c["fused_nerf_mlp"] == chunks
+          and c["fused_nerf_mlp_tc"] == chunks)
+    say("26 front ends", f"{card}: extract --resolution {EXTRACT_RES}: {extract_s:.2f} s (the CLI "
+        f"call: lattice, mesh, vertex colors, PLY), {m.group(1) if m else '?'} vertices, "
+        f"{m.group(2) if m else '?'} faces; K1 bf16 launches {c['fused_nerf_mlp']} (expected "
+        f"{chunks}); K1 bf16 lattice vs plain f32 lattice: {flips} cells on the other side of iso "
+        f"{EXTRACT_ISO:g}, {flips / max(near, 1):.4%} of the {near} cells next to the surface (bar "
+        f"<= {EXTRACT_FLIP_BAR:.0%}), {flips / EXTRACT_RES ** 3:.2e} of all -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("extract's lattice through K1 bf16 misses its bar or its kernel")
+
+    # 7. render --orbit with a trace; frame 0 against the plain render.
+    render = ["render", "--width", str(W), "--height", str(H), "--ray-chunk", str(RAY_CHUNK)]
+    zero_counts()
+    t0 = time.perf_counter()
+    cli_run([*render, "--orbit", str(ORBIT_FRAMES), "--trace-dir", str(root / "trace"),
+             "-o", str(root / "orbit.ppm")])
+    orbit_s = time.perf_counter() - t0
+    c = read_counts()
+    cli_run([*render, "-o", str(root / "plain.ppm")])
+    same = (root / "orbit_000.ppm").read_bytes() == (root / "plain.ppm").read_bytes()
+    moved = bool((load_ppm(root / "orbit_000.ppm") != load_ppm(root / "orbit_001.ppm")).any())
+    traces = list((root / "trace").glob("*.pt.trace.json"))
+    names = ({e.get("name", "") for e in json.loads(traces[0].read_text())["traceEvents"]
+              if e.get("cat") == "kernel"} if len(traces) == 1 else set())
+    k1_names = sorted(n for n in names if "fused_mlp_f32tc_kernel" in n)
+    chunks = -(-H * W // RAY_CHUNK)
+    ok = (same and moved and k1_names and c["fused_nerf_mlp"] == 2 * chunks * ORBIT_FRAMES)
+    say("26 front ends", f"{card}: render --orbit {ORBIT_FRAMES} --trace-dir {W}x{H}: "
+        f"{orbit_s:.2f} s with the trace; frame 0 bitwise the plain render: {same}; frames differ: "
+        f"{moved}; K1 launches {c['fused_nerf_mlp']} (expected {2 * chunks * ORBIT_FRAMES}); the "
+        f"Chrome trace ({len(traces)} file) holds {len(names)} kernel names, K1's: "
+        f"{[n[:60] for n in k1_names][:2]} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("render --orbit/--trace-dir differs from the plain render or lacks K1")
+    say("26 front ends", f"phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return c_sp
+
+
 def main() -> int:
     import torch
 
@@ -2379,6 +2710,10 @@ def main() -> int:
 
     # Checkpoints, the nerf_synthetic dataset and the CLI's front ends.
     phase_data(coarse, fine, cam, dev, card)
+
+    # Occupancy-culled, placement-aware training and the rest of the front
+    # ends.
+    phase_culled(coarse, fine, cam, dev, card)
 
     # Bounds from this run's shapes (bytes: each input read once, each
     # output written once; operations at the peak of their type).

@@ -110,10 +110,11 @@ def _grid_sweep(params, pts, sigma_threshold: float, *, mlp_fn, chunk: int, r: i
     return occ
 
 
-def hashgrid_grid_kwargs(cfg) -> dict:
-    """``build_scene_grid`` arguments for a hash-grid RenderConfig: sweep
-    the hash field itself (sigma-only, at ``cfg.dtype``) over its own AABB,
-    since the default sweep assumes the MLP family and the (-2, 2) box."""
+def field_grid_kwargs(cfg) -> dict:
+    """``build_scene_grid`` arguments that sweep the configured field
+    itself: ``render.get_mlp_fn(cfg)`` sigma-only, so the configured impl
+    and dtype (not the default bf16 sweep), and for the hash-grid family
+    its own AABB. Training refreshes its grid from the student this way."""
     from nerf_rs_tpu_torch.render import get_mlp_fn
 
     mlp = get_mlp_fn(cfg)
@@ -121,7 +122,14 @@ def hashgrid_grid_kwargs(cfg) -> dict:
     def sigma_fn(params, points, viewdirs):
         return mlp(params, points, viewdirs, sigma_only=True)
 
-    return {"mlp_fn": sigma_fn, "aabb": cfg.hash.aabb}
+    return {"mlp_fn": sigma_fn, **({"aabb": cfg.hash.aabb} if cfg.model == "hashgrid" else {})}
+
+
+def hashgrid_grid_kwargs(cfg) -> dict:
+    """:func:`field_grid_kwargs` of a hash-grid RenderConfig, under the JAX
+    package's name: a hash-grid field needs them wherever it is swept,
+    since the default sweep assumes the MLP family and the (-2, 2) box."""
+    return field_grid_kwargs(cfg)
 
 
 def build_occupancy_grid(params, *, resolution: int = 128,

@@ -2,29 +2,36 @@
 
     python -m nerf_rs_tpu_torch render --width 256 --height 256 -o out.ppm
     python -m nerf_rs_tpu_torch render --accel --sampling-impl pallas
+    python -m nerf_rs_tpu_torch render --orbit 36 --trace-dir trace/ -o turn.png
     python -m nerf_rs_tpu_torch train --steps 20
     python -m nerf_rs_tpu_torch train --data lego/ --checkpoint-dir ck --steps 5000
+    python -m nerf_rs_tpu_torch train --init-weights assets/lego_rust --fine-samples 0 \
+        --teacher-samples 64,128 --accel-every 25 --accel-aabb --accel-probes 128
     python -m nerf_rs_tpu_torch train --model hashgrid --steps 300
     python -m nerf_rs_tpu_torch train --impl int8qat --steps 50
     python -m nerf_rs_tpu_torch render --checkpoint ck/step_00005000 -o trained.ppm
     python -m nerf_rs_tpu_torch evaluate --checkpoint-dir ck
+    python -m nerf_rs_tpu_torch verify --image
+    python -m nerf_rs_tpu_torch extract -o lego.ply
     python -m nerf_rs_tpu_torch export --checkpoint ck/step_00005000 -o weights/
     python -m nerf_rs_tpu_torch pack -o scene.npz
     python -m nerf_rs_tpu_torch serve --checkpoint ck/step_00005000
     python -m nerf_rs_tpu_torch info
 
 Every subcommand runs on the CUDA card unless ``--device cpu`` is given.
-``render`` takes the occupancy-grid flags, the depth and opacity maps, the
-W8A8 ``--impl int8`` / ``int8qat`` and a training checkpoint of any
-family. ``train`` distills from the pretrained lego networks, or learns a
-nerf_synthetic scene (``--data``); it writes checkpoints in the port's own
-format (``io/checkpoint.py``), resumes from them, stops cleanly on SIGTERM
-or SIGINT, and can start from exported weights (``--init-weights``). Still
-to be ported: the ``verify``, ``benchmark`` and ``extract`` subcommands,
-render's ``--orbit`` and ``--trace-dir``, train's ``--camera``,
-``--sampling-impl`` and ``--ray-chunk`` (ROADMAP queue 1, item 10), the
-occupancy-culled training flags ``--accel-*`` (item 7) and ``--sharded``
-(item 11).
+``render`` takes the occupancy-grid flags, the depth and opacity maps,
+turntable frames (``--orbit``), a ``torch.profiler`` trace
+(``--trace-dir``), the W8A8 ``--impl int8`` / ``int8qat`` and a training
+checkpoint of any family. ``train`` distills from the pretrained lego
+networks, or learns a nerf_synthetic scene (``--data``); it writes
+checkpoints in the port's own format (``io/checkpoint.py``), resumes from
+them, stops cleanly on SIGTERM or SIGINT, can start from exported weights
+(``--init-weights``), and culls and places its samples by an occupancy grid
+it rebuilds from the student (``--accel-*``). ``verify`` checks the
+networks against the golden samples and frames, ``extract`` writes the
+field's iso-surface as a PLY mesh. Not ported: ``benchmark``, which wraps
+the repository's ``bench.py`` (ROADMAP item 8), and ``--sharded`` (item
+11).
 """
 
 from __future__ import annotations
@@ -99,10 +106,11 @@ def _device(name: str):
 
 
 def _load_scene(args):
-    """(param trees, camera) of ``--weights`` (default: the lego assets):
-    a weight directory with its golden JSON or an ``.npz`` bundle, or a
-    bare export (``coarse/`` + ``fine/``, as ``export`` writes), whose
-    camera comes from ``--camera``, else from the lego assets."""
+    """(param trees, camera, golden JSON) of ``--weights`` (default: the
+    lego assets): a weight directory with its golden JSON or an ``.npz``
+    bundle, or a bare export (``coarse/`` + ``fine/``, as ``export``
+    writes), whose camera comes from ``--camera``, else from the lego
+    assets."""
     from nerf_rs_tpu_torch.io.golden import camera_from_golden, load_golden
     from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_nerf_params, load_scene_assets
 
@@ -120,7 +128,7 @@ def _load_scene(args):
                 sys.exit(f"error: {assets} has no tf_reference_samples.json — pass --camera <json>")
     if camera_json:
         golden = load_golden(Path(camera_json))
-    return trees, camera_from_golden(golden)
+    return trees, camera_from_golden(golden), golden
 
 
 def _restore_params(path):
@@ -158,10 +166,12 @@ def cmd_render(args) -> int:
     from nerf_rs_tpu_torch.models.mlp import as_module
     from nerf_rs_tpu_torch.ops import random
     from nerf_rs_tpu_torch.ops.kernels.fused_mlp import infer_arch
+    from nerf_rs_tpu_torch.ops.rays import orbit_camera
     from nerf_rs_tpu_torch.render import render_image, render_image_aux
+    from nerf_rs_tpu_torch.utils.profiling import device_trace
 
     device = _device(args.device)
-    trees, camera = _load_scene(args)
+    trees, camera, _ = _load_scene(args)
     cfg = RenderConfig(n_coarse=args.coarse_samples, n_fine=args.fine_samples,
                        ray_chunk=args.ray_chunk, impl=args.impl, dtype=args.dtype,
                        sampling_impl=args.sampling_impl)
@@ -193,38 +203,41 @@ def cmd_render(args) -> int:
             save_png(path, img, args.height, args.width)
         print(f"Wrote {path}")
 
-    key = random.key(args.seed, device)
+    # --orbit N: N turntable frames about the scene's z-axis, named
+    # <stem>_000..; the capacities stay those tuned on the base view (the
+    # orbit keeps the camera's distance).
+    n_frames = max(1, args.orbit)
+
+    def frame_path(base, fi):
+        p = Path(base)
+        return p if n_frames == 1 else p.with_name(f"{p.stem}_{fi:03d}{p.suffix}")
+
     t0 = time.perf_counter()
-    if args.depth_output or args.acc_output:
-        rgb, depth, acc = (x.cpu().numpy() for x in render_image_aux(
-            params["coarse"], params["fine"], camera, args.height, args.width, key, cfg,
-            device=device, grid=grid))
-        if args.depth_output:
-            # Depth normalized to [near, far], near = white.
-            d = (depth - camera.near) / (camera.far - camera.near)
-            save(args.depth_output, np.repeat(1.0 - np.clip(d, 0, 1)[..., None], 3, -1))
-        if args.acc_output:
-            save(args.acc_output, np.repeat(np.clip(acc, 0, 1)[..., None], 3, -1))
-    else:
-        rgb = render_image(params["coarse"], params["fine"], camera, args.height, args.width,
-                           key, cfg, device=device, grid=grid).cpu().numpy()
+    with device_trace(args.trace_dir):
+        for fi in range(n_frames):
+            cam_i = camera if n_frames == 1 else orbit_camera(camera, 2.0 * np.pi * fi / n_frames)
+            key = random.key(args.seed, device)
+            if args.depth_output or args.acc_output:
+                rgb, depth, acc = (x.cpu().numpy() for x in render_image_aux(
+                    params["coarse"], params["fine"], cam_i, args.height, args.width, key, cfg,
+                    device=device, grid=grid))
+                if args.depth_output:
+                    # Depth normalized to [near, far], near = white.
+                    d = (depth - camera.near) / (camera.far - camera.near)
+                    save(frame_path(args.depth_output, fi),
+                         np.repeat(1.0 - np.clip(d, 0, 1)[..., None], 3, -1))
+                if args.acc_output:
+                    save(frame_path(args.acc_output, fi),
+                         np.repeat(np.clip(acc, 0, 1)[..., None], 3, -1))
+            else:
+                rgb = render_image(params["coarse"], params["fine"], cam_i, args.height,
+                                   args.width, key, cfg, device=device, grid=grid).cpu().numpy()
+            save(frame_path(args.output, fi), rgb)
     dt = time.perf_counter() - t0
-    save(args.output, rgb)
-    rays = args.width * args.height
+    rays = args.width * args.height * n_frames
     print(f"Rendering completed in {dt:.2f} seconds ({rays / dt:,.0f} rays/s, "
           f"includes the kernel build on first use)")
     return 0
-
-
-_ACCEL_FLAGS = ("every", "res", "warmup", "explore", "probes", "pad")
-
-
-def _refuse_unported(args) -> None:
-    """Exit non-zero, naming the ROADMAP item, for the train flags the port
-    does not serve yet: occupancy-culled training."""
-    if args.accel_aabb or any(getattr(args, f"accel_{f}") is not None for f in _ACCEL_FLAGS):
-        sys.exit("error: --accel-* (occupancy-culled training) is not ported yet "
-                 "(ROADMAP item 7)")
 
 
 def _model_info(args, cfg) -> dict:
@@ -328,12 +341,12 @@ def cmd_train(args) -> int:
 
     import torch
 
+    from nerf_rs_tpu_torch.accel import field_grid_kwargs
     from nerf_rs_tpu_torch.config import ArchConfig, HashGridConfig, RenderConfig, TrainConfig
     from nerf_rs_tpu_torch.io.checkpoint import save_checkpoint, save_model_config
     from nerf_rs_tpu_torch.ops import random
-    from nerf_rs_tpu_torch.train import create_train_state, train_step
+    from nerf_rs_tpu_torch.train import create_train_state, refresh_grid, train_step
 
-    _refuse_unported(args)
     device = _device(args.device)
     arch = ArchConfig(width=args.width, v_width=args.v_width, depth=args.depth,
                       skip_at=args.skip_at)
@@ -362,6 +375,16 @@ def cmd_train(args) -> int:
                                                   arch.depth))
         if args.lr is not None:
             cfg = cfg.replace(lr_init=args.lr, lr_final=min(cfg.lr_final, args.lr))
+    if args.accel_probes or args.accel_aabb:
+        # Placement-aware training: the batches' samples are placed in each
+        # ray's occupied range, as the serving presets place them, from the
+        # grid the loop refreshes from the student.
+        if not args.accel_every:
+            sys.exit("error: --accel-aabb/--accel-probes need --accel-every "
+                     "(the placement ranges come from the occupancy grid)")
+        cfg = cfg.replace(render=cfg.render.replace(
+            accel_sample_aabb=True, accel_aabb_probes=int(args.accel_probes or 0),
+            accel_pad_probes=float(args.accel_pad or 1.0)))
     print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})")
 
     state = None
@@ -386,12 +409,8 @@ def cmd_train(args) -> int:
               f"images in {time.perf_counter() - t0:.2f}s")
     else:
         from nerf_rs_tpu_torch.data import DistillationDataset
-        from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_nerf_params
 
-        assets = Path(args.weights) if args.weights else find_lego_assets()
-        if assets is None:
-            sys.exit("error: no weight assets found (set --weights or $NERF_RS_TPU_ASSETS)")
-        teacher = {net: load_nerf_params(assets / net) for net in ("coarse", "fine")}
+        teacher, _, _ = _load_scene(args)
         # The teacher is the lego MLP on --impl, whatever the student's
         # family or arch, except for the quantized impls: the student
         # distills toward the exact f32 teacher through the fused kernel.
@@ -421,17 +440,34 @@ def cmd_train(args) -> int:
         # A resumed run draws fresh batches (the seed folds in the resume
         # step) and keys by the absolute step; Adam's restored count carries
         # the learning-rate schedule on.
+        # Occupancy-culled training (--accel-every): the grid is rebuilt
+        # from the student every N steps after the warm-up, and at a
+        # resumed run's first step, so that a resumed run does not train
+        # without its grid (and its placement) until the next boundary.
+        grid, step_cfg = None, cfg
+        sweep_kw = field_grid_kwargs(cfg.render) if args.accel_every else None
         batches = dataset.batches(cfg.batch_rays, seed=cfg.seed + start_step)
         for step, batch in enumerate(batches, start=start_step):
             if step >= cfg.n_steps or stop:
                 break
+            if (args.accel_every and step >= args.accel_warmup
+                    and (step % args.accel_every == 0 or (step == start_step and grid is None))):
+                grid, step_cfg, line = refresh_grid(state.params, cfg, step,
+                                                    resolution=args.accel_res,
+                                                    explore=args.accel_explore, sweep_kw=sweep_kw)
+                print(line, flush=True)
             state, metrics = train_step(state, batch, random.fold_in(key, torch.tensor(step)),
-                                        cfg)
+                                        step_cfg, grid=grid)
             if step % args.log_every == 0 or step + 1 == cfg.n_steps:
                 m = {k: float(v) for k, v in metrics.items()}
                 rays_s = cfg.batch_rays * (step - start_step + 1) / (time.perf_counter() - t0)
+                extra = ""
+                if "live_frac_coarse" in m:
+                    extra = f" accel-load {m['live_frac_coarse']:.2f}/{m['live_frac_fine']:.2f}"
+                    if m["accel_overflow"] > 0.0:
+                        extra += " OVERFLOW (raise accel capacities)"
                 print(f"step {step}: loss {m['loss']:.5f} psnr {m['psnr']:.2f} "
-                      f"({rays_s:,.0f} rays/s fwd+bwd)", flush=True)
+                      f"({rays_s:,.0f} rays/s fwd+bwd){extra}", flush=True)
             if args.checkpoint_dir and (step + 1) % cfg.checkpoint_every == 0:
                 print(f"checkpointed {save_checkpoint(args.checkpoint_dir, state)}", flush=True)
     finally:
@@ -457,7 +493,7 @@ def cmd_evaluate(args) -> int:
     if args.checkpoint is None and args.checkpoint_dir is None and args.weights_dir is None:
         sys.exit("error: pass --checkpoint, --checkpoint-dir, or --weights-dir")
     device = _device(args.device)
-    teacher, camera = _load_scene(args)
+    teacher, camera, _ = _load_scene(args)
     cfg = RenderConfig(n_coarse=args.coarse_samples, n_fine=args.fine_samples,
                        ray_chunk=args.ray_chunk, impl=args.impl, dtype=args.dtype,
                        sampling_impl=args.sampling_impl)
@@ -499,6 +535,101 @@ def cmd_evaluate(args) -> int:
     mse = float(np.mean((img - ref) ** 2))
     psnr = -10.0 * np.log10(max(mse, 1e-12))
     print(f"step {step}: {args.size}x{args.size} PSNR vs teacher {psnr:.2f} dB (mse {mse:.3e})")
+    return 0
+
+
+def cmd_verify(args) -> int:
+    """The golden-sample check of both networks (the reference's unit
+    test: every example ray's sigma and rgb within ``--tolerance`` of the
+    TF values) through ``--impl`` (``pallas``: the fused kernel K1 in
+    ``--dtype``; otherwise the plain f32 MLP), and with ``--image`` /
+    ``--image-full`` the frames against the committed golden renders.
+    Exits 1 when any check fails."""
+    import numpy as np
+    import torch
+
+    from nerf_rs_tpu_torch.config import RenderConfig
+    from nerf_rs_tpu_torch.io.golden import golden_examples
+    from nerf_rs_tpu_torch.io.image import load_ppm
+    from nerf_rs_tpu_torch.models.mlp import as_module, nerf_mlp
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.render import render_image
+
+    device = _device(args.device)
+    trees, camera, golden = _load_scene(args)
+    params = {net: as_module(trees[net], device) for net in ("coarse", "fine")}
+    if args.impl == "pallas":
+        from nerf_rs_tpu_torch.ops.kernels.fused_mlp import fused_nerf_mlp
+
+        def mlp(p, pts, dirs):
+            return fused_nerf_mlp(p, pts, dirs, dtype=args.dtype)
+    else:
+        mlp = nerf_mlp
+
+    worst, ok = 0.0, True
+    with torch.no_grad():
+        for net in ("coarse", "fine"):
+            for ex in golden_examples(golden):
+                pts = ex["ray_o"][None] + ex["ray_d"][None] * ex["z_vals"][:, None]
+                dirs = np.broadcast_to(ex["viewdir_unit"], pts.shape)
+                rgb, sigma = mlp(params[net], torch.as_tensor(pts, device=device),
+                                 torch.as_tensor(np.ascontiguousarray(dirs), device=device))
+                err = max(float(np.abs(sigma.cpu().numpy() - ex[f"{net}_sigma"]).max()),
+                          float(np.abs(rgb.cpu().numpy() - ex[f"{net}_rgb"]).max()))
+                worst = max(worst, err)
+                ok &= err < args.tolerance
+                print(f"{net} pixel {ex['pixel']}: max abs err {err:.2e} "
+                      f"[{'OK' if err < args.tolerance else 'FAIL'}]")
+    print(f"worst error {worst:.2e} (tolerance {args.tolerance})")
+
+    goldens = Path(__file__).resolve().parent.parent / "tests" / "goldens"
+    checks = []
+    if args.image:
+        # The 64x64, 16+32, key-0 render tests/test_render.py pins.
+        checks.append(("image vs committed golden", "image check SKIPPED: golden render",
+                       Path(args.image_golden) if args.image_golden
+                       else goldens / "lego_64x64_16c32f_key0.ppm", 64, 16, 32, 1024))
+    if args.image_full:
+        checks.append(("full image (256x256, 64+128) vs committed golden",
+                       "full-image check SKIPPED: golden",
+                       goldens / "lego_256x256_64c128f_key0.ppm", 256, 64, 128, 8192))
+    for label, skipped, ref_path, size, nc, nf, chunk in checks:
+        if not ref_path.exists():
+            print(f"{skipped} not found ({ref_path})")
+            return 0 if ok else 1
+        cfg = RenderConfig(n_coarse=nc, n_fine=nf, ray_chunk=chunk, impl=args.impl,
+                           dtype=args.dtype, sampling_impl=args.sampling_impl)
+        img = render_image(params["coarse"], params["fine"], camera, size, size,
+                           random.key(0, device), cfg, device=device).cpu().numpy()
+        mse = float(np.mean((img - load_ppm(ref_path)) ** 2))
+        psnr = -10.0 * np.log10(max(mse, 1e-12))
+        # The golden's 8-bit quantization caps agreement near 50 dB; bf16
+        # costs more.
+        bar = 45.0 if cfg.dtype == "float32" else 38.0
+        ok &= psnr > bar
+        print(f"{label}: {psnr:.1f} dB [{'OK' if psnr > bar else 'FAIL'}] (bar {bar:.0f} dB, "
+              f"{cfg.impl}/{cfg.dtype})")
+    return 0 if ok else 1
+
+
+def cmd_extract(args) -> int:
+    """The fine field's iso-surface as a PLY mesh (geometry export)."""
+    from nerf_rs_tpu_torch.extract import extract_scene_mesh, save_ply, vertex_colors
+    from nerf_rs_tpu_torch.models.mlp import as_module
+
+    device = _device(args.device)
+    trees, _, _ = _load_scene(args)
+    coarse, fine = (as_module(trees[net], device) for net in ("coarse", "fine"))
+    t0 = time.perf_counter()
+    verts, faces = extract_scene_mesh(coarse, fine, resolution=args.resolution,
+                                      aabb=(-args.extent, args.extent), iso=args.iso)
+    if len(faces) == 0:
+        sys.exit(f"error: no surface at iso={args.iso} — try a lower --iso")
+    colors = None if args.no_color else vertex_colors(fine, verts, faces)
+    save_ply(args.output, verts, faces, colors=colors)
+    print(f"wrote {args.output}: {len(verts):,} vertices, {len(faces):,} triangles"
+          f"{' (vertex colors)' if colors is not None else ''} ({args.resolution}^3 lattice, "
+          f"iso {args.iso}, {time.perf_counter() - t0:.1f}s)")
     return 0
 
 
@@ -642,6 +773,13 @@ def main(argv=None) -> int:
     p.add_argument("--checkpoint",
                    help="render a training checkpoint (any model family) instead of the "
                         "pretrained weights; the camera stays the scene's")
+    p.add_argument("--orbit", type=int, default=0,
+                   help="render N turntable frames rotating the camera about the scene's z-axis "
+                        "(the outputs get _000.. suffixes; accel capacities are tuned on the "
+                        "base view, the orbit keeps the camera's distance)")
+    p.add_argument("--trace-dir",
+                   help="write a torch.profiler Chrome trace (CPU and CUDA activity) of the "
+                        "frames here")
     p.set_defaults(fn=cmd_render)
 
     p = sub.add_parser("train", help="train coarse+fine networks on a nerf_synthetic scene, "
@@ -692,10 +830,36 @@ def main(argv=None) -> int:
                         "export writes, or an .npz bundle) of the same --width/--v-width/"
                         "--depth/--skip-at, with a fresh optimizer at step 0; ignored when "
                         "--checkpoint-dir already holds a checkpoint. MLP family only")
-    # Accepted so that they can be refused by name (_refuse_unported).
-    for flag in _ACCEL_FLAGS:
-        p.add_argument(f"--accel-{flag}", type=float)
-    p.add_argument("--accel-aabb", action="store_true")
+    p.add_argument("--camera",
+                   help="camera JSON of a bare --weights export (the teacher's scene assets)")
+    p.add_argument("--sampling-impl", default="xla", choices=["xla", "pallas"],
+                   help="accepted as the JAX CLI accepts it and not used: training runs the "
+                        "plain resampling chain, which is differentiable")
+    p.add_argument("--ray-chunk", type=int, default=16384,
+                   help="accepted as the JAX CLI accepts it and not used: a training batch "
+                        "renders in one chunk of --batch-rays rays")
+    p.add_argument("--accel-every", type=int, default=0,
+                   help="occupancy-culled training: rebuild the grid from the student every N "
+                        "steps (0 = off)")
+    p.add_argument("--accel-res", type=int, default=128,
+                   help="occupancy grid resolution per axis")
+    p.add_argument("--accel-warmup", type=int, default=256,
+                   help="train dense for this many steps before the first grid refresh "
+                        "(density must form somewhere first)")
+    p.add_argument("--accel-explore", type=float, default=0.01,
+                   help="fraction of cells randomly re-opened at each grid refresh, so regions "
+                        "the student wrongly zeroed keep receiving gradient (0 = off)")
+    p.add_argument("--accel-aabb", action="store_true",
+                   help="placement-aware training: clamp each training ray's sample range to "
+                        "its occupied span (needs --accel-every), as the serving presets place "
+                        "samples, when fine-tuning for a reduced-sample or single-pass config")
+    p.add_argument("--accel-probes", type=int, default=0,
+                   help="refine each ray's range to its own occupied run via this many grid "
+                        "probes (serving presets use 128); implies --accel-aabb")
+    p.add_argument("--accel-pad", type=float, default=1.0,
+                   help="with --accel-probes: pad each training ray's range by this many probe "
+                        "intervals per side (serving pools ranges over stride blocks, so about "
+                        "4 matches the stride-4 serving preset)")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("evaluate", help="checkpoint PSNR vs the pretrained teacher")
@@ -717,6 +881,37 @@ def main(argv=None) -> int:
     p.add_argument("--accel-res", type=int, default=128,
                    help="with --accel-probes: occupancy grid resolution")
     p.set_defaults(fn=cmd_evaluate)
+
+    p = sub.add_parser("verify", help="golden-sample verification")
+    _add_common(p)
+    p.add_argument("--tolerance", type=float, default=1e-2)
+    p.add_argument("--image", action="store_true",
+                   help="also render the 64x64 16+32 key-0 frame against the committed golden "
+                        "render")
+    p.add_argument("--image-golden",
+                   help="path to a golden PPM for --image (default: the committed "
+                        "tests/goldens one)")
+    p.add_argument("--image-full", action="store_true",
+                   help="also render the full-quality 256x256 64+128 key-0 frame against its "
+                        "committed golden (under a second on the card, minutes on a CPU)")
+    p.set_defaults(fn=cmd_verify)
+
+    p = sub.add_parser("extract", help="trained field -> PLY surface mesh (geometry export)")
+    p.add_argument("--weights",
+                   help="scene assets directory or .npz bundle (default: the pretrained lego)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device, e.g. cuda, cuda:1 or cpu")
+    p.add_argument("-o", "--output", required=True, help="output .ply path")
+    p.add_argument("--resolution", type=int, default=128,
+                   help="density lattice resolution per axis")
+    p.add_argument("--iso", type=float, default=10.0,
+                   help="density iso level treated as the surface")
+    p.add_argument("--extent", type=float, default=2.0,
+                   help="half-width of the sampled cube (aabb +-extent)")
+    p.add_argument("--no-color", action="store_true",
+                   help="skip baking vertex colors (the fine network queried along the inward "
+                        "normal)")
+    p.set_defaults(fn=cmd_extract)
 
     p = sub.add_parser("export", help="checkpoint -> reference .bin format")
     p.add_argument("--checkpoint", required=True)

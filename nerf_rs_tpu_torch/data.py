@@ -35,18 +35,25 @@ from nerf_rs_tpu_torch.ops.rays import Camera, camera_rays
 from nerf_rs_tpu_torch.render import render_rays
 
 
+def resolve_device(device) -> torch.device:
+    """``device``, or the CUDA card when it is None: the datasets default
+    to the card, as every entry point of the port does."""
+    return torch.device(device) if device is not None else torch.device("cuda")
+
+
 class BlenderDataset:
     """A nerf_synthetic scene: images and per-frame cameras -> ray batches.
 
     Every ray stays in host memory, as flat numpy arrays: one origin a
     frame (a pinhole camera has one) and a frame index a ray, the unit
     directions and the colours (RGBA composited onto white, or black).
-    :meth:`batches` moves each batch to ``device`` as it draws it."""
+    :meth:`batches` moves each batch to ``device`` (default: the CUDA
+    card) as it draws it."""
 
     def __init__(self, root, split: str = "train", white_background: bool = True,
                  near: float = 2.0, far: float = 6.0, device=None):
         root = Path(root)
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         meta = json.loads((root / f"transforms_{split}.json").read_text())
         angle_x = float(meta["camera_angle_x"])
         origins, dirs, rgbs = [], [], []
@@ -115,13 +122,14 @@ class BlenderDataset:
 
 class DistillationDataset:
     """Ray batches whose targets are the teacher networks' renders at
-    random upper-hemisphere viewpoints, on ``device``. ``teacher_params``
-    is {"coarse", "fine"}, each a param tree or a NerfMLP."""
+    random upper-hemisphere viewpoints, on ``device`` (default: the CUDA
+    card). ``teacher_params`` is {"coarse", "fine"}, each a param tree or a
+    NerfMLP."""
 
     def __init__(self, teacher_params, *, radius: float = 4.03, near: float = 2.0,
                  far: float = 6.0, cfg: Optional[RenderConfig] = None, seed: int = 0,
                  device=None):
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         self.params = {net: as_module(p, self.device) for net, p in teacher_params.items()}
         self.radius = radius
         self.near, self.far = near, far

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 
@@ -62,3 +63,21 @@ def camera_rays(cam: Camera, height: int, width: int, device) -> Tuple[torch.Ten
     dirs = _normalize(ray_directions(cam, height, width, device))
     origins = torch.broadcast_to(_f32(cam.position, device), dirs.shape)
     return origins, dirs
+
+
+def orbit_camera(cam: Camera, angle, target=(0.0, 0.0, 0.0)) -> Camera:
+    """The camera rotated rigidly by ``angle`` radians about the world
+    z-axis through ``target`` (default: the scene origin): a turntable
+    sweep around the scene. Position, forward and up become float32 numpy
+    arrays; ``angle=0`` gives them back unchanged (the rotation is then the
+    identity exactly)."""
+    a = np.float32(angle)
+    c, s = np.cos(a), np.sin(a)
+    rot = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]], np.float32)
+    t = np.asarray(target, np.float32)
+
+    def f32(v):
+        return np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v, np.float32)
+
+    return cam._replace(position=rot @ (f32(cam.position) - t) + t, forward=rot @ f32(cam.forward),
+                        up=rot @ f32(cam.up))

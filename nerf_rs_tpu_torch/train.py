@@ -168,13 +168,20 @@ def nerf_loss(params, batch: Dict[str, torch.Tensor], key: torch.Tensor, cfg: Tr
 
     batch: origins (B, 3) or one (3,) origin, dirs (B, 3) unit, rgb (B, 3)
     targets, near/far scalars. Every ray draws from its own stream, folded
-    from ``key`` by ``ray_ids`` (default: its batch position). ``grid``
-    raises: occupancy-culled training is ROADMAP queue 1, item 7. The
-    metrics (loss, mse_fine, mse_coarse, psnr) are detached 0-d tensors.
+    from ``key`` by ``ray_ids`` (default: its batch position).
+
+    ``grid`` (``accel.OccupancyGrid``) culls the MLP evaluation inside the
+    differentiable render: culled samples get sigma = 0 and no gradient
+    (mask-only, or compacted into ``accel_*_capacity`` rows), and with
+    ``accel_sample_aabb`` the samples are placed in each ray's occupied
+    range. The grid is refreshed from the student by the caller (``cli
+    train --accel-every``).
+
+    The metrics (loss, mse_fine, mse_coarse, psnr; with a grid also
+    ``live_frac_coarse`` and ``live_frac_fine``, each pass's live rows over
+    its capacity, and ``accel_overflow``, 1.0 when either exceeds 1 and
+    samples were dropped) are detached 0-d tensors.
     """
-    if grid is not None:
-        raise NotImplementedError("occupancy-culled training is not ported yet "
-                                  "(ROADMAP queue 1, item 7)")
     rcfg = cfg.render
     dirs = batch["dirs"]
     if ray_ids is None:
@@ -192,13 +199,62 @@ def nerf_loss(params, batch: Dict[str, torch.Tensor], key: torch.Tensor, cfg: Tr
     psnr = -10.0 * torch.log10(torch.clamp(mse_fine.detach(), min=1e-10))
     metrics = {"loss": loss.detach(), "mse_fine": mse_fine.detach(),
                "mse_coarse": mse_coarse.detach(), "psnr": psnr}
+    if "live_frac_coarse" in aux:
+        metrics["live_frac_coarse"] = aux["live_frac_coarse"].detach()
+        metrics["live_frac_fine"] = aux["live_frac_fine"].detach()
+        metrics["accel_overflow"] = (torch.maximum(metrics["live_frac_coarse"],
+                                                   metrics["live_frac_fine"]) > 1.0).to(torch.float32)
     return loss, metrics
+
+
+def refresh_grid(params, cfg: TrainConfig, step: int, *, resolution: int, explore: float,
+                 sweep_kw: dict):
+    """The occupancy grid of occupancy-culled training, rebuilt from the
+    current student -> (grid or None, the config to train with until the
+    next refresh, the line to print), as the JAX CLI's ``train
+    --accel-every`` refreshes it.
+
+    The sweep is ``sweep_kw`` (``accel.field_grid_kwargs(cfg.render)``:
+    the student's configured impl and dtype). A grid under 0.5% occupied
+    (a density not yet formed) and a grid whose capacities would reach 1.0
+    (culling would skip nothing) give None: the period trains dense. A
+    culled cell gets no gradient, so ``explore`` re-opens that fraction
+    of the cells, drawn on the host from ``np.random.default_rng(cfg.seed
+    + step)``, and the capacities cover them too. Mask-only culling
+    (``accel_compact`` "none" or "off") keeps the config; the compaction
+    modes get capacities from ``accel.capacities_from_occupancy``."""
+    from nerf_rs_tpu_torch.accel import build_scene_grid, capacities_from_occupancy
+
+    pc, pf = split_params(params)
+    grid = build_scene_grid(pc, pf, resolution=resolution, **sweep_kw)
+    occ = grid.occ.cpu().numpy()
+    # The near-empty test reads the raw grid: explored cells would hide an
+    # unformed density.
+    raw_frac = float(occ.mean())
+    if raw_frac < 0.005:
+        return None, cfg, (f"accel: grid only {raw_frac:.2%} occupied — training dense until "
+                           "density forms")
+    if explore > 0:
+        rng = np.random.default_rng(cfg.seed + step)
+        occ = occ | (rng.random(occ.shape) < explore)
+        grid = grid._replace(occ=torch.as_tensor(occ, device=grid.occ.device))
+    frac = float(occ.mean())
+    cap_c, cap_f = capacities_from_occupancy(frac, cfg.render)
+    if cap_c >= 1.0:
+        return None, cfg, (f"accel: grid {frac:.1%} occupied — culling would skip nothing, "
+                           "training dense this period")
+    if cfg.render.accel_compact in ("none", "off"):
+        return grid, cfg, f"accel: rebuilt {resolution}^3 grid ({frac:.1%} occupied; mask-only)"
+    cfg = cfg.replace(render=cfg.render.replace(accel_coarse_capacity=cap_c,
+                                                accel_fine_capacity=cap_f))
+    return grid, cfg, (f"accel: rebuilt {resolution}^3 grid ({frac:.1%} occupied; capacities "
+                       f"{cap_c:.2f}/{cap_f:.2f})")
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], key: torch.Tensor,
                cfg: TrainConfig, grid=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One Adam step on :func:`nerf_loss`, in place; returns the same
-    state and the step's metrics."""
+    """One Adam step on :func:`nerf_loss` (``grid``: occupancy-culled), in
+    place; returns the same state and the step's metrics."""
     for module in state.params.values():
         module.zero_grad(set_to_none=True)
     loss, metrics = nerf_loss(state.params, batch, key, cfg, grid=grid)

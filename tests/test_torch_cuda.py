@@ -812,3 +812,124 @@ def test_blender_dataset_on_the_card_equals_the_cpus(card, tmp_path):
         for name in ("origins", "rgb", "near", "far"):
             assert torch.equal(got[name].cpu(), want[name]), name
         torch.testing.assert_close(got["dirs"].cpu(), want["dirs"], rtol=0, atol=1e-6)
+
+
+# ---- occupancy-culled training and extract ----
+
+def culled_step_pair(card, accel_kw, n_coarse=16, n_fine=32):
+    """One train step on the card from the same state, batch, key and
+    lego grid (64^3, as ``train --accel-every`` builds it from the lego
+    networks), impl="pallas" (K1 forward and K2 backward on the rows the
+    grid leaves, compacted to their capacity or masked) against
+    impl="xla": (states, metrics, K1 and K2 launches of the kernel step).
+    Compaction without capacities in ``accel_kw`` takes them from
+    ``accel.capacities_from_occupancy`` of the grid, as the CLI does."""
+    from nerf_rs_tpu_torch.accel import build_scene_grid, capacities_from_occupancy
+    from nerf_rs_tpu_torch.config import TrainConfig
+    from nerf_rs_tpu_torch.data import DistillationDataset
+    from nerf_rs_tpu_torch.train import create_train_state, train_step
+
+    cfg = TrainConfig(batch_rays=4096, arch=SMALL, render=RenderConfig(
+        n_coarse=n_coarse, n_fine=n_fine, ray_chunk=4096, **accel_kw))
+    teacher = {net: NerfMLP(load_nerf_params(LEGO / net), device=card)
+               for net in ("coarse", "fine")}
+    grid = build_scene_grid(teacher["coarse"], teacher["fine"], resolution=64)
+    if accel_kw.get("accel_compact") in ("scatter", "gather") and \
+            "accel_coarse_capacity" not in accel_kw:
+        cap_c, cap_f = capacities_from_occupancy(float(grid.occ.float().mean()), cfg.render)
+        cfg = cfg.replace(render=cfg.render.replace(accel_coarse_capacity=cap_c,
+                                                    accel_fine_capacity=cap_f))
+    batch = next(DistillationDataset(teacher, cfg=cfg.render.replace(impl="pallas"),
+                                     device=card).batches(cfg.batch_rays))
+    states, metrics, launches = {}, {}, None
+    for impl in ("pallas", "xla"):
+        state = create_train_state(torch.Generator(device=card).manual_seed(0), cfg)
+        before = (fused_nerf_mlp.launches, fused_nerf_mlp_backward.launches)
+        states[impl], m = train_step(state, batch, random.key(1, card),
+                                     cfg.replace(render=cfg.render.replace(impl=impl)), grid=grid)
+        metrics[impl] = {k: float(v) for k, v in m.items()}
+        if impl == "pallas":
+            launches = (fused_nerf_mlp.launches - before[0],
+                        fused_nerf_mlp_backward.launches - before[1])
+    return cfg, states, metrics, launches
+
+
+def assert_one_step_bound(cfg, states, metrics, share_of=("coarse", "fine")):
+    """tests/test_train.py's one-step bound between the kernel and plain
+    states: loss to 1e-5 relative, every parameter within 2 lr, under 0.1%
+    of the entries of the networks ``share_of`` more than 1e-5 apart."""
+    assert abs(metrics["pallas"]["loss"] - metrics["xla"]["loss"]) <= \
+        1e-5 * metrics["xla"]["loss"], metrics
+    diffs = {net: [(p.detach() - states["xla"].params[net].weights[name].detach()).abs()
+                   for name, p in states["pallas"].params[net].weights.items()]
+             for net in ("coarse", "fine")}
+    assert max(float(d.max()) for ds in diffs.values() for d in ds) < 2 * cfg.lr_init
+    shared = [d for net in share_of for d in diffs[net]]
+    assert sum(int((d > 1e-5).sum()) for d in shared) < 1e-3 * sum(d.numel() for d in shared)
+
+
+@pytest.mark.parametrize("compact", ["none", "scatter", "gather"])
+def test_culled_train_step_kernels_match_plain(card, compact):
+    """A culled step with K1 and K2 (two launches each: coarse and fine)
+    on the grid's rows against the plain MLP's step: the one-step bound;
+    the coarse pass's live rows equal (geometry alone) and no overflow at
+    capacities from ``accel.capacities_from_occupancy`` of the grid."""
+    cfg, states, metrics, launches = culled_step_pair(card, dict(accel_compact=compact))
+    assert launches == (2, 2)
+    assert_one_step_bound(cfg, states, metrics)
+    assert metrics["pallas"]["live_frac_coarse"] == metrics["xla"]["live_frac_coarse"] < 1.0
+    assert metrics["pallas"]["accel_overflow"] == metrics["xla"]["accel_overflow"] == 0.0
+
+
+@pytest.mark.parametrize("compact", ["scatter", "gather"])
+def test_culled_train_step_with_an_overflowing_capacity(card, compact):
+    """Capacities far below the live rows: both steps overflow (the
+    indicator is 1 and the coarse pass's live rows exceed its capacity)
+    and keep the same first rows of the coarse pass, whose rows are
+    geometry alone, so the coarse network meets the one-step bound; the
+    fine pass keeps the first live rows of samples that move with the
+    coarse sigmas' last bits, so there a live row near a cell boundary
+    shifts which rows are kept, and the fine network is held to 2 lr
+    (measured on an H100: 0.2% of all entries > 1e-5 apart)."""
+    cfg, states, metrics, launches = culled_step_pair(
+        card, dict(accel_compact=compact, accel_coarse_capacity=0.02, accel_fine_capacity=0.02))
+    assert launches == (2, 2)
+    for impl in ("pallas", "xla"):
+        assert metrics[impl]["accel_overflow"] == 1.0 and metrics[impl]["live_frac_coarse"] > 1.0
+    assert metrics["pallas"]["live_frac_coarse"] == metrics["xla"]["live_frac_coarse"]
+    assert_one_step_bound(cfg, states, metrics, share_of=("coarse",))
+
+
+def test_culled_placement_step_kernels_match_plain(card):
+    """Single-pass training under 128-probe placement (the teacher_sp30
+    recipe's render) with mask-only culling: one K1 and one K2 launch,
+    the one-step bound against the plain MLP."""
+    cfg, states, metrics, launches = culled_step_pair(
+        card, dict(accel_sample_aabb=True, accel_aabb_probes=128, accel_pad_probes=4.0),
+        n_coarse=64, n_fine=0)
+    assert launches == (1, 1)
+    assert_one_step_bound(cfg, states, metrics)
+
+
+def test_extract_lattice_through_k1_bf16(card):
+    """extract's lattice of the lego fine network at 96^3 on the card runs
+    K1 bf16 sigma-only (one launch a chunk, on the tensor cores); its
+    cells fall on the other side of the iso level 10 from the plain f32
+    lattice's on at most 1% of the cells next to the surface (a bf16 sigma
+    near the level; the plain bf16 version flips 0.18% at 64^3 on a CPU),
+    and the meshes' face counts agree within 2%."""
+    from nerf_rs_tpu_torch.accel import _oracle_sigma, density_grid
+    from nerf_rs_tpu_torch.extract import extract_scene_mesh, extract_voxel_mesh
+
+    fine = NerfMLP(load_nerf_params(LEGO / "fine"), device=card)
+    before, before_tc = fused_nerf_mlp.launches, fused_nerf_mlp.tc_launches
+    sig = density_grid(fine, resolution=96, chunk=96 ** 3 // 4).cpu().numpy()
+    assert (fused_nerf_mlp.launches - before, fused_nerf_mlp.tc_launches - before_tc) == (4, 4)
+    plain = density_grid(fine, resolution=96, mlp_fn=_oracle_sigma).cpu().numpy()
+    side, side_plain = sig > 10.0, plain > 10.0
+    near = side_plain != np.roll(side_plain, 1, 0)
+    for ax in (1, 2):
+        near |= side_plain != np.roll(side_plain, 1, ax)
+    assert (side != side_plain).sum() <= 1e-2 * near.sum(), ((side != side_plain).sum(), near.sum())
+    verts, faces = extract_scene_mesh(fine, fine, resolution=96)
+    assert abs(len(faces) - len(extract_voxel_mesh(plain, 10.0)[1])) <= 0.02 * len(faces)

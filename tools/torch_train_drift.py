@@ -70,7 +70,7 @@ def main() -> int:
     eight = replicate(mesh, to_np(one))
     adam = one.opt_state[0]
     port = train_state_from_numpy(to_np(params), to_np(adam.mu), to_np(adam.nu), 0, 0, "cpu")
-    batches = BlenderDataset(scene).batches(64, seed=0)
+    batches = BlenderDataset(scene, device="cpu").batches(64, seed=0)
     key, port_key = jax.random.key(1), random.key(1, "cpu")
 
     def apart(a, get):
