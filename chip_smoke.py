@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's seven main paths and holds them to the repository's own
+Drives the port's eight main paths and holds them to the repository's own
 bars: the render path — the pretrained lego coarse and fine networks
 rendering a 256x256 frame with 64 stratified + 128 importance samples on
 white, through ``nerf_rs_tpu_torch.render.render_image`` — the training
@@ -27,7 +27,11 @@ rendered, exported, evaluated and served from its checkpoints — and
 occupancy-culled, placement-aware training with the rest of the front ends
 — the teacher_sp30 fine-tune through ``train --accel-every --accel-aabb
 --accel-probes``, then ``verify``, ``extract`` and ``render --orbit
---trace-dir``. Phases, each reported on its own line:
+--trace-dir`` — and the data-parallel layer — the render, the bench's
+accel frame and a training step split over the ranks of a
+``torch.distributed`` world (``parallel/``), here a world of 1 under NCCL,
+and ``train`` and ``render --sharded`` under torchrun. Phases, each
+reported on its own line:
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: the fused MLP kernels K1 and K2 (both on the tensor cores, f32
@@ -167,7 +171,23 @@ occupancy-culled, placement-aware training with the rest of the front ends
     ``extract`` at 128^3 (K1 bf16 sigma-only: cells on the other side of the
     iso level against the plain f32 lattice, at most EXTRACT_FLIP_BAR of
     the cells next to the surface); ``render --orbit 4 --trace-dir``: frame
-    0 bitwise the plain render, K1's kernel in the Chrome trace.
+    0 bitwise the plain render, K1's kernel in the Chrome trace;
+27. the parallel layer in a world of 1 under NCCL on the card: (a) the
+    256x256 f32 golden frame through ``render_image_sharded``, bitwise
+    ``render_image``, one all-gather, K1 twice a chunk on the tensor cores;
+    (b) the 800x800 bf16 accel+K3 frame (32 probes, stride 4, packing)
+    through the sharded culled path, bitwise the single-device frame, one
+    all-gather, K3 once and K1 twice per rendered chunk; (c) one
+    ``sharded_train_step`` at 4096 rays 64+128 f32, bitwise ``train_step``
+    from the same state and batch, one all-reduce, K2 twice; (e) times:
+    the sharded and single-device frame and step in turns (medians of 10),
+    the step's pooling and the collectives alone, NCCL's start-up (medians
+    of 3); (d) ``train --steps 40`` under
+    ``torch.distributed.run --nproc-per-node 1`` (exit 0, the loss falls),
+    then in this process ``train`` in a world of 1 from torchrun's
+    variables against plain ``train`` over the same steps, in turns, with
+    their steady step times, and ``render --sharded`` under torchrun (the
+    unsharded render's bytes).
 
 Any failed phase exits non-zero. The line before the last is a JSON
 summary of the kernels, each with its bound (the larger of its bytes over
@@ -2500,6 +2520,314 @@ def run_phase_culled(root: Path, coarse, fine, cam, dev, card):
     return c_sp
 
 
+LAUNCH_LIMIT_S = 300                    # a torchrun launch of phase 27 is killed after this
+SHARDED_STEPS = 40
+SHARDED_LOG_EVERY = 10
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Every collective of ``torch.distributed`` wrapped with a counter
+    for the block: yields the counts (name -> calls)."""
+    import torch.distributed as dist
+
+    names = ("all_reduce", "broadcast", "barrier", "all_gather", "all_gather_single",
+             "all_gather_into_tensor", "gather", "reduce", "scatter", "reduce_scatter",
+             "reduce_scatter_tensor", "all_to_all", "send", "recv")
+    counts, real = {}, {}
+    for name in names:
+        fn = getattr(dist, name, None)
+        if fn is None:
+            continue
+        real[name] = fn
+
+        def wrapped(*args, _fn=fn, _name=name, **kw):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _fn(*args, **kw)
+
+        setattr(dist, name, wrapped)
+    try:
+        yield counts
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def torchrun(argv) -> str:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 1
+    -m nerf_rs_tpu_torch ARGV`` from the checkout, killed (with its
+    session) at LAUNCH_LIMIT_S: its output; a non-zero exit fails the
+    phase."""
+    import os
+    import signal
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+         "-m", "nerf_rs_tpu_torch", *argv],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        text = proc.communicate(timeout=LAUNCH_LIMIT_S)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise PhaseFailure(f"torchrun {' '.join(argv[:1])} did not end in {LAUNCH_LIMIT_S} s")
+    if proc.returncode != 0:
+        raise PhaseFailure(f"torchrun {' '.join(argv)} exited with {proc.returncode}:\n"
+                           f"{text[-3000:]}")
+    return text
+
+
+@contextlib.contextmanager
+def world_variables(on: bool):
+    """torchrun's variables for a world of 1 (a free loopback port) set
+    for the block when ``on``, so that the CLI run in this process joins
+    a world of 1 under NCCL; removed again after it."""
+    import os
+    import socket
+
+    if not on:
+        yield
+        return
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for name in env:
+            os.environ.pop(name, None)
+
+
+def steady_step_ms(out: str, batch_rays: int) -> float:
+    """The mean step time between the second and the last logged step of
+    a ``train`` output: each step line's cumulative rays/s gives the time
+    from the loop's start to that step's end (batch x (step + 1) / rate),
+    so that the first step's start-up costs fall out."""
+    rows = [(int(s), float(r.replace(",", ""))) for s, r in
+            re.findall(r"^step (\d+): loss .*?\(([0-9,]+) rays/s", out, re.M)]
+    (s0, r0), (s1, r1) = rows[1], rows[-1]
+    return (batch_rays * (s1 + 1) / r1 - batch_rays * (s0 + 1) / r0) * 1e3 / (s1 - s0)
+
+
+ABBA_ROUNDS = 5
+
+
+def abba_ms(fn_a, fn_b):
+    """Median wall times (ms) of ``fn_a`` and ``fn_b`` run in turns, a b b
+    a, ABBA_ROUNDS times after one warm-up call each, every call
+    bracketed by device synchronizations."""
+    import torch
+
+    fn_a()
+    fn_b()
+    times = ([], [])
+    for _ in range(ABBA_ROUNDS):
+        for i in (0, 1, 1, 0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (fn_a, fn_b)[i]()
+            torch.cuda.synchronize()
+            times[i].append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def phase_sharded(coarse, fine, cam, dev, grid, card):
+    """Phase 27 in a temporary directory, removed when the phase ends."""
+    with tempfile.TemporaryDirectory(prefix="nerf_rs_tpu_torch_sharded_") as tmp:
+        return run_phase_sharded(Path(tmp), coarse, fine, cam, dev, grid, card)
+
+
+def run_phase_sharded(root: Path, coarse, fine, cam, dev, grid, card):
+    """Phase 27: the parallel layer in a world of 1 under NCCL on the card:
+    the sharded f32 golden frame, the sharded culled 800x800 bf16 accel+K3
+    frame and one sharded step, each bitwise its single-device counterpart,
+    with the launch and collective counts set to 0 just before each and read
+    just after; ``train`` and ``render --sharded`` under torchrun; times."""
+    import torch
+    import torch.distributed as dist
+
+    from nerf_rs_tpu_torch.config import RenderConfig
+    from nerf_rs_tpu_torch.io.image import load_ppm
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.parallel import make_mesh, multihost
+    from nerf_rs_tpu_torch.parallel.mesh import all_gather_rows
+    from nerf_rs_tpu_torch.parallel.render_sharded import effective_chunk, render_image_sharded
+    from nerf_rs_tpu_torch.parallel.train_sharded import _pool, sharded_train_step
+    from nerf_rs_tpu_torch.render import render_image
+    from nerf_rs_tpu_torch.train import train_step
+
+    # NCCL's start-up: join a world of 1 (the communicator is made when the
+    # group is, bound to the card; the kernels, built by phase 1, are loaded
+    # in turn around a barrier) and make its first all-reduce; twice
+    # left again, the third kept for the phase (median of 3).
+    init_s = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        multihost.initialize(f"file://{root / f'store{i}'}", 1, 0, device=dev)
+        x = torch.ones(1, device=dev)
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        init_s.append(time.perf_counter() - t0)
+        if i < 2:
+            multihost.shutdown()
+    try:
+        mesh = make_mesh()
+        if (mesh.size, mesh.rank, mesh.device, dist.get_backend()) != (1, 0, dev, "nccl"):
+            raise PhaseFailure(f"world of 1: mesh {mesh}, backend {dist.get_backend()}")
+        gather = "all_gather_into_tensor"
+
+        # (a) the 256x256 f32 golden frame.
+        cfg = RenderConfig(n_coarse=N_COARSE, n_fine=N_FINE, ray_chunk=RAY_CHUNK, impl="pallas")
+        key = random.key(0, dev)
+        chunks = -(-H * W // effective_chunk(H * W, mesh.size, cfg))
+        torch.cuda.synchronize()
+        zero_counts()
+        with counted_collectives() as coll:
+            img_s = render_image_sharded(coarse, fine, cam, H, W, key, cfg, mesh=mesh)
+            torch.cuda.synchronize()
+        k, coll_a = read_counts(), dict(coll)
+        img_1 = render_image(coarse, fine, cam, H, W, key, cfg, device=dev)
+        golden_db = psnr(img_s.cpu().numpy(), load_ppm(GOLDEN_PPM))
+        ok = (torch.equal(img_s, img_1) and golden_db > GOLDEN_BAR_DB and coll_a == {gather: 1}
+              and k["fused_nerf_mlp"] == k["fused_nerf_mlp_tc"] == 2 * chunks)
+        say("27 sharded", f"(a) render_image_sharded, world of 1 under NCCL, {H}x{W} "
+            f"{N_COARSE}+{N_FINE} f32: bitwise render_image {torch.equal(img_s, img_1)}, PSNR vs "
+            f"golden {golden_db:.2f} dB (bar > {GOLDEN_BAR_DB}); collectives {coll_a}; K1 "
+            f"{k['fused_nerf_mlp']} launches, {k['fused_nerf_mlp_tc']} on the tensor cores "
+            f"(expected {2 * chunks} each) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailure("the sharded f32 frame is not render_image's, or went around K1 "
+                               "or the one all-gather")
+
+        # (b) bench.py's 800x800 bf16 accel+K3 frame through the culled path.
+        acfg = accel_cfg("bfloat16", chunk=BENCH_CHUNK)
+        torch.cuda.synchronize()
+        zero_counts()
+        with counted_collectives() as coll:
+            acc_s = render_image_sharded(coarse, fine, cam, BENCH_SIZE, BENCH_SIZE, key, acfg,
+                                         mesh=mesh, grid=grid)
+            torch.cuda.synchronize()
+        k, coll_b = read_counts(), dict(coll)
+        acc_1, _ = render_accel(coarse, fine, cam, dev, acfg, grid, BENCH_SIZE)
+        _, rendered = rendered_chunks(grid, cam, BENCH_SIZE, acfg, dev)
+        ok = (torch.equal(acc_s, acc_1) and coll_b == {gather: 1}
+              and k["fused_resample"] == rendered
+              and k["fused_nerf_mlp"] == k["fused_nerf_mlp_tc"] == 2 * rendered)
+        say("27 sharded", f"(b) the {BENCH_SIZE}x{BENCH_SIZE} bf16 accel+K3 frame (32 probes, "
+            f"stride 4, packing) through the sharded culled path: bitwise the single-device "
+            f"frame {torch.equal(acc_s, acc_1)}; collectives {coll_b}; K3 {k['fused_resample']}, "
+            f"K1 {k['fused_nerf_mlp']} ({k['fused_nerf_mlp_tc']} on the tensor cores) for "
+            f"{rendered} rendered chunks -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailure("the sharded culled frame is not the single-device frame, or "
+                               "its launches or collectives are off")
+
+        # (c) one step at the train defaults, from the same state and batch.
+        state_1, dataset, tcfg, tkey = distill_setup(dev, "pallas")
+        state_s = distill_setup(dev, "pallas")[0]
+        batch = next(dataset.batches(tcfg.batch_rays, seed=tcfg.seed))
+        k0 = random.fold_in(tkey, torch.tensor(0))
+        _, m_1 = train_step(state_1, batch, k0, tcfg)
+        torch.cuda.synchronize()
+        zero_counts()
+        with counted_collectives() as coll:
+            _, m_s = sharded_train_step(mesh, state_s, batch, k0, tcfg)
+            torch.cuda.synchronize()
+        k, coll_c = read_counts(), dict(coll)
+        same = all(torch.equal(p, state_s.params[net].weights[name])
+                   for net, module in state_1.params.items()
+                   for name, p in module.weights.items())
+        same_m = all(torch.equal(m_1[name], m_s[name]) for name in m_1)
+        ok = (same and same_m and coll_c == {"all_reduce": 1}
+              and k["fused_nerf_mlp_backward"] == 2 and k["fused_nerf_mlp"] == 2)
+        say("27 sharded", f"(c) sharded_train_step, {TRAIN_RAYS} rays {N_COARSE}+{N_FINE} f32, "
+            f"against train_step from the same state and batch: params bitwise {same}, metrics "
+            f"bitwise {same_m} (loss {float(m_s['loss']):.7f}); collectives {coll_c}; K2 "
+            f"{k['fused_nerf_mlp_backward']}, K1 {k['fused_nerf_mlp']} launches (expected 2 "
+            f"each) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailure("the sharded step is not train_step's, or its launches or "
+                               "collectives are off")
+
+        # (e) times: the sharded frame and step against the single-device
+        # ones in turns (the data-parallel layer's cost at world 1), the
+        # step's pooling and the collectives alone.
+        saved = save_counts()
+        frame_ms = abba_ms(
+            lambda: render_image_sharded(coarse, fine, cam, H, W, key, cfg, mesh=mesh),
+            lambda: render_image(coarse, fine, cam, H, W, key, cfg, device=dev))
+        step_ms = abba_ms(lambda: sharded_train_step(mesh, state_s, batch, k0, tcfg),
+                          lambda: train_step(state_1, batch, k0, tcfg))
+        restore_counts(saved)
+        n_grad = sum(p.numel() for module in state_s.params.values()
+                     for p in module.weights.values())
+        pooled = {name: m_s[name] for name in ("loss", "mse_fine", "mse_coarse")}
+        pool_ms = timed_ms(lambda: _pool(mesh, state_s, dict(pooled), None), inner=10)
+        flat = torch.zeros(n_grad + 3, device=dev)
+        rows = img_s.reshape(-1, 3)
+        reduce_ms = timed_ms(lambda: dist.all_reduce(flat), inner=10)
+        gather_ms = timed_ms(lambda: all_gather_rows(mesh, rows), inner=10)
+    finally:
+        multihost.shutdown()
+    init_med = statistics.median(init_s)
+    say("27 sharded", f"(e) {card}: world of 1 under NCCL, in turns (sharded, single, single, "
+        f"sharded; medians of {2 * ABBA_ROUNDS}): frame {H}x{W} f32 sharded "
+        f"{frame_ms[0]:.1f} ms, single-device {frame_ms[1]:.1f} ms; step sharded "
+        f"{step_ms[0]:.1f} ms, single-device {step_ms[1]:.1f} ms; the step's pooling (flat "
+        f"buffer, all-reduce, division, views back) {pool_ms:.3f} ms, its all-reduce of "
+        f"{n_grad + 3:,} floats alone {reduce_ms:.3f} ms, the frame's all-gather of "
+        f"{rows.shape[0]:,} x 3 floats {gather_ms:.3f} ms (medians of 3); NCCL start-up (group, "
+        f"the kernels' load and its barrier, first all-reduce) {init_med:.3f} s ({', '.join(f'{s:.3f}' for s in init_s)})")
+
+    # (d) train under torchrun (world of 1); then in this process, in turns
+    # (no group, group, group, no group), train with torchrun's variables
+    # set (a world of 1 under NCCL) against plain train over the same
+    # steps, so that launch-to-launch noise stays out; render --sharded.
+    argv = ["train", "--device", "cuda", "--steps", str(SHARDED_STEPS), "--log-every",
+            str(SHARDED_LOG_EVERY)]
+    t0 = time.perf_counter()
+    out = torchrun(argv)
+    train_s = time.perf_counter() - t0
+    outs = {True: [], False: []}
+    for grouped in (False, True, True, False):
+        with world_variables(grouped):
+            outs[grouped].append(cli_run(argv))
+    losses = step_losses(out)
+    n_logged = len(range(0, SHARDED_STEPS, SHARDED_LOG_EVERY)) + 1
+    if any(len(step_losses(o)) != n_logged for o in [out] + outs[True] + outs[False]):
+        raise PhaseFailure(f"train logged other than {n_logged} step lines:\n{out[-2000:]}")
+    falls = all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+    launched_ms = steady_step_ms(out, TRAIN_RAYS)
+    step_run_ms = {k: [steady_step_ms(o, TRAIN_RAYS) for o in v] for k, v in outs.items()}
+    t0 = time.perf_counter()
+    out_r = torchrun(["render", "--sharded", "--device", "cuda", "-o", str(root / "sharded.ppm")])
+    render_s = time.perf_counter() - t0
+    cli_run(["render", "--device", "cuda", "-o", str(root / "single.ppm")])
+    same_bytes = (root / "sharded.ppm").read_bytes() == (root / "single.ppm").read_bytes()
+    ok = (falls and same_bytes and all("mesh: 1 rank(s) (nccl)" in o for o in [out] + outs[True])
+          and all("mesh: 1 rank(s)\n" in o for o in outs[False])
+          and "rays split over 1 rank(s)" in out_r)
+    say("27 sharded", f"(d) {card}: train --device cuda --steps {SHARDED_STEPS} --log-every "
+        f"{SHARDED_LOG_EVERY} under torchrun --nproc-per-node 1: exit 0 in {train_s:.1f} s, "
+        f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, steady step (steps {SHARDED_LOG_EVERY + 1}-"
+        f"{SHARDED_STEPS - 1}) {launched_ms:.2f} ms; in this process, in turns (plain, world of "
+        f"1 from torchrun's variables, world of 1, plain): plain "
+        f"{', '.join(f'{v:.2f}' for v in step_run_ms[False])} ms, world of 1 under NCCL "
+        f"{', '.join(f'{v:.2f}' for v in step_run_ms[True])} ms; render --sharded under "
+        f"torchrun exit 0 in {render_s:.1f} s, its bytes the unsharded render's {same_bytes} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("train or render --sharded under torchrun failed its checks:\n"
+                           + out[-2000:] + out_r[-1000:])
+    return frame_ms, step_ms
+
+
 def main() -> int:
     import torch
 
@@ -2714,6 +3042,9 @@ def main() -> int:
     # Occupancy-culled, placement-aware training and the rest of the front
     # ends.
     phase_culled(coarse, fine, cam, dev, card)
+
+    # The parallel layer: a world of 1 under NCCL.
+    phase_sharded(coarse, fine, cam, dev, grid, card)
 
     # Bounds from this run's shapes (bytes: each input read once, each
     # output written once; operations at the peak of their type).

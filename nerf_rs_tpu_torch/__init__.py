@@ -5,7 +5,10 @@ param trees and array layouts are the same, so each module's counterpart
 is easy to find and the tests feed both packages the same inputs. The
 fused MLP forward and backward, the fused resampler and the hash-grid
 family's multiresolution hash encode are hand-written CUDA kernels for
-Hopper (``ops/kernels/csrc/``); everything else is plain PyTorch. This
+Hopper (``ops/kernels/csrc/``); everything else is plain PyTorch.
+``parallel/`` splits frames and training batches over the ranks of a
+``torch.distributed`` world, one process a device (NCCL between cards,
+gloo on the CPU), as the JAX package splits them over a device mesh. This
 package never imports JAX.
 
 Float32 matmuls are true float32 (TF32 off), the counterpart of the JAX

@@ -78,10 +78,13 @@ def _default_mlp_fn(params) -> Callable:
 
 
 def _params_device(params) -> torch.device:
+    """Where a sweep of ``params`` runs by default: a module's or a tensor
+    tree's own device; the card for a tree of numpy arrays (as
+    ``io.weights.load_nerf_params`` returns), which lives on no device."""
     if isinstance(params, torch.nn.Module):
         return next(params.parameters()).device
     leaf = params["hash_tables"] if "hash_tables" in params else params["dense0"]["kernel"]
-    return leaf.device if isinstance(leaf, torch.Tensor) else torch.device("cpu")
+    return leaf.device if isinstance(leaf, torch.Tensor) else torch.device("cuda")
 
 
 def _cell_centers(resolution: int, aabb, device) -> torch.Tensor:
@@ -138,7 +141,8 @@ def build_occupancy_grid(params, *, resolution: int = 128,
                          chunk: int = 262_144, mlp_fn: Optional[Callable] = None,
                          device=None) -> OccupancyGrid:
     """Dense sigma sweep at cell centers -> thresholded, dilated bool grid,
-    on ``device`` (default: the params' device).
+    on ``device`` (default: the params' device; the card for a tree of
+    numpy arrays).
 
     ``params`` is a param tree or a module; ``mlp_fn(params, points,
     viewdirs) -> (rgb, sigma)`` defaults to the fused kernel's bf16

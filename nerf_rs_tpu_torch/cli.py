@@ -17,6 +17,8 @@
     python -m nerf_rs_tpu_torch pack -o scene.npz
     python -m nerf_rs_tpu_torch serve --checkpoint ck/step_00005000
     python -m nerf_rs_tpu_torch info
+    python -m torch.distributed.run --nproc-per-node 8 -m nerf_rs_tpu_torch train
+    python -m torch.distributed.run --nproc-per-node 8 -m nerf_rs_tpu_torch render --sharded
 
 Every subcommand runs on the CUDA card unless ``--device cpu`` is given.
 ``render`` takes the occupancy-grid flags, the depth and opacity maps,
@@ -29,24 +31,33 @@ them, stops cleanly on SIGTERM or SIGINT, can start from exported weights
 (``--init-weights``), and culls and places its samples by an occupancy grid
 it rebuilds from the student (``--accel-*``). ``verify`` checks the
 networks against the golden samples and frames, ``extract`` writes the
-field's iso-surface as a PLY mesh. Not ported: ``benchmark``, which wraps
-the repository's ``bench.py`` (ROADMAP item 8), and ``--sharded`` (item
-11).
+field's iso-surface as a PLY mesh.
+
+Launched by torchrun (``python -m torch.distributed.run``), one process a
+device, ``train`` takes every step as a data-parallel step over the ranks
+(``parallel/train_sharded.py``; NCCL between cards, gloo with ``--device
+cpu``) and ``render --sharded`` splits each frame's rays over them
+(``parallel/render_sharded.py``); only rank 0 prints and writes files.
+Without torchrun both run as a world of 1. Not ported: ``benchmark``,
+which wraps the repository's ``bench.py`` (ROADMAP item 8).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
 from pathlib import Path
 
 
-def _build_accel(args, cfg, params, camera, device):
+def _build_accel(args, cfg, params, camera, device, chunk=None):
     """The occupancy grid and the accel config of ``render --accel``:
     capacities for the compaction modes from the camera's geometry, or
     measured by one render (``--accel-calibrate``, and always with
-    ``--accel-aabb``)."""
+    ``--accel-aabb``), for the render's chunks (``chunk``: the sharded
+    render's; default the single-device render's)."""
     import torch
 
     from nerf_rs_tpu_torch.accel import (
@@ -74,9 +85,9 @@ def _build_accel(args, cfg, params, camera, device):
             # geometry-only suggestion undershoots: measure instead.
             cfg = calibrate_capacities(params["coarse"], params["fine"], grid, camera,
                                        args.height, args.width, random.key(args.seed, device),
-                                       cfg)
+                                       cfg, chunk=chunk)
         else:
-            cfg = suggest_capacities(grid, camera, args.height, args.width, cfg)
+            cfg = suggest_capacities(grid, camera, args.height, args.width, cfg, chunk=chunk)
         note = f"capacities {cfg.accel_coarse_capacity:.2f}/{cfg.accel_fine_capacity:.2f}"
     frac = float(grid.occ.to(torch.float32).mean())
     print(f"occupancy grid {args.accel_res}^3 built in {time.perf_counter() - t0:.2f}s "
@@ -103,6 +114,26 @@ def _device(name: str):
     if device.type == "cuda" and not torch.cuda.is_available():
         sys.exit(f"error: --device {name} but torch.cuda.is_available() is false")
     return device
+
+
+@contextlib.contextmanager
+def _world(device):
+    """The data-parallel world of a run launched by torchrun, else a world
+    of 1 on ``device``: joins it (``parallel.multihost.initialize``),
+    keeps standard output to rank 0, and leaves it at the end. Yields the
+    ``parallel.Mesh``."""
+    from nerf_rs_tpu_torch.parallel import make_mesh, multihost
+
+    multihost.initialize(device=device)
+    try:
+        mesh = make_mesh(device)
+        with contextlib.ExitStack() as stack:
+            if mesh.rank != 0:
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            yield mesh
+    finally:
+        multihost.shutdown()
 
 
 def _load_scene(args):
@@ -159,6 +190,15 @@ def _checkpoint_networks(params, path, cfg, device, hint: str = ""):
 
 
 def cmd_render(args) -> int:
+    if not args.sharded:
+        return _render(args, _device(args.device), None)
+    with _world(_device(args.device)) as mesh:
+        return _render(args, mesh.device, mesh)
+
+
+def _render(args, device, mesh) -> int:
+    """``render`` on ``device``, or with its rays split over ``mesh``'s
+    ranks (``--sharded``), where only rank 0 writes the files."""
     import numpy as np
 
     from nerf_rs_tpu_torch.config import RenderConfig
@@ -170,7 +210,6 @@ def cmd_render(args) -> int:
     from nerf_rs_tpu_torch.render import render_image, render_image_aux
     from nerf_rs_tpu_torch.utils.profiling import device_trace
 
-    device = _device(args.device)
     trees, camera, _ = _load_scene(args)
     cfg = RenderConfig(n_coarse=args.coarse_samples, n_fine=args.fine_samples,
                        ray_chunk=args.ray_chunk, impl=args.impl, dtype=args.dtype,
@@ -187,15 +226,41 @@ def cmd_render(args) -> int:
     label = cfg.impl if cfg.model == "mlp" else cfg.model
     print(f"Rendering {args.width}x{args.height} with {cfg.n_coarse} coarse and "
           f"{cfg.n_fine} fine samples per ray ({label}/{cfg.dtype}, sampling "
-          f"{cfg.sampling_impl}, on {device})")
+          f"{cfg.sampling_impl}, on {device}"
+          + (f", rays split over {mesh.size} rank(s))" if mesh else ")"))
     if args.accel_aabb and not args.accel:
         print("note: --accel-aabb implies --accel")
         args.accel = True
     grid = None
     if args.accel:
-        cfg, grid = _build_accel(args, cfg, params, camera, device)
+        chunk = None
+        if mesh:
+            from nerf_rs_tpu_torch.parallel.render_sharded import effective_chunk
+
+            chunk = effective_chunk(args.height * args.width, mesh.size, cfg)
+        cfg, grid = _build_accel(args, cfg, params, camera, device, chunk)
+    if mesh:
+        from nerf_rs_tpu_torch.parallel.render_sharded import (
+            render_image_aux_sharded,
+            render_image_sharded,
+        )
+
+        def render_rgb(*a):
+            return render_image_sharded(*a, mesh=mesh, grid=grid)
+
+        def render_aux(*a):
+            return render_image_aux_sharded(*a, mesh=mesh, grid=grid)
+    else:
+        def render_rgb(*a):
+            return render_image(*a, device=device, grid=grid)
+
+        def render_aux(*a):
+            return render_image_aux(*a, device=device, grid=grid)
+    writer = mesh is None or mesh.rank == 0
 
     def save(path, img):
+        if not writer:
+            return
         path = Path(path)
         if path.suffix.lower() == ".ppm":
             save_ppm(path, img, args.height, args.width)
@@ -213,14 +278,13 @@ def cmd_render(args) -> int:
         return p if n_frames == 1 else p.with_name(f"{p.stem}_{fi:03d}{p.suffix}")
 
     t0 = time.perf_counter()
-    with device_trace(args.trace_dir):
+    with device_trace(args.trace_dir if writer else None):
         for fi in range(n_frames):
             cam_i = camera if n_frames == 1 else orbit_camera(camera, 2.0 * np.pi * fi / n_frames)
             key = random.key(args.seed, device)
             if args.depth_output or args.acc_output:
-                rgb, depth, acc = (x.cpu().numpy() for x in render_image_aux(
-                    params["coarse"], params["fine"], cam_i, args.height, args.width, key, cfg,
-                    device=device, grid=grid))
+                rgb, depth, acc = (x.cpu().numpy() for x in render_aux(
+                    params["coarse"], params["fine"], cam_i, args.height, args.width, key, cfg))
                 if args.depth_output:
                     # Depth normalized to [near, far], near = white.
                     d = (depth - camera.near) / (camera.far - camera.near)
@@ -230,8 +294,8 @@ def cmd_render(args) -> int:
                     save(frame_path(args.acc_output, fi),
                          np.repeat(np.clip(acc, 0, 1)[..., None], 3, -1))
             else:
-                rgb = render_image(params["coarse"], params["fine"], cam_i, args.height,
-                                   args.width, key, cfg, device=device, grid=grid).cpu().numpy()
+                rgb = render_rgb(params["coarse"], params["fine"], cam_i, args.height,
+                                 args.width, key, cfg).cpu().numpy()
             save(frame_path(args.output, fi), rgb)
     dt = time.perf_counter() - t0
     rays = args.width * args.height * n_frames
@@ -337,17 +401,37 @@ def _init_weights(args, arch, device):
 
 
 def cmd_train(args) -> int:
+    with _world(_device(args.device)) as mesh:
+        return _train(args, mesh)
+
+
+def _train(args, mesh) -> int:
+    """``train`` over ``mesh``'s ranks: every rank draws the global batch
+    and the data-parallel step keeps its rows; every step is
+    ``parallel.train_sharded.sharded_train_step``, which in a world of 1
+    without a process group is ``train.train_step``. Rank 0 alone writes
+    the checkpoints; a resumed state is read by every rank, then rank 0's
+    is broadcast. A stop request (SIGTERM, SIGINT) rides in the step's
+    all-reduce and is read after the next step is queued, so that every
+    rank stops after the same step without a wait at every step."""
     import signal
 
     import torch
+    import torch.distributed as dist
 
     from nerf_rs_tpu_torch.accel import field_grid_kwargs
     from nerf_rs_tpu_torch.config import ArchConfig, HashGridConfig, RenderConfig, TrainConfig
     from nerf_rs_tpu_torch.io.checkpoint import save_checkpoint, save_model_config
     from nerf_rs_tpu_torch.ops import random
-    from nerf_rs_tpu_torch.train import create_train_state, refresh_grid, train_step
+    from nerf_rs_tpu_torch.parallel import replicate
+    from nerf_rs_tpu_torch.parallel.train_sharded import (
+        create_sharded_train_state,
+        sharded_train_step,
+    )
+    from nerf_rs_tpu_torch.train import refresh_grid
 
-    device = _device(args.device)
+    device = mesh.device
+    writer = mesh.rank == 0
     arch = ArchConfig(width=args.width, v_width=args.v_width, depth=args.depth,
                       skip_at=args.skip_at)
     render_cfg = RenderConfig(n_coarse=args.coarse_samples, n_fine=args.fine_samples,
@@ -386,19 +470,27 @@ def cmd_train(args) -> int:
             accel_sample_aabb=True, accel_aabb_probes=int(args.accel_probes or 0),
             accel_pad_probes=float(args.accel_pad or 1.0)))
     print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})")
+    print(f"mesh: {mesh.size} rank(s)"
+          + (f" ({dist.get_backend(mesh.group)})" if mesh.group is not None else ""))
 
     state = None
     if args.checkpoint_dir:
         # The guards read existing checkpoints only, so a stale sidecar of
         # a run that died before its first checkpoint does not block a
-        # retry; the sidecar is written only after every guard passed.
+        # retry; rank 0 writes the sidecar once every rank's guards passed.
         want_info = _model_info(args, cfg)
         state = _resume(args, arch, want_info, device)
-        save_model_config(Path(args.checkpoint_dir), want_info)
+        if mesh.group is not None:
+            dist.barrier(group=mesh.group)
+        if writer:
+            save_model_config(Path(args.checkpoint_dir), want_info)
     if state is None and args.init_weights:
         state = _init_weights(args, arch, device)
     if state is None:
-        state = create_train_state(torch.Generator(device=device).manual_seed(cfg.seed), cfg)
+        _, state = create_sharded_train_state(
+            torch.Generator(device=device).manual_seed(cfg.seed), cfg, mesh)
+    else:
+        replicate(mesh, state)
 
     if args.data:
         from nerf_rs_tpu_torch.data import BlenderDataset
@@ -425,8 +517,14 @@ def cmd_train(args) -> int:
                  if args.teacher_samples else ""))
 
     # SIGTERM and SIGINT finish the step in flight, checkpoint and exit 0,
-    # so that a restarted job resumes from the same directory.
+    # so that a restarted job resumes from the same directory. Across ranks
+    # the request rides in the step's all-reduce and is read one step late
+    # (after the next step is queued, so that the loop does not wait for
+    # each step): every rank reads the same pooled value after the same
+    # step, and all stop one step after it.
     stop = []
+    stopped = False
+    pooled_stop = None
 
     def request_stop(signum, frame):
         print(f"received signal {signum}: checkpointing and stopping", flush=True)
@@ -448,7 +546,7 @@ def cmd_train(args) -> int:
         sweep_kw = field_grid_kwargs(cfg.render) if args.accel_every else None
         batches = dataset.batches(cfg.batch_rays, seed=cfg.seed + start_step)
         for step, batch in enumerate(batches, start=start_step):
-            if step >= cfg.n_steps or stop:
+            if step >= cfg.n_steps or stopped or (mesh.group is None and stop):
                 break
             if (args.accel_every and step >= args.accel_warmup
                     and (step % args.accel_every == 0 or (step == start_step and grid is None))):
@@ -456,8 +554,23 @@ def cmd_train(args) -> int:
                                                     resolution=args.accel_res,
                                                     explore=args.accel_explore, sweep_kw=sweep_kw)
                 print(line, flush=True)
-            state, metrics = train_step(state, batch, random.fold_in(key, torch.tensor(step)),
-                                        step_cfg, grid=grid)
+            state, metrics = sharded_train_step(
+                mesh, state, batch, random.fold_in(key, torch.tensor(step)), step_cfg, grid=grid,
+                stop=bool(stop) if mesh.group is not None else None)
+            if mesh.group is not None:
+                # Pooled over the ranks: above 0 on every rank when any asked.
+                # The last step's flag was copied to the host behind its
+                # step; waiting for that copy leaves this step queued.
+                if pooled_stop is not None:
+                    flag, copied = pooled_stop
+                    if copied is not None:
+                        copied.synchronize()
+                    stopped = float(flag) > 0.0
+                flag = metrics.pop("stop").to("cpu", non_blocking=True)
+                copied = torch.cuda.Event() if device.type == "cuda" else None
+                if copied is not None:
+                    copied.record()
+                pooled_stop = (flag, copied)
             if step % args.log_every == 0 or step + 1 == cfg.n_steps:
                 m = {k: float(v) for k, v in metrics.items()}
                 rays_s = cfg.batch_rays * (step - start_step + 1) / (time.perf_counter() - t0)
@@ -468,12 +581,12 @@ def cmd_train(args) -> int:
                         extra += " OVERFLOW (raise accel capacities)"
                 print(f"step {step}: loss {m['loss']:.5f} psnr {m['psnr']:.2f} "
                       f"({rays_s:,.0f} rays/s fwd+bwd){extra}", flush=True)
-            if args.checkpoint_dir and (step + 1) % cfg.checkpoint_every == 0:
+            if writer and args.checkpoint_dir and (step + 1) % cfg.checkpoint_every == 0:
                 print(f"checkpointed {save_checkpoint(args.checkpoint_dir, state)}", flush=True)
     finally:
         for s, h in old_handlers.items():
             signal.signal(s, h)
-        if args.checkpoint_dir:
+        if writer and args.checkpoint_dir:
             print(f"final checkpoint {save_checkpoint(args.checkpoint_dir, state)}", flush=True)
     return 0
 
@@ -690,6 +803,14 @@ def cmd_info(args) -> int:
             print(f"power limit: unread ({e})")
     else:
         print("devices: no CUDA card (torch.cuda.is_available() is false)")
+    if "WORLD_SIZE" in os.environ:
+        print(f"world: rank {os.environ.get('RANK', '?')} of {os.environ['WORLD_SIZE']} "
+              f"(torchrun; local rank {os.environ.get('LOCAL_RANK', '?')}): train and render "
+              "--sharded split their rays over the ranks, NCCL between cards, gloo with "
+              "--device cpu")
+    else:
+        print("world: 1 process (not launched by torchrun: train and render --sharded run on "
+              "one device)")
     print(f"lego assets: {find_lego_assets()}")
     return 0
 
@@ -749,6 +870,9 @@ def main(argv=None) -> int:
     p.add_argument("--width", type=int, default=256)
     p.add_argument("--height", type=int, default=256)
     p.add_argument("-o", "--output", default="output.ppm")
+    p.add_argument("--sharded", action="store_true",
+                   help="split each frame's rays over the ranks of a torchrun launch (one "
+                        "process a device; a world of 1 without torchrun); rank 0 writes")
     p.add_argument("--accel", action="store_true",
                    help="occupancy-grid empty-space skipping (fast mode)")
     p.add_argument("--accel-res", type=int, default=128,

@@ -109,7 +109,7 @@ def vertex_colors(params_fine, vertices: np.ndarray, faces: np.ndarray,
     queried at each vertex with the view direction along the inward normal
     (an outside observer facing the surface), through the plain MLP
     ``models.mlp.nerf_mlp`` in f32 on ``device`` (default: the params'
-    device), clipped to [0, 1]."""
+    device; the card for a tree of numpy arrays), clipped to [0, 1]."""
     from nerf_rs_tpu_torch.accel import _params_device
     from nerf_rs_tpu_torch.models.mlp import as_module, nerf_mlp
 
@@ -174,7 +174,7 @@ def extract_scene_mesh(params_coarse, params_fine, *, resolution: int = 128,
     """Trained networks -> the surface mesh of the FINE field (the
     render's geometry; the coarse network only guides sampling), from its
     ``accel.density_grid`` lattice on ``device`` (default: the params'
-    device) -> (vertices (V, 3) f32, faces (F, 3) i32).
+    device; the card for a tree of numpy arrays) -> (vertices (V, 3) f32, faces (F, 3) i32).
 
     ``iso`` is the density treated as the surface: with the render's
     sample spacing of about 0.03, exp(-10 * 0.03) marks about 26% opacity

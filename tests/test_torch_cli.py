@@ -147,7 +147,7 @@ def both_runs(tmp_path_factory):
     networks in the reference .bin format. Returns the paths, each run's
     losses and stdout."""
     import nerf_rs_tpu.parallel.train_sharded as jax_train_sharded
-    import nerf_rs_tpu_torch.train as port_train
+    import nerf_rs_tpu_torch.parallel.train_sharded as port_train_sharded
     from nerf_rs_tpu.cli import main as jax_cli_main
 
     root = tmp_path_factory.mktemp("both")
@@ -162,8 +162,8 @@ def both_runs(tmp_path_factory):
         m.setenv("NERF_NO_COMPILE_CACHE", "1")
         m.setattr(jax_train_sharded, "sharded_train_step",
                   _recording(jax_train_sharded, "sharded_train_step", runs["jax"]["losses"]))
-        m.setattr(port_train, "train_step",
-                  _recording(port_train, "train_step", runs["port"]["losses"]))
+        m.setattr(port_train_sharded, "sharded_train_step",
+                  _recording(port_train_sharded, "sharded_train_step", runs["port"]["losses"]))
         for steps in ("2", "4"):
             for name, main, extra in (("jax", jax_cli_main, []),
                                       ("port", cli_main, ["--device", "cpu"])):
@@ -213,7 +213,7 @@ def test_train_data_init_weights_and_resume_agree_with_jax(both_runs, tmp_path):
     import jax.numpy as jnp
     import optax
 
-    import nerf_rs_tpu_torch.train as port_train
+    import nerf_rs_tpu_torch.parallel.train_sharded as port_train_sharded
     from nerf_rs_tpu.cli import main as jax_cli_main
     from nerf_rs_tpu.config import TrainConfig as JaxTrainConfig
     from nerf_rs_tpu.io.checkpoint import restore_checkpoint as jax_restore_checkpoint
@@ -246,17 +246,17 @@ def test_train_data_init_weights_and_resume_agree_with_jax(both_runs, tmp_path):
         to_np(jax_state.params), to_np(adam.mu), to_np(adam.nu), int(adam.count),
         int(jax_state.step), "cpu"))
     losses, grads = [], []
-    real_step = port_train.train_step
+    real_step = port_train_sharded.sharded_train_step
 
-    def step_recording_grads(state, *args, **kw):
-        state, metrics = real_step(state, *args, **kw)
+    def step_recording_grads(*args, **kw):
+        state, metrics = real_step(*args, **kw)
         losses.append(float(metrics["loss"]))
         grads.append({net: {name: w.grad.numpy().copy() for name, w in module.weights.items()}
                       for net, module in state.params.items()})
         return state, metrics
 
     with pytest.MonkeyPatch.context() as m:
-        m.setattr(port_train, "train_step", step_recording_grads)
+        m.setattr(port_train_sharded, "sharded_train_step", step_recording_grads)
         assert cli_main(["train", "--device", "cpu", "--data", str(scene), "--checkpoint-dir",
                          str(tmp_path / "from_jax"), "--steps", "3", *DATA_TRAIN]) == 0
     assert len(losses) == 1

@@ -933,3 +933,82 @@ def test_extract_lattice_through_k1_bf16(card):
     assert (side != side_plain).sum() <= 1e-2 * near.sum(), ((side != side_plain).sum(), near.sum())
     verts, faces = extract_scene_mesh(fine, fine, resolution=96)
     assert abs(len(faces) - len(extract_voxel_mesh(plain, 10.0)[1])) <= 0.02 * len(faces)
+
+
+@pytest.fixture
+def nccl_world_of_1(card, tmp_path):
+    """A world of 1 under NCCL on the card (a file:// store), torn down
+    after the test."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from nerf_rs_tpu_torch.parallel import make_mesh, multihost
+
+    multihost.initialize(f"file://{tmp_path / 'store'}", 1, 0, device=card,
+                         timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh()
+        assert dist.get_backend() == "nccl" and mesh.device == card
+        yield mesh
+    finally:
+        multihost.shutdown()
+
+
+def test_world_of_1_sharded_frame_is_bitwise_render_image(nccl_world_of_1):
+    """render_image_sharded in a world of 1 under NCCL: render_image's
+    frame bit for bit (the all-gather of one rank is a copy), K1 twice a
+    chunk on the tensor cores; the culled path too."""
+    from nerf_rs_tpu_torch.accel import build_scene_grid
+    from nerf_rs_tpu_torch.parallel.render_sharded import render_image_sharded
+
+    mesh = nccl_world_of_1
+    golden = load_golden(LEGO / "tf_reference_samples.json")
+    cam = camera_from_golden(golden)
+    coarse, fine = (NerfMLP(load_nerf_params(LEGO / n), device=mesh.device)
+                    for n in ("coarse", "fine"))
+    cfg = RenderConfig(n_coarse=32, n_fine=64, ray_chunk=2048, impl="pallas")
+    key = random.key(0, mesh.device)
+    before, before_tc = fused_nerf_mlp.launches, fused_nerf_mlp.tc_launches
+    got = render_image_sharded(coarse, fine, cam, 64, 64, key, cfg, mesh=mesh)
+    assert (fused_nerf_mlp.launches - before, fused_nerf_mlp.tc_launches - before_tc) == (4, 4)
+    assert torch.equal(got, render_image(coarse, fine, cam, 64, 64, key, cfg))
+    grid = build_scene_grid(coarse, fine, resolution=64)
+    acfg = cfg.replace(accel_compact="off", accel_aabb_probes=32, accel_range_stride=4,
+                       accel_cull_rays=True, sampling_impl="pallas", dtype="bfloat16")
+    assert torch.equal(render_image_sharded(coarse, fine, cam, 64, 64, key, acfg, mesh=mesh,
+                                            grid=grid),
+                       render_image(coarse, fine, cam, 64, 64, key, acfg, grid=grid))
+
+
+def test_world_of_1_sharded_step_is_bitwise_train_step(nccl_world_of_1):
+    """sharded_train_step in a world of 1 under NCCL, from the same state,
+    batch and key as train_step: the same params and metrics bit for bit,
+    K2 twice."""
+    from nerf_rs_tpu_torch.config import TrainConfig
+    from nerf_rs_tpu_torch.parallel.train_sharded import sharded_train_step
+    from nerf_rs_tpu_torch.train import create_train_state, train_step
+
+    mesh = nccl_world_of_1
+    cfg = TrainConfig(batch_rays=256, arch=SMALL, render=RenderConfig(
+        n_coarse=16, n_fine=32, ray_chunk=256, impl="pallas"))
+    states = [create_train_state(torch.Generator(device=mesh.device).manual_seed(0), cfg)
+              for _ in range(2)]
+    rng = np.random.default_rng(0)
+    dirs = rng.normal(size=(256, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    batch = {"origins": torch.zeros(256, 3, device=mesh.device),
+             "dirs": torch.from_numpy(dirs).to(mesh.device),
+             "rgb": torch.from_numpy(rng.uniform(size=(256, 3)).astype(np.float32)).to(mesh.device),
+             "near": torch.tensor(2.0, device=mesh.device),
+             "far": torch.tensor(6.0, device=mesh.device)}
+    key = random.key(1, mesh.device)
+    _, want = train_step(states[0], batch, key, cfg)
+    before = fused_nerf_mlp_backward.launches
+    _, got = sharded_train_step(mesh, states[1], batch, key, cfg)
+    assert fused_nerf_mlp_backward.launches - before == 2
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+    for net, module in states[0].params.items():
+        for name, p in module.weights.items():
+            assert torch.equal(states[1].params[net].weights[name], p), (net, name)

@@ -207,7 +207,10 @@ def test_package_never_imports_jax():
         "             or k == 'nerf_rs_tpu')\n"
         "assert not bad, bad\n"
         "walked = {'nerf_rs_tpu_torch.models.hashgrid', 'nerf_rs_tpu_torch.ops.kernels.hash_encode',\n"
-        "          'nerf_rs_tpu_torch.models.quant', 'nerf_rs_tpu_torch.ops.kernels.int8_mlp'}\n"
+        "          'nerf_rs_tpu_torch.models.quant', 'nerf_rs_tpu_torch.ops.kernels.int8_mlp',\n"
+        "          'nerf_rs_tpu_torch.parallel.mesh', 'nerf_rs_tpu_torch.parallel.multihost',\n"
+        "          'nerf_rs_tpu_torch.parallel.render_sharded',\n"
+        "          'nerf_rs_tpu_torch.parallel.train_sharded'}\n"
         "assert walked <= set(sys.modules), walked - set(sys.modules)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
