@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's eight main paths and holds them to the repository's own
+Drives the port's nine main paths and holds them to the repository's own
 bars: the render path — the pretrained lego coarse and fine networks
 rendering a 256x256 frame with 64 stratified + 128 importance samples on
 white, through ``nerf_rs_tpu_torch.render.render_image`` — the training
@@ -30,8 +30,11 @@ occupancy-culled, placement-aware training with the rest of the front ends
 --trace-dir`` — and the data-parallel layer — the render, the bench's
 accel frame and a training step split over the ranks of a
 ``torch.distributed`` world (``parallel/``), here a world of 1 under NCCL,
-and ``train`` and ``render --sharded`` under torchrun. Phases, each
-reported on its own line:
+and ``train`` and ``render --sharded`` under torchrun — and the examples
+gallery and the vendored networks' serving presets — every
+``examples_torch/`` script as a user runs it, and bench.py's frontier
+presets on ``assets/trained/`` at 800x800 against the lego teacher's
+frame. Phases, each reported on its own line:
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: the fused MLP kernels K1 and K2 (both on the tensor cores, f32
@@ -187,7 +190,33 @@ reported on its own line:
     then in this process ``train`` in a world of 1 from torchrun's
     variables against plain ``train`` over the same steps, in turns, with
     their steady step times, and ``render --sharded`` under torchrun (the
-    unsharded render's bytes).
+    unsharded render's bytes);
+28. the examples and the vendored presets: (a) every ``examples_torch/``
+    script in a process of its own, at the JAX script's defaults (01 and
+    08 with ``--impl pallas``, 02 in f32 and in bf16; 04 and 06 start one
+    rank a card under NCCL through torchrun), through a runner that
+    prints the kernels' launch counts: exit 0, its key lines (01's PNG
+    > 45 dB from the golden, 02's deviations within phase 3's bars of
+    its dtype, 03's losses finite and its export of the reference's
+    shapes, 04 and 06 bitwise, 05 >= 40 dB and packed bitwise, 08's 12
+    frames, the first > 45 dB from the plain path's frame, 07's
+    ratio, 09's PSNR and 11's losses and PSNR finite, 10's mesh not
+    empty, 12's PTQ frame > 25 dB from the f32 frame and its QAT losses
+    finite, 13's PNG), every K1 launch on the tensor cores, the kernels
+    it should reach launched, its wall time; then the hash encode
+    against its plain version at 11's table and level shapes; (b)
+    PRESETS at 800x800, each on a 128^3 grid of its own field with
+    bench.py's accel defaults through bf16 K1, against the lego
+    teacher's 64+128 bf16 frame (the same key): every K1 call of the
+    teacher frame and of each preset's grid sweeps and frame recorded and
+    held to its plain version by network and mode (``k1_bf16_witness``:
+    phase 3's bf16 witness over the path's own inputs, sigma and rgb);
+    PSNR at its bar, K1 launches as the grid and the rendered chunks
+    need, every one on the tensor cores; the frame time (median of
+    PRESET_REPS) and rays/s, and one frame under ``torch.profiler``
+    (idle share, top kernels); (c) the sp29 preset at 256x256 in f32: K1
+    frame against the plain frame (>= 60 dB), one K1 launch a rendered
+    chunk. Comparison and timing launches do not count.
 
 Any failed phase exits non-zero. The line before the last is a JSON
 summary of the kernels, each with its bound (the larger of its bytes over
@@ -454,6 +483,100 @@ def main_path_inputs(cam, dev, n_rays: int = RAY_CHUNK):
     pts_c = (origin + dirs[:, None, :] * t_c[..., None]).contiguous()
     pts_f = (origin + dirs[:, None, :] * t_f[..., None]).contiguous()
     return pts_c, pts_f, dirs[:, None, :]
+
+
+def recorded_k1(run):
+    """``run()`` with every call of K1's wrapper recorded -> (what ``run``
+    returns, [(params, points, viewdirs, kwargs)]). The launches count as
+    they would unrecorded."""
+    import nerf_rs_tpu_torch.ops.kernels.fused_mlp as fm
+
+    real = fm.fused_nerf_mlp
+    seen = []
+
+    def record(params, points, viewdirs, **kw):
+        seen.append((params, points, viewdirs, kw))
+        return real(params, points, viewdirs, **kw)
+
+    # The wrapper counts through its module name.
+    record.launches, record.tc_launches = real.launches, real.tc_launches
+    fm.fused_nerf_mlp = record
+    try:
+        out = run()
+    finally:
+        fm.fused_nerf_mlp = real
+        real.launches, real.tc_launches = record.launches, record.tc_launches
+    return out, seen
+
+
+def k1_bf16_witness(calls, names):
+    """bf16 K1 against its plain version on recorded calls of a main path,
+    grouped by network (``names``: id -> name) and mode. Each call is run
+    again through the kernel, its plain version and the plain version in
+    float64, and the samples outside the bf16 bars are counted (sigma:
+    ``fused_mlp.BF16_SIGMA_BARS``; rgb: TOLERANCES["bfloat16"]["rgb_atol"]).
+    The counts add over a group's calls, and each group is held as
+    ``fused_mlp.bf16_sigma_agrees`` holds one call: outside the float64
+    evaluation's bars on at most 2x the plain version's count + 2, and
+    outside the plain version's own on at most 4 + 5e-5 n of its n values;
+    two reruns of every call bitwise equal. -> [(ok, line)]. The
+    caller keeps these launches out of the counts."""
+    import collections
+
+    import torch
+
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
+        BF16_SIGMA_BARS,
+        fused_nerf_mlp,
+        fused_nerf_mlp_reference,
+    )
+
+    def outside(got, want, atol, rtol):
+        got, want = got.double().reshape(-1), want.double().reshape(-1)
+        return int(((got - want).abs() > atol + rtol * want.abs()).sum())
+
+    bars = {"sigma": BF16_SIGMA_BARS, "rgb": (TOLERANCES["bfloat16"]["rgb_atol"], 0.0)}
+    groups = collections.defaultdict(lambda: {"calls": 0, "rows": 0, "bitwise": True,
+                                              "sigma": [0, 0, 0, 0], "rgb": [0, 0, 0, 0]})
+    with torch.no_grad():
+        for params, pts, vd, kw in calls:
+            if kw.get("dtype") != "bfloat16":
+                continue
+            g = groups[(names.get(id(params), "?"), bool(kw.get("sigma_only")))]
+            out_k = fused_nerf_mlp(params, pts, vd, **kw)
+            again = fused_nerf_mlp(params, pts, vd, **kw)
+            out_r = fused_nerf_mlp_reference(params, pts, vd, **kw)
+            out_64 = fused_nerf_mlp_reference(params, pts.double(), vd.double(), **kw)
+            g["calls"] += 1
+            g["rows"] += out_k[1].numel()
+            g["bitwise"] &= all(torch.equal(a, b) for a, b in zip(out_k, again))
+            for i, what in ((1, "sigma"), (0, "rgb")):
+                if what == "rgb" and kw.get("sigma_only"):
+                    continue
+                atol, rtol = bars[what]
+                c = g[what]
+                c[0] += out_k[i].numel()
+                c[1] += outside(out_k[i], out_r[i], atol, rtol)
+                c[2] += outside(out_k[i], out_64[i], atol, rtol)
+                c[3] += outside(out_r[i], out_64[i], atol, rtol)
+            del out_k, again, out_r, out_64
+    results = []
+    for (name, sigma_only), g in sorted(groups.items()):
+        ok = g["bitwise"]
+        parts = []
+        for what in ("sigma", "rgb"):
+            n, kp, ke, pe = g[what]
+            if not n:
+                continue
+            good = ke <= 2 * pe + 2 and kp <= 4 + 5e-5 * n
+            ok &= good
+            parts.append(f"{what} outside the bars of {n:,}: kernel vs plain {kp} (bar "
+                         f"{4 + 5e-5 * n:.0f}), vs float64 kernel {ke}, plain {pe} (bar "
+                         f"{2 * pe + 2})")
+        results.append((ok, f"{name} sigma_only={sigma_only}: {g['calls']} calls, {g['rows']:,} "
+                            f"rows; " + "; ".join(parts) + f"; reruns bitwise {g['bitwise']} -> "
+                            f"{'ok' if ok else 'FAIL'}"))
+    return results
 
 
 def phase_kernel_vs_plain(coarse, fine, cam, dev):
@@ -1260,6 +1383,32 @@ def read_counts() -> dict:
             "fused_nerf_mlp_backward_bf16": fns[1].bf16_launches}
 
 
+def encode_vs_plain(tables, pts, cfg, top: float):
+    """The encode kernel against its plain version on the same tables and
+    points: within 1e-5 x ``top`` (max |table|) in f32, 2 bf16 ulps of the
+    largest feature in bf16, and two calls bitwise equal. -> (ok, max
+    |kernel - plain|, bar, what the bar is, exactly equal, bitwise). The
+    caller keeps these launches out of the counts."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops.kernels.hash_encode import fused_hash_encode, hash_encode_reference
+
+    got = fused_hash_encode(tables, pts, cfg)
+    again = fused_hash_encode(tables, pts, cfg)
+    want = hash_encode_reference(tables, pts, cfg)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if tables.dtype == torch.float32:
+        bar, what = 1e-5 * top, "1e-5 x max|table|"
+    else:
+        bar, what = 2 * bf16_ulp(float(want.float().abs().max())), "2 bf16 ulps of max|feature|"
+    shape = (*pts.shape[:-1], cfg.levels * cfg.features)
+    bitwise = torch.equal(got, again)
+    ok = (tuple(got.shape) == shape and got.dtype == tables.dtype
+          and bool(torch.isfinite(got).all()) and err <= bar and bitwise)
+    return ok, err, bar, what, torch.equal(got.float(), want.float()), bitwise
+
+
 def phase_hash_vs_plain(cam, dev):
     """The encode kernel against its plain version at the paper config and
     the wide-F config, on the points the render hands it (16384 golden
@@ -1267,7 +1416,6 @@ def phase_hash_vs_plain(cam, dev):
     import torch
 
     from nerf_rs_tpu_torch.config import HashGridConfig
-    from nerf_rs_tpu_torch.ops.kernels.hash_encode import fused_hash_encode, hash_encode_reference
 
     pts_c, pts_f, _ = main_path_inputs(cam, dev, BENCH_CHUNK)
     saved = save_counts()
@@ -1280,30 +1428,16 @@ def phase_hash_vs_plain(cam, dev):
         for dtype in (torch.float32, torch.bfloat16):
             tables = t32.to(dtype)
             for label, pts in (("coarse", pts_c), ("fine", pts_f)):
-                got = fused_hash_encode(tables, pts, cfg)
-                again = fused_hash_encode(tables, pts, cfg)
-                want = hash_encode_reference(tables, pts, cfg)
-                torch.cuda.synchronize()
-                err = float((got.float() - want.float()).abs().max())
+                ok, err, bar, what, exact, bitwise = encode_vs_plain(tables, pts, cfg, top)
                 if dtype == torch.float32:
-                    bar, what = 1e-5 * top, "1e-5 x max|table|"
                     worst = max(worst, err)
-                else:
-                    bar, what = 2 * bf16_ulp(float(want.float().abs().max())), \
-                        "2 bf16 ulps of max|feature|"
-                shape = (*pts.shape[:-1], cfg.levels * cfg.features)
-                ok = (tuple(got.shape) == shape and got.dtype == dtype
-                      and bool(torch.isfinite(got).all()) and err <= bar
-                      and torch.equal(got, again))
                 say("17 hash", f"{name} (L={cfg.levels}, T=2^{cfg.table_log2}, F={cfg.features}) "
                     f"{str(dtype)[6:]} {label} {tuple(pts.shape[:-1])}: max |kernel - plain| "
-                    f"{err:.3e} (bar {bar:.3e}, {what}), exactly equal "
-                    f"{torch.equal(got.float(), want.float())}, two calls bitwise equal "
-                    f"{torch.equal(got, again)} -> {'ok' if ok else 'FAIL'}")
+                    f"{err:.3e} (bar {bar:.3e}, {what}), exactly equal {exact}, two calls "
+                    f"bitwise equal {bitwise} -> {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise PhaseFailure(f"the hash encode disagrees with its plain version: "
                                        f"{name}/{dtype}/{label}")
-                del got, again, want
     restore_counts(saved)                      # comparison launches do not count
     return worst
 
@@ -2828,6 +2962,374 @@ def run_phase_sharded(root: Path, coarse, fine, cam, dev, grid, card):
     return frame_ms, step_ms
 
 
+# The examples gallery and the vendored serving presets (phase 28).
+EXAMPLE_LIMIT_S = 300                  # an examples_torch/ script is killed after this
+# Each script with the JAX script's defaults (01 and 08 through K1), its
+# outputs in the phase's directory, and the dtype its K1 launches run in.
+EXAMPLES = (
+    ("01_render.py", ["--impl", "pallas"], "float32"),
+    ("02_fused_kernel.py", [], "float32"),
+    ("02_fused_kernel.py", ["--dtype", "bfloat16"], "bfloat16"),
+    ("03_train_distillation.py", ["--ckpt", "{tmp}/ck03", "--export", "{tmp}/exported03"], None),
+    ("04_multichip_render.py", [], None),
+    ("05_occupancy_grid.py", [], "bfloat16"),
+    ("06_multihost.py", [], None),
+    ("07_accel_training.py", [], "bfloat16"),
+    ("08_turntable.py", ["--impl", "pallas"], "float32"),
+    ("09_student_distillation.py", [], None),
+    ("10_geometry_export.py", ["--out", "{tmp}/lego_mesh.ply"], "bfloat16"),
+    ("11_hashgrid.py", ["--out", "{tmp}/hashgrid.png"], None),
+    ("12_int8_quantization.py", [], None),
+    ("13_single_pass_serving.py", [], "bfloat16"),
+)
+# The scripts' kernels that must have launched, by the wrappers' counts.
+EXAMPLE_KERNELS = {"01_render.py": "fused_nerf_mlp", "02_fused_kernel.py": "fused_nerf_mlp",
+                   "05_occupancy_grid.py": "fused_nerf_mlp", "07_accel_training.py": "fused_nerf_mlp",
+                   "08_turntable.py": "fused_nerf_mlp", "10_geometry_export.py": "fused_nerf_mlp",
+                   "11_hashgrid.py": "fused_hash_encode", "12_int8_quantization.py": "fused_int8_mlp",
+                   "13_single_pass_serving.py": "fused_nerf_mlp"}
+# Runs a script as __main__ in a process of its own and prints the
+# kernels' launch counts on its way out.
+COUNTING_RUNNER = r"""
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+from chip_smoke import read_counts
+sys.argv = sys.argv[2:]
+code = 0
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+except SystemExit as e:
+    code = e.code
+finally:
+    print("KERNEL_LAUNCHES " + json.dumps(read_counts()), flush=True)
+sys.exit(code)
+"""
+# bench.py's frontier presets (bench.py:394-436) with its accel defaults
+# (bench.py:536-543): a 128^3 grid of each network's own field,
+# accel_compact "off", 32 probes at stride 4, ray packing, bf16 K1. The
+# bar is the JAX package's record against the teacher frame (bench.py's
+# comments, assets/trained/README.md) less 0.5 dB for bf16 orderings.
+PRESETS = (
+    ("tsp_s64x0_probe", "teacher_sp30", 64, 0, True, 29.9),
+    ("sp29_s64x0_probe", "student128_sp29", 64, 0, True, 28.8),
+    ("student30_800q", "student128_30db", 64, 128, False, 29.6),
+)
+EXAMPLE_11_HASH = dict(levels=8, table_log2=14, res_max=256)   # 11_hashgrid.py's defaults
+PRESET_REPS = 5                        # bench.py's key for the compared frame is rep - 1
+
+
+def example_run(script: str, args, root: Path):
+    """One ``examples_torch/`` script in its own process (its session
+    killed at EXAMPLE_LIMIT_S), from ``root``: (output, launch counts, wall
+    s); a non-zero exit fails the phase."""
+    import os
+    import signal
+
+    argv = [a.format(tmp=root) for a in args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", COUNTING_RUNNER, str(REPO), str(REPO / "examples_torch" / script),
+         *argv], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        text = proc.communicate(timeout=EXAMPLE_LIMIT_S)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise PhaseFailure(f"examples_torch/{script} did not end in {EXAMPLE_LIMIT_S} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise PhaseFailure(f"examples_torch/{script} {' '.join(argv)} exited with "
+                           f"{proc.returncode}:\n{text[-3000:]}")
+    counts = json.loads(re.search(r"^KERNEL_LAUNCHES (.*)$", text, re.M).group(1))
+    return text, counts, wall
+
+
+def check_example(script: str, args, out: str, root: Path, dev) -> str:
+    """The key lines of a script's output (run with ``args``) and the
+    files it wrote -> a short summary; a miss fails the phase."""
+    from nerf_rs_tpu_torch.io.image import load_png, load_ppm
+
+    def need(ok, what):
+        if not ok:
+            raise PhaseFailure(f"examples_torch/{script}: {what}:\n{out[-2000:]}")
+
+    if script == "01_render.py":
+        db = psnr(load_png(root / "lego.png") / 255.0, load_ppm(GOLDEN_PPM))
+        need(db > GOLDEN_BAR_DB, f"lego.png {db:.2f} dB from the golden (bar > {GOLDEN_BAR_DB})")
+        return f"lego.png vs committed golden {db:.2f} dB"
+    if script == "02_fused_kernel.py":
+        rgb = float(re.search(r"max \|rgb - oracle\| += (\S+)", out).group(1))
+        sigma = float(re.search(r"max \|sigma - oracle\| = (\S+)", out).group(1))
+        dtype = args[args.index("--dtype") + 1] if "--dtype" in args else "float32"
+        tol = TOLERANCES[dtype]
+        need(rgb <= tol["rgb_atol"] and sigma <= tol["sigma_atol"],
+             f"{dtype} deviations {rgb:.2e} / {sigma:.2e} over {tol['rgb_atol']:g} / "
+             f"{tol['sigma_atol']:g}")
+        line = re.search(r"^\d+ samples .*$", out, re.M)
+        return (f"{dtype} deviations rgb {rgb:.2e}, sigma {sigma:.2e} (bars {tol['rgb_atol']:g} / "
+                f"{tol['sigma_atol']:g}); {line.group(0) if line else 'not timed'}")
+    if script == "03_train_distillation.py":
+        from nerf_rs_tpu_torch.io.weights import load_nerf_params, validate_param_shapes
+
+        need(all(math.isfinite(float(v)) for v in re.findall(r"loss (\S+)", out)),
+             "a non-finite loss")
+        for net in ("coarse", "fine"):
+            validate_param_shapes(load_nerf_params(root / "exported03" / net))
+        return "losses finite; exported03 reads back with the reference's shapes"
+    if script == "04_multichip_render.py":
+        need("sharded == single-device, bitwise: True" in out, "sharded frame not bitwise")
+        return "sharded == single-device, bitwise: True"
+    if script == "05_occupancy_grid.py":
+        need("ray-culled render bitwise equal: True" in out, "packed frame not bitwise")
+        db = float(re.search(r"accelerated vs exact: ([\d.]+) dB", out).group(1))
+        need(db >= ACCEL_BAR_DB, f"accelerated vs exact {db} dB < {ACCEL_BAR_DB}")
+        return f"accelerated vs exact {db} dB, packed bitwise"
+    if script == "06_multihost.py":
+        need("multihost == single-device, bitwise: True" in out, "multihost frame not bitwise")
+        need((root / "lego_multihost.png").exists(), "no lego_multihost.png")
+        return "multihost == single-device, bitwise: True; lego_multihost.png written"
+    if script == "07_accel_training.py":
+        ratio = float(re.search(r"culled/dense throughput: (\S+)x", out).group(1))
+        need(math.isfinite(ratio) and ratio > 0, f"culled/dense ratio {ratio}")
+        return re.search(r"^culled/dense .*$", out, re.M).group(0)
+    if script == "08_turntable.py":
+        from nerf_rs_tpu_torch.config import RenderConfig
+        from nerf_rs_tpu_torch.io.golden import camera_from_golden, load_golden
+        from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_nerf_params
+        from nerf_rs_tpu_torch.models.mlp import NerfMLP
+        from nerf_rs_tpu_torch.ops import random
+        from nerf_rs_tpu_torch.ops.rays import orbit_camera
+        from nerf_rs_tpu_torch.render import render_image
+
+        frames = sorted((root / "turntable").glob("frame_*.png"))
+        shapes = {load_png(f).shape for f in frames}
+        need(len(frames) == 12 and shapes == {(128, 128, 3)}, f"frames {len(frames)}, {shapes}")
+        # Frame 0 (orbit angle 0) against the plain path's frame, as 08 renders it.
+        assets = find_lego_assets()
+        nets = [NerfMLP(load_nerf_params(assets / net), device=dev) for net in ("coarse", "fine")]
+        cam = orbit_camera(camera_from_golden(load_golden(assets / "tf_reference_samples.json")), 0.0)
+        plain = render_image(*nets, cam, 128, 128, random.key(0, dev),
+                             RenderConfig(n_coarse=32, n_fine=64, ray_chunk=128 ** 2, impl="xla"))
+        db = psnr(load_png(frames[0]) / 255.0, plain.cpu().numpy())
+        need(db > GOLDEN_BAR_DB, f"frame_000.png {db:.2f} dB from the plain frame (bar > "
+             f"{GOLDEN_BAR_DB})")
+        return (f"12 frames of 128x128; frame_000.png vs the plain frame {db:.2f} dB (bar > "
+                f"{GOLDEN_BAR_DB}); " + re.search(r"^\S+ ms/frame .*$", out, re.M).group(0))
+    if script == "09_student_distillation.py":
+        db = float(re.search(r"student PSNR vs teacher \S+ after \d+ steps: (\S+) dB", out).group(1))
+        need(math.isfinite(db), f"student PSNR {db}")
+        return f"student PSNR vs teacher {db} dB after a few steps (finite; no bar)"
+    if script == "10_geometry_export.py":
+        verts, faces = (int(v.replace(",", "")) for v in re.search(
+            r"([\d,]+) vertices, ([\d,]+) triangles", out).groups())
+        need(verts > 0 and faces > 0 and (root / "lego_mesh.ply").stat().st_size > 0,
+             "an empty mesh")
+        return f"lego_mesh.ply {verts:,} vertices, {faces:,} triangles"
+    if script == "11_hashgrid.py":
+        need(all(math.isfinite(float(v)) for v in re.findall(r"loss (\S+)", out)),
+             "a non-finite loss")
+        db = float(re.search(r"hashgrid PSNR vs teacher \S+ after \d+ steps: (\S+) dB",
+                             out).group(1))
+        shape = load_png(root / "hashgrid.png").shape
+        need(math.isfinite(db) and shape == (32, 32, 3), f"PSNR {db}, hashgrid.png {shape}")
+        return (f"losses finite, PSNR vs teacher {db} dB after a few steps (no bar: the encode "
+                f"is held to its plain version below), hashgrid.png {shape}")
+    if script == "12_int8_quantization.py":
+        db = float(re.search(r"PTQ int8 vs f32 exact at \S+: (\S+) dB", out).group(1))
+        need(db > INT8_VS_F32_BAR_DB, f"PTQ int8 vs f32 {db} dB (bar > {INT8_VS_F32_BAR_DB})")
+        need(all(math.isfinite(float(v)) for v in re.findall(r"QAT step \d+: loss (\S+)", out)),
+             "a non-finite QAT loss")
+        return f"PTQ int8 vs f32 exact {db} dB (bar > {INT8_VS_F32_BAR_DB}); QAT losses finite"
+    if script == "13_single_pass_serving.py":
+        shape = load_png(root / "single_pass.png").shape
+        need(shape == (128, 128, 3), f"single_pass.png shape {shape}")
+        return re.search(r"^\d+x\d+ single-pass .*$", out, re.M).group(0)
+    raise PhaseFailure(f"examples_torch/{script}: no check of its output")
+
+
+def phase_examples(cam, dev, card):
+    """Phase 28 in a temporary directory, removed when the phase ends."""
+    with tempfile.TemporaryDirectory(prefix="nerf_rs_tpu_torch_examples_") as tmp:
+        return run_phase_examples(Path(tmp), cam, dev, card)
+
+
+def run_phase_examples(root: Path, cam, dev, card):
+    """Phase 28: (a) every examples_torch/ script on the card; (b) the
+    vendored networks' serving presets at 800x800 against the teacher
+    frame, with times and idle shares; (c) the sp29 preset's f32 K1 frame
+    against its plain frame. Returns the phase's launches of each kernel
+    line entry."""
+    import torch
+
+    from nerf_rs_tpu_torch.accel import build_scene_grid
+    from nerf_rs_tpu_torch.config import HashGridConfig, RenderConfig
+    from nerf_rs_tpu_torch.io.weights import load_nerf_params
+    from nerf_rs_tpu_torch.models.mlp import NerfMLP
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import infer_arch
+    from nerf_rs_tpu_torch.render import render_image
+
+    t_phase = time.perf_counter()
+    extra = {"fused_nerf_mlp": 0, "fused_nerf_mlp_bf16": 0, "hash_encode": 0, "int8_mlp": 0}
+    pts_c, pts_f, _ = main_path_inputs(cam, dev, BENCH_CHUNK)
+
+    # (a) The gallery, one script at a time.
+    for script, args, k1_dtype in EXAMPLES:
+        out, counts, wall = example_run(script, args, root)
+        summary = check_example(script, args, out, root, dev)
+        kernel = EXAMPLE_KERNELS.get(script)
+        if kernel and counts[kernel] == 0:
+            raise PhaseFailure(f"examples_torch/{script} never launched {kernel}")
+        if counts["fused_nerf_mlp_tc"] != counts["fused_nerf_mlp"]:
+            raise PhaseFailure(f"examples_torch/{script}: K1 launches off the tensor cores: {counts}")
+        if counts["fused_nerf_mlp"] and k1_dtype is None:
+            raise PhaseFailure(f"examples_torch/{script} launched K1 in its plain configuration")
+        extra["fused_nerf_mlp" if k1_dtype == "float32" else "fused_nerf_mlp_bf16"] += \
+            counts["fused_nerf_mlp"]
+        extra["hash_encode"] += counts["fused_hash_encode"]
+        extra["int8_mlp"] += counts["fused_int8_mlp"]
+        launched = ", ".join(f"{k} {v}" for k, v in counts.items() if v) or "no kernel"
+        say("28 examples", f"{script} {' '.join(args).format(tmp='.')}: exit 0 in {wall:.1f} s "
+            f"wall; launches: {launched}; {summary}")
+
+    # The encode against its plain version at 11's table and level shapes
+    # (f32 tables, as 11 trains and renders them).
+    hcfg = HashGridConfig(**EXAMPLE_11_HASH)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tables = torch.rand((hcfg.levels, 1 << hcfg.table_log2, hcfg.features), generator=gen,
+                        device=dev) * 2.0 - 1.0
+    saved = save_counts()
+    for label, pts in (("coarse", pts_c), ("fine", pts_f)):
+        ok, err, bar, what, exact, bitwise = encode_vs_plain(tables, pts, hcfg,
+                                                             float(tables.abs().max()))
+        say("28 examples", f"11_hashgrid.py's encode (L={hcfg.levels}, T=2^{hcfg.table_log2}, "
+            f"F={hcfg.features}, res_max {hcfg.res_max}) float32 {label} {tuple(pts.shape[:-1])}: "
+            f"max |kernel - plain| {err:.3e} (bar {bar:.3e}, {what}), exactly equal {exact}, two "
+            f"calls bitwise equal {bitwise} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailure(f"the encode disagrees with its plain version at 11's shapes ({label})")
+    restore_counts(saved)                      # comparison launches do not count
+
+    # (b) The vendored presets at 800x800 against the teacher's frame, each
+    # frame's K1 calls (and its grid sweep's) held to the plain version.
+    def check_k1_calls(what, calls, nets):
+        names = {id(net): "{} (width {}, v_width {})".format(label, *infer_arch(net.tree())[:2])
+                 for label, net in nets.items()}
+        saved = save_counts()
+        for ok, line in k1_bf16_witness(calls, names):
+            say("28 presets", f"{what}: bf16 K1 vs plain on the path's own inputs, {line}")
+            if not ok:
+                raise PhaseFailure(f"bf16 K1 disagrees with its plain version in the {what}")
+        restore_counts(saved)                  # comparison launches do not count
+        calls.clear()
+
+    size = BENCH_SIZE
+    trained = REPO / "assets" / "trained"
+    key = random.fold_in(random.key(0, dev), torch.tensor(PRESET_REPS - 1))
+    lego = {net: NerfMLP(load_nerf_params(REPO / "assets" / "lego_rust" / net), device=dev)
+            for net in ("coarse", "fine")}
+    teacher_cfg = RenderConfig(n_coarse=N_COARSE, n_fine=N_FINE, ray_chunk=min(BENCH_CHUNK, 16384),
+                               impl="pallas", dtype="bfloat16")
+    zero_counts()
+    teacher, calls = recorded_k1(
+        lambda: render_image(lego["coarse"], lego["fine"], cam, size, size, key, teacher_cfg))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_k1_calls("teacher frame", calls, lego)
+    n_chunks = -(-size * size // BENCH_CHUNK)
+    if counts["fused_nerf_mlp"] != 2 * n_chunks or counts["fused_nerf_mlp_tc"] != 2 * n_chunks:
+        raise PhaseFailure(f"teacher frame: K1 launches {counts} (expected {2 * n_chunks}, every "
+                           f"one on the tensor cores)")
+    extra["fused_nerf_mlp_bf16"] += counts["fused_nerf_mlp"]
+    teacher = teacher.cpu().numpy()
+    say("28 presets", f"teacher frame {size}x{size} (assets/lego_rust, {N_COARSE}+{N_FINE}, bf16 "
+        f"K1, {teacher_cfg.ray_chunk}-ray chunks): {counts['fused_nerf_mlp']} K1 launches, all "
+        f"on the tensor cores")
+    sweep_launches = 2 * -(-GRID_RES ** 3 // 262_144)
+    nets = {}
+    for name, weights, nc, nf, aabb, bar in PRESETS:
+        pc, pf = (NerfMLP(load_nerf_params(trained / weights / net), device=dev)
+                  for net in ("coarse", "fine"))
+        nets[name] = (pc, pf)
+        cfg = RenderConfig(n_coarse=nc, n_fine=nf, ray_chunk=BENCH_CHUNK, impl="pallas",
+                           dtype="bfloat16", accel_compact="off", accel_sample_aabb=aabb,
+                           accel_aabb_probes=PROBES, accel_range_stride=STRIDE,
+                           accel_cull_rays=True)
+        torch.cuda.synchronize()
+        zero_counts()
+
+        def main_path():
+            g = build_scene_grid(pc, pf, resolution=GRID_RES)
+            return g, render_image(pc, pf, cam, size, size, key, cfg, grid=g)
+
+        (grid, img), calls = recorded_k1(main_path)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check_k1_calls(name, calls, {"coarse": pc, "fine": pf})
+        _, chunks = rendered_chunks(grid, cam, size, cfg, dev)
+        want = sweep_launches + chunks * (2 if nf else 1)
+        db = psnr(img.cpu().numpy(), teacher)
+        ok = (db >= bar and counts["fused_nerf_mlp"] == want
+              and counts["fused_nerf_mlp_tc"] == want and bool(torch.isfinite(img).all()))
+        extra["fused_nerf_mlp_bf16"] += counts["fused_nerf_mlp"]
+        saved = save_counts()
+        frames = []
+        for _ in range(PRESET_REPS + 1):       # the first a warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render_image(pc, pf, cam, size, size, key, cfg, grid=grid)
+            torch.cuda.synchronize()
+            frames.append((time.perf_counter() - t0) * 1e3)
+        frame_ms = statistics.median(frames[1:])
+        wall, busy, top = profile_frame(
+            lambda: render_image(pc, pf, cam, size, size, key, cfg, grid=grid))
+        restore_counts(saved)                  # timing launches do not count
+        idle = f"idle share {1 - busy / wall:.4f} (wall {wall:.1f} ms, busy {busy:.1f} ms)" \
+            if busy > 0 else "idle share not measured (torch.profiler saw no device time)"
+        say("28 presets", f"{name} (assets/trained/{weights}, {nc}+{nf}, "
+            f"{'box+probe placement' if aabb else 'probe culling'}): vs teacher frame {db:.2f} dB "
+            f"(bar >= {bar}); grid {float(grid.occ.float().mean()):.4f} occupied, {chunks} of "
+            f"{n_chunks} chunks rendered; K1 launches {counts['fused_nerf_mlp']} (expected "
+            f"{want}), on the tensor cores {counts['fused_nerf_mlp_tc']} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        say("28 presets", f"{card}: {name} {size}x{size} frame {frame_ms:.1f} ms (median of "
+            f"{PRESET_REPS}; {min(frames[1:]):.1f}-{max(frames[1:]):.1f}), "
+            f"{size * size / frame_ms * 1e3:,.0f} rays/s; one frame under "
+            f"torch.profiler: {idle}; top: " + "; ".join(f"{n[:50]} {ms:.1f} ms" for n, ms in top))
+        if not ok:
+            raise PhaseFailure(f"{name} misses its bar against the teacher or went around the "
+                               f"tensor-core K1")
+
+    # (c) K1 f32 end to end at the students' widths: the sp29 preset at
+    # 256x256 in f32, kernel frame against the plain frame.
+    pc, pf = nets["sp29_s64x0_probe"]
+    cfg = RenderConfig(n_coarse=64, n_fine=0, ray_chunk=BENCH_CHUNK, impl="pallas",
+                       accel_compact="off", accel_sample_aabb=True, accel_aabb_probes=PROBES,
+                       accel_range_stride=STRIDE, accel_cull_rays=True)
+    grid = build_scene_grid(pc, pf, resolution=GRID_RES)
+    _, chunks = rendered_chunks(grid, cam, H, cfg, dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    img = render_image(pc, pf, cam, H, W, random.key(0, dev), cfg, grid=grid)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    plain = render_image(pc, pf, cam, H, W, random.key(0, dev), cfg.replace(impl="xla"), grid=grid)
+    db = psnr(img.cpu().numpy(), plain.cpu().numpy())
+    ok = (db >= PLAIN_BAR_DB and counts["fused_nerf_mlp"] == chunks
+          and counts["fused_nerf_mlp_tc"] == chunks)
+    extra["fused_nerf_mlp"] += counts["fused_nerf_mlp"]
+    say("28 presets", f"sp29_s64x0_probe {H}x{W} f32: K1 frame vs plain frame {db:.2f} dB (bar >= "
+        f"{PLAIN_BAR_DB}); K1 f32 launches {counts['fused_nerf_mlp']} (expected {chunks}, width "
+        f"128 / v_width 64), on the tensor cores {counts['fused_nerf_mlp_tc']} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the sp29 f32 K1 frame misses the plain frame's bar or went around "
+                           "the tensor-core K1")
+    say("28 examples", f"phase 28 took {time.perf_counter() - t_phase:.1f} s")
+    return extra
+
+
 def main() -> int:
     import torch
 
@@ -3046,6 +3548,9 @@ def main() -> int:
     # The parallel layer: a world of 1 under NCCL.
     phase_sharded(coarse, fine, cam, dev, grid, card)
 
+    # The examples gallery and the vendored networks' serving presets.
+    extra = phase_examples(cam, dev, card)
+
     # Bounds from this run's shapes (bytes: each input read once, each
     # output written once; operations at the peak of their type).
     k_ms, p_ms, lib_ms = times[("fine", "float32")]
@@ -3075,11 +3580,12 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("fused_nerf_mlp", "fused_mlp_f32tc.cu", "nerf_rs_tpu/ops/kernels/fused_mlp.py:779",
-              launches["fused_nerf_mlp"], k1_errs["float32"], k_ms, p_ms, f32_bound, lib_ms,
+              launches["fused_nerf_mlp"] + extra["fused_nerf_mlp"], k1_errs["float32"], k_ms,
+              p_ms, f32_bound, lib_ms,
               bound_ms_cuda_cores=f32_cc_bound[0]),
         entry("fused_nerf_mlp_bf16", "fused_mlp_tc.cu", "nerf_rs_tpu/ops/kernels/fused_mlp.py:779",
-              bf16_counts["fused_nerf_mlp_tc"], k1_errs["bfloat16"], kt_ms, pt_ms, bf16_bound,
-              libt_ms),
+              bf16_counts["fused_nerf_mlp_tc"] + extra["fused_nerf_mlp_bf16"], k1_errs["bfloat16"],
+              kt_ms, pt_ms, bf16_bound, libt_ms),
         entry("fused_nerf_mlp_backward", "fused_mlp_bwd_tc.cu",
               "nerf_rs_tpu/ops/kernels/fused_mlp.py:663", launches["fused_nerf_mlp_backward"],
               bwd_errs["float32"], kb_ms, pb_ms, k2_bounds["float32"], lib_bwd_ms["float32"],
@@ -3092,11 +3598,13 @@ def main() -> int:
         entry("fused_resample", "resample.cu", "nerf_rs_tpu/ops/kernels/resample.py:207",
               accel_launches["fused_resample"], k3_err, k3_ms, k3_plain_ms, k3_bound, None),
         entry("hash_encode", "hash_encode.cu", "tools/pallas_gather_probe.py:81",
-              hash_launches["fused_hash_encode"], hash_err, h_main["ms"], h_main["plain_ms"],
+              hash_launches["fused_hash_encode"] + extra["hash_encode"], hash_err, h_main["ms"],
+              h_main["plain_ms"],
               (h_main["bound_ms"], h_main["bound_by"]), h_main["library_ms"],
               shapes=list(hash_times.values())),
         entry("int8_mlp", "int8_mlp_tc.cu", "tools/pallas_int8_probe.py:66",
-              int8_launches["fused_int8_mlp"], int8_err, q_ms, q_plain_ms, q_bound, q_lib_ms),
+              int8_launches["fused_int8_mlp"] + extra["int8_mlp"], int8_err, q_ms, q_plain_ms,
+              q_bound, q_lib_ms),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -20,11 +20,23 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from nerf_rs_tpu_torch.config import ArchConfig, HashGridConfig, RenderConfig  # noqa: E402
-from nerf_rs_tpu_torch.io.weights import load_nerf_params, params_to_torch  # noqa: E402
-from nerf_rs_tpu_torch.models.encoding import positional_encoding  # noqa: E402
+from nerf_rs_tpu_torch.config import (  # noqa: E402
+    ArchConfig,
+    HashGridConfig,
+    RenderConfig,
+    TrainConfig,
+)
 from nerf_rs_tpu_torch.models.mlp import NerfMLP, init_nerf_params, nerf_mlp  # noqa: E402
-from nerf_rs_tpu_torch.render import render_image, render_rays  # noqa: E402
+from nerf_rs_tpu_torch.models.hashgrid import hashgrid_mlp, init_hashgrid_params  # noqa: E402
+from nerf_rs_tpu_torch.models.encoding import positional_encoding  # noqa: E402
+from nerf_rs_tpu_torch.io.weights import (  # noqa: E402
+    load_nerf_params,
+    params_to_torch,
+    save_nerf_params,
+)
+from nerf_rs_tpu_torch.render import render_image, render_image_aux, render_rays  # noqa: E402
+from nerf_rs_tpu_torch.accel import OccupancyGrid, build_scene_grid  # noqa: E402
+from nerf_rs_tpu_torch.extract import extract_scene_mesh, save_ply  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -32,13 +44,22 @@ __all__ = [
     "ArchConfig",
     "HashGridConfig",
     "RenderConfig",
+    "TrainConfig",
     "nerf_mlp",
     "init_nerf_params",
     "NerfMLP",
+    "hashgrid_mlp",
+    "init_hashgrid_params",
     "positional_encoding",
     "load_nerf_params",
+    "save_nerf_params",
     "params_to_torch",
     "render_rays",
     "render_image",
+    "render_image_aux",
+    "OccupancyGrid",
+    "build_scene_grid",
+    "extract_scene_mesh",
+    "save_ply",
     "__version__",
 ]

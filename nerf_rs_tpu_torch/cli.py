@@ -783,24 +783,16 @@ def cmd_pack(args) -> int:
 def cmd_info(args) -> int:
     """The torch and CUDA versions, the cards (name, count, power limit)
     and the lego assets."""
-    import subprocess
-
     import torch
 
     from nerf_rs_tpu_torch.io.weights import find_lego_assets
+    from nerf_rs_tpu_torch.utils.profiling import device_label
 
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     if torch.cuda.is_available():
         n = torch.cuda.device_count()
-        print(f"devices ({n}): " + ", ".join(torch.cuda.get_device_name(i) for i in range(n)))
-        try:
-            smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                                  "--format=csv,noheader"], capture_output=True, text=True,
-                                 timeout=args.device_timeout)
-            print("power limit: " + ("; ".join(smi.stdout.split("\n")).strip("; ")
-                                     if smi.returncode == 0 else "unread (nvidia-smi failed)"))
-        except (OSError, subprocess.TimeoutExpired) as e:
-            print(f"power limit: unread ({e})")
+        print(f"devices ({n}): " + "; ".join(
+            device_label(torch.device("cuda", i), timeout=args.device_timeout) for i in range(n)))
     else:
         print("devices: no CUDA card (torch.cuda.is_available() is false)")
     if "WORLD_SIZE" in os.environ:

@@ -146,5 +146,7 @@ class TrainConfig:
         return dataclasses.replace(self, **kw)
 
 
-# The reference's native sample counts (coarse, fine).
+# The reference's sample-count presets (coarse, fine): its native CLI and
+# its WASM build.
 NATIVE_SAMPLES = (64, 128)
+WASM_SAMPLES = (32, 64)

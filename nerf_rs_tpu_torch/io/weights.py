@@ -22,6 +22,17 @@ import torch
 ASSET_ENV_VAR = "NERF_RS_TPU_ASSETS"
 _REPO_ASSETS = Path(__file__).resolve().parents[2] / "assets" / "lego_rust"
 
+# The lego architecture's layer shapes (coarse and fine are identical):
+# dense0 63x256, dense1-4 256x256, dense5 319x256 (skip), dense6-7 256x256,
+# bottleneck 256x256, viewdirs 283x128, rgb 128x3, alpha 256x1.
+CANONICAL_SHAPES: Dict[str, Tuple[int, int]] = {
+    **{f"dense{i}": (63 if i == 0 else 319 if i == 5 else 256, 256) for i in range(8)},
+    "bottleneck": (256, 256),
+    "viewdirs": (283, 128),
+    "rgb": (128, 3),
+    "alpha": (256, 1),
+}
+
 
 def find_lego_assets() -> Optional[Path]:
     """Locate the pretrained lego weights — a directory with coarse/ +
@@ -192,6 +203,19 @@ def load_scene_assets(assets: os.PathLike, dtype=np.float32):
     with open(assets / "tf_reference_samples.json") as f:
         golden = json.load(f)
     return params, golden
+
+
+def validate_param_shapes(params) -> None:
+    """Check that a param tree has the canonical lego architecture's
+    shapes (:data:`CANONICAL_SHAPES`); raises ValueError naming the first
+    layer that does not."""
+    for layer, (d_in, d_out) in CANONICAL_SHAPES.items():
+        k = params[layer]["kernel"]
+        b = params[layer]["bias"]
+        if tuple(k.shape) != (d_in, d_out):
+            raise ValueError(f"{layer}.kernel: expected {(d_in, d_out)}, got {tuple(k.shape)}")
+        if tuple(b.shape) != (d_out,):
+            raise ValueError(f"{layer}.bias: expected {(d_out,)}, got {tuple(b.shape)}")
 
 
 def validate_param_chain(params, x_freqs: int = 10, d_freqs: int = 4) -> None:

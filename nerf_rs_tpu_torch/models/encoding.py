@@ -24,3 +24,8 @@ def positional_encoding(x: torch.Tensor, num_freqs: int) -> torch.Tensor:
     enc = torch.stack([torch.sin(scaled), torch.cos(scaled)], dim=-2)  # (..., L, 2, 3)
     enc = enc.reshape(*x.shape[:-1], num_freqs * 6)
     return torch.cat([x, enc], dim=-1)
+
+
+def encoded_dim(num_freqs: int) -> int:
+    """The encoded feature width of a 3-vector: ``3 + 6 * num_freqs``."""
+    return 3 + 6 * num_freqs

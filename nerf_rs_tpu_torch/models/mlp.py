@@ -170,8 +170,14 @@ class NerfMLP(nn.Module):
         return hit[1]
 
     def _apply(self, fn, *args, **kwargs):
-        self._packs = {}
-        return super()._apply(fn, *args, **kwargs)
+        # A move or a cast gives the parameters new storage and the packs
+        # go; a ``.to`` of the device and dtype the module already has
+        # (``as_module`` in every render) keeps them.
+        storage = [p.data_ptr() for p in self.parameters()]
+        out = super()._apply(fn, *args, **kwargs)
+        if [p.data_ptr() for p in self.parameters()] != storage:
+            self._packs = {}
+        return out
 
     def forward(self, points, viewdirs, *, x_freqs: int = 10, d_freqs: int = 4,
                 sigma_only: bool = False):

@@ -1,6 +1,6 @@
 from nerf_rs_tpu_torch.ops.rays import Camera, camera_rays, ray_directions
 from nerf_rs_tpu_torch.ops.sampling import importance_samples, merge_samples, stratified_samples
-from nerf_rs_tpu_torch.ops.volume import composite, compute_weights
+from nerf_rs_tpu_torch.ops.volume import composite, compute_weights, integrate
 
 __all__ = [
     "Camera",
@@ -11,4 +11,5 @@ __all__ = [
     "merge_samples",
     "compute_weights",
     "composite",
+    "integrate",
 ]

@@ -50,3 +50,11 @@ def composite(colors: torch.Tensor, weights: torch.Tensor, *,
     if white_background:
         rgb = rgb + (1.0 - torch.sum(weights, dim=-1))[..., None]
     return rgb
+
+
+def integrate(colors: torch.Tensor, sigmas: torch.Tensor, ts: torch.Tensor, far, *,
+              t_threshold: float = 1e-4, white_background: bool = True) -> torch.Tensor:
+    """Weights and composite in one call: the reference's integrate_ray on
+    tensors."""
+    w = compute_weights(sigmas, ts, far, t_threshold=t_threshold)
+    return composite(colors, w, white_background=white_background)

@@ -6,6 +6,8 @@
   and, where there is a card, CUDA activity) that writes a Chrome trace
   into a directory, for chrome://tracing or Perfetto.
 - :class:`Progress`: rate-limited rays/s progress lines.
+- :func:`device_label`: what a time taken on a device is stated beside —
+  the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import os
 import socket
+import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -123,3 +126,24 @@ class Progress:
             printer(f"  {self.done}/{self.total} rays ({100 * self.done / self.total:.0f}%), "
                     f"{rate:,.0f} rays/s")
             self._last = now
+
+
+def device_label(device, timeout: float = 60.0) -> str:
+    """The words a time measured on ``device`` is written beside: for a
+    CUDA device the card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (the
+    name alone, from torch, where nvidia-smi fails or takes longer than
+    ``timeout`` seconds), else the device's type."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        smi = subprocess.run(["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=timeout)
+        if smi.returncode == 0 and smi.stdout.strip():
+            return smi.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+    return f"{torch.cuda.get_device_name(index)}, power limit not read"

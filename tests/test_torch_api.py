@@ -231,3 +231,61 @@ def test_cli_render_accel_k3_writes_three_images(tmp_path, capsys):
     assert imgs[2].max() > 0.5 and imgs[2].min() < 0.5        # the lego's silhouette
     text = capsys.readouterr().out
     assert "occupancy grid 16^3" in text and text.count("Wrote") == 3
+
+
+def test_config_sample_presets_match_jax():
+    import nerf_rs_tpu.config as jax_config
+    import nerf_rs_tpu_torch.config as config
+
+    assert config.WASM_SAMPLES == jax_config.WASM_SAMPLES
+    assert config.NATIVE_SAMPLES == jax_config.NATIVE_SAMPLES
+
+
+def _malformed(tree, case):
+    """A deep copy of ``tree`` broken as ``case`` says."""
+    bad = {layer: dict(p) for layer, p in tree.items()}
+    if case == "kernel":
+        bad["dense5"]["kernel"] = np.zeros((256, 256), np.float32)     # the skip lost
+    elif case == "bias":
+        bad["rgb"]["bias"] = np.zeros((4,), np.float32)
+    elif case == "student":
+        from nerf_rs_tpu_torch.config import ArchConfig
+        from nerf_rs_tpu_torch.models.mlp import arch_shapes
+
+        bad = {layer: {"kernel": np.zeros(s, np.float32), "bias": np.zeros(s[1], np.float32)}
+               for layer, s in arch_shapes(ArchConfig(width=128, v_width=64)).items()}
+    return bad
+
+
+@pytest.mark.parametrize("case", ["lego", "kernel", "bias", "student"])
+def test_validate_param_shapes_matches_jax(case):
+    from nerf_rs_tpu.io.weights import validate_param_shapes as jax_validate
+    from nerf_rs_tpu_torch.io.weights import load_nerf_params, validate_param_shapes
+
+    trees = [load_nerf_params(LEGO / net) for net in ("coarse", "fine")]
+    for tree in trees if case == "lego" else [_malformed(trees[0], case)]:
+        outcomes = []
+        for fn in (validate_param_shapes, jax_validate):
+            try:
+                fn(tree)
+                outcomes.append(None)
+            except ValueError as e:
+                outcomes.append(str(e))
+        assert outcomes[0] == outcomes[1]
+        assert (outcomes[0] is None) == (case == "lego")
+
+
+def test_top_level_exports_cover_the_jax_package():
+    import ast
+
+    import nerf_rs_tpu
+    import nerf_rs_tpu_torch
+
+    init = Path(nerf_rs_tpu.__file__).read_text()
+    imported = [a.asname or a.name for node in ast.parse(init).body
+                if isinstance(node, ast.ImportFrom) for a in node.names]
+    assert len(imported) >= 15
+    missing = [name for name in imported if not hasattr(nerf_rs_tpu_torch, name)]
+    assert not missing, missing
+    assert set(nerf_rs_tpu.__all__) <= set(nerf_rs_tpu_torch.__all__)
+    assert all(hasattr(nerf_rs_tpu_torch, name) for name in nerf_rs_tpu_torch.__all__)

@@ -370,6 +370,22 @@ def test_wrapper_on_cpu_is_the_reference_and_counts_no_launch(small):
                        torch.from_numpy(dirs), x_freqs=8)
 
 
+def test_module_pack_is_kept_across_renders_until_the_module_moves(small):
+    """``render.render_image`` passes its networks through
+    ``models.mlp.as_module``, a ``.to`` of the device they are on: the
+    packs stay, so frames after the first do not repack. A cast or a move
+    gives the parameters new storage and drops them."""
+    from nerf_rs_tpu_torch.models.mlp import as_module
+
+    module = NerfMLP(small, device="cpu")
+    pk = module.packed("bfloat16")
+    assert as_module(module, "cpu") is module
+    assert module.packed("bfloat16") is pk
+    module.to(torch.float64)
+    assert module.packed("bfloat16") is not pk
+    module.to(torch.float32)
+
+
 def test_module_pack_is_kept_until_weights_change(small):
     module = NerfMLP(small)
     pk = module.packed("float32")

@@ -126,3 +126,33 @@ def test_composite_matches_jax(white):
     got = volume.composite(torch.from_numpy(c), torch.from_numpy(w), white_background=white)
     want = jax_volume.composite(jnp.asarray(c), jnp.asarray(w), white_background=white)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("white,t_threshold", [(True, 1e-4), (False, 0.0)])
+def test_integrate_matches_jax(white, t_threshold):
+    rng = np.random.default_rng(6)
+    c = rng.uniform(size=(9, 20, 3)).astype(np.float32)
+    sig = rng.uniform(0.0, 40.0, size=(9, 20)).astype(np.float32)
+    ts = np.sort(rng.uniform(2.0, 6.0, size=(9, 20)), axis=-1).astype(np.float32)
+    got = volume.integrate(torch.from_numpy(c), torch.from_numpy(sig), torch.from_numpy(ts),
+                           np.float32(6.0), t_threshold=t_threshold, white_background=white)
+    want = jax_volume.integrate(jnp.asarray(c), jnp.asarray(sig), jnp.asarray(ts),
+                                np.float32(6.0), t_threshold=t_threshold,
+                                white_background=white)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+def test_integrate_is_exported_from_ops():
+    from nerf_rs_tpu_torch import ops
+
+    assert ops.integrate is volume.integrate and "integrate" in ops.__all__
+
+
+@pytest.mark.parametrize("num_freqs", range(11))
+def test_encoded_dim_matches_jax(num_freqs):
+    from nerf_rs_tpu.models.encoding import encoded_dim as jax_encoded_dim
+    from nerf_rs_tpu_torch.models.encoding import encoded_dim
+
+    assert encoded_dim(num_freqs) == jax_encoded_dim(num_freqs)
+    x = torch.zeros((2, 3))
+    assert positional_encoding(x, num_freqs).shape[-1] == encoded_dim(num_freqs)
