@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's nine main paths and holds them to the repository's own
+Drives the port's ten main paths and holds them to the repository's own
 bars: the render path — the pretrained lego coarse and fine networks
 rendering a 256x256 frame with 64 stratified + 128 importance samples on
 white, through ``nerf_rs_tpu_torch.render.render_image`` — the training
@@ -34,7 +34,10 @@ and ``train`` and ``render --sharded`` under torchrun — and the examples
 gallery and the vendored networks' serving presets — every
 ``examples_torch/`` script as a user runs it, and bench.py's frontier
 presets on ``assets/trained/`` at 800x800 against the lego teacher's
-frame. Phases, each reported on its own line:
+frame — and K1's wide envelope — the lego networks widened to width 512 and
+384 and deepened to 20 layers, computing the same function, rendered
+through ``render --weights``, and a 512-wide student trained, rendered,
+evaluated and served. Phases, each reported on its own line:
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: the fused MLP kernels K1 and K2 (both on the tensor cores, f32
@@ -42,6 +45,7 @@ frame. Phases, each reported on its own line:
    kernel are compiled from the checkout's sources (one nvcc per source, in
    parallel); ``cuobjdump --dump-sass`` must show HGMMA (``wgmma``)
    instructions in both variants (sigma_only or not) of K1 f32 and bf16,
+   of K1's wide bf16 kernel,
    of K1 f32's record mode (K2 f32's recompute) and of K2's bf16 kernel,
    HMMA (``mma.sync``) instructions, every one tf32, in both variants
    of K2's f32 kernel, and IGMMA (s8 ``wgmma``) instructions in both
@@ -216,7 +220,29 @@ frame. Phases, each reported on its own line:
     PRESET_REPS) and rays/s, and one frame under ``torch.profiler``
     (idle share, top kernels); (c) the sp29 preset at 256x256 in f32: K1
     frame against the plain frame (>= 60 dB), one K1 launch a rendered
-    chunk. Comparison and timing launches do not count.
+    chunk. Comparison and timing launches do not count;
+29. K1's wide envelope (the wide kernels ``fused_mlp_wide_tc.cu``, bf16 on
+    the tensor cores, and ``fused_mlp_wide_f32.cu``, f32 on the CUDA
+    cores): (a) the lego networks widened by ``widen_nerf`` (same function)
+    to (width, v_width, depth) = (512, 256, 8), (384, 192, 8) and (512,
+    256, 20), through ``render --weights DIR --impl pallas``: f32 256x256
+    64+128 > 45 dB from the golden and >= 60 dB from ``--impl xla``, no
+    note, every K1 launch wide (2 a chunk); at (512, 256, 8) the bf16 frame
+    >= BF16_FRAME_BAR_DB from the f32 frame, and the 800x800 bf16 accel
+    frame (128^3 grid through wide K1 sigma-only, 32 probes at stride 4,
+    packing, K3) >= 40 dB from the dense bf16 frame; (b) random networks
+    at WIDE_RANDOM, 8192 x 64 sigma-only and 8192 x 192 full, f32 within
+    TOLERANCES, bf16 rgb within 2e-2 and sigma by the bf16 witness, reruns
+    bitwise; (c) ``train --width 512 --v-width 256`` for WIDE_STEPS steps on
+    the plain path (the note names K2's envelope), then ``render
+    --checkpoint`` through wide K1 without a note, ``evaluate`` (PSNR
+    finite) and one ``/render`` of ``serve``'s handler byte for byte
+    ``pixels_to_rgba(render_image(...))``; (d) ``render --impl int8`` of
+    the lego widened to 512: the note, no int8 kernel launch (the plain
+    int8 MLP), > 25 dB from its f32 frame; (e) times: K1 f32 and bf16 at
+    (512, 256, 8) full and sigma-only and at (384, 192, 8) full, beside
+    the plain version, the library call and the bound, and the widened
+    lego's frames.
 
 Any failed phase exits non-zero. The line before the last is a JSON
 summary of the kernels, each with its bound (the larger of its bytes over
@@ -225,9 +251,10 @@ the kernel's route — K1 f32 six bf16 passes a product (split-f32), bf16
 for K1 bf16 and K2's bf16 mode, K2's f32 mode its recompute as K1 f32
 and its dW and W dz as 3xTF32 at the tf32 peak (the f32 entries also
 carry their all-CUDA-core bound), f32 on the CUDA cores for K3 and the
-hash encode, int8 for the int8 kernel — from this run's shapes; the hash
-encode's entry also lists its four shapes in both dtypes); the last line
-is the JSON device record.
+hash encode and K1's wide f32 kernel, bf16 for K1's wide bf16 kernel,
+int8 for the int8 kernel — from this run's shapes; the hash encode's entry
+also lists its four shapes in both dtypes, the wide kernels' their three);
+the last line is the JSON device record.
 Never imports JAX.
 """
 
@@ -351,7 +378,8 @@ def phase_build():
         injected = 0
         for line in log.read_text().splitlines():
             entry = re.search(r"entry function '.*?(fused_mlp_bwd_tc_kernel|fused_mlp_tc_kernel|"
-                              r"fused_mlp_bwd_bf16_kernel|"
+                              r"fused_mlp_bwd_bf16_kernel|fused_mlp_wide_tc_kernel|"
+                              r"fused_mlp_wide_f32_kernel|"
                               r"fused_mlp_f32tc_kernel|reduce_partials|resample_kernel|"
                               r"hash_encode_kernel|int8_mlp_tc_kernel)"
                               r"(I\w*?Lb[01]E)?", line)
@@ -374,13 +402,15 @@ def phase_build():
     say("2 build", "tensor-core instructions in the SASS: " + ", ".join(
         f"{re.search(TC_KERNEL, fn).group(0)} {count} {kind}"
         for (fn, kind), count in sass.items() if count))
-    # K1 (f32 forward and record mode, bf16) and K2 bf16: HGMMA in every
-    # instance (sigma_only or not); K2 f32: HMMA in both, every one .TF32.
+    # K1 (f32 forward and record mode, bf16, wide bf16) and K2 bf16: HGMMA
+    # in every instance (sigma_only or not); K2 f32: HMMA in both, every
+    # one .TF32.
     hgmma = {kernel: [count for (fn, kind), count in sass.items()
                       if kind == "HGMMA" and re.search(kernel, fn)]
              for kernel in ("fused_mlp_f32tc_kernelILb[01]ELb0E",   # K1 f32
                             "fused_mlp_f32tc_kernelILb[01]ELb1E",   # its record mode
-                            "fused_mlp_tc_kernel", "fused_mlp_bwd_bf16_kernel")}
+                            "fused_mlp_tc_kernel", "fused_mlp_bwd_bf16_kernel",
+                            "fused_mlp_wide_tc_kernel")}
     k2 = {fn: count for (fn, kind), count in sass.items()
           if kind == "HMMA" and "fused_mlp_bwd_tc_kernel" in fn}
     k2_ok = len(k2) == 2 and all(count and sass.get((fn, "TF32"), 0) == count
@@ -428,7 +458,7 @@ def ptxas_usage(log: str, pattern: str) -> dict:
     return {fn: tuple(v) for fn, v in usage.items()}
 
 
-MLP_KERNEL = r"fused_mlp(?:_bwd)?_(?:tc|bf16|f32tc)_kernel(?:I(?:Lb[01]E)+)?"
+MLP_KERNEL = r"fused_mlp(?:_bwd|_wide)?_(?:tc|bf16|f32tc)_kernel(?:I(?:Lb[01]E)+)?"
 INT8_KERNEL = r"int8_mlp_tc_kernelILb[01]E"
 TC_KERNEL = rf"(?:{MLP_KERNEL}|{INT8_KERNEL})"
 
@@ -499,13 +529,15 @@ def recorded_k1(run):
         return real(params, points, viewdirs, **kw)
 
     # The wrapper counts through its module name.
-    record.launches, record.tc_launches = real.launches, real.tc_launches
+    record.launches, record.tc_launches, record.wide_launches = (
+        real.launches, real.tc_launches, real.wide_launches)
     fm.fused_nerf_mlp = record
     try:
         out = run()
     finally:
         fm.fused_nerf_mlp = real
-        real.launches, real.tc_launches = record.launches, record.tc_launches
+        real.launches, real.tc_launches, real.wide_launches = (
+            record.launches, record.tc_launches, record.wide_launches)
     return out, seen
 
 
@@ -1360,27 +1392,29 @@ def counters():
 
 
 def save_counts():
-    """Every launch count: each wrapper's, then K1's tensor-core count and
-    K2's bf16 count."""
+    """Every launch count: each wrapper's, then K1's tensor-core count,
+    K2's bf16 count and K1's wide count."""
     fns = counters()
-    return [fn.launches for fn in fns] + [fns[0].tc_launches, fns[1].bf16_launches]
+    return [fn.launches for fn in fns] + [fns[0].tc_launches, fns[1].bf16_launches,
+                                          fns[0].wide_launches]
 
 
 def restore_counts(saved) -> None:
     fns = counters()
     for fn, n in zip(fns, saved):
         fn.launches = n
-    fns[0].tc_launches, fns[1].bf16_launches = saved[-2:]
+    fns[0].tc_launches, fns[1].bf16_launches, fns[0].wide_launches = saved[-3:]
 
 
 def zero_counts() -> None:
-    restore_counts([0] * (len(counters()) + 2))
+    restore_counts([0] * (len(counters()) + 3))
 
 
 def read_counts() -> dict:
     fns = counters()
     return {**{fn.__name__: fn.launches for fn in fns}, "fused_nerf_mlp_tc": fns[0].tc_launches,
-            "fused_nerf_mlp_backward_bf16": fns[1].bf16_launches}
+            "fused_nerf_mlp_backward_bf16": fns[1].bf16_launches,
+            "fused_nerf_mlp_wide": fns[0].wide_launches}
 
 
 def encode_vs_plain(tables, pts, cfg, top: float):
@@ -3330,6 +3364,384 @@ def run_phase_examples(root: Path, cam, dev, card):
     return extra
 
 
+# K1's wide envelope (phase 29): networks wider than 256 or deeper than 16
+# through the wide kernels (csrc/fused_mlp_wide_tc.cu in bf16,
+# csrc/fused_mlp_wide_f32.cu in f32) as a user reaches them: the lego
+# networks widened to the same function at (width, v_width, depth) =
+# WIDE_LEGOS, rendered through the CLI; random networks at WIDE_RANDOM
+# against the plain version; a 512-wide student trained, checkpointed,
+# rendered, evaluated and served; `--impl int8` beyond the int8 kernel.
+WIDE_LEGOS = ((512, 256, 8), (384, 192, 8), (512, 256, 20))
+WIDE_RANDOM = ((384, 192, 8, 4), (512, 256, 8, 4), (512, 256, 20, 4))
+WIDE_STEPS = 20
+FRONT_NOTE = "outside the fused kernels' range"     # cli._impl_for_params
+K2_NOTE = "the fused backward K2 serves"            # cli._train_impl_for_params
+INT8_NOTE = "outside the int8 kernel's range"
+
+
+def widen_nerf(tree, width: int, v_width: int, depth: int = 0, seed: int = 0):
+    """A param tree (numpy f32) of trunk width ``width``, view width
+    ``v_width`` and ``depth`` dense layers (default: the same) that
+    computes the function of ``tree`` (numpy or torch leaves): each
+    hidden unit of the trunk, the bottleneck and the view layer is kept,
+    and ``width - w`` (or ``v_width - v``) of them are copied once (at most
+    doubling a layer). A copy keeps its unit's incoming weights and bias;
+    the outgoing rows of a copied unit are halved in both copies, exact in
+    binary, so the next layer sums the same products (in another order).
+    The encode rows of the skip and view layers stay as they are. Each
+    layer's units are placed by a permutation drawn from ``seed``, so a
+    kernel that reads the wrong columns cannot pass. Layers past the
+    original depth are identity layers after the last trunk layer:
+    relu(h I + 0) = h for the h >= 0 it receives, exact in f32 and bf16."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def kern(name):
+        return np.asarray(tree[name]["kernel"], np.float32)
+
+    def bias(name):
+        return np.asarray(tree[name]["bias"], np.float32)
+
+    def spread(n, m):
+        """(source unit of each of m units, the factor of its outgoing rows)."""
+        if not n <= m <= 2 * n:
+            raise ValueError(f"cannot widen a layer of {n} units to {m}")
+        src = np.concatenate([np.arange(n), rng.choice(n, m - n, replace=False)])
+        rng.shuffle(src)
+        return src, (1.0 / np.bincount(src, minlength=n)[src]).astype(np.float32)
+
+    def fed_by(k, units):
+        src, factor = units
+        return k[src] * factor[:, None]
+
+    w, v = kern("dense0").shape[1], kern("viewdirs").shape[1]
+    d = sum(1 for name in tree if name.startswith("dense"))
+    depth = depth or d
+    if depth < d:
+        raise ValueError(f"cannot cut {d} layers to {depth}")
+    out, units = {}, None
+    for i in range(d):
+        k = kern(f"dense{i}")
+        if i > 0:
+            enc = k.shape[0] - w                       # a skip layer's encode rows come first
+            k = np.concatenate([k[:enc], fed_by(k[enc:], units)])
+        units = spread(w, width)
+        out[f"dense{i}"] = {"kernel": k[:, units[0]], "bias": bias(f"dense{i}")[units[0]]}
+    for i in range(d, depth):
+        out[f"dense{i}"] = {"kernel": np.eye(width, dtype=np.float32),
+                            "bias": np.zeros(width, np.float32)}
+    out["alpha"] = {"kernel": fed_by(kern("alpha"), units), "bias": bias("alpha")}
+    bneck = spread(w, width)
+    out["bottleneck"] = {"kernel": fed_by(kern("bottleneck"), units)[:, bneck[0]],
+                         "bias": bias("bottleneck")[bneck[0]]}
+    view, k = spread(v, v_width), kern("viewdirs")
+    k = np.concatenate([fed_by(k[:w], bneck), k[w:]])
+    out["viewdirs"] = {"kernel": k[:, view[0]], "bias": bias("viewdirs")[view[0]]}
+    out["rgb"] = {"kernel": fed_by(kern("rgb"), view), "bias": bias("rgb")}
+    return out
+
+
+def write_wide_lego(root: Path, assets: Path, width: int, v_width: int, depth: int) -> Path:
+    """The lego networks widened by ``widen_nerf`` (seed 0 coarse, 1 fine),
+    saved with the port's ``save_nerf_params`` beside the lego camera: a
+    directory for ``render --weights``."""
+    import shutil
+
+    from nerf_rs_tpu_torch.io.weights import load_nerf_params, save_nerf_params
+
+    out = root / f"lego_{width}x{v_width}x{depth}"
+    for seed, net in enumerate(("coarse", "fine")):
+        save_nerf_params(out / net, widen_nerf(load_nerf_params(assets / net), width, v_width,
+                                               depth, seed=seed))
+    shutil.copy(assets / "tf_reference_samples.json", out)
+    return out
+
+
+def phase_wide(cam, dev, card, assets: Path):
+    """Phase 29 in a temporary directory, removed when the phase ends."""
+    with tempfile.TemporaryDirectory(prefix="nerf_rs_tpu_torch_wide_") as tmp:
+        return run_phase_wide(Path(tmp), cam, dev, card, assets)
+
+
+def wide_cli_frame(argv, out: Path):
+    """``render`` through the CLI with the counts set to 0 just before and
+    read just after -> (frame as float32 (H, W, 3), stdout, counts)."""
+    from nerf_rs_tpu_torch.io.image import load_ppm
+
+    zero_counts()
+    text = cli_run(["render", *argv, "-o", str(out)])
+    return load_ppm(out), text, read_counts()
+
+
+def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
+    """Phase 29: K1's wide kernels on their main paths, each run with the
+    counts set to 0 just before and read just after; -> the wide kernels'
+    entries of the kernels line (launches from the main-path runs)."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from nerf_rs_tpu_torch import api, serve
+    from nerf_rs_tpu_torch.accel import build_scene_grid
+    from nerf_rs_tpu_torch.config import ArchConfig, RenderConfig
+    from nerf_rs_tpu_torch.io import checkpoint as ckpt_io
+    from nerf_rs_tpu_torch.io.image import load_ppm, pixels_to_rgba
+    from nerf_rs_tpu_torch.io.weights import load_nerf_params
+    from nerf_rs_tpu_torch.models.mlp import NerfMLP, init_nerf_params
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
+        bf16_sigma_agrees,
+        fused_nerf_mlp,
+        fused_nerf_mlp_reference,
+    )
+    from nerf_rs_tpu_torch.render import render_image
+
+    t_phase = time.perf_counter()
+    golden = load_ppm(GOLDEN_PPM)
+    chunks = -(-H * W // 16384)                       # the CLI's --ray-chunk
+    launched = {"float32": 0, "bfloat16": 0}          # wide launches of the main-path runs
+    frames = {}
+
+    # (a) The widened lego through `render --weights`, f32 and plain.
+    for width, v_width, depth in WIDE_LEGOS:
+        d = write_wide_lego(root, assets, width, v_width, depth)
+        t0 = time.perf_counter()
+        img, text, c = wide_cli_frame(["--weights", str(d), "--impl", "pallas"], root / "k.ppm")
+        ms = (time.perf_counter() - t0) * 1e3
+        plain, _, _ = wide_cli_frame(["--weights", str(d), "--impl", "xla"], root / "p.ppm")
+        launched["float32"] += c["fused_nerf_mlp_wide"]
+        frames[(width, v_width, depth)] = (d, img)
+        golden_db, plain_db = psnr(img, golden), psnr(plain, img)
+        ok = (golden_db > GOLDEN_BAR_DB and plain_db >= PLAIN_BAR_DB and FRONT_NOTE not in text
+              and c["fused_nerf_mlp"] == c["fused_nerf_mlp_wide"] == 2 * chunks
+              and c["fused_nerf_mlp_tc"] == 0)
+        say("29 wide", f"lego widened to width {width}, v_width {v_width}, depth {depth}: render "
+            f"--impl pallas {W}x{H} f32 vs golden {golden_db:.2f} dB (bar > {GOLDEN_BAR_DB}), vs "
+            f"--impl xla {plain_db:.2f} dB (bar >= {PLAIN_BAR_DB}); note printed: "
+            f"{FRONT_NOTE in text}; K1 launches {c['fused_nerf_mlp']}, wide "
+            f"{c['fused_nerf_mlp_wide']} (expected {2 * chunks}, none on the tensor cores); "
+            f"{ms:.0f} ms through the CLI -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailure(f"the widened lego ({width}, {v_width}, {depth}) misses its bars "
+                               "or went around the wide f32 kernel")
+
+    # bf16 and the accel path at (512, 256, 8).
+    d, img_f32 = frames[WIDE_LEGOS[0]]
+    img16, text, c = wide_cli_frame(["--weights", str(d), "--dtype", "bfloat16"], root / "b.ppm")
+    launched["bfloat16"] += c["fused_nerf_mlp_wide"]
+    bf16_db = psnr(img16, img_f32)
+    ok = (bf16_db >= BF16_FRAME_BAR_DB and c["fused_nerf_mlp_wide"] == 2 * chunks
+          and c["fused_nerf_mlp_tc"] == 2 * chunks)
+    say("29 wide", f"width 512 bf16 frame vs f32 frame {bf16_db:.2f} dB (bar >= "
+        f"{BF16_FRAME_BAR_DB}); K1 wide launches {c['fused_nerf_mlp_wide']}, on the tensor "
+        f"cores {c['fused_nerf_mlp_tc']} (expected {2 * chunks}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the width-512 bf16 frame misses its bar or went around the wide "
+                           "bf16 kernel")
+    wide = {net: NerfMLP(load_nerf_params(d / net), device=dev) for net in ("coarse", "fine")}
+    zero_counts()
+    t0 = time.perf_counter()
+    grid = build_scene_grid(wide["coarse"], wide["fine"], resolution=GRID_RES)
+    torch.cuda.synchronize()
+    grid_ms = (time.perf_counter() - t0) * 1e3
+    c_grid = read_counts()
+    cfg = accel_cfg(dtype="bfloat16")
+    _, n_rendered = rendered_chunks(grid, cam, BENCH_SIZE, cfg, dev)
+    zero_counts()
+    fast, fast_ms = render_accel(wide["coarse"], wide["fine"], cam, dev, cfg, grid, BENCH_SIZE)
+    c_fast = read_counts()
+    dense, dense_ms = render(wide["coarse"], wide["fine"], cam, dev, "pallas", "bfloat16",
+                             BENCH_SIZE)
+    launched["bfloat16"] += c_grid["fused_nerf_mlp_wide"] + c_fast["fused_nerf_mlp_wide"]
+    accel_db = psnr(fast.cpu().numpy(), dense)
+    sweeps = 2 * -(-GRID_RES ** 3 // (1 << 18))       # accel.build_scene_grid's chunk
+    ok = (accel_db >= ACCEL_BAR_DB and c_grid["fused_nerf_mlp_wide"] == c_grid["fused_nerf_mlp"]
+          == c_grid["fused_nerf_mlp_tc"] == sweeps
+          and c_fast["fused_nerf_mlp_wide"] == c_fast["fused_nerf_mlp_tc"] == 2 * n_rendered
+          and c_fast["fused_resample"] == n_rendered)
+    say("29 wide", f"width 512 bf16 accel frame {BENCH_SIZE}x{BENCH_SIZE} (grid {GRID_RES}^3 "
+        f"through wide K1 bf16 sigma-only: {c_grid['fused_nerf_mlp_wide']} launches (expected "
+        f"{sweeps}) "
+        f"in {grid_ms:.0f} ms, {float(grid.occ.float().mean()):.4f} occupied; {PROBES} probes, "
+        f"stride {STRIDE}, packing, K3) vs the dense bf16 frame {accel_db:.2f} dB (bar >= "
+        f"{ACCEL_BAR_DB}); {n_rendered} chunks rendered, K1 wide launches "
+        f"{c_fast['fused_nerf_mlp_wide']} (expected {2 * n_rendered}), K3 "
+        f"{c_fast['fused_resample']} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the width-512 accel frame misses its bar or went around the wide "
+                           "kernel")
+
+    # (b) Random wide networks against the plain version at the render's
+    # shapes; not counted.
+    saved = save_counts()
+    pts_c, pts_f, vd = main_path_inputs(cam, dev)
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    nets = {}
+    for arch in WIDE_RANDOM:
+        g = torch.Generator(device=dev).manual_seed(29)
+        net = nets[arch] = NerfMLP(init_nerf_params(g, ArchConfig(*arch)), device=dev)
+        for pts, so in ((pts_c, True), (pts_f, False)):
+            for dtype in ("float32", "bfloat16"):
+                with torch.no_grad():
+                    k = fused_nerf_mlp(net, pts, vd, dtype=dtype, sigma_only=so)
+                    k2 = fused_nerf_mlp(net, pts, vd, dtype=dtype, sigma_only=so)
+                    p = fused_nerf_mlp_reference(net, pts, vd, dtype=dtype, sigma_only=so)
+                torch.cuda.synchronize()
+                rerun = all(torch.equal(a, b) for a, b in zip(k, k2))
+                tol = TOLERANCES[dtype]
+                rgb_err = float((k[0] - p[0]).abs().max())
+                sig_err = float((k[1] - p[1]).abs().max())
+                if dtype == "float32":
+                    sig_ok = bool(torch.allclose(k[1], p[1], atol=tol["sigma_atol"],
+                                                 rtol=tol["sigma_rtol"]))
+                    witness = ""
+                else:
+                    with torch.no_grad():
+                        exact = fused_nerf_mlp_reference(net, pts.double(), vd.double(),
+                                                         dtype=dtype, sigma_only=so)[1]
+                    sig_ok, counts = bf16_sigma_agrees(k[1], p[1], exact)
+                    witness = (f", sigma outside the bars: kernel vs plain "
+                               f"{counts['kernel_vs_plain']}, vs float64 kernel "
+                               f"{counts['kernel_vs_exact']}, plain {counts['plain_vs_exact']}")
+                ok = rerun and sig_ok and rgb_err <= tol["rgb_atol"]
+                errs[dtype] = max(errs[dtype], rgb_err, sig_err)
+                say("29 wide", f"K1 {dtype} at {arch}, {tuple(pts.shape[:-1])} "
+                    f"{'sigma-only' if so else 'full'}: max |rgb - plain| {rgb_err:.3g} (bar "
+                    f"{tol['rgb_atol']}), max |sigma - plain| {sig_err:.3g}{witness}; reruns "
+                    f"bitwise {rerun} -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise PhaseFailure(f"wide K1 {dtype} at {arch} disagrees with its plain "
+                                       "version")
+    restore_counts(saved)
+
+    # (c) A 512-wide student: trained on the plain path (K2's envelope),
+    # then rendered, evaluated and served through wide K1.
+    ck = root / "ck"
+    zero_counts()
+    out = cli_run(["train", "--width", "512", "--v-width", "256", "--steps", str(WIDE_STEPS),
+                   "--log-every", "10", "--checkpoint-dir", str(ck)])
+    c_train = read_counts()
+    losses = [float(v) for v in re.findall(r"^step \d+: loss ([0-9.e+-]+)", out, flags=re.M)]
+    last = ckpt_io.latest_checkpoint(ck)
+    ok = (K2_NOTE in out and last is not None and losses and all(map(math.isfinite, losses))
+          and c_train["fused_nerf_mlp_backward"] == 0 and c_train["fused_nerf_mlp_wide"] == 0)
+    say("29 wide", f"train --width 512 --v-width 256 --steps {WIDE_STEPS}: note naming K2's "
+        f"envelope printed: {K2_NOTE in out}; losses {losses}; K2 launches "
+        f"{c_train['fused_nerf_mlp_backward']}, wide K1 {c_train['fused_nerf_mlp_wide']} "
+        f"(expected 0: the student trains on the plain MLP, the teacher through K1); checkpoint "
+        f"{last} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the 512-wide student did not train on the plain path with the note")
+    ck_img, text, c = wide_cli_frame(["--checkpoint", str(last)], root / "ck.ppm")
+    launched["float32"] += c["fused_nerf_mlp_wide"]
+    out = cli_run(["evaluate", "--checkpoint-dir", str(ck), "--size", str(H)])
+    m = re.search(r"PSNR vs teacher ([0-9.]+) dB", out)
+    eval_db = float(m.group(1)) if m else float("nan")
+    api._state.clear()
+    api.init_renderer(checkpoint=str(last), device=dev,
+                      cfg=RenderConfig(ray_chunk=BENCH_CHUNK, impl="pallas"))
+    state = dict(api._state)
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), serve.Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.server_address[1]}/render?width={W}&height={H}&seed=0",
+            timeout=300).read()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        api._state.clear()
+    want = pixels_to_rgba(render_image(state["params"]["coarse"], state["params"]["fine"],
+                                       state["camera"], H, W, random.key(0, dev), state["cfg"],
+                                       device=dev, grid=state["grid"]))
+    served = body == want.tobytes()
+    ok = (FRONT_NOTE not in text and c["fused_nerf_mlp_wide"] == 2 * chunks
+          and math.isfinite(eval_db) and served and state["cfg"].impl == "pallas")
+    say("29 wide", f"render --checkpoint of the 512-wide student: note printed: "
+        f"{FRONT_NOTE in text}, wide K1 launches {c['fused_nerf_mlp_wide']} (expected "
+        f"{2 * chunks}); evaluate --checkpoint-dir {H}x{H}: PSNR vs teacher {eval_db:.2f} dB "
+        f"(reported); serve (init_renderer(checkpoint=...)) impl {state['cfg'].impl}, one "
+        f"/render byte for byte pixels_to_rgba(render_image(...)): {served} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the 512-wide checkpoint's front ends went around wide K1 or disagree")
+
+    # (d) `--impl int8` beyond the int8 kernel's envelope: the plain int8 MLP.
+    d, img_f32 = frames[WIDE_LEGOS[0]]
+    q8, text, c = wide_cli_frame(["--weights", str(d), "--impl", "int8"], root / "q.ppm")
+    q8_db = psnr(q8, img_f32)
+    ok = (INT8_NOTE in text and q8_db > INT8_VS_F32_BAR_DB and c["fused_int8_mlp"] == 0
+          and c["fused_nerf_mlp"] == 0)
+    say("29 wide", f"render --impl int8 of the lego widened to 512: note printed: "
+        f"{INT8_NOTE in text}; vs its f32 frame {q8_db:.2f} dB (bar > {INT8_VS_F32_BAR_DB}); "
+        f"int8 kernel launches {c['fused_int8_mlp']}, K1 {c['fused_nerf_mlp']} (expected 0: "
+        f"the plain int8 MLP) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("--impl int8 at width 512 missed its note or its bar")
+
+    # (e) Times, not counted: K1 and the plain version and the library
+    # call at the render's shapes, bounds, frames.
+    saved = save_counts()
+    times = {}
+    for arch, pts, so in ((WIDE_RANDOM[1], pts_f, False), (WIDE_RANDOM[1], pts_c, True),
+                          (WIDE_RANDOM[0], pts_f, False)):
+        net = nets[arch]
+        for dtype in ("float32", "bfloat16"):
+            with torch.no_grad():
+                k_ms = timed_ms(lambda: fused_nerf_mlp(net, pts, vd, dtype=dtype, sigma_only=so))
+                p_ms = timed_ms(lambda: fused_nerf_mlp_reference(net, pts, vd, dtype=dtype,
+                                                                 sigma_only=so))
+                lib_ms = library_mlp_ms(net, pts, vd, dtype, so)
+            n = pts.numel() // 3
+            w_bytes = 4 if dtype == "float32" else 2
+            flops = mlp_flops(net, so) * n
+            peak = F32_FLOP_S if dtype == "float32" else BF16_FLOP_S
+            bnd = bound(4 * (n * 7 + vd.numel()) + w_bytes * sum(
+                int(p.numel()) for p in net.parameters()), flops, peak)
+            times[(arch, so, dtype)] = (k_ms, p_ms, bnd, lib_ms)
+            say("29 times", f"{card}: K1 {dtype} at {arch[:3]}, {tuple(pts.shape[:-1])} "
+                f"{'sigma-only' if so else 'full'} ({flops / n / 1e6:.3f} MFLOP a sample): "
+                f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library (models.mlp.nerf_mlp, "
+                f"{dtype}) {lib_ms:.3f} ms; bound {bnd[0]:.3f} ms ({bnd[1]}, at "
+                f"{peak / 1e12:g} TFLOP/s), {bnd[0] / k_ms:.1%} of it (median of 3)")
+    frame_ms = {dtype: timed_ms(lambda: render(wide["coarse"], wide["fine"], cam, dev, "pallas",
+                                               dtype))
+                for dtype in ("float32", "bfloat16")}
+    accel_ms = timed_ms(lambda: render_accel(wide["coarse"], wide["fine"], cam, dev, cfg, grid,
+                                             BENCH_SIZE))
+    restore_counts(saved)
+    say("29 times", f"{card}: the lego widened to 512/256/8, {W}x{H} {N_COARSE}+{N_FINE} frame "
+        f"f32 {frame_ms['float32']:.1f} ms, bf16 {frame_ms['bfloat16']:.1f} ms; "
+        f"{BENCH_SIZE}x{BENCH_SIZE} bf16 accel+K3 frame {accel_ms:.1f} ms (first runs: dense "
+        f"{dense_ms:.0f}, accel {fast_ms:.0f}); medians of 3; phase 29 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    f32_ms, f32_plain, f32_bnd, f32_lib = times[(WIDE_RANDOM[1], False, "float32")]
+    b_ms, b_plain, b_bnd, b_lib = times[(WIDE_RANDOM[1], False, "bfloat16")]
+    replaces = "nerf_rs_tpu/ops/kernels/fused_mlp.py:779"
+    return [
+        {"name": "fused_nerf_mlp_wide", "route": "cuda",
+         "source": "nerf_rs_tpu_torch/ops/kernels/csrc/fused_mlp_wide_f32.cu",
+         "replaces": replaces, "launches": launched["float32"], "max_abs_err": errs["float32"],
+         "ms": f32_ms, "plain_ms": f32_plain, "bound_ms": f32_bnd[0], "bound_by": f32_bnd[1],
+         "library_ms": f32_lib, "shapes": wide_shapes(times, "float32")},
+        {"name": "fused_nerf_mlp_wide_bf16", "route": "cuda",
+         "source": "nerf_rs_tpu_torch/ops/kernels/csrc/fused_mlp_wide_tc.cu",
+         "replaces": replaces, "launches": launched["bfloat16"], "max_abs_err": errs["bfloat16"],
+         "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bnd[0], "bound_by": b_bnd[1],
+         "library_ms": b_lib, "shapes": wide_shapes(times, "bfloat16")},
+    ]
+
+
+def wide_shapes(times, dtype: str):
+    return [{"arch": list(arch), "sigma_only": so, "ms": k, "plain_ms": p, "bound_ms": b[0],
+             "bound_by": b[1], "library_ms": lib}
+            for (arch, so, dt), (k, p, b, lib) in times.items() if dt == dtype]
+
+
 def main() -> int:
     import torch
 
@@ -3551,6 +3963,9 @@ def main() -> int:
     # The examples gallery and the vendored networks' serving presets.
     extra = phase_examples(cam, dev, card)
 
+    # K1's wide envelope: networks wider than 256 or deeper than 16.
+    wide_entries = phase_wide(cam, dev, card, assets)
+
     # Bounds from this run's shapes (bytes: each input read once, each
     # output written once; operations at the peak of their type).
     k_ms, p_ms, lib_ms = times[("fine", "float32")]
@@ -3605,6 +4020,7 @@ def main() -> int:
         entry("int8_mlp", "int8_mlp_tc.cu", "tools/pallas_int8_probe.py:66",
               int8_launches["fused_int8_mlp"] + extra["int8_mlp"], int8_err, q_ms, q_plain_ms,
               q_bound, q_lib_ms),
+        *wide_entries,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -96,13 +96,40 @@ def _build_accel(args, cfg, params, camera, device, chunk=None):
 
 
 def _impl_for_params(cfg, width: int, v_width: int, depth: int):
-    """``impl="pallas"`` for a network the fused kernels do not serve runs
-    the plain MLP instead, with a note, as the JAX CLI does."""
+    """The front ends' check (render, evaluate, verify, extract): the
+    forward kernel K1 serves the network, or ``impl="pallas"`` runs the
+    plain MLP instead, with a note, as the JAX CLI does. ``impl="int8"``
+    for a network beyond the int8 kernel's envelope renders the same
+    real-int8 arithmetic without the kernel on the card
+    (``render.get_mlp_fn`` picks it per network), with a note."""
+    from nerf_rs_tpu_torch.ops.kernels import int8_mlp
     from nerf_rs_tpu_torch.ops.kernels.fused_mlp import MAX_DEPTH, MAX_WIDTH, supports_dims
 
     if cfg.impl == "pallas" and not supports_dims(width, v_width, depth):
         print(f"note: the network is outside the fused kernels' range (width, v_width <= "
               f"{MAX_WIDTH}, depth <= {MAX_DEPTH}) — running impl='xla'")
+        return cfg.replace(impl="xla")
+    if cfg.impl == "int8" and not int8_mlp.supports_dims(width, v_width, depth):
+        print(f"note: the network is outside the int8 kernel's range (width, v_width <= "
+              f"{int8_mlp.INT8_MAX_WIDTH}, depth <= {int8_mlp.INT8_MAX_DEPTH}) — running the "
+              "plain int8 MLP (models.quant.int8_nerf_mlp)")
+    return cfg
+
+
+def _train_impl_for_params(cfg, width: int, v_width: int, depth: int):
+    """The training check: ``impl="pallas"`` trains through the fused
+    backward K2, whose envelope is narrower than K1's; a student beyond it
+    trains on the plain MLP, with a note."""
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
+        BWD_MAX_DEPTH,
+        BWD_MAX_WIDTH,
+        supports_backward_dims,
+    )
+
+    if cfg.impl == "pallas" and not supports_backward_dims(width, v_width, depth):
+        print(f"note: the network is outside the fused kernels' range for training (the "
+              f"fused backward K2 serves width, v_width <= {BWD_MAX_WIDTH}, depth <= "
+              f"{BWD_MAX_DEPTH}) — running impl='xla'")
         return cfg.replace(impl="xla")
     return cfg
 
@@ -453,10 +480,10 @@ def _train(args, mesh) -> int:
             # QAT is the trainable form of the same arithmetic.
             sys.exit("error: --impl int8 is inference-only; train with "
                      "--impl int8qat (same quantized values, STE gradients)")
-        # A student the fused kernels do not serve trains on the plain MLP;
-        # the teacher stays on --impl.
-        cfg = cfg.replace(render=_impl_for_params(render_cfg, arch.width, arch.v_width,
-                                                  arch.depth))
+        # A student the fused backward does not serve trains on the plain
+        # MLP; the teacher stays on --impl.
+        cfg = cfg.replace(render=_train_impl_for_params(render_cfg, arch.width, arch.v_width,
+                                                        arch.depth))
         if args.lr is not None:
             cfg = cfg.replace(lr_init=args.lr, lr_final=min(cfg.lr_final, args.lr))
     if args.accel_probes or args.accel_aabb:

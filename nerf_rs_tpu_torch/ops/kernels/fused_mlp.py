@@ -6,26 +6,35 @@ The forward kernel K1 replaces the JAX package's Pallas kernel
 tile of samples it encodes points and dirs, runs the trunk with the skip
 layer as two summed products, the ReLU sigma head and, unless
 ``sigma_only``, the bottleneck, the view layer (two summed products) and
-the sigmoid rgb head, with activations kept on chip. It has two kernels,
-both on the tensor cores with weights bulk-copied into shared memory:
-float32 (``csrc/fused_mlp_f32tc.cu``: split-f32, every product six bf16
-``wgmma`` passes, :func:`split_f32_dense`) and bfloat16
-(``csrc/fused_mlp_tc.cu``). The backward kernel K2 replaces
+the sigmoid rgb head, with activations kept on chip. Up to width and
+v_width 256 and depth 16 it has two kernels, both on the tensor cores with
+weights bulk-copied into shared memory: float32
+(``csrc/fused_mlp_f32tc.cu``: split-f32, every product six bf16 ``wgmma``
+passes, :func:`split_f32_dense`) and bfloat16 (``csrc/fused_mlp_tc.cu``).
+Wider or deeper networks, up to ``MAX_WIDTH`` and ``MAX_DEPTH``, take the
+wide pair: bfloat16 on ``wgmma`` (``csrc/fused_mlp_wide_tc.cu``) and
+float32 on the CUDA cores (``csrc/fused_mlp_wide_f32.cu``), with offset
+tables of ``MAX_DEPTH`` layers (``csrc/fused_mlp_wide.cuh``). The backward
+kernel K2 replaces
 ``_backward_t`` / ``_kernel_bwd``: it recomputes the forward per tile,
 backpropagates, and sums every layer's weight and bias gradient over the
 samples. Each mode recomputes with its K1's own device code on its K1's
 pack: float32 runs K1 f32's kernel in record mode over a round of tiles
 (every layer's output into a workspace), then ``csrc/fused_mlp_bwd_tc.cu``
 (dW and W·dz as 3xTF32 ``mma.sync``) over the same tiles; bfloat16 is one
-kernel, ``csrc/fused_mlp_bwd_bf16.cu`` (every product a ``wgmma``).
+kernel, ``csrc/fused_mlp_bwd_bf16.cu`` (every product a ``wgmma``). K2
+serves the narrow envelope only (``BWD_MAX_WIDTH``, ``BWD_MAX_DEPTH``):
+a wider network trains on the plain MLP.
 
 - :func:`pack_params` lays the weights out for the kernels, once per
   network and dtype (``models.mlp.NerfMLP.packed`` keeps the pack).
 - :func:`fused_nerf_mlp` is differentiable on every device, through
   :class:`_FusedMLP` (the counterpart of ``_make_op``'s ``custom_vjp``).
   On CUDA tensors its forward launches K1 (counted in
-  ``fused_nerf_mlp.launches``, and, being on the tensor cores in both
-  dtypes, in ``fused_nerf_mlp.tc_launches``) and its backward K2 (counted in
+  ``fused_nerf_mlp.launches``, in ``fused_nerf_mlp.tc_launches`` when the
+  kernel runs on the tensor cores, which all but the wide f32 kernel do,
+  and in ``fused_nerf_mlp.wide_launches`` for the wide pair) and its
+  backward K2 (counted in
   ``fused_nerf_mlp_backward.launches``); on CPU tensors they run the plain
   versions instead. A CUDA tensor never reaches a plain version.
 - :func:`fused_nerf_mlp_reference` and
@@ -57,8 +66,15 @@ from nerf_rs_tpu_torch.ops.kernels import _build
 _XF, _DF = 10, 4            # encoding bands the kernel serves (points, dirs)
 _ENC_X_RAW, _ENC_D_RAW = 3 + 6 * _XF, 3 + 6 * _DF   # 63, 27
 _ENC_X, _ENC_D = 64, 32     # the kernel's padded encode rows
-MAX_DEPTH = 16              # kMaxDepth in csrc/fused_mlp_common.cuh
-MAX_WIDTH = 256             # kMaxWidth: widest trunk or view branch served
+# K1's envelope (kWideMaxDepth, kWideMaxWidth in csrc/fused_mlp_wide.cuh):
+# the deepest trunk and the widest trunk or view branch the forward serves.
+MAX_DEPTH = 32
+MAX_WIDTH = 512
+# K2's envelope, and the narrow K1 kernels' (kMaxDepth, kMaxWidth in
+# csrc/fused_mlp_common.cuh): beyond it K1 runs the wide kernels and
+# training runs the plain MLP.
+BWD_MAX_DEPTH = 16
+BWD_MAX_WIDTH = 256
 _ALIGN = 8                  # segment offsets: 16-byte aligned bf16 loads
 _TC_PIECE = 64              # kPiece in csrc/fused_mlp_tc.cuh: tensor-core widths pad to it
 _STEP_K = 16                # kStepK in csrc/fused_mlp_f32tc.cuh: k rows a split-f32 chunk
@@ -90,15 +106,32 @@ def infer_arch(params) -> Tuple[int, int, int, int]:
 
 
 def supports_dims(width: int, v_width: int, depth: int) -> bool:
-    """Whether the kernels serve these dimensions: trunk and view widths up
-    to ``MAX_WIDTH``, at most ``MAX_DEPTH`` dense layers."""
+    """Whether the forward kernel K1 serves these dimensions: trunk and view
+    widths up to ``MAX_WIDTH``, at most ``MAX_DEPTH`` dense layers."""
     return 1 <= width <= MAX_WIDTH and 1 <= v_width <= MAX_WIDTH and 1 <= depth <= MAX_DEPTH
 
 
+def supports_backward_dims(width: int, v_width: int, depth: int) -> bool:
+    """Whether the backward kernel K2 serves these dimensions (and the
+    narrow K1 kernels): widths up to ``BWD_MAX_WIDTH``, at most
+    ``BWD_MAX_DEPTH`` dense layers."""
+    return (1 <= width <= BWD_MAX_WIDTH and 1 <= v_width <= BWD_MAX_WIDTH
+            and 1 <= depth <= BWD_MAX_DEPTH)
+
+
+def _dims(params) -> Tuple[int, int, int]:
+    return infer_arch(params.tree() if hasattr(params, "tree") else params)[:3]
+
+
 def supports_arch(params) -> bool:
-    """Whether the kernels serve a network (a NerfMLP or a param tree)."""
-    width, v_width, depth, _ = infer_arch(params.tree() if hasattr(params, "tree") else params)
-    return supports_dims(width, v_width, depth)
+    """Whether K1 serves a network (a NerfMLP or a param tree)."""
+    return supports_dims(*_dims(params))
+
+
+def supports_backward_arch(params) -> bool:
+    """Whether K2 serves a network (a NerfMLP or a param tree): whether
+    ``impl="pallas"`` can train it."""
+    return supports_backward_dims(*_dims(params))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,7 +145,10 @@ class PackedMLP:
     (the encode input of a skip layer), ``alpha``, ``bottleneck``,
     ``viewdirs``, ``viewdirs_dir`` (the dir-encode input of the view
     layer) and ``rgb``. Every padding entry is zero. ``layout`` is the
-    int64 offset table in the order ``csrc/fused_mlp_common.cuh`` reads it.
+    int64 offset table in the order ``csrc/fused_mlp_common.cuh`` reads it,
+    with ``BWD_MAX_DEPTH`` layer slots; a ``wide`` pack (beyond K2's
+    envelope) has ``MAX_DEPTH`` slots in each of its tables, in the same
+    order (``csrc/fused_mlp_wide.cuh``), and no ``mma_wt``.
 
     f32 packs hold ``mma_wt``, the f32 backward kernel's tensor-core pack
     (``csrc/fused_mlp_bwd_tc.cu``): the transpose of every segment but the
@@ -161,6 +197,11 @@ class PackedMLP:
     weights_f32tc: Optional[torch.Tensor] = None
     layout_f32tc: Optional[np.ndarray] = None
 
+    @property
+    def wide(self) -> bool:
+        """Whether K1 runs its wide kernels on this pack."""
+        return not supports_backward_dims(self.width, self.v_width, self.depth)
+
     def mat(self, name: str) -> torch.Tensor:
         """Segment ``name`` as a float32 (K, ld) matrix."""
         off, k, ld = self.segments[name]
@@ -190,6 +231,8 @@ def pack_params(params, dtype: str) -> PackedMLP:
             f"{MAX_DEPTH}; got width={width}, v_width={v_width}, depth={depth}")
     ldw, ldv = _round_up(width, 8), _round_up(v_width, 8)
     device = params["dense0"]["kernel"].device
+    narrow = supports_backward_dims(width, v_width, depth)
+    slots = BWD_MAX_DEPTH if narrow else MAX_DEPTH       # layer slots of every table
 
     def kern(name):
         return params[name]["kernel"].detach().to(torch.float32)
@@ -234,7 +277,8 @@ def pack_params(params, dtype: str) -> PackedMLP:
         pieces.append(torch.nn.functional.pad(padded.reshape(-1), (0, size - rows * ld)))
         segments[name] = (off, rows, ld)
         off += size
-        if dtype == "float32" and name not in ("alpha", "rgb"):   # rows, ld: multiples of 8
+        # K2's f32 pack (rows, ld: multiples of 8).
+        if narrow and dtype == "float32" and name not in ("alpha", "rgb"):
             pieces_wt.append(mma_tile(padded.t(), _round_up(ld, 16), rows))
             offsets_wt[name] = off_wt
             off_wt += pieces_wt[-1].numel()
@@ -256,10 +300,10 @@ def pack_params(params, dtype: str) -> PackedMLP:
         """A forward kernel's offset table: weight segments at ``offsets``,
         then the biases, in csrc/fused_mlp_common.cuh's order."""
         return np.array(
-            [offsets.get(f"dense{i}", -1) for i in range(MAX_DEPTH)]
-            + [offsets.get(f"dense{i}_enc", -1) for i in range(MAX_DEPTH)]
+            [offsets.get(f"dense{i}", -1) for i in range(slots)]
+            + [offsets.get(f"dense{i}_enc", -1) for i in range(slots)]
             + [offsets[n] for n in ("alpha", "bottleneck", "viewdirs", "viewdirs_dir", "rgb")]
-            + [bias_slots[f"dense{i}"][0] if i < depth else -1 for i in range(MAX_DEPTH)]
+            + [bias_slots[f"dense{i}"][0] if i < depth else -1 for i in range(slots)]
             + [bias_slots[n][0] for n in ("alpha", "bottleneck", "viewdirs", "rgb")],
             dtype=np.int64)
 
@@ -289,12 +333,13 @@ def pack_params(params, dtype: str) -> PackedMLP:
 
     mma_wt = layout_mma = weights_tc = layout_tc = weights_f32tc = layout_f32tc = None
     if dtype == "float32":
-        mma_wt = torch.stack(tf32_split(torch.cat(pieces_wt)))
-        layout_mma = np.array(
-            [offsets_wt.get(f"dense{i}", -1) for i in range(MAX_DEPTH)]
-            + [offsets_wt.get(f"dense{i}_enc", -1) for i in range(MAX_DEPTH)]
-            + [offsets_wt[n] for n in ("bottleneck", "viewdirs", "viewdirs_dir")],
-            dtype=np.int64)
+        if narrow:
+            mma_wt = torch.stack(tf32_split(torch.cat(pieces_wt)))
+            layout_mma = np.array(
+                [offsets_wt.get(f"dense{i}", -1) for i in range(slots)]
+                + [offsets_wt.get(f"dense{i}_enc", -1) for i in range(slots)]
+                + [offsets_wt[n] for n in ("bottleneck", "viewdirs", "viewdirs_dir")],
+                dtype=np.int64)
         weights_f32tc, layout_f32tc = tensor_core_pack(f32tc_tile, heads=False)
         weights_f32tc = weights_f32tc.to(torch.bfloat16)    # exact: the pieces are bf16 values
     else:
@@ -477,14 +522,17 @@ def _dense(sources, b: torch.Tensor) -> torch.Tensor:
     return acc + b
 
 
-def _trunk(mat, bias, enc_x: torch.Tensor, rnd, depth: int, skips):
-    """Every trunk layer's output, as the kernels compute them."""
+def _trunk(mat, bias, enc_x: torch.Tensor, rnd, depth: int, skips, keep: bool = True):
+    """Every trunk layer's output, as the kernels compute them (without
+    ``keep``, the last one only: a forward needs no more)."""
     hs = [rnd(torch.relu(_dense([(enc_x, mat("dense0"))], bias("dense0"))))]
     for i in range(1, depth):
         sources = [(hs[-1], mat(f"dense{i}"))]
         if f"dense{i}_enc" in skips:
             sources.insert(0, (enc_x, mat(f"dense{i}_enc")))
         hs.append(rnd(torch.relu(_dense(sources, bias(f"dense{i}")))))
+        if not keep:
+            del hs[0]
     return hs
 
 
@@ -522,7 +570,7 @@ def fused_nerf_mlp_reference(params, points: torch.Tensor, viewdirs: torch.Tenso
         return pk.bias(name).to(dt)
 
     enc_x = rnd(_encode(pts, x_freqs, _ENC_X))
-    h = _trunk(mat, bias, enc_x, rnd, pk.depth, pk.segments)[-1]
+    h = _trunk(mat, bias, enc_x, rnd, pk.depth, pk.segments, keep=False)[-1]
     sigma = torch.relu(h @ mat("alpha") + bias("alpha"))[:, 0]
     if sigma_only:
         rgb = torch.zeros((pts.shape[0], 3), dtype=dt, device=pts.device)
@@ -712,7 +760,10 @@ def _forward_kernel(pk: PackedMLP, points: torch.Tensor, viewdirs: torch.Tensor,
     """K1 on CUDA tensors, on the current stream, without synchronizing:
     f32 packs launch the split-f32 kernel (``csrc/fused_mlp_f32tc.cu``),
     bf16 packs ``csrc/fused_mlp_tc.cu``; both on the tensor cores, counted
-    also in ``fused_nerf_mlp.tc_launches``."""
+    also in ``fused_nerf_mlp.tc_launches``. Wide packs launch
+    ``csrc/fused_mlp_wide_tc.cu`` (bf16, tensor cores) or
+    ``csrc/fused_mlp_wide_f32.cu`` (f32, CUDA cores), counted also in
+    ``fused_nerf_mlp.wide_launches``."""
     dirs, dir_div, batch, n = _kernel_inputs(pk, points, viewdirs)
     rgb = torch.empty((*batch, 3), dtype=torch.float32, device=points.device)
     sigma = torch.empty(batch, dtype=torch.float32, device=points.device)
@@ -722,7 +773,16 @@ def _forward_kernel(pk: PackedMLP, points: torch.Tensor, viewdirs: torch.Tensor,
     head = (points.data_ptr(), dirs.data_ptr(), n, dir_div)
     tail = (pk.ldw, pk.ldv, pk.depth, int(sigma_only), rgb.data_ptr(), sigma.data_ptr(),
             points.device.index or 0, _stream(points.device))
-    if pk.dtype == "bfloat16":
+    tensor_cores = not (pk.wide and pk.dtype == "float32")
+    if pk.wide and pk.dtype == "bfloat16":
+        err = lib.nerf_fused_mlp_wide_tc_forward(
+            *head, pk.weights_tc.data_ptr(), pk.biases.data_ptr(), pk.layout_tc.ctypes.data,
+            pk.layout_tc.size, *tail)
+    elif pk.wide:
+        err = lib.nerf_fused_mlp_wide_f32_forward(
+            *head, pk.weights.data_ptr(), pk.biases.data_ptr(), pk.layout.ctypes.data,
+            pk.layout.size, *tail)
+    elif pk.dtype == "bfloat16":
         err = lib.nerf_fused_mlp_tc_forward(*head, pk.weights_tc.data_ptr(), pk.biases.data_ptr(),
                                             pk.layout_tc.ctypes.data, pk.layout_tc.size, *tail)
     else:
@@ -732,7 +792,8 @@ def _forward_kernel(pk: PackedMLP, points: torch.Tensor, viewdirs: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fused MLP kernel launch failed with CUDA error {err}")
     fused_nerf_mlp.launches += 1
-    fused_nerf_mlp.tc_launches += 1
+    fused_nerf_mlp.tc_launches += int(tensor_cores)
+    fused_nerf_mlp.wide_launches += int(pk.wide)
     return rgb, sigma
 
 
@@ -776,6 +837,12 @@ def _backward_f32(lib, pk: PackedMLP, ptrs, partials, grid: int, tiles: int, sig
                                            device, stream)
 
 
+def _unserved_backward(width: int, v_width: int, depth: int) -> str:
+    return (f"the fused backward K2 serves width, v_width <= {BWD_MAX_WIDTH} and depth <= "
+            f"{BWD_MAX_DEPTH}; got width={width}, v_width={v_width}, depth={depth} — train it "
+            "with impl='xla'")
+
+
 def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor,
                             g_rgb: torch.Tensor, g_sigma: torch.Tensor, *, x_freqs: int = 10,
                             d_freqs: int = 4, dtype: str = "float32", sigma_only: bool = False,
@@ -787,7 +854,8 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
     and count one launch per call in ``fused_nerf_mlp_backward.launches``
     (the kernel and its fixed-order sum of per-CTA partials; bf16 calls
     also in ``fused_nerf_mlp_backward.bf16_launches``). Two calls on the
-    same inputs give bitwise-equal results.
+    same inputs give bitwise-equal results. A network beyond K2's envelope
+    (:func:`supports_backward_arch`) raises NotImplementedError.
     """
     if points.device.type == "cpu":
         return fused_nerf_mlp_backward_reference(
@@ -797,6 +865,8 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
         raise ValueError(f"fused_nerf_mlp_backward takes CPU or CUDA tensors, got {points.device}")
     _check_call(x_freqs, d_freqs, dtype)
     pk = _packed(params, dtype)
+    if pk.wide:
+        raise NotImplementedError(_unserved_backward(pk.width, pk.v_width, pk.depth))
     dirs, dir_div, batch, n = _kernel_inputs(pk, points, viewdirs)
     dev = points.device
     g_rgb = g_rgb.to(torch.float32).reshape(n, 3).contiguous()
@@ -851,7 +921,9 @@ class _FusedMLP(torch.autograd.Function):
     in place before backward raises, as autograd does. Forward and
     backward run the kernels on CUDA tensors and the plain versions on CPU
     tensors; points' and viewdirs' gradients are computed only when asked
-    for."""
+    for. (forward runs with grad mode off and cannot tell whether a
+    gradient will be asked for: :func:`fused_nerf_mlp` refuses a network
+    beyond K2's envelope before it applies this.)"""
 
     @staticmethod
     def forward(ctx, params, opts, names, points, viewdirs, *leaves):
@@ -892,17 +964,27 @@ def fused_nerf_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *,
     gives the color branch no gradient.
 
     CUDA tensors launch K1 (and, in backward, K2) on the current stream
-    without synchronizing; CPU tensors run the plain versions.
+    without synchronizing; CPU tensors run the plain versions. K1 serves
+    :func:`supports_arch`. A call on CUDA tensors that will need K2 (grad
+    mode on, and an input or parameter that requires grad) raises
+    NotImplementedError before K1 launches unless K2 serves the network
+    too (:func:`supports_backward_arch`).
     """
     _check_call(x_freqs, d_freqs, dtype)
     if points.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_nerf_mlp takes CPU or CUDA tensors, got {points.device}")
     tree = params.tree() if hasattr(params, "tree") else params
     names = [(layer, part) for layer in tree for part in ("kernel", "bias")]
+    leaves = [tree[layer][part] for layer, part in names]
+    if (points.device.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (points, viewdirs, *leaves))):
+        dims = _dims(tree)
+        if not supports_backward_dims(*dims):
+            raise NotImplementedError(_unserved_backward(*dims))
     opts = dict(x_freqs=x_freqs, d_freqs=d_freqs, dtype=dtype, sigma_only=sigma_only)
-    return _FusedMLP.apply(params, opts, names, points, viewdirs,
-                           *(tree[layer][part] for layer, part in names))
+    return _FusedMLP.apply(params, opts, names, points, viewdirs, *leaves)
 
 
 fused_nerf_mlp.launches = 0
 fused_nerf_mlp.tc_launches = 0
+fused_nerf_mlp.wide_launches = 0

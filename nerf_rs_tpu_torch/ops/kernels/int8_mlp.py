@@ -17,7 +17,10 @@ the products on s8 ``wgmma`` (Hopper's tensor cores).
 - :func:`fused_int8_mlp` launches the kernel on CUDA tensors (counted in
   ``fused_int8_mlp.launches``) and runs the plain version on CPU tensors.
   A CUDA tensor never reaches the plain version: an arch or encoding the
-  kernel does not serve raises ``NotImplementedError``.
+  kernel does not serve raises ``NotImplementedError``. Its envelope is its
+  own (:func:`supports_arch`: widths up to ``INT8_MAX_WIDTH``, depth up to
+  ``INT8_MAX_DEPTH``), narrower than K1's; ``render.get_mlp_fn(cfg, params, device)`` picks
+  the plain version up front for a wider network on the card.
 - :func:`fused_int8_mlp_reference` is the plain version,
   ``models.quant.int8_nerf_mlp(fake=False)``.
 
@@ -42,23 +45,38 @@ from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
     _ENC_X,
     _ENC_X_RAW,
     _XF,
-    MAX_DEPTH,
-    MAX_WIDTH,
+    _dims,
     _kernel_inputs,
     _round_up,
     _stream,
     infer_arch,
-    supports_arch,
 )
 
+INT8_MAX_DEPTH = 16         # kMaxDepth in csrc/int8_mlp_tc.cu
+INT8_MAX_WIDTH = 256        # kMaxWidth there: widest trunk or view branch served
 _PIECE = 64                 # kPiece: the kernel's wgmma N; widths pad to it
 _HEAD_LD = 8                # the alpha and rgb heads' padded column count
 
 
-def _unserved(params) -> str:
-    width, v_width, depth, _ = infer_arch(params.tree() if hasattr(params, "tree") else params)
-    return (f"int8 kernel serves width, v_width <= {MAX_WIDTH} and depth <= {MAX_DEPTH}; got "
-            f"width={width}, v_width={v_width}, depth={depth}")
+def supports_dims(width: int, v_width: int, depth: int) -> bool:
+    """Whether the int8 kernel serves these dimensions: trunk and view
+    widths up to ``INT8_MAX_WIDTH``, at most ``INT8_MAX_DEPTH`` dense
+    layers."""
+    return (1 <= width <= INT8_MAX_WIDTH and 1 <= v_width <= INT8_MAX_WIDTH
+            and 1 <= depth <= INT8_MAX_DEPTH)
+
+
+def supports_arch(params) -> bool:
+    """Whether the int8 kernel serves a network (a NerfMLP or a param
+    tree)."""
+    return supports_dims(*_dims(params))
+
+
+def unserved_note(params) -> str:
+    """Why the int8 kernel refuses a network."""
+    width, v_width, depth = _dims(params)
+    return (f"int8 kernel serves width, v_width <= {INT8_MAX_WIDTH} and depth <= "
+            f"{INT8_MAX_DEPTH}; got width={width}, v_width={v_width}, depth={depth}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,11 +165,11 @@ def pack_int8_params(params) -> PackedInt8MLP:
     to the kernel's input layout: the encode 63 -> 64 (placed first in the
     skip layer), widths to a multiple of 64, the dir encode 27 -> 32 after
     the bottleneck's rows; columns pad to a multiple of 64 (the heads' to
-    8). Serves what ``fused_mlp.supports_arch`` serves; anything else
-    raises ValueError.
+    8). Serves what :func:`supports_arch` serves; anything else raises
+    ValueError.
     """
     if not supports_arch(params):
-        raise ValueError(_unserved(params))
+        raise ValueError(unserved_note(params))
     width, v_width, depth, _ = infer_arch(params)
     ldw, ldv = _round_up(width, _PIECE), _round_up(v_width, _PIECE)
     device = params["dense0"]["kernel"].device
@@ -211,9 +229,9 @@ def pack_int8_params(params) -> PackedInt8MLP:
         return slots[name][0]
 
     layout = np.array(
-        [seg(f"dense{i}") if i < depth else -1 for i in range(MAX_DEPTH)]
-        + [slot(f"dense{i}") if i < depth else -1 for i in range(MAX_DEPTH)]
-        + [int(i in skips) for i in range(MAX_DEPTH)]
+        [seg(f"dense{i}") if i < depth else -1 for i in range(INT8_MAX_DEPTH)]
+        + [slot(f"dense{i}") if i < depth else -1 for i in range(INT8_MAX_DEPTH)]
+        + [int(i in skips) for i in range(INT8_MAX_DEPTH)]
         + [seg(n) for n in ("alpha", "bottleneck", "viewdirs", "rgb")]
         + [slot(n) for n in ("alpha", "bottleneck", "viewdirs", "rgb")],
         dtype=np.int64)
@@ -243,8 +261,9 @@ def fused_int8_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *, x_fr
     CUDA tensors launch the kernel on the current stream without
     synchronizing, one launch per call; CPU tensors run
     :func:`fused_int8_mlp_reference`. On the card an arch beyond
-    ``supports_arch`` or other encodings than (10, 4) raise
-    NotImplementedError.
+    :func:`supports_arch` or other encodings than (10, 4) raise
+    NotImplementedError: no quiet fallback here (the renderer's choice,
+    ``render.get_mlp_fn(cfg, params, device)``, is made before the call).
     """
     if points.device.type == "cpu":
         return fused_int8_mlp_reference(params, points, viewdirs, x_freqs=x_freqs,
@@ -255,7 +274,7 @@ def fused_int8_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *, x_fr
         raise NotImplementedError(f"int8 kernel is specialized to L=({_XF},{_DF}) encodings, "
                                   f"got ({x_freqs},{d_freqs})")
     if not supports_arch(params):
-        raise NotImplementedError(_unserved(params))
+        raise NotImplementedError(unserved_note(params))
     pk = params.packed("int8") if hasattr(params, "packed") else pack_int8_params(params)
     points = points.to(torch.float32).contiguous()
     viewdirs = viewdirs.to(torch.float32)

@@ -41,7 +41,7 @@ from nerf_rs_tpu_torch.ops.sampling import (
 from nerf_rs_tpu_torch.ops.volume import composite, compute_weights, exclusive_transmittance
 
 
-def get_mlp_fn(cfg: RenderConfig):
+def get_mlp_fn(cfg: RenderConfig, params=None, device=None):
     """Resolve the field network: the hash-grid family
     (``model="hashgrid"``: ``models.hashgrid.hashgrid_mlp``, whose encode is
     a CUDA kernel; ``impl`` selects kernels within the MLP family only, as
@@ -49,7 +49,15 @@ def get_mlp_fn(cfg: RenderConfig):
     fused CUDA kernel (``impl="pallas"``), or the W8A8 family
     (``models/quant.py``, which ignores ``cfg.dtype``): real int8
     inference through the int8 CUDA kernel (``impl="int8"``) or the
-    fake-quant STE forward that QAT trains through (``impl="int8qat"``)."""
+    fake-quant STE forward that QAT trains through (``impl="int8qat"``).
+
+    Given one network's ``params`` and the ``device`` it runs on, the
+    choice is that network's: ``impl="int8"`` on a CUDA device for a
+    network beyond the int8 kernel's envelope (``int8_mlp.supports_arch``)
+    resolves to the same real-int8 arithmetic without the kernel,
+    ``models.quant.int8_nerf_mlp(fake=False)``, the JAX package's int8
+    path at every width, rather than to the kernel's wrapper, which
+    refuses it."""
     if cfg.model == "hashgrid":
         from nerf_rs_tpu_torch.models.hashgrid import hashgrid_mlp
 
@@ -62,8 +70,14 @@ def get_mlp_fn(cfg: RenderConfig):
         return functools.partial(fused_nerf_mlp, x_freqs=cfg.x_freqs, d_freqs=cfg.d_freqs,
                                  dtype=cfg.dtype)
     if cfg.impl == "int8":
-        from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp
+        from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp, supports_arch
 
+        if (params is not None and torch.device(device).type == "cuda"
+                and not supports_arch(params)):
+            from nerf_rs_tpu_torch.models.quant import int8_nerf_mlp
+
+            return functools.partial(int8_nerf_mlp, x_freqs=cfg.x_freqs, d_freqs=cfg.d_freqs,
+                                     fake=False)
         return functools.partial(fused_int8_mlp, x_freqs=cfg.x_freqs, d_freqs=cfg.d_freqs)
     if cfg.impl == "int8qat":
         from nerf_rs_tpu_torch.models.quant import int8_nerf_mlp
@@ -182,7 +196,6 @@ def render_rays(params_coarse, params_fine, origin: torch.Tensor, dirs: torch.Te
     """
     if cfg.sampling_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown sampling_impl {cfg.sampling_impl!r}")
-    mlp = get_mlp_fn(cfg)
     batch_shape = tuple(dirs.shape[:-1])
     n_rays = 1
     for s in batch_shape:
@@ -200,6 +213,7 @@ def render_rays(params_coarse, params_fine, origin: torch.Tensor, dirs: torch.Te
         raise ValueError("return_live is incompatible with return_aux — "
                          "calibrate capacities through the inference path")
     device = dirs.device
+    mlp_c, mlp_f = (get_mlp_fn(cfg, p, device) for p in (params_coarse, params_fine))
     near = torch.as_tensor(near, dtype=torch.float32, device=device)
     far = torch.as_tensor(far, dtype=torch.float32, device=device)
 
@@ -237,11 +251,11 @@ def render_rays(params_coarse, params_fine, origin: torch.Tensor, dirs: torch.Te
         occ_c = query_occupancy(grid, pts_c)
         cap_c = _round_up(max(1, int(n_rays * cfg.n_coarse * cfg.accel_coarse_capacity)),
                           1024) if cfg.accel_compact != "none" else max(1, n_rays * cfg.n_coarse)
-        rgb_c, sigma_c, live_c = _mlp_culled(mlp, params_coarse, pts_c, dirs[..., None, :], occ_c,
+        rgb_c, sigma_c, live_c = _mlp_culled(mlp_c, params_coarse, pts_c, dirs[..., None, :], occ_c,
                                              cap_c, sigma_only=coarse_sigma_only,
                                              impl=cfg.accel_compact)
     else:
-        rgb_c, sigma_c = mlp(params_coarse, pts_c, dirs[..., None, :],
+        rgb_c, sigma_c = mlp_c(params_coarse, pts_c, dirs[..., None, :],
                              sigma_only=coarse_sigma_only)
         if return_live:       # "off": every sample is live
             live_c = torch.tensor(n_rays * cfg.n_coarse, device=device)
@@ -296,10 +310,10 @@ def render_rays(params_coarse, params_fine, origin: torch.Tensor, dirs: torch.Te
         cap_f = _round_up(max(1, int(n_rays * (cfg.n_coarse + cfg.n_fine)
                                      * cfg.accel_fine_capacity)), 1024) \
             if cfg.accel_compact != "none" else max(1, n_rays * (cfg.n_coarse + cfg.n_fine))
-        rgb_f, sigma_f, live_f = _mlp_culled(mlp, params_fine, pts_f, dirs[..., None, :], mask_f,
+        rgb_f, sigma_f, live_f = _mlp_culled(mlp_f, params_fine, pts_f, dirs[..., None, :], mask_f,
                                              cap_f, sigma_only=False, impl=cfg.accel_compact)
     else:
-        rgb_f, sigma_f = mlp(params_fine, pts_f, dirs[..., None, :])
+        rgb_f, sigma_f = mlp_f(params_fine, pts_f, dirs[..., None, :])
         if return_live:
             live_f = torch.tensor(n_rays * (cfg.n_coarse + cfg.n_fine), device=device)
     w_f = compute_weights(sigma_f, t_f, far_w, t_threshold=cfg.t_threshold)

@@ -4,7 +4,9 @@ The original NeRF recipe: joint photometric MSE on the coarse and fine
 renders, Adam with an exponential learning-rate decay from 5e-4 to 5e-6.
 The coarse and fine networks are independent parameter sets trained
 together. With ``impl="pallas"`` every MLP forward runs the fused kernel K1
-and every MLP backward the fused kernel K2 (``ops/kernels/fused_mlp.py``).
+and every MLP backward the fused kernel K2 (``ops/kernels/fused_mlp.py``);
+a student beyond K2's envelope (``fused_mlp.supports_backward_arch``)
+trains on the plain MLP instead.
 The hash-grid family (``model="hashgrid"``) trains one field that serves
 both passes; its encode runs the hash-encode kernel
 (``ops/kernels/hash_encode.py``). Its recipe (the CLI's) is Adam from 1e-2
@@ -161,6 +163,17 @@ def split_params(params) -> Tuple[torch.nn.Module, torch.nn.Module]:
     return params["coarse"], params["fine"]
 
 
+def _trainable(params, rcfg):
+    """``rcfg``, or with ``impl="xla"`` where ``impl="pallas"`` would ask
+    the fused backward K2 for a network beyond its envelope."""
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import supports_backward_arch
+
+    if rcfg.model == "mlp" and rcfg.impl == "pallas" and not all(
+            supports_backward_arch(p) for p in split_params(params)):
+        return rcfg.replace(impl="xla")
+    return rcfg
+
+
 def nerf_loss(params, batch: Dict[str, torch.Tensor], key: torch.Tensor, cfg: TrainConfig,
               grid=None, ray_ids: Optional[torch.Tensor] = None):
     """Joint coarse + fine photometric MSE over a ray batch -> (loss,
@@ -182,7 +195,7 @@ def nerf_loss(params, batch: Dict[str, torch.Tensor], key: torch.Tensor, cfg: Tr
     its capacity, and ``accel_overflow``, 1.0 when either exceeds 1 and
     samples were dropped) are detached 0-d tensors.
     """
-    rcfg = cfg.render
+    rcfg = _trainable(params, cfg.render)
     dirs = batch["dirs"]
     if ray_ids is None:
         ray_ids = torch.arange(dirs.shape[0], dtype=torch.int64, device=dirs.device)

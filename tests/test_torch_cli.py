@@ -8,7 +8,10 @@ The JAX CLI renders and trains any width: weights or students its kernel
 cannot serve run ``impl="xla"`` with a note (``nerf_rs_tpu/cli.py``,
 ``_impl_for_params`` and ``cmd_train``), and ``--impl int8`` is refused
 only for the MLP family, whose teacher then renders through the fused
-kernel. The port does the same."""
+kernel. The port does the same, with its own envelopes: the forward K1
+serves widths up to 512 and depths up to 32, the backward K2 (training)
+256 and 16, and the int8 kernel 256 and 16, beyond which ``--impl int8``
+renders the plain int8 MLP with a note."""
 
 import contextlib
 import functools
@@ -16,6 +19,7 @@ import io
 import json
 import re
 import shutil
+import sys
 from pathlib import Path
 
 import jax
@@ -36,51 +40,108 @@ from test_torch_data import write_scene
 
 torch.set_num_threads(1)
 
-LEGO = Path(__file__).resolve().parents[1] / "assets" / "lego_rust"
+ROOT = Path(__file__).resolve().parents[1]
+LEGO = ROOT / "assets" / "lego_rust"
 NOTE = "outside the fused kernels' range"
-# Wider than the port's kernels serve (256), a multiple of 128 as JAX's
-# kernel takes.
+K2_NOTE = "the fused backward K2 serves width, v_width <= 256, depth <= 16"
+INT8_NOTE = "outside the int8 kernel's range (width, v_width <= 256, depth <= 16)"
+# Wider than K2 and the int8 kernel serve (256), within K1's envelope (512),
+# a multiple of 128 as JAX's kernel takes.
 WIDE = JaxArchConfig(width=384, v_width=128, depth=2, skip_at=0)
+# Wider than K1 serves (512), still a multiple of 128.
+WIDER = JaxArchConfig(width=640, v_width=128, depth=2, skip_at=0)
+
+
+def _assets(root, arch):
+    """Coarse and fine networks of ``arch`` in the reference .bin format,
+    written by the JAX package, beside the lego camera."""
+    for i, net in enumerate(("coarse", "fine")):
+        tree = jax.tree_util.tree_map(np.asarray, init_nerf_params(jax.random.key(i), arch=arch))
+        save_nerf_params(root / net, tree)
+    shutil.copy(LEGO / "tf_reference_samples.json", root)
+    return root
 
 
 @pytest.fixture(scope="module")
 def wide_assets(tmp_path_factory):
-    """Width-384 coarse and fine networks in the reference .bin format,
-    written by the JAX package, beside the lego camera."""
-    root = tmp_path_factory.mktemp("wide")
-    for i, net in enumerate(("coarse", "fine")):
-        tree = jax.tree_util.tree_map(np.asarray, init_nerf_params(jax.random.key(i), arch=WIDE))
-        save_nerf_params(root / net, tree)
-    shutil.copy(LEGO / "tf_reference_samples.json", root)
-    return root
+    return _assets(tmp_path_factory.mktemp("wide"), WIDE)
+
+
+@pytest.fixture(scope="module")
+def wider_assets(tmp_path_factory):
+    return _assets(tmp_path_factory.mktemp("wider"), WIDER)
+
+
+def _jax_frame(assets, impl):
+    """JAX's render of the same weights at RENDER's size and samples."""
+    from nerf_rs_tpu.io.weights import load_nerf_params as jax_load_nerf_params
+
+    coarse, fine = (jax_load_nerf_params(assets / n) for n in ("coarse", "fine"))
+    cam = jax_camera_from_golden(jax_load_golden(assets / "tf_reference_samples.json"))
+    want = jax_render_image(coarse, fine, cam, 6, 8, jax.random.key(0),
+                            JaxRenderConfig(n_coarse=4, n_fine=4, ray_chunk=16, impl=impl))
+    return np.clip(np.asarray(want, np.float32), 0, 1)
 
 
 RENDER = ["render", "--device", "cpu", "--width", "8", "--height", "6", "--coarse-samples", "4",
           "--fine-samples", "4", "--ray-chunk", "16"]
 
 
-def test_cli_render_unserved_width_runs_xla_with_note(wide_assets, tmp_path, capsys):
-    """``--impl pallas`` (the default) on width-384 weights prints the
-    note and writes the ``--impl xla`` image, which is JAX's plain render
-    of the same weights to a level of the 8-bit image."""
+def test_cli_render_unserved_width_runs_xla_with_note(wider_assets, tmp_path, capsys):
+    """``--impl pallas`` (the default) on width-640 weights, beyond K1's
+    envelope, prints the note and writes the ``--impl xla`` image, which
+    is JAX's plain render of the same weights to a level of the 8-bit
+    image."""
     out = {}
     for impl in ("pallas", "xla"):
         path = tmp_path / f"{impl}.ppm"
-        assert cli_main([*RENDER, "--weights", str(wide_assets), "--impl", impl,
+        assert cli_main([*RENDER, "--weights", str(wider_assets), "--impl", impl,
                          "-o", str(path)]) == 0
         out[impl] = (path.read_bytes(), capsys.readouterr().out)
     assert NOTE in out["pallas"][1] and NOTE not in out["xla"][1]
+    assert "(width, v_width <= 512, depth <= 32)" in out["pallas"][1]
     assert "(xla/float32" in out["pallas"][1]
     assert out["pallas"][0] == out["xla"][0]
-
-    from nerf_rs_tpu.io.weights import load_nerf_params as jax_load_nerf_params
-
-    coarse, fine = (jax_load_nerf_params(wide_assets / n) for n in ("coarse", "fine"))
-    cam = jax_camera_from_golden(jax_load_golden(wide_assets / "tf_reference_samples.json"))
-    want = jax_render_image(coarse, fine, cam, 6, 8, jax.random.key(0),
-                            JaxRenderConfig(n_coarse=4, n_fine=4, ray_chunk=16, impl="xla"))
     got = load_ppm(tmp_path / "pallas.ppm")
-    assert np.abs(got - np.clip(np.asarray(want, np.float32), 0, 1)).max() <= 1.0 / 255 + 1e-6
+    assert np.abs(got - _jax_frame(wider_assets, "xla")).max() <= 1.0 / 255 + 1e-6
+
+
+def test_cli_render_width_384_runs_fused_without_note(wide_assets, tmp_path, capsys):
+    """Width-384 weights are within K1's envelope: ``--impl pallas`` keeps
+    the fused path (the wide kernels on the card, their plain version
+    here), prints no note, and writes JAX's fused render of the same
+    weights (its Pallas kernel in interpret mode) to a level of the 8-bit
+    image."""
+    path = tmp_path / "pallas.ppm"
+    assert cli_main([*RENDER, "--weights", str(wide_assets), "--impl", "pallas",
+                     "-o", str(path)]) == 0
+    text = capsys.readouterr().out
+    assert NOTE not in text and "(pallas/float32" in text
+    got = load_ppm(path)
+    assert np.abs(got - _jax_frame(wide_assets, "pallas")).max() <= 1.0 / 255 + 1e-6
+
+
+def test_cli_render_int8_beyond_the_int8_kernel_notes_and_matches_jax(tmp_path, capsys):
+    """``--impl int8`` on the lego widened to 384 (``chip_smoke.widen_nerf``,
+    as phase 29 renders it), beyond the int8 kernel's envelope: the note,
+    the int8 impl kept (the plain int8 MLP on the card, chosen per network
+    by ``render.get_mlp_fn``), and JAX's ``render --impl int8`` frame of
+    the same weights (its int8 path is XLA at every width) within one 8-bit
+    level. (Random-init networks miss that level against JAX at every
+    width, 128 and 256 included: an activation code that rounds the other
+    way moves a near-zero density's samples.)"""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    assets = chip_smoke.write_wide_lego(tmp_path, LEGO, 384, 192, 8)
+    path = tmp_path / "int8.ppm"
+    assert cli_main([*RENDER, "--weights", str(assets), "--impl", "int8", "-o", str(path)]) == 0
+    text = capsys.readouterr().out
+    assert INT8_NOTE in text and "(int8/float32" in text and NOTE not in text
+    got = load_ppm(path)
+    assert np.abs(got - _jax_frame(assets, "int8")).max() <= 1.0 / 255 + 1e-6
 
 
 TRAIN = ["train", "--device", "cpu", "--steps", "1", "--batch-rays", "16", "--coarse-samples",
@@ -89,11 +150,12 @@ TRAIN = ["train", "--device", "cpu", "--steps", "1", "--batch-rays", "16", "--co
 
 def test_cli_train_unserved_width_runs_xla_with_note(capsys):
     """A width-384 student with ``--impl pallas`` trains on the plain MLP
-    with the note, where the port's kernels would refuse it."""
+    with the note naming K2's envelope: K1 serves its forward, but the
+    fused backward stops at 256."""
     rc = cli_main([*TRAIN, "--width", "384", "--depth", "2", "--skip-at", "0", "--impl", "pallas"])
     assert rc == 0
     out = capsys.readouterr().out
-    assert NOTE in out
+    assert NOTE in out and K2_NOTE in out
     assert re.search(r"^step 0: loss [0-9.]+ psnr", out, flags=re.M), out
 
 

@@ -1,5 +1,7 @@
 """PyTorch port on the card: the fused MLP kernels (forward K1 on the
-tensor cores, split-f32 ``wgmma`` in f32 and ``wgmma`` in bf16; backward K2
+tensor cores, split-f32 ``wgmma`` in f32 and ``wgmma`` in bf16, and past
+width 256 or depth 16 its wide pair, f32 on the CUDA cores and bf16
+``wgmma``; backward K2
 on the tensor cores, ``mma.sync`` 3xTF32 in f32 with K1 f32's recompute,
 and ``wgmma`` in bf16),
 the fused resampler (K3), the hash encode and the int8 MLP kernel against
@@ -119,6 +121,71 @@ def test_kernel_matches_plain_lego(card, net, dtype, sigma_only):
     module = NerfMLP(load_nerf_params(LEGO / net), device=card)
     pts, dirs = inputs(64, 96, 2, card)
     check(module, pts * 0.4, dirs, dtype, sigma_only)
+
+
+@pytest.mark.parametrize("sigma_only", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", [ArchConfig(width=384, v_width=192, depth=8, skip_at=4),
+                                  ArchConfig(width=512, v_width=512, depth=32, skip_at=10),
+                                  ArchConfig(width=200, v_width=264, depth=20, skip_at=1),
+                                  ArchConfig(width=64, v_width=64, depth=20, skip_at=4)],
+                         ids=["384x192x8", "512x512x32", "200x264x20", "64x64x20"])
+def test_wide_kernel_matches_plain(card, arch, dtype, sigma_only):
+    """K1's wide pair (csrc/fused_mlp_wide_tc.cu in bf16 on the tensor
+    cores, csrc/fused_mlp_wide_f32.cu in f32 on the CUDA cores) past width
+    256 or depth 16, ragged and at unaligned widths: one launch, counted
+    as wide (and on the tensor cores in bf16 only), against the plain
+    version at check's bars; a second call bitwise equal."""
+    net = NerfMLP(np_params(arch, 3), device=card)
+    pts, dirs = inputs(331, 67, 4, card)
+    rgb_atol, sig_atol, sig_rtol = TOL[dtype]
+    counts = (fused_nerf_mlp.launches, fused_nerf_mlp.tc_launches, fused_nerf_mlp.wide_launches)
+    with torch.no_grad():
+        rgb, sig = fused_nerf_mlp(net, pts, dirs, dtype=dtype, sigma_only=sigma_only)
+        torch.cuda.synchronize()
+        assert (fused_nerf_mlp.launches, fused_nerf_mlp.tc_launches,
+                fused_nerf_mlp.wide_launches) == (counts[0] + 1,
+                                                  counts[1] + (dtype == "bfloat16"),
+                                                  counts[2] + 1)
+        rgb_r, sig_r = fused_nerf_mlp_reference(net, pts, dirs, dtype=dtype,
+                                                sigma_only=sigma_only)
+        torch.testing.assert_close(rgb, rgb_r, atol=rgb_atol, rtol=0)
+        if dtype == "float32":
+            torch.testing.assert_close(sig, sig_r, atol=sig_atol, rtol=sig_rtol)
+        else:
+            _, sig_64 = fused_nerf_mlp_reference(net, pts.double(), dirs.double(), dtype=dtype,
+                                                 sigma_only=sigma_only)
+            ok, bars = bf16_sigma_agrees(sig, sig_r, sig_64)
+            assert ok, (bars, float((sig - sig_r).abs().max()))
+        again = fused_nerf_mlp(net, pts, dirs, dtype=dtype, sigma_only=sigma_only)
+    assert torch.equal(rgb, again[0]) and torch.equal(sig, again[1])
+
+
+def test_wide_network_refuses_gradients_before_launch(card):
+    """Past K2's envelope the card refuses gradients: the autograd function
+    raises before K1 launches, and K2's wrapper raises; the int8 wrapper
+    refuses the network too, while the renderer's int8 choice runs the
+    plain int8 MLP."""
+    from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp
+    from nerf_rs_tpu_torch.render import get_mlp_fn
+
+    net = NerfMLP(np_params(ArchConfig(width=384, v_width=128, depth=3, skip_at=1), 5),
+                  device=card, requires_grad=True)
+    pts, dirs = inputs(16, 8, 6, card)
+    before = fused_nerf_mlp.launches
+    with pytest.raises(NotImplementedError, match="backward K2 serves width, v_width <= 256"):
+        fused_nerf_mlp(net, pts, dirs)
+    assert fused_nerf_mlp.launches == before
+    g = torch.ones_like(pts[..., 0])
+    with pytest.raises(NotImplementedError, match="K2"):
+        fused_nerf_mlp_backward(net, pts, dirs, g[..., None].expand(16, 8, 3), g)
+    with torch.no_grad():
+        fused_nerf_mlp(net, pts, dirs)
+        with pytest.raises(NotImplementedError, match="int8 kernel serves"):
+            fused_int8_mlp(net, pts, dirs)
+        plain = get_mlp_fn(RenderConfig(impl="int8"), net, card)(net, pts, dirs)
+    assert fused_nerf_mlp.launches == before + 1
+    assert all(bool(torch.isfinite(t).all()) for t in plain)
 
 
 def test_f32_kernel_near_float64_lego_fine(card):

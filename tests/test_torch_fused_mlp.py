@@ -133,8 +133,25 @@ def test_lego_meets_tf_goldens(lego, impl):
             np.testing.assert_allclose(rgb.detach().numpy(), ex[f"{net}_rgb"], atol=1e-2)
 
 
-@pytest.mark.parametrize("arch", [SMALL, ArchConfig(), ArchConfig(width=100, v_width=36, depth=3,
-                                                                    skip_at=5)])
+# K1's wide envelope: widths past 256 and depths past 16 (tables of 32
+# layer slots), the widest view branch, an unaligned width.
+WIDE_ARCHS = [ArchConfig(width=384, v_width=192, depth=20, skip_at=4),
+              ArchConfig(width=512, v_width=256, depth=8, skip_at=4),
+              ArchConfig(width=512, v_width=512, depth=32, skip_at=10),
+              ArchConfig(width=200, v_width=264, depth=3, skip_at=0)]
+WIDE_IDS = ["384x192x20", "512x256x8", "512x512x32", "200x264x3"]
+PACK_ARCHS = [SMALL, ArchConfig(), ArchConfig(width=100, v_width=36, depth=3, skip_at=5),
+              *WIDE_ARCHS]
+PACK_IDS = ["small", "lego", "unaligned_noskip", *WIDE_IDS]
+
+
+def slots(layout) -> int:
+    """Layer slots of an offset table: 16 (the narrow kernels' and K2's),
+    32 (the wide kernels')."""
+    return (layout.size - 9) // 3
+
+
+@pytest.mark.parametrize("arch", PACK_ARCHS, ids=PACK_IDS)
 def test_pack_params_padding_zero_and_round_trip(arch):
     """Every segment holds its layer's weights transposed to K-major
     (in, out) and zeros everywhere else; unpacking gives the tree back."""
@@ -167,7 +184,9 @@ def test_pack_params_padding_zero_and_round_trip(arch):
         assert torch.equal(unpacked[layer], p["kernel"]), layer
         off, n = pk.bias_slots[layer]
         assert torch.equal(pk.biases[off:off + n][:p["bias"].numel()], p["bias"]), layer
-    assert (pk.layout[:16] >= 0).sum() == arch.depth
+    d = slots(pk.layout)
+    assert d == (16 if arch.width <= 256 and arch.v_width <= 256 and arch.depth <= 16 else 32)
+    assert (pk.layout[:d] >= 0).sum() == arch.depth and pk.wide == (d == 32)
     bf = pack_params(params, "bfloat16")
     assert bf.weights.dtype == torch.bfloat16
     assert torch.equal(bf.weights, pk.weights.to(torch.bfloat16))
@@ -182,9 +201,7 @@ def untile(flat, off, k, n):
     return flat[idx], idx
 
 
-@pytest.mark.parametrize("arch", [SMALL, ArchConfig(), ArchConfig(width=100, v_width=36, depth=3,
-                                                                    skip_at=5)],
-                         ids=["small", "lego", "unaligned_noskip"])
+@pytest.mark.parametrize("arch", PACK_ARCHS, ids=PACK_IDS)
 def test_tc_pack_round_trip_and_padding(arch):
     """The bf16 pack's tensor-core copy: each layer segment read back
     through the plain inverse of its tiling is the layer's bf16 weights,
@@ -193,13 +210,16 @@ def test_tc_pack_round_trip_and_padding(arch):
     segments cover the copy exactly once; its table has the order and the
     bias offsets of ``layout``. Its ``weights`` are the f32 pack's in bf16;
     it holds no transposed backward pack (the bf16 backward reads this copy
-    transposed), the f32 pack holds no tensor-core copy."""
+    transposed), the f32 pack holds no tensor-core copy, and a wide f32
+    pack (beyond K2's envelope) none either."""
     params = params_to_torch(np_params(arch, 8), "cpu")
     bf, f32 = pack_params(params, "bfloat16"), pack_params(params, "float32")
     assert f32.weights_tc is None and f32.layout_tc is None
     assert torch.equal(bf.weights, f32.weights.to(torch.bfloat16))
-    assert bf.mma_wt is None and bf.layout_mma is None and f32.layout_mma.size == 35
+    assert bf.mma_wt is None and bf.layout_mma is None
+    assert (f32.layout_mma is None) if f32.wide else f32.layout_mma.size == 35
     assert bf.weights_tc.dtype == torch.bfloat16
+    d = slots(bf.layout)
     flat = bf.weights_tc.float().numpy()
     nw, nv = -(-arch.width // 64) * 64, -(-arch.v_width // 64) * 64
     enc_x, enc_d = 63, 27
@@ -210,18 +230,19 @@ def test_tc_pack_round_trip_and_padding(arch):
     segs = {"dense0": (bf.layout_tc[0], 64, nw, kern("dense0"))}
     for i in range(1, arch.depth):
         k = kern(f"dense{i}")
-        if bf.layout_tc[16 + i] >= 0:
-            segs[f"dense{i}_enc"] = (bf.layout_tc[16 + i], 64, nw, k[:enc_x])
+        if bf.layout_tc[d + i] >= 0:
+            segs[f"dense{i}_enc"] = (bf.layout_tc[d + i], 64, nw, k[:enc_x])
             k = k[enc_x:]
         segs[f"dense{i}"] = (bf.layout_tc[i], nw, nw, k)
-    assert (bf.layout_tc[:16] >= 0).sum() == arch.depth
-    segs["bottleneck"] = (bf.layout_tc[33], nw, nw, kern("bottleneck"))
-    segs["viewdirs"] = (bf.layout_tc[34], nw, nv, kern("viewdirs", slice(0, arch.width)))
-    segs["viewdirs_dir"] = (bf.layout_tc[35], 32, nv, kern("viewdirs", slice(arch.width, None)))
+    assert (bf.layout_tc[:d] >= 0).sum() == arch.depth
+    segs["bottleneck"] = (bf.layout_tc[2 * d + 1], nw, nw, kern("bottleneck"))
+    segs["viewdirs"] = (bf.layout_tc[2 * d + 2], nw, nv, kern("viewdirs", slice(0, arch.width)))
+    segs["viewdirs_dir"] = (bf.layout_tc[2 * d + 3], 32, nv,
+                            kern("viewdirs", slice(arch.width, None)))
     assert bf.layout_tc.shape == bf.layout.shape
-    np.testing.assert_array_equal(bf.layout_tc[37:], bf.layout[37:])
+    np.testing.assert_array_equal(bf.layout_tc[2 * d + 5:], bf.layout[2 * d + 5:])
     covered = np.zeros(flat.size, np.int64)
-    for slot, name in ((32, "alpha"), (36, "rgb")):
+    for slot, name in ((2 * d, "alpha"), (2 * d + 4, "rgb")):
         off, k, ld = bf.segments[name]
         assert bf.layout_tc[slot] % 8 == 0 and bf.layout[slot] == off, name
         np.testing.assert_array_equal(flat[bf.layout_tc[slot]:bf.layout_tc[slot] + k * ld],
@@ -247,9 +268,7 @@ def untile_f32tc(flat, off, k, n):
     return flat[idx], idx
 
 
-@pytest.mark.parametrize("arch", [SMALL, ArchConfig(), ArchConfig(width=100, v_width=36, depth=3,
-                                                                    skip_at=5)],
-                         ids=["small", "lego", "unaligned_noskip"])
+@pytest.mark.parametrize("arch", PACK_ARCHS, ids=PACK_IDS)
 def test_f32tc_pack_round_trip_and_padding(arch):
     """The f32 pack's split copy (the f32 tensor-core kernels' B operand):
     each layer segment read back through the plain inverse of its tiling
@@ -265,9 +284,10 @@ def test_f32tc_pack_round_trip_and_padding(arch):
     flat = pk.weights_f32tc.double().numpy()
     nw, nv = -(-arch.width // 64) * 64, -(-arch.v_width // 64) * 64
     tab = pk.layout_f32tc
-    assert tab.shape == pk.layout.shape and (tab[[32, 36]] == -1).all()
-    np.testing.assert_array_equal(tab[37:], pk.layout[37:])
-    assert (tab[:16] >= 0).sum() == arch.depth
+    d = slots(tab)
+    assert tab.shape == pk.layout.shape and (tab[[2 * d, 2 * d + 4]] == -1).all()
+    np.testing.assert_array_equal(tab[2 * d + 5:], pk.layout[2 * d + 5:])
+    assert (tab[:d] >= 0).sum() == arch.depth
 
     def kern(layer, rows=slice(None)):
         return params[layer]["kernel"][rows].double().numpy()
@@ -275,13 +295,13 @@ def test_f32tc_pack_round_trip_and_padding(arch):
     segs = {"dense0": (tab[0], 64, nw, kern("dense0"))}
     for i in range(1, arch.depth):
         k = kern(f"dense{i}")
-        if tab[16 + i] >= 0:
-            segs[f"dense{i}_enc"] = (tab[16 + i], 64, nw, k[:63])
+        if tab[d + i] >= 0:
+            segs[f"dense{i}_enc"] = (tab[d + i], 64, nw, k[:63])
             k = k[63:]
         segs[f"dense{i}"] = (tab[i], nw, nw, k)
-    segs["bottleneck"] = (tab[33], nw, nw, kern("bottleneck"))
-    segs["viewdirs"] = (tab[34], nw, nv, kern("viewdirs", slice(0, arch.width)))
-    segs["viewdirs_dir"] = (tab[35], 32, nv, kern("viewdirs", slice(arch.width, None)))
+    segs["bottleneck"] = (tab[2 * d + 1], nw, nw, kern("bottleneck"))
+    segs["viewdirs"] = (tab[2 * d + 2], nw, nv, kern("viewdirs", slice(0, arch.width)))
+    segs["viewdirs_dir"] = (tab[2 * d + 3], 32, nv, kern("viewdirs", slice(arch.width, None)))
     covered = np.zeros(flat.size, np.int64)
     for name, (off, k, n, want) in segs.items():
         assert k % 16 == 0 and n % 64 == 0 and off % 8 == 0, name
@@ -353,8 +373,10 @@ def test_bf16_sigma_agrees_catches_a_wrong_tile(moved, ok):
 
 
 def test_pack_params_rejects_unserved_arch():
-    with pytest.raises(ValueError, match="width"):
-        pack_params(params_to_torch(np_params(ArchConfig(width=320), 6), "cpu"), "float32")
+    """Beyond K1's envelope (width 512): 640, a multiple of 128 that the
+    JAX kernel takes."""
+    with pytest.raises(ValueError, match="width=640"):
+        pack_params(params_to_torch(np_params(ArchConfig(width=640), 6), "cpu"), "float32")
 
 
 def test_wrapper_on_cpu_is_the_reference_and_counts_no_launch(small):

@@ -63,7 +63,8 @@ def main() -> int:
             return real(params, points, viewdirs, **kw)
 
         # The wrapper counts through its module name.
-        record.launches, record.tc_launches = real.launches, real.tc_launches
+        record.launches, record.tc_launches, record.wide_launches = (
+            real.launches, real.tc_launches, real.wide_launches)
         fm.fused_nerf_mlp = record
         try:
             with torch.no_grad():
@@ -71,7 +72,8 @@ def main() -> int:
             torch.cuda.synchronize()
         finally:
             fm.fused_nerf_mlp = real
-            real.launches, real.tc_launches = record.launches, record.tc_launches
+            real.launches, real.tc_launches, real.wide_launches = (
+                record.launches, record.tc_launches, record.wide_launches)
         return seen
 
     def report(name, nets, seen):
