@@ -68,8 +68,11 @@ evaluated and served. Phases, each reported on its own line:
    kernels and plain, f32 and bf16;
 8. K2 against its plain version on what the training path hands it (the
    lego networks as students: coarse at 4096 x 64 and fine at 4096 x 192,
-   both full), f32 and bf16: every leaf's gradient, d(points) and d(dirs),
-   and two calls bitwise equal;
+   both full), f32 and bf16: every leaf's gradient, d(points) and d(dirs)
+   at BWD_BARS (f32 against float64; a sample where the kernel's forward
+   put a mask f32 cannot resolve on the other side of zero with all of
+   that forward's masks: ``kernel_mask_exact``), and two calls bitwise
+   equal;
 9. one training step from the same state and batch, kernels against the
    plain MLP: losses and parameters after the step;
 10. 50 kernel steps from a random init: the loss falls, K2 launches twice
@@ -221,9 +224,10 @@ evaluated and served. Phases, each reported on its own line:
     (idle share, top kernels); (c) the sp29 preset at 256x256 in f32: K1
     frame against the plain frame (>= 60 dB), one K1 launch a rendered
     chunk. Comparison and timing launches do not count;
-29. K1's wide envelope (the wide kernels ``fused_mlp_wide_tc.cu``, bf16 on
+29. K1's and K2's wide envelope (K1: ``fused_mlp_wide_tc.cu``, bf16 on
     the tensor cores, and ``fused_mlp_wide_f32.cu``, f32 on the CUDA
-    cores): (a) the lego networks widened by ``widen_nerf`` (same function)
+    cores; K2: ``fused_mlp_wide_bwd_bf16.cu`` and, after the wide f32
+    forward's record pass, ``fused_mlp_wide_bwd_tc.cu``): (a) the lego networks widened by ``widen_nerf`` (same function)
     to (width, v_width, depth) = (512, 256, 8), (384, 192, 8) and (512,
     256, 20), through ``render --weights DIR --impl pallas``: f32 256x256
     64+128 > 45 dB from the golden and >= 60 dB from ``--impl xla``, no
@@ -233,16 +237,20 @@ evaluated and served. Phases, each reported on its own line:
     packing, K3) >= 40 dB from the dense bf16 frame; (b) random networks
     at WIDE_RANDOM, 8192 x 64 sigma-only and 8192 x 192 full, f32 within
     TOLERANCES, bf16 rgb within 2e-2 and sigma by the bf16 witness, reruns
-    bitwise; (c) ``train --width 512 --v-width 256`` for WIDE_STEPS steps on
-    the plain path (the note names K2's envelope), then ``render
-    --checkpoint`` through wide K1 without a note, ``evaluate`` (PSNR
-    finite) and one ``/render`` of ``serve``'s handler byte for byte
-    ``pixels_to_rgba(render_image(...))``; (d) ``render --impl int8`` of
-    the lego widened to 512: the note, no int8 kernel launch (the plain
-    int8 MLP), > 25 dB from its f32 frame; (e) times: K1 f32 and bf16 at
-    (512, 256, 8) full and sigma-only and at (384, 192, 8) full, beside
-    the plain version, the library call and the bound, and the widened
-    lego's frames.
+    bitwise; (c) wide K2 against its plain version at the training path's
+    inputs on the widened legos (fine and coarse full, coarse sigma-only),
+    at phase 8's bars; one 512/256/8 step against the plain step at phase
+    9's bound; ``train --width 512 --v-width 256`` for WIDE_STEPS f32 and
+    WIDE_BF16_STEPS bf16 steps through wide K1 and wide K2 with no note,
+    then ``render --checkpoint`` through wide K1 without a note,
+    ``evaluate`` (PSNR finite) and one ``/render`` of ``serve``'s handler
+    byte for byte ``pixels_to_rgba(render_image(...))``; (d) ``render
+    --impl int8`` of the lego widened to 512: the note, no int8 kernel
+    launch (the plain int8 MLP), > 25 dB from its f32 frame; (e) times:
+    K1 f32 and bf16 at (512, 256, 8) full and sigma-only and at (384, 192,
+    8) full, wide K2 at the fine training call, each beside the plain
+    version, the library call and the bound, and the widened lego's
+    frames.
 
 Any failed phase exits non-zero. The line before the last is a JSON
 summary of the kernels, each with its bound (the larger of its bytes over
@@ -299,9 +307,16 @@ TOLERANCES = {
 # itself is that coarse — each lies ~2.5e-4 from the same function in
 # float64 (measured on an H100 80GB HBM3; PERF.md) — so each gradient of K2 is held to the
 # float64 evaluation instead: within 1e-4 of it, or no further from it
-# than F32_VS_PLAIN times the plain version is.
+# than F32_VS_PLAIN times the plain version is. K2 differentiates its own
+# forward, so a sample where that forward put a ReLU mask f32 cannot
+# resolve on the other side of zero is evaluated with all of the
+# forward's masks (kernel_mask_exact).
 BWD_BARS = {"float32": 1e-4, "bfloat16": 3e-2}
 F32_VS_PLAIN = 1.5
+# A ReLU mask f32 cannot resolve: its pre-activation within MASK_TAU x
+# (|b| + sum |w_i x_i|) of zero, 16 f32 units in the last place of the
+# terms' size (unresolved_masks).
+MASK_TAU = 2.0 ** -20
 TRAIN_RAYS = 4096              # the JAX CLI's train defaults (nerf_rs_tpu/cli.py)
 TRAIN_STEPS = 50
 BF16_STEPS = 10                # the bf16 training path, K2's bf16 mode
@@ -379,7 +394,8 @@ def phase_build():
         for line in log.read_text().splitlines():
             entry = re.search(r"entry function '.*?(fused_mlp_bwd_tc_kernel|fused_mlp_tc_kernel|"
                               r"fused_mlp_bwd_bf16_kernel|fused_mlp_wide_tc_kernel|"
-                              r"fused_mlp_wide_f32_kernel|"
+                              r"fused_mlp_wide_f32_kernel|fused_mlp_wide_bwd_tc_kernel|"
+                              r"fused_mlp_wide_bwd_bf16_kernel|"
                               r"fused_mlp_f32tc_kernel|reduce_partials|resample_kernel|"
                               r"hash_encode_kernel|int8_mlp_tc_kernel)"
                               r"(I\w*?Lb[01]E)?", line)
@@ -402,26 +418,26 @@ def phase_build():
     say("2 build", "tensor-core instructions in the SASS: " + ", ".join(
         f"{re.search(TC_KERNEL, fn).group(0)} {count} {kind}"
         for (fn, kind), count in sass.items() if count))
-    # K1 (f32 forward and record mode, bf16, wide bf16) and K2 bf16: HGMMA
-    # in every instance (sigma_only or not); K2 f32: HMMA in both, every
-    # one .TF32.
+    # K1 (f32 forward and record mode, bf16, wide bf16) and K2 bf16 (narrow
+    # and wide): HGMMA in every instance (sigma_only or not); K2 f32 (narrow
+    # and wide): HMMA in both, every one .TF32.
     hgmma = {kernel: [count for (fn, kind), count in sass.items()
                       if kind == "HGMMA" and re.search(kernel, fn)]
              for kernel in ("fused_mlp_f32tc_kernelILb[01]ELb0E",   # K1 f32
                             "fused_mlp_f32tc_kernelILb[01]ELb1E",   # its record mode
                             "fused_mlp_tc_kernel", "fused_mlp_bwd_bf16_kernel",
-                            "fused_mlp_wide_tc_kernel")}
-    k2 = {fn: count for (fn, kind), count in sass.items()
-          if kind == "HMMA" and "fused_mlp_bwd_tc_kernel" in fn}
-    k2_ok = len(k2) == 2 and all(count and sass.get((fn, "TF32"), 0) == count
-                                 for fn, count in k2.items())
+                            "fused_mlp_wide_tc_kernel", "fused_mlp_wide_bwd_bf16_kernel")}
     for kernel, counts in hgmma.items():
         if len(counts) != 2 or not all(counts):
             raise PhaseFailure(f"{kernel} (both variants) has no HGMMA instructions in the built "
                                f"library")
-    if not k2_ok:
-        raise PhaseFailure("K2's f32 kernel (fused_mlp_bwd_tc_kernel, both variants) lacks HMMA "
-                           "instructions, or has some that are not tf32")
+    for kernel in ("fused_mlp_bwd_tc_kernel", "fused_mlp_wide_bwd_tc_kernel"):
+        k2 = {fn: count for (fn, kind), count in sass.items()
+              if kind == "HMMA" and re.search(rf"\d{kernel}", fn)}
+        if len(k2) != 2 or not all(count and sass.get((fn, "TF32"), 0) == count
+                                   for fn, count in k2.items()):
+            raise PhaseFailure(f"K2's f32 kernel ({kernel}, both variants) lacks HMMA "
+                               "instructions, or has some that are not tf32")
     # The int8 kernel: IGMMA (integer wgmma) in both instances.
     igmma = [count for (fn, kind), count in sass.items()
              if kind == "IGMMA" and re.search(INT8_KERNEL, fn)]
@@ -458,7 +474,7 @@ def ptxas_usage(log: str, pattern: str) -> dict:
     return {fn: tuple(v) for fn, v in usage.items()}
 
 
-MLP_KERNEL = r"fused_mlp(?:_bwd|_wide)?_(?:tc|bf16|f32tc)_kernel(?:I(?:Lb[01]E)+)?"
+MLP_KERNEL = r"fused_mlp(?:_wide)?(?:_bwd)?_(?:tc|bf16|f32tc)_kernel(?:I(?:Lb[01]E)+)?"
 INT8_KERNEL = r"int8_mlp_tc_kernelILb[01]E"
 TC_KERNEL = rf"(?:{MLP_KERNEL}|{INT8_KERNEL})"
 
@@ -729,95 +745,338 @@ def main_path_backward_inputs(dev):
         return real(pk, points, viewdirs, g_rgb, g_sigma, **kw)
 
     # The wrapper counts through its module name.
-    record.launches, record.bf16_launches = real.launches, real.bf16_launches
+    record.launches, record.bf16_launches, record.wide_launches = (
+        real.launches, real.bf16_launches, real.wide_launches)
     fm.fused_nerf_mlp_backward = record
     try:
         loss, _ = nerf_loss(nets, batch, random.fold_in(key, torch.tensor(0)), cfg)
         loss.backward()
     finally:
         fm.fused_nerf_mlp_backward = real
-        real.launches, real.bf16_launches = record.launches, record.bf16_launches
+        real.launches, real.bf16_launches, real.wide_launches = (
+            record.launches, record.bf16_launches, record.wide_launches)
     by_samples = {args[0].shape[-2]: args for args in seen}
     return {"coarse": (nets["coarse"], *by_samples[N_COARSE]),
             "fine": (nets["fine"], *by_samples[N_COARSE + N_FINE])}
 
 
-def phase_backward_vs_plain(dev):
-    """K2 against its plain version on what the training path hands it."""
+def k2_gradients(net, args, dtype: str, sigma_only: bool = False, exact_rays: int = 0):
+    """K2 twice and its plain version on one call's inputs (points, dirs,
+    two cotangents), and for f32 the float64 evaluation (on ``exact_rays``
+    rays at a time when given: its sums over the samples are the same in
+    float64). -> (kernel, kernel again, plain, float64 or None) outputs."""
     import torch
 
     from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
         fused_nerf_mlp_backward,
         fused_nerf_mlp_backward_reference,
-        unpack_grads,
     )
 
+    kw = dict(dtype=dtype, sigma_only=sigma_only)
+    got = fused_nerf_mlp_backward(net, *args, **kw)
+    again = fused_nerf_mlp_backward(net, *args, **kw)
+    want = fused_nerf_mlp_backward_reference(net, *args, **kw)
+    exact = None
+    if dtype == "float32":
+        step = exact_rays or args[0].shape[0]
+        parts = [fused_nerf_mlp_backward_reference(net, *(a[r:r + step].double() for a in args),
+                                                   **kw)
+                 for r in range(0, args[0].shape[0], step)]
+        exact = (sum(p[0] for p in parts), sum(p[1] for p in parts),
+                 torch.cat([p[2] for p in parts]), torch.cat([p[3] for p in parts]))
+    torch.cuda.synchronize()
+    return got, again, want, exact
+
+
+def named_gradients(pk, out) -> dict:
+    """Every leaf's gradient, d(points) and d(dirs) (one dir per ray) of a
+    K2 output on pack ``pk``."""
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import unpack_grads
+
+    leaves = unpack_grads(pk, out[0], out[1])
+    grads = {f"{layer}/{part}": leaves[layer][part]
+             for layer in leaves for part in ("kernel", "bias")}
+    grads["d(points)"] = out[2]
+    grads["d(dirs)"] = out[3].sum(1)
+    return grads
+
+
+def mask_gradients(net, args, sigma_only: bool = False, tau: float = 0.0, masks=None,
+                   chunk: int = 16384):
+    """The float64 gradients of sum(g_rgb rgb) + sum(g_sigma sigma) for the
+    function of ``net``'s f32 pack, by autograd on ``args`` (points,
+    viewdirs, g_rgb, g_sigma). ReLU masks (trunk layers ``dense{i}``, the
+    view layer ``viewdirs``, the sigma head ``alpha``) are float64's own,
+    but: with ``tau``, every mask whose pre-activation z lies within tau x
+    (|b| + sum |w_i x_i|) of zero flipped; with ``masks`` ({layer: (flat
+    samples, units, on)}), those masks set. ``chunk`` samples at a time.
+    -> (named_gradients' dict, masks flipped)."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops.kernels import fused_mlp as fm
+
+    pk = net.packed("float32")
+    points, viewdirs, g_rgb, g_sigma = args
+    pts_all = points.reshape(-1, 3).double()
+    dirs_all = torch.broadcast_to(viewdirs, points.shape).reshape(-1, 3).double()
+    g_rgb_all, g_sig_all = g_rgb.reshape(-1, 3).double(), g_sigma.reshape(-1).double()
+    mats = {n: pk.mat(n).double().requires_grad_() for n in pk.segments}
+    biases = {n: pk.bias(n).double().requires_grad_() for n in pk.bias_slots}
+    leaves = list(mats.values()) + list(biases.values())
+    sums = [torch.zeros_like(t) for t in leaves]
+    d_pts, d_dirs = [], []
+    flipped = 0
+
+    def relu(sources, name, s):
+        nonlocal flipped
+        z = biases[name] + sum(a @ mats[w] for a, w in sources)
+        mask = z > 0
+        if tau:
+            with torch.no_grad():
+                size = biases[name].abs() + sum(a.abs() @ mats[w].abs() for a, w in sources)
+                near = z.abs() < tau * size
+            flipped += int(near.sum())
+            mask = mask ^ near
+        if masks and name in masks:
+            rows, units, on = masks[name]
+            mine = (rows >= s) & (rows < s + z.shape[0])
+            mask[rows[mine] - s, units[mine]] = on[mine]
+        return z * mask
+
+    for s in range(0, pts_all.shape[0], chunk):
+        pts = pts_all[s:s + chunk].requires_grad_()
+        dirs = dirs_all[s:s + chunk].requires_grad_()
+        enc_x = fm._encode(pts, 10, fm._ENC_X)
+        h = relu([(enc_x, "dense0")], "dense0", s)
+        for i in range(1, pk.depth):
+            sources = [(h, f"dense{i}")]
+            if f"dense{i}_enc" in pk.segments:
+                sources.insert(0, (enc_x, f"dense{i}_enc"))
+            h = relu(sources, f"dense{i}", s)
+        out = (g_sig_all[s:s + chunk] * relu([(h, "alpha")], "alpha", s)[:, 0]).sum()
+        if not sigma_only:
+            enc_d = fm._encode(dirs, 4, fm._ENC_D)
+            bneck = h @ mats["bottleneck"] + biases["bottleneck"]
+            hv = relu([(bneck, "viewdirs"), (enc_d, "viewdirs_dir")], "viewdirs", s)
+            rgb = torch.sigmoid(hv @ mats["rgb"] + biases["rgb"])
+            out = out + (g_rgb_all[s:s + chunk] * rgb).sum()
+        grads = torch.autograd.grad(out, leaves + [pts, dirs], allow_unused=True)
+        for acc, g in zip(sums, grads[:len(leaves)]):
+            if g is not None:
+                acc += g
+        d_pts.append(grads[-2])
+        d_dirs.append(torch.zeros_like(dirs) if grads[-1] is None else grads[-1])
+    dw = torch.zeros(pk.weights.numel(), dtype=torch.float64, device=pts_all.device)
+    db = torch.zeros(pk.biases.numel(), dtype=torch.float64, device=pts_all.device)
+    for (off, k, ld), g in zip(pk.segments.values(), sums):
+        dw[off:off + k * ld] = g.reshape(-1)
+    for (off, n), g in zip(pk.bias_slots.values(), sums[len(mats):]):
+        db[off:off + n] = g
+    out = (dw, db, torch.cat(d_pts).reshape(points.shape),
+           torch.cat(d_dirs).reshape(points.shape))
+    return named_gradients(pk, out), flipped
+
+
+def float64_preactivations(net, args, sigma_only: bool, chunk: int = 65536):
+    """Each ReLU layer's float64 pre-activations for the function of
+    ``net``'s f32 pack at ``args``' points and viewdirs, ``chunk`` samples
+    at a time: yields (layer, first sample, z, |b| + sum |w_i x_i|) for
+    the trunk layers ``dense{i}``, the sigma head ``alpha`` and (unless
+    ``sigma_only``) the view layer ``viewdirs``."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops.kernels import fused_mlp as fm
+
+    pk = net.packed("float32")
+    points, viewdirs = args[:2]
+    pts_all = points.reshape(-1, 3).double()
+    dirs_all = torch.broadcast_to(viewdirs, points.shape).reshape(-1, 3).double()
+
+    def layer(sources, name):
+        w = [(a, pk.mat(n).double()) for a, n in sources]
+        b = pk.bias(name).double()
+        return b + sum(a @ m for a, m in w), b.abs() + sum(a.abs() @ m.abs() for a, m in w)
+
+    with torch.no_grad():
+        for s in range(0, pts_all.shape[0], chunk):
+            enc_x = fm._encode(pts_all[s:s + chunk], 10, fm._ENC_X)
+            h = None
+            for i in range(pk.depth):
+                sources = [(enc_x, "dense0")] if i == 0 else [(h, f"dense{i}")]
+                if f"dense{i}_enc" in pk.segments:
+                    sources.insert(0, (enc_x, f"dense{i}_enc"))
+                z, size = layer(sources, f"dense{i}")
+                yield f"dense{i}", s, z, size
+                h = torch.relu(z)
+            yield ("alpha", s, *layer([(h, "alpha")], "alpha"))
+            if not sigma_only:
+                enc_d = fm._encode(dirs_all[s:s + chunk], 4, fm._ENC_D)
+                bneck = h @ pk.mat("bottleneck").double() + pk.bias("bottleneck").double()
+                yield ("viewdirs", s,
+                       *layer([(bneck, "viewdirs"), (enc_d, "viewdirs_dir")], "viewdirs"))
+
+
+def unresolved_masks(net, args, sigma_only: bool, tau=None):
+    """The ReLU masks f32 cannot resolve: wherever the float64
+    pre-activation z lies within ``tau`` (MASK_TAU unless given) x (|b| +
+    sum |w_i x_i|) of zero. -> {layer: (flat samples, units, float64's
+    mask)}."""
+    import torch
+
+    tau = MASK_TAU if tau is None else tau
+    found = {}
+    for name, s, z, size in float64_preactivations(net, args, sigma_only):
+        rows, units = torch.nonzero(z.abs() < tau * size, as_tuple=True)
+        if rows.numel():
+            found.setdefault(name, []).append((rows + s, units, z[rows, units] > 0))
+    return {name: tuple(torch.cat(parts) for parts in zip(*found[name])) for name in found}
+
+
+def kernel_mask_exact(net, args, sigma_only: bool, exact: dict):
+    """The float64 gradients ``exact`` (named), except on the samples
+    where the kernel's own forward put a mask that f32 cannot resolve
+    (unresolved_masks) on the other side of zero from float64's: those
+    samples are evaluated again in float64 with every ReLU mask as the
+    kernel's forward set it (``fused_mlp.recorded_outputs``, which K2's f32
+    mode differentiates; the sigma head's mask is K1's sigma > 0), so that
+    the masks downstream of such a unit (an identity copy of it, say)
+    follow it as they do in the kernel. -> (the gradients, {"unresolved":
+    masks found, "other_side": of them set the other way, "samples":
+    samples evaluated again, "masks": masks of theirs that differ from
+    float64's})."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import fused_nerf_mlp, recorded_outputs
+
+    info = {"unresolved": 0, "other_side": 0, "samples": 0, "masks": 0}
+    found = unresolved_masks(net, args, sigma_only)
+    info["unresolved"] = sum(int(v[0].numel()) for v in found.values())
+    if not info["unresolved"]:
+        return exact, info
+    points, viewdirs, g_rgb, g_sigma = args
+    samples = points.shape[-2] if points.dim() >= 2 else 1
+    pts = points.reshape(-1, 3)
+    dirs = torch.broadcast_to(viewdirs, points.shape).reshape(-1, 3)
+    every = torch.unique(torch.cat([v[0] for v in found.values()]))
+    with torch.no_grad():
+        rec = recorded_outputs(net, pts[every].contiguous(), dirs[every].contiguous())
+        sigma = fused_nerf_mlp(net, pts[every].contiguous(), dirs[every].contiguous(),
+                               dtype="float32", sigma_only=True)[1].reshape(-1, 1)
+    depth = net.packed("float32").depth
+    layers = {f"dense{i}": rec[i] for i in range(depth)}
+    layers["alpha"] = sigma
+    if not sigma_only:
+        layers["viewdirs"] = rec[depth + 1]
+    touched = []
+    for name, (rows, units, on) in found.items():
+        mine = layers[name][torch.searchsorted(every, rows), units] > 0
+        info["other_side"] += int((mine != on).sum())
+        touched.append(rows[mine != on])
+    if not info["other_side"]:
+        return exact, info
+    touched = torch.unique(torch.cat(touched))
+    local = torch.searchsorted(every, touched)
+    sub = (pts[touched].reshape(-1, 1, 3), dirs[touched].reshape(-1, 1, 3),
+           g_rgb.reshape(-1, 3)[touched].reshape(-1, 1, 3), g_sigma.reshape(-1)[touched][:, None])
+    masks = {}
+    for name, out in layers.items():
+        on = out[local] > 0
+        rows, units = torch.meshgrid(torch.arange(on.shape[0], device=on.device),
+                                     torch.arange(on.shape[1], device=on.device), indexing="ij")
+        masks[name] = (rows.reshape(-1), units.reshape(-1), on.reshape(-1))
+    theirs, _ = mask_gradients(net, sub, sigma_only, masks=masks)
+    ours, _ = mask_gradients(net, sub, sigma_only)
+    info["samples"] = int(touched.numel())
+    for name, _, z, _ in float64_preactivations(net, sub, sigma_only):
+        on = masks[name][2].reshape(z.shape[0], -1)
+        info["masks"] += int((on != (z[:, :on.shape[1]] > 0)).sum())
+    fixed = {k: v.clone() for k, v in exact.items()}
+    for k in fixed:
+        delta = theirs[k] - ours[k]
+        if k == "d(points)":
+            fixed[k].reshape(-1, 3)[touched] += delta.reshape(-1, 3)
+        elif k == "d(dirs)":
+            fixed[k].reshape(-1, 3).index_add_(0, touched // samples, delta.reshape(-1, 3))
+        else:
+            fixed[k] += delta
+    return fixed, info
+
+
+def backward_vs_plain(phase: str, name: str, net, args, dtype: str, sigma_only: bool = False,
+                      exact_rays: int = 0) -> float:
+    """K2 against its plain version on one call's inputs, at BWD_BARS (f32
+    held to the float64 evaluation: each gradient within max(bar,
+    F32_VS_PLAIN x the plain version's distance) of it, kernel_mask_exact),
+    and two calls bitwise; raises on a miss. -> the
+    largest parameter-gradient difference from plain."""
+    import torch
+
+    bar = BWD_BARS[dtype]
+    got, again, want, exact = k2_gradients(net, args, dtype, sigma_only, exact_rays)
+    if not all(bool(torch.isfinite(x).all()) for x in got):
+        raise PhaseFailure(f"K2 {name}/{dtype}: non-finite gradient")
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    pk = net.packed(dtype)
+    gk, gp = named_gradients(pk, got), named_gradients(pk, want)
+    vs_plain = {k: rel_err(gk[k], gp[k]) for k in gp}
+    worst = max(vs_plain, key=vs_plain.get)
+    line = (f"K2 {name} {tuple(args[0].shape[:-1])} {dtype}{' sigma-only' if sigma_only else ''}: "
+            f"worst ||g_k - g_p|| / ||g_p|| {vs_plain[worst]:.3e} ({worst}) over {len(gp)} "
+            "gradients")
+    if exact is None:
+        ok = vs_plain[worst] <= bar
+        line += f" (bar {bar})"
+    else:
+        g64 = named_gradients(pk, exact)
+        g64k, info = kernel_mask_exact(net, args, sigma_only, g64)
+        margin = {k: rel_err(gk[k], g64k[k]) / max(bar, F32_VS_PLAIN * rel_err(gp[k], g64[k]))
+                  for k in g64}
+        tight = max(margin, key=margin.get)
+        ok = margin[tight] <= 1.0
+        line += (f"; against float64 ({info['unresolved']} masks within "
+                 f"2^{round(math.log2(MASK_TAU))} of zero, {info['other_side']} set the other way "
+                 f"by the kernel's forward: {info['samples']} samples on its masks, "
+                 f"{info['masks']} of theirs differing), tightest {tight}: kernel "
+                 f"{rel_err(gk[tight], g64k[tight]):.3e}, plain {rel_err(gp[tight], g64[tight]):.3e} "
+                 f"(bar max({bar}, {F32_VS_PLAIN} x plain))")
+        if info["samples"]:
+            line += (f"; against float64's own masks {rel_err(gk[tight], g64[tight]):.3e} "
+                     f"(reported)")
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:2], want[:2]))  # parameters
+    ok = ok and bitwise
+    say(phase, f"{line}; two calls bitwise equal: {bitwise} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure(f"K2 disagrees with its plain version or is not deterministic: "
+                           f"{name}/{dtype}")
+    return err
+
+
+def phase_backward_vs_plain(dev):
+    """K2 against its plain version on what the training path hands it."""
     inputs = main_path_backward_inputs(dev)
     errs = {dtype: 0.0 for dtype in BWD_BARS}
     for name, (net, *args) in inputs.items():
-        for dtype, bar in BWD_BARS.items():
-            got = fused_nerf_mlp_backward(net, *args, dtype=dtype)
-            again = fused_nerf_mlp_backward(net, *args, dtype=dtype)
-            want = fused_nerf_mlp_backward_reference(net, *args, dtype=dtype)
-            exact = (fused_nerf_mlp_backward_reference(net, *(a.double() for a in args),
-                                                       dtype=dtype)
-                     if dtype == "float32" else None)
-            torch.cuda.synchronize()
-            if not all(bool(torch.isfinite(x).all()) for x in got):
-                raise PhaseFailure(f"K2 {name}/{dtype}: non-finite gradient")
-            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-            pk = net.packed(dtype)
-
-            def gradients(out):
-                leaves = unpack_grads(pk, out[0], out[1])
-                grads = {f"{layer}/{part}": leaves[layer][part]
-                         for layer in leaves for part in ("kernel", "bias")}
-                grads["d(points)"] = out[2]
-                grads["d(dirs)"] = out[3].sum(1)             # one dir per ray
-                return grads
-
-            gk, gp = gradients(got), gradients(want)
-            vs_plain = {k: rel_err(gk[k], gp[k]) for k in gp}
-            worst = max(vs_plain, key=vs_plain.get)
-            line = (f"K2 {name} {tuple(args[0].shape[:-1])} {dtype}: worst ||g_k - g_p|| / "
-                    f"||g_p|| {vs_plain[worst]:.3e} ({worst}) over {len(gp)} gradients")
-            if exact is None:
-                ok = vs_plain[worst] <= bar
-                line += f" (bar {bar})"
-            else:
-                g64 = gradients(exact)
-                margin = {k: rel_err(gk[k], g64[k]) / max(bar, F32_VS_PLAIN * rel_err(gp[k], g64[k]))
-                          for k in g64}
-                tight = max(margin, key=margin.get)
-                ok = margin[tight] <= 1.0
-                line += (f"; against float64, tightest {tight}: kernel "
-                         f"{rel_err(gk[tight], g64[tight]):.3e}, plain "
-                         f"{rel_err(gp[tight], g64[tight]):.3e} (bar max({bar}, "
-                         f"{F32_VS_PLAIN} x plain))")
-            errs[dtype] = max(errs[dtype], *(float((a - b).abs().max())   # parameter gradients
-                                             for a, b in zip(got[:2], want[:2])))
-            ok = ok and bitwise
-            say("8 backward", f"{line}; two calls bitwise equal: {bitwise} -> "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise PhaseFailure(f"K2 disagrees with its plain version or is not "
-                                   f"deterministic: {name}/{dtype}")
+        for dtype in BWD_BARS:
+            errs[dtype] = max(errs[dtype], backward_vs_plain("8 backward", name, net, args, dtype))
     return errs, inputs["fine"]
 
 
-def distill_setup(dev, impl: str, dtype: str = "float32"):
+def distill_setup(dev, impl: str, dtype: str = "float32", arch=None):
     """The training job's state, dataset, config and step key, as
-    ``python -m nerf_rs_tpu_torch train`` builds them (``--dtype``)."""
+    ``python -m nerf_rs_tpu_torch train`` builds them (``--dtype``; the
+    student's (width, v_width, depth, skip_at) ``arch``, the default
+    8x256 unless given)."""
     import torch
 
-    from nerf_rs_tpu_torch.config import RenderConfig, TrainConfig
+    from nerf_rs_tpu_torch.config import ArchConfig, RenderConfig, TrainConfig
     from nerf_rs_tpu_torch.data import DistillationDataset
     from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_nerf_params
     from nerf_rs_tpu_torch.ops import random
     from nerf_rs_tpu_torch.train import create_train_state
 
     cfg = TrainConfig(batch_rays=TRAIN_RAYS, render=RenderConfig(
-        n_coarse=N_COARSE, n_fine=N_FINE, ray_chunk=TRAIN_RAYS, impl=impl, dtype=dtype))
+        n_coarse=N_COARSE, n_fine=N_FINE, ray_chunk=TRAIN_RAYS, impl=impl, dtype=dtype),
+        arch=ArchConfig(*arch) if arch else ArchConfig())
     state = create_train_state(torch.Generator(device=dev).manual_seed(cfg.seed), cfg)
     assets = find_lego_assets()
     teacher = {net: load_nerf_params(assets / net) for net in ("coarse", "fine")}
@@ -826,9 +1085,10 @@ def distill_setup(dev, impl: str, dtype: str = "float32"):
     return state, dataset, cfg, random.key(cfg.seed + 1, dev)
 
 
-def phase_step_vs_plain(dev):
+def phase_step_vs_plain(dev, arch=None, phase: str = "9 step"):
     """One training step from the same state and batch: the kernels
-    (impl="pallas") against the plain MLP (impl="xla"), f32."""
+    (impl="pallas") against the plain MLP (impl="xla"), f32; the student
+    ``arch`` as distill_setup takes it. -> the kernel step's launch counts."""
     import torch
 
     from nerf_rs_tpu_torch.ops import random
@@ -837,11 +1097,15 @@ def phase_step_vs_plain(dev):
     results = {}
     batch = None
     for impl in ("pallas", "xla"):
-        state, dataset, cfg, key = distill_setup(dev, impl)
+        state, dataset, cfg, key = distill_setup(dev, impl, arch=arch)
         if batch is None:
             batch = next(dataset.batches(cfg.batch_rays, seed=cfg.seed))
+        torch.cuda.synchronize()
+        zero_counts()
         state, metrics = train_step(state, batch, random.fold_in(key, torch.tensor(0)), cfg)
         torch.cuda.synchronize()
+        if impl == "pallas":
+            counts = read_counts()
         results[impl] = (float(metrics["loss"]), state, cfg, metrics)
     (loss_k, state_k, cfg, m_k), (loss_p, state_p, _, m_p) = results["pallas"], results["xla"]
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
@@ -861,12 +1125,15 @@ def phase_step_vs_plain(dev):
     # last bits (importance sampling), so the fine network's first layers
     # hold most of those entries.
     ok = loss_rel <= 1e-5 and worst_max < 2 * cfg.lr_init and share < 1e-3
-    say("9 step", f"one f32 step, kernels vs plain MLP: loss {loss_k:.7f} vs {loss_p:.7f} "
+    student = f"{cfg.arch.width}/{cfg.arch.v_width}/{cfg.arch.depth} "
+    say(phase, f"one f32 step of a {student}student, kernels vs plain MLP: loss {loss_k:.7f} vs "
+        f"{loss_p:.7f} "
         f"(rel {loss_rel:.2e}, bar 1e-5; {parts}); params after the step: max |d| {worst_max:.3e} "
         f"(bar < {2 * cfg.lr_init:g}), share of entries > 1e-5 {share:.2e} (bar < 1e-3; "
         f"largest in {leaf[0]}/{leaf[1]}: {leaf_share:.2e}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise PhaseFailure("the kernel training step disagrees with the plain step")
+    return counts
 
 
 def phase_train(dev):
@@ -1327,8 +1594,10 @@ def backward_bounds(net, pts, viewdirs, g_rgb, g_sigma) -> dict:
     weights read and their gradients written once (4 or 2 bytes a weight);
     three forwards of products. "float32" is the f32 mode's route: the
     recompute as K1 f32 (six bf16 passes a product) and the dW and W dz
-    products as 3xTF32 (three tf32 products each); "cuda_cores" all three
-    forwards on the CUDA cores; "bfloat16" all three in bf16."""
+    products as 3xTF32 (three tf32 products each); "wide_float32" the wide
+    f32 mode's: the recompute on the CUDA cores (the wide f32 forward), dW
+    and W dz as 3xTF32; "cuda_cores" all three forwards on the CUDA cores;
+    "bfloat16" all three in bf16."""
     n = pts.numel() // 3
     fwd = mlp_flops(net, False) * n
     io = 4 * (pts.numel() + viewdirs.numel() + g_rgb.numel() + g_sigma.numel())
@@ -1340,6 +1609,7 @@ def backward_bounds(net, pts, viewdirs, g_rgb, g_sigma) -> dict:
 
     return {"float32": at(io + 8 * n_w, (SPLIT_F32_PASSES * fwd / BF16_FLOP_S
                                          + 3 * 2 * fwd / TF32_FLOP_S) * 1e3),
+            "wide_float32": at(io + 8 * n_w, (fwd / F32_FLOP_S + 3 * 2 * fwd / TF32_FLOP_S) * 1e3),
             "cuda_cores": at(io + 8 * n_w, 3 * fwd / F32_FLOP_S * 1e3),
             "bfloat16": at(io + 6 * n_w, 3 * fwd / BF16_FLOP_S * 1e3)}
 
@@ -1393,28 +1663,30 @@ def counters():
 
 def save_counts():
     """Every launch count: each wrapper's, then K1's tensor-core count,
-    K2's bf16 count and K1's wide count."""
+    K2's bf16 count, K1's wide count and K2's wide count."""
     fns = counters()
     return [fn.launches for fn in fns] + [fns[0].tc_launches, fns[1].bf16_launches,
-                                          fns[0].wide_launches]
+                                          fns[0].wide_launches, fns[1].wide_launches]
 
 
 def restore_counts(saved) -> None:
     fns = counters()
     for fn, n in zip(fns, saved):
         fn.launches = n
-    fns[0].tc_launches, fns[1].bf16_launches, fns[0].wide_launches = saved[-3:]
+    (fns[0].tc_launches, fns[1].bf16_launches, fns[0].wide_launches,
+     fns[1].wide_launches) = saved[-4:]
 
 
 def zero_counts() -> None:
-    restore_counts([0] * (len(counters()) + 3))
+    restore_counts([0] * (len(counters()) + 4))
 
 
 def read_counts() -> dict:
     fns = counters()
     return {**{fn.__name__: fn.launches for fn in fns}, "fused_nerf_mlp_tc": fns[0].tc_launches,
             "fused_nerf_mlp_backward_bf16": fns[1].bf16_launches,
-            "fused_nerf_mlp_wide": fns[0].wide_launches}
+            "fused_nerf_mlp_wide": fns[0].wide_launches,
+            "fused_nerf_mlp_backward_wide": fns[1].wide_launches}
 
 
 def encode_vs_plain(tables, pts, cfg, top: float):
@@ -3374,6 +3646,8 @@ def run_phase_examples(root: Path, cam, dev, card):
 WIDE_LEGOS = ((512, 256, 8), (384, 192, 8), (512, 256, 20))
 WIDE_RANDOM = ((384, 192, 8, 4), (512, 256, 8, 4), (512, 256, 20, 4))
 WIDE_STEPS = 20
+WIDE_BF16_STEPS = 5                     # train --dtype bfloat16 steps of the 512-wide student
+WIDE_EXACT_RAYS = 1024                  # rays a chunk of the float64 evaluation of wide K2
 FRONT_NOTE = "outside the fused kernels' range"     # cli._impl_for_params
 K2_NOTE = "the fused backward K2 serves"            # cli._train_impl_for_params
 INT8_NOTE = "outside the int8 kernel's range"
@@ -3495,6 +3769,8 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
     from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
         bf16_sigma_agrees,
         fused_nerf_mlp,
+        fused_nerf_mlp_backward,
+        fused_nerf_mlp_backward_reference,
         fused_nerf_mlp_reference,
     )
     from nerf_rs_tpu_torch.render import render_image
@@ -3617,24 +3893,66 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
                                        "version")
     restore_counts(saved)
 
-    # (c) A 512-wide student: trained on the plain path (K2's envelope),
-    # then rendered, evaluated and served through wide K1.
+    # (c) Wide K2 against its plain version at the training path's inputs
+    # (what a nerf_loss backward of the lego students hands K2, fed to the
+    # widened legos, the same function), not counted; one 512-wide step
+    # against the plain step; then a 512-wide student trained through
+    # wide K1 and wide K2 (f32, and a few bf16 steps), rendered, evaluated
+    # and served.
+    saved = save_counts()
+    bwd_in = main_path_backward_inputs(dev)
+    bwd_errs = {"float32": 0.0, "bfloat16": 0.0}
+    bwd_nets = {}
+    for width, v_width, depth in WIDE_LEGOS:
+        for name, so in (("fine", False), ("coarse", False), ("coarse", True)):
+            key = (width, v_width, depth, name)
+            if key not in bwd_nets:
+                tree = widen_nerf(load_nerf_params(assets / name), width, v_width, depth)
+                bwd_nets[key] = NerfMLP(tree, device=dev)
+            for dtype in ("float32", "bfloat16"):
+                bwd_errs[dtype] = max(bwd_errs[dtype], backward_vs_plain(
+                    "29 wide", f"widened lego {name} ({width}, {v_width}, {depth})",
+                    bwd_nets[key], bwd_in[name][1:], dtype, sigma_only=so,
+                    exact_rays=WIDE_EXACT_RAYS))
+    restore_counts(saved)
+    c_step = phase_step_vs_plain(dev, arch=(512, 256, 8, 4), phase="29 wide")
+    if c_step["fused_nerf_mlp_backward_wide"] != 2 or c_step["fused_nerf_mlp_backward"] != 2:
+        raise PhaseFailure(f"the 512-wide kernel step went around wide K2: {c_step}")
     ck = root / "ck"
     zero_counts()
     out = cli_run(["train", "--width", "512", "--v-width", "256", "--steps", str(WIDE_STEPS),
                    "--log-every", "10", "--checkpoint-dir", str(ck)])
     c_train = read_counts()
+    zero_counts()
+    out16 = cli_run(["train", "--width", "512", "--v-width", "256", "--dtype", "bfloat16",
+                     "--steps", str(WIDE_BF16_STEPS), "--log-every", "1"])
+    c16 = read_counts()
+    launched["float32"] += c_train["fused_nerf_mlp_wide"]
+    launched["bfloat16"] += c16["fused_nerf_mlp_wide"]
+    launched["k2_float32"] = c_train["fused_nerf_mlp_backward_wide"]
+    launched["k2_bfloat16"] = c16["fused_nerf_mlp_backward_wide"]
     losses = [float(v) for v in re.findall(r"^step \d+: loss ([0-9.e+-]+)", out, flags=re.M)]
+    losses16 = [float(v) for v in re.findall(r"^step \d+: loss ([0-9.e+-]+)", out16, flags=re.M)]
     last = ckpt_io.latest_checkpoint(ck)
-    ok = (K2_NOTE in out and last is not None and losses and all(map(math.isfinite, losses))
-          and c_train["fused_nerf_mlp_backward"] == 0 and c_train["fused_nerf_mlp_wide"] == 0)
-    say("29 wide", f"train --width 512 --v-width 256 --steps {WIDE_STEPS}: note naming K2's "
-        f"envelope printed: {K2_NOTE in out}; losses {losses}; K2 launches "
-        f"{c_train['fused_nerf_mlp_backward']}, wide K1 {c_train['fused_nerf_mlp_wide']} "
-        f"(expected 0: the student trains on the plain MLP, the teacher through K1); checkpoint "
-        f"{last} -> {'ok' if ok else 'FAIL'}")
+    n_k2, n_k2_16 = 2 * WIDE_STEPS, 2 * WIDE_BF16_STEPS
+    ok = (K2_NOTE not in out + out16 and FRONT_NOTE not in out + out16 and last is not None
+          and losses and losses16 and all(map(math.isfinite, losses + losses16))
+          and c_train["fused_nerf_mlp_backward"] == c_train["fused_nerf_mlp_backward_wide"] == n_k2
+          and c_train["fused_nerf_mlp_wide"] == n_k2
+          and c_train["fused_nerf_mlp_backward_bf16"] == 0
+          and c16["fused_nerf_mlp_backward"] == c16["fused_nerf_mlp_backward_wide"]
+          == c16["fused_nerf_mlp_backward_bf16"] == n_k2_16)
+    say("29 wide", f"train --width 512 --v-width 256 --steps {WIDE_STEPS}: note printed: "
+        f"{K2_NOTE in out or FRONT_NOTE in out}; losses {losses}; K2 launches "
+        f"{c_train['fused_nerf_mlp_backward']}, wide {c_train['fused_nerf_mlp_backward_wide']}, "
+        f"wide K1 {c_train['fused_nerf_mlp_wide']} (expected {n_k2} each: the student's two "
+        f"networks a step); checkpoint {last}; --dtype bfloat16 --steps {WIDE_BF16_STEPS}: "
+        f"note printed: {K2_NOTE in out16 or FRONT_NOTE in out16}, losses {losses16}, K2 "
+        f"launches {c16['fused_nerf_mlp_backward']}, wide {c16['fused_nerf_mlp_backward_wide']}, "
+        f"bf16 {c16['fused_nerf_mlp_backward_bf16']} (expected {n_k2_16} each) -> "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise PhaseFailure("the 512-wide student did not train on the plain path with the note")
+        raise PhaseFailure("the 512-wide student did not train through wide K1 and wide K2")
     ck_img, text, c = wide_cli_frame(["--checkpoint", str(last)], root / "ck.ppm")
     launched["float32"] += c["fused_nerf_mlp_wide"]
     out = cli_run(["evaluate", "--checkpoint-dir", str(ck), "--size", str(H)])
@@ -3712,6 +4030,37 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
                 for dtype in ("float32", "bfloat16")}
     accel_ms = timed_ms(lambda: render_accel(wide["coarse"], wide["fine"], cam, dev, cfg, grid,
                                              BENCH_SIZE))
+    # Wide K2 at the training path's fine inputs on the lego widened to
+    # 512/256/8: parameter gradients, as the training path asks.
+    k2_net, k2_args = bwd_nets[(512, 256, 8, "fine")], bwd_in["fine"][1:]
+    k2_times, k2_scratch = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        k_ms = timed_ms(lambda: fused_nerf_mlp_backward(k2_net, *k2_args, dtype=dtype,
+                                                        input_grads=False))
+        p_ms = timed_ms(lambda: fused_nerf_mlp_backward_reference(k2_net, *k2_args, dtype=dtype,
+                                                                  input_grads=False))
+        lib_ms = library_backward_ms(k2_net, *k2_args, dtype=dtype)
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fused_nerf_mlp_backward(k2_net, *k2_args, dtype=dtype, input_grads=False)
+        torch.cuda.synchronize()
+        k2_scratch[dtype] = (torch.cuda.max_memory_allocated() - base_bytes) / 2 ** 30
+        k2_times[dtype] = (k_ms, p_ms, lib_ms)
+    k2_bnd = backward_bounds(k2_net, *k2_args)
+    k2_bnd = {"float32": k2_bnd["wide_float32"], "bfloat16": k2_bnd["bfloat16"],
+              "cuda_cores": k2_bnd["cuda_cores"]}
+    for dtype in ("float32", "bfloat16"):
+        k_ms, p_ms, lib_ms = k2_times[dtype]
+        route = ("the recompute on the CUDA cores, dW and W dz 3xTF32" if dtype == "float32"
+                 else "bf16")
+        say("29 times", f"{card}: wide K2 {dtype} on the lego widened to 512/256/8, "
+            f"{tuple(k2_args[0].shape[:-1])} fine, parameter gradients: kernel {k_ms:.3f} ms, "
+            f"plain {p_ms:.3f} ms, library (autograd through models.mlp.nerf_mlp, {dtype}) "
+            f"{lib_ms:.3f} ms; bound {k2_bnd[dtype][0]:.3f} ms ({k2_bnd[dtype][1]}; {route}), "
+            f"{k2_bnd[dtype][0] / k_ms:.1%} of it; all on the CUDA cores "
+            f"{k2_bnd['cuda_cores'][0]:.3f} ms; peak scratch {k2_scratch[dtype]:.3f} GiB "
+            "(medians of 3)")
     restore_counts(saved)
     say("29 times", f"{card}: the lego widened to 512/256/8, {W}x{H} {N_COARSE}+{N_FINE} frame "
         f"f32 {frame_ms['float32']:.1f} ms, bf16 {frame_ms['bfloat16']:.1f} ms; "
@@ -3733,6 +4082,16 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
          "replaces": replaces, "launches": launched["bfloat16"], "max_abs_err": errs["bfloat16"],
          "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bnd[0], "bound_by": b_bnd[1],
          "library_ms": b_lib, "shapes": wide_shapes(times, "bfloat16")},
+        *({"name": "fused_nerf_mlp_backward_wide" + ("_bf16" if dtype == "bfloat16" else ""),
+           "route": "cuda", "source": f"nerf_rs_tpu_torch/ops/kernels/csrc/{source}",
+           "replaces": "nerf_rs_tpu/ops/kernels/fused_mlp.py:663",
+           "launches": launched[f"k2_{dtype}"], "max_abs_err": bwd_errs[dtype],
+           "ms": k2_times[dtype][0], "plain_ms": k2_times[dtype][1],
+           "bound_ms": k2_bnd[dtype][0], "bound_by": k2_bnd[dtype][1],
+           "library_ms": k2_times[dtype][2], "bound_ms_cuda_cores": k2_bnd["cuda_cores"][0],
+           "peak_scratch_gib": k2_scratch[dtype]}
+          for dtype, source in (("float32", "fused_mlp_wide_bwd_tc.cu"),
+                                ("bfloat16", "fused_mlp_wide_bwd_bf16.cu"))),
     ]
 
 

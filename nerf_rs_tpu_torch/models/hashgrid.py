@@ -91,12 +91,13 @@ def hash_encode(tables: torch.Tensor, points: torch.Tensor, cfg) -> torch.Tensor
 
     ``tables`` is (L, T, F). Points are normalized into ``cfg.aabb``;
     out-of-box and non-finite points clamp to the border cell. CUDA tensors
-    launch the kernel (``ops.kernels.hash_encode.fused_hash_encode``), CPU
-    tensors run its plain version.
+    launch the kernel, once a block of up to 64 levels
+    (``ops.kernels.hash_encode.blocked_hash_encode``), CPU tensors run its
+    plain version.
     """
-    from nerf_rs_tpu_torch.ops.kernels.hash_encode import fused_hash_encode
+    from nerf_rs_tpu_torch.ops.kernels.hash_encode import blocked_hash_encode
 
-    return fused_hash_encode(tables, points, cfg)
+    return blocked_hash_encode(tables, points, cfg)
 
 
 def _trunc_exp(x: torch.Tensor) -> torch.Tensor:

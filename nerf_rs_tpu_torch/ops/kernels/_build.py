@@ -109,17 +109,20 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     rec = lib.nerf_fused_mlp_f32tc_record
     rec.argtypes = [p, p, ll, ll, p, p, p, p, p, i, i, i, i, i, ll, ll, p, i, p]
     rec.restype = ctypes.c_int
-    bwd = lib.nerf_fused_mlp_backward
-    bwd.argtypes = [p, p, ll, ll, p, p, p, p, ll, p, p, i, p, i, i, i, i, i, p, ll, i, p, ll, ll, i,
-                    p, p, i, p]
-    bwd.restype = ctypes.c_int
+    wide_rec = lib.nerf_fused_mlp_wide_f32_record
+    wide_rec.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, ll, ll, p, i, p]
+    wide_rec.restype = ctypes.c_int
+    for bwd in (lib.nerf_fused_mlp_backward, lib.nerf_fused_mlp_wide_backward):
+        bwd.argtypes = [p, p, ll, ll, p, p, p, p, ll, p, p, i, p, i, i, i, i, i, p, ll, i, p, ll,
+                        ll, i, p, p, i, p]
+        bwd.restype = ctypes.c_int
     bsum = lib.nerf_fused_mlp_backward_sum
     bsum.argtypes = [p, i, ll, ll, p, p, i, p]
     bsum.restype = ctypes.c_int
-    bwd16 = lib.nerf_fused_mlp_backward_bf16
-    bwd16.argtypes = [p, p, ll, ll, p, p, p, p, p, p, i, i, i, i, i, p, p, ll, ll, i, p, p, p, p, i,
-                      p]
-    bwd16.restype = ctypes.c_int
+    for bwd16 in (lib.nerf_fused_mlp_backward_bf16, lib.nerf_fused_mlp_wide_backward_bf16):
+        bwd16.argtypes = [p, p, ll, ll, p, p, p, p, p, p, i, i, i, i, i, p, p, ll, ll, i, p, p, p,
+                          p, i, p]
+        bwd16.restype = ctypes.c_int
     f = ctypes.c_float
     res = lib.nerf_fused_resample
     res.argtypes = [p, p, p, p, ll, f, ll, i, i, f, f, f, p, i, p]

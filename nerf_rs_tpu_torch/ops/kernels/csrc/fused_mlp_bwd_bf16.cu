@@ -17,6 +17,8 @@
 // encode_row, layer and row_dot, on the same pack (PackedMLP.weights_tc)
 // through the same ring, so its activations and ReLU masks are bit for bit
 // those of K1's bf16 forward, the ones that made the loss.
+// The dW products, their reductions, the bias sums and the launch are
+// fused_mlp_bwd_bf16.cuh's, shared with the wide kernel at 64-sample tiles.
 //
 // Roles and data flow (fused_mlp_tc.cuh): a persistent grid, one CTA of
 // 384 threads an SM; the producer warpgroup bulk-copies every weight chunk
@@ -59,12 +61,14 @@
 // point encodes (8 and 16 KB), the head weights (4 KB), the head gradients
 // (2 KB), the barriers. The encode gradients go to the workspace in f32.
 
-#include "fused_mlp_tc.cuh"
+#include "fused_mlp_bwd_bf16.cuh"
 
 namespace {
 
 using namespace nerf;
 using namespace nerf::tc;
+using namespace nerf::bwd16;
+using B = BwdBf16<kRows>;
 
 constexpr int kStages = 2;
 constexpr int kBufBytes = kRows * kMaxWidth * 2;
@@ -80,7 +84,6 @@ constexpr int kGradOff = kHeadOff + 4 * kMaxWidth * 4;    // gs [128], gr [128][
 constexpr int kBarOff = kGradOff + 4 * kRows * 4;         // full[kStages], empty[kStages]
 constexpr int kSmemBytes = kBarOff + 2 * kStages * 8;
 static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
-constexpr int kDeCols = 64;   // floats a row of the encode gradient in the workspace
 
 // All 256 consumer threads (named barrier 3).
 __device__ __forceinline__ void consumers_barrier() {
@@ -100,91 +103,6 @@ __device__ __forceinline__ void rows_in(uint8_t* buf, const uint8_t* ws, int n, 
   for (int i = t; i < n * 8; i += 128) {
     const int off = (i >> 6) * (kRows * 16) + g * 1024 + (i & 63) * 16;
     *reinterpret_cast<uint4*>(buf + off) = __ldcg(reinterpret_cast<const uint4*>(ws + off));
-  }
-}
-
-// Row and first column of accumulator element 4 j + 2 r (and + 1) of this
-// thread: row r0 + 8 r (of the warpgroup's 64), column 8 j + c0 of a piece.
-__device__ __forceinline__ int frag_row() {
-  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);
-}
-__device__ __forceinline__ int frag_col() { return 2 * (threadIdx.x & 3); }
-
-// acc = A^T dZ over the tile's 128 samples: A's columns [m0, m0 + 64) (a
-// buffer's features) times dZ's NP 64-column pieces; both read MN-major.
-template <int NP>
-__device__ __forceinline__ void mma_dw(float (&acc)[4][32], uint32_t a, int m0, uint32_t dz) {
-  fence_acc<NP>(acc);
-  wgmma_fence();
-#pragma unroll 1
-  for (int s = 0; s < kRows; s += 16) {
-    const uint64_t da = desc(a + (m0 >> 3) * (kRows * 16) + (s >> 3) * 128, 128, kRows * 16);
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      wgmma_64<1, 1>(acc[p], da, desc(dz + p * 8 * (kRows * 16) + (s >> 3) * 128, 128, kRows * 16),
-                     s > 0 ? 1 : 0);
-    }
-  }
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_acc<NP>(acc);
-}
-
-// The dW of one segment into the CTA's partial: entry (in, out) at
-// dst[in * ld + out], in < k_valid, out < ld; 64-row blocks of `in` taken
-// in turn by the two warpgroups (`turn` counts blocks across segments).
-template <int NP>
-__device__ __forceinline__ void dw_segment(uint32_t a, int k_valid, uint32_t dz, int ld,
-                                           float* dst, int& turn, int g) {
-  for (int m0 = 0; m0 < k_valid; m0 += 64) {
-    if ((turn++ & 1) != g) continue;
-    float acc[4][32];
-    mma_dw<NP>(acc, a, m0, dz);
-    // Lanes 2 q and 2 q + 1 hold columns 4 q' .. 4 q' + 3 of rows r0 and
-    // r0 + 8 between them; one shuffle gives the even lane row r0's four
-    // and the odd lane row r0 + 8's, each added with one 16-byte reduction.
-    // Rows past k_valid add zeros to row k_valid - 1 (x + 0 = x: the sums
-    // keep their bits), so no branch depends on the lane.
-    const bool odd = threadIdx.x & 1;
-    const int in = m0 + frag_row() + (odd ? 8 : 0);
-    const bool valid = in < k_valid;
-    float* row = dst + static_cast<long long>(valid ? in : k_valid - 1) * ld;
-    const int c4 = 4 * ((threadIdx.x & 3) >> 1);
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (p * kPiece + 8 * j >= ld) continue;   // ld is a multiple of 8
-        const int col = p * kPiece + 8 * j + c4;
-        const float e0 = acc[p][4 * j], e1 = acc[p][4 * j + 1];
-        const float e2 = acc[p][4 * j + 2], e3 = acc[p][4 * j + 3];
-        const float s0 = __shfl_xor_sync(0xFFFFFFFFu, odd ? e0 : e2, 1);
-        const float s1 = __shfl_xor_sync(0xFFFFFFFFu, odd ? e1 : e3, 1);
-        float4 v = odd ? make_float4(s0, s1, e2, e3) : make_float4(e0, e1, s0, s1);
-        if (!valid) v = make_float4(0.f, 0.f, 0.f, 0.f);
-        atomicAdd(reinterpret_cast<float4*>(row + col), v);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void dw_any(int np, uint32_t a, int k_valid, uint32_t dz, int ld,
-                                       float* dst, int& turn, int g) {
-  switch (np) {
-    case 1: dw_segment<1>(a, k_valid, dz, ld, dst, turn, g); break;
-    case 2: dw_segment<2>(a, k_valid, dz, ld, dst, turn, g); break;
-    case 3: dw_segment<3>(a, k_valid, dz, ld, dst, turn, g); break;
-    default: dw_segment<4>(a, k_valid, dz, ld, dst, turn, g); break;
-  }
-}
-
-// dst[c] += sum over the tile's rows of dz[row][c], c < n; one consumer
-// thread a column.
-__device__ __forceinline__ void add_db(const uint8_t* dz, int n, float* dst) {
-  for (int c = threadIdx.x; c < n; c += kConsumers) {
-    float s = 0.f;
-    for (int r = 0; r < kRows; ++r) s += ld_bf16(dz, r, c);
-    atomicAdd(dst + c, s);
   }
 }
 
@@ -469,9 +387,9 @@ fused_mlp_bwd_bf16_kernel(const float* __restrict__ pts, const float* __restrict
       fence_async_smem();
       consumers_barrier();
       int turn = 0;
-      dw_any(npv, s_act, ldw, s_dz, ldv, dW + G.w_view, turn, g);
-      dw_any(npv, s_ed, kEncD, s_dz, ldv, dW + G.w_view_dir, turn, g);
-      add_db(dz, ldv, dB + G.b_view);
+      B::dw_segment(s_act, ldw, s_dz, npv, ldv, dW + G.w_view, turn, g);
+      B::dw_segment(s_ed, kEncD, s_dz, npv, ldv, dW + G.w_view_dir, turn, g);
+      B::add_db(dz, ldv, dB + G.b_view);
       consumers_barrier();   // every read of dz before its rows are overwritten
       if (want_dx) {
         din_encode(q, a_dz, nv, de, kEncD, false, g);
@@ -490,8 +408,8 @@ fused_mlp_bwd_bf16_kernel(const float* __restrict__ pts, const float* __restrict
       fence_async_smem();
       consumers_barrier();
       turn = 0;
-      dw_any(npw, s_act, ldw, s_dz, ldw, dW + G.w_bneck, turn, g);
-      add_db(dz, ldw, dB + G.b_bneck);
+      B::dw_segment(s_act, ldw, s_dz, npw, ldw, dW + G.w_bneck, turn, g);
+      B::add_db(dz, ldw, dB + G.b_bneck);
       consumers_barrier();
       din_any(npw, q, a_dz, nw, dz, act, gs, w_alpha, ldw, g);
     } else {
@@ -518,9 +436,9 @@ fused_mlp_bwd_bf16_kernel(const float* __restrict__ pts, const float* __restrict
       consumers_barrier();
       const bool skip = L.w_skip[i] >= 0;
       int turn = 0;
-      dw_any(npw, s_act, ldw, s_dz, ldw, dW + G.w_dense[i], turn, g);
-      if (skip) dw_any(npw, s_ex, kEncX, s_dz, ldw, dW + G.w_skip[i], turn, g);
-      add_db(dz, ldw, dB + G.b_dense[i]);
+      B::dw_segment(s_act, ldw, s_dz, npw, ldw, dW + G.w_dense[i], turn, g);
+      if (skip) B::dw_segment(s_ex, kEncX, s_dz, npw, ldw, dW + G.w_skip[i], turn, g);
+      B::add_db(dz, ldw, dB + G.b_dense[i]);
       consumers_barrier();
       if (want_dx && skip) {
         din_encode(q, a_dz, nw, de, kEncX, de_started, g);
@@ -533,8 +451,8 @@ fused_mlp_bwd_bf16_kernel(const float* __restrict__ pts, const float* __restrict
     // Layer 0: input the point encode.
     {
       int turn = 0;
-      dw_any(npw, s_ex, kEncX, s_dz, ldw, dW + G.w_dense[0], turn, g);
-      add_db(dz, ldw, dB + G.b_dense[0]);
+      B::dw_segment(s_ex, kEncX, s_dz, npw, ldw, dW + G.w_dense[0], turn, g);
+      B::add_db(dz, ldw, dB + G.b_dense[0]);
     }
     if (want_dx) {
       din_encode(q, a_dz, nw, de, kEncX, de_started, g);
@@ -554,21 +472,9 @@ cudaError_t launch(const float* pts, const float* dirs, long long n, long long d
                    const float* bias, const Layout& L, const Layout& G, uint8_t* ws,
                    float* partials, long long n_w, long long n_b, int grid, float* dweights,
                    float* dbiases, float* dpts, float* ddirs, cudaStream_t stream) {
-  auto kernel = fused_mlp_bwd_bf16_kernel<kSigmaOnly>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const int nw = (L.ldw + kPiece - 1) / kPiece * kPiece;   // widths in the pack
-  const int nv = (L.ldv + kPiece - 1) / kPiece * kPiece;
-  const long long ws_bytes =
-      static_cast<long long>(L.depth + 1) * kRows * nw * 2 + kRows * kDeCols * 4;
-  const long long stride = n_w + n_b;
-  kernel<<<grid, kThreadsTc, kSmemBytes, stream>>>(pts, dirs, n, dir_div, g_rgb, g_sigma, w, bias,
-                                                   L, G, nw, nv, ws, ws_bytes, partials, n_w,
-                                                   stride, dpts, ddirs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_reduce_partials(partials, grid, stride, n_w, dweights, dbiases, stream);
+  return B::launch(fused_mlp_bwd_bf16_kernel<kSigmaOnly>, kSmemBytes, pts, dirs, n, dir_div,
+                   g_rgb, g_sigma, w, bias, L, G, ws, partials, n_w, n_b, grid, dweights,
+                   dbiases, dpts, ddirs, stream);
 }
 
 }  // namespace

@@ -283,9 +283,10 @@ __device__ __forceinline__ float head_sum(const Row& x, int k, const float* w, i
 
 // ---- The f32 backward's workspace (fused_mlp_bwd_tc.cu) ----
 
-// A tile of 128 samples holds, in this order, its point encode (64
-// features), its dir encode (32), each trunk layer's output and the
-// bottleneck's (ldw each), the view layer's (ldv): ws_stride(...) floats.
+// A tile of 128 samples (64 for the wide backward, fused_mlp_wide_bwd_tc.cu)
+// holds, in this order, its point encode (64 features), its dir encode
+// (32), each trunk layer's output and the bottleneck's (ldw each), the
+// view layer's (ldv): ws_stride(...) floats.
 // A slot of f features keeps the samples (k) x features (n) in the
 // B-fragment order of fused_mlp.py::mma_tile (blocks of 16 samples x 8
 // features; lane 4 g + t holds four samples of feature 8 nb + g), so that
@@ -296,14 +297,15 @@ __device__ __forceinline__ int ws_index(int row, int col, int n8) {
   return (((row >> 4) * n8 + (col >> 3)) * 32 + 4 * (col & 7) + (r & 3)) * 4 + (r >> 2);
 }
 
-__host__ __device__ __forceinline__ long long ws_stride(int depth, int ldw, int ldv) {
-  return 128LL * (kEncX + kEncD + (depth + 1) * ldw + ldv);
+__host__ __device__ __forceinline__ long long ws_stride(int depth, int ldw, int ldv,
+                                                        int rows = 128) {
+  return static_cast<long long>(rows) * (kEncX + kEncD + (depth + 1) * ldw + ldv);
 }
 
 // Slot i of a tile's workspace: i < depth the trunk layers, depth the
 // bottleneck, depth + 1 the view layer.
-__device__ __forceinline__ float* ws_slot(float* tile_ws, int i, int ldw) {
-  return tile_ws + 128 * (kEncX + kEncD + i * ldw);
+__device__ __forceinline__ float* ws_slot(float* tile_ws, int i, int ldw, int rows = 128) {
+  return tile_ws + rows * (kEncX + kEncD + i * ldw);
 }
 
 // ---- The weight chunks ----

@@ -1,7 +1,8 @@
-// The wide forward kernels' offset table (fused_mlp_wide_tc.cu, bf16, and
-// fused_mlp_wide_f32.cu, f32): K1 for networks beyond the narrow kernels'
-// kMaxWidth or kMaxDepth (fused_mlp_common.cuh), up to kWideMaxWidth
-// columns and kWideMaxDepth dense layers.
+// The wide kernels' offset table (K1: fused_mlp_wide_tc.cu, bf16, and
+// fused_mlp_wide_f32.cu, f32; K2: fused_mlp_wide_bwd_bf16.cu and
+// fused_mlp_wide_bwd_tc.cu): K1 and K2 for networks beyond the narrow
+// kernels' kMaxWidth or kMaxDepth (fused_mlp_common.cuh), up to
+// kWideMaxWidth columns and kWideMaxDepth dense layers.
 //
 // The table has fused_mlp_common.cuh's order with kWideMaxDepth layer
 // slots (ops/kernels/fused_mlp.py::pack_params writes it for every pack
@@ -10,8 +11,8 @@
 //   (-1 if not a skip layer), 64 alpha, 65 bottleneck, 66 viewdirs,
 //   67 viewdirs' dir-encode part, 68 rgb, [69, 101) dense layer i's bias,
 //   101 alpha bias, 102 bottleneck bias, 103 viewdirs bias, 104 rgb bias.
-// The narrow kernels and K2 keep their own 57-entry table: a table of one
-// length never reaches the other's kernels.
+// The narrow kernels keep their own 57-entry table: a table of one length
+// never reaches the other's kernels.
 
 #pragma once
 

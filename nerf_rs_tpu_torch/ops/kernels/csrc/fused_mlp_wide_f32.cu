@@ -39,6 +39,15 @@
 //   once the CTA has passed the barrier after its last reads.
 // The f32 pack streams from L2 once per tile: 9.2 MB a tile for a 512/256
 // network of depth 8.
+//
+// Record mode (nerf_fused_mlp_wide_f32_record) is the wide f32 backward's
+// recompute (fused_mlp_wide_bwd_tc.cu): the same kernel over a round of
+// 64-sample tiles also writes every trunk layer's, the bottleneck's and
+// the view layer's output to those tiles' workspace (fused_mlp_f32tc.cuh's
+// ws_index layout, 64 rows a tile) and computes no heads, so the backward
+// differentiates this kernel's own activations and ReLU masks, bit for
+// bit: a recompute in any other arithmetic flips masks at pre-activations
+// below f32's resolution.
 
 #include "fused_mlp_f32tc.cuh"
 #include "fused_mlp_wide.cuh"
@@ -178,10 +187,11 @@ __device__ __forceinline__ void accumulate_any(float (&acc)[8][16], Ring& q, con
 
 // One layer of n output columns: act = relu?(s1 w1 [+ s2 w2] + bias), in
 // place (the ring's barrier after the last chunk ends every read of the
-// inputs), then a barrier for what reads the output.
+// inputs), and into the workspace slot rec unless it is null; then a
+// barrier for what reads the output.
 __device__ __forceinline__ void dense_layer(Ring& q, const Src& s1, const Src& s2, int n,
                                             const float* __restrict__ bias, bool relu,
-                                            float* act) {
+                                            float* act, float* rec) {
   float acc[8][16];
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
@@ -207,17 +217,25 @@ __device__ __forceinline__ void dense_layer(Ring& q, const Src& s1, const Src& s
       float* dst = act + (col0 + e) * kBlock + row0;
       *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
       *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
+      if (rec != nullptr) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) rec[f32tc::ws_index(row0 + r, col0 + e, n >> 3)] = v[r];
+      }
     }
   }
   __syncthreads();
 }
 
-template <bool kSigmaOnly>
+// Tiles of 64 samples from row0 (rows samples; those from n on read
+// zeros and are never stored); kRecord: every layer's output also into the
+// workspace rec, whose first tile is row0's, and no heads.
+template <bool kSigmaOnly, bool kRecord>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_wide_f32_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
                           long long n, long long dir_div, const float* __restrict__ w,
                           const float* __restrict__ bias, const WideLayout L,
-                          float* __restrict__ rgb, float* __restrict__ sigma) {
+                          float* __restrict__ rgb, float* __restrict__ sigma, long long row0,
+                          long long rows, float* __restrict__ rec) {
   extern __shared__ __align__(1024) uint8_t smem[];
   float* act = reinterpret_cast<float*>(smem + kActOff);
   float* enc_x = reinterpret_cast<float*>(smem + kEncXOff);
@@ -226,9 +244,10 @@ fused_mlp_wide_f32_kernel(const float* __restrict__ pts, const float* __restrict
   float* w_rgb = w_alpha + kWideMaxWidth;
   Seg* segs = reinterpret_cast<Seg*>(smem + kSegOff);
   const uint32_t bars = smem_u32(smem + kBarOff);
-  const long long tiles = (n + kBlock - 1) / kBlock;
+  const long long tiles = (rows + kBlock - 1) / kBlock;
   const int tid = threadIdx.x;
   const int ldw = L.ldw, ldv = L.ldv;
+  const long long rec_stride = f32tc::ws_stride(L.depth, ldw, ldv, kBlock);
 
   // The segments in the order the layers read them (thread 0's table).
   int count = 0;
@@ -269,7 +288,7 @@ fused_mlp_wide_f32_kernel(const float* __restrict__ pts, const float* __restrict
     for (int i = tid; i < kBlock * (kEncX + kEncD); i += kThreads) {
       const int r = i & (kBlock - 1), j = i >> 6;
       const bool dir = j >= kEncX;
-      const long long s = tile * kBlock + r;
+      const long long s = row0 + tile * kBlock + r;
       float x[3] = {0.f, 0.f, 0.f};
       if (s < n) {
         const float* src = dir ? dirs + (s / dir_div) * 3 : pts + s * 3;
@@ -287,15 +306,17 @@ fused_mlp_wide_f32_kernel(const float* __restrict__ pts, const float* __restrict
     // The trunk, then (unless sigma-only) the bottleneck (no activation)
     // and the view layer (bottleneck part plus dir-encode part, ReLU), from
     // one call site: each instance of the layer is large.
-    const long long s = tile * kBlock + hrow;
+    const long long s = row0 + tile * kBlock + hrow;
     const bool mine = !(tid & 3) && s < n;   // the first of the row's four threads stores
+    float* rec_tile = kRecord ? rec + tile * rec_stride : nullptr;
     for (int i = 0; i < (kSigmaOnly ? L.depth : L.depth + 2); ++i) {
       const bool skip = i > 0 && i < L.depth && L.w_skip[i] >= 0;
       const Src s1 = (i == 0 || skip) ? ex : trunk;
       const Src s2 = skip ? trunk : (i == L.depth + 1 ? ed : none);
       const long long b = i < L.depth ? L.b_dense[i] : (i == L.depth ? L.b_bneck : L.b_view);
-      dense_layer(q, s1, s2, i == L.depth + 1 ? ldv : ldw, bias + b, i != L.depth, act);
-      if (i == L.depth - 1) {
+      dense_layer(q, s1, s2, i == L.depth + 1 ? ldv : ldw, bias + b, i != L.depth, act,
+                  kRecord ? f32tc::ws_slot(rec_tile, i, ldw, kBlock) : nullptr);
+      if (!kRecord && i == L.depth - 1) {
         // Sigma head. Its reads end before the next epilogue (the
         // bottleneck's, or the next tile's first), behind the ring's
         // barriers.
@@ -309,7 +330,7 @@ fused_mlp_wide_f32_kernel(const float* __restrict__ pts, const float* __restrict
         }
       }
     }
-    if constexpr (!kSigmaOnly) {
+    if constexpr (!kSigmaOnly && !kRecord) {
       // Rgb head with sigmoid; its reads end before the next tile's first
       // epilogue, behind the ring's barriers.
       float out[3];
@@ -327,20 +348,22 @@ fused_mlp_wide_f32_kernel(const float* __restrict__ pts, const float* __restrict
   }
 }
 
-template <bool kSigmaOnly>
+template <bool kSigmaOnly, bool kRecord>
 cudaError_t launch(const float* pts, const float* dirs, long long n, long long dir_div,
                    const float* w, const float* bias, const WideLayout& L, float* rgb,
-                   float* sigma, int device, cudaStream_t stream) {
-  auto kernel = fused_mlp_wide_f32_kernel<kSigmaOnly>;
+                   float* sigma, long long row0, long long rows, float* rec, int device,
+                   cudaStream_t stream) {
+  auto kernel = fused_mlp_wide_f32_kernel<kSigmaOnly, kRecord>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  const long long tiles = (n + kBlock - 1) / kBlock;
+  const long long tiles = (rows + kBlock - 1) / kBlock;
   const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  kernel<<<grid, kThreads, kSmemBytes, stream>>>(pts, dirs, n, dir_div, w, bias, L, rgb, sigma);
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(pts, dirs, n, dir_div, w, bias, L, rgb, sigma,
+                                                 row0, rows, rec);
   return cudaGetLastError();
 }
 
@@ -372,7 +395,43 @@ extern "C" int nerf_fused_mlp_wide_f32_forward(const void* pts, const void* dirs
   float* o_rgb = static_cast<float*>(rgb);
   float* o_sigma = static_cast<float*>(sigma);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = sigma_only ? launch<true>(p, d, n, dir_div, w, b, L, o_rgb, o_sigma, device, s)
-                   : launch<false>(p, d, n, dir_div, w, b, L, o_rgb, o_sigma, device, s);
+  err = sigma_only
+            ? launch<true, false>(p, d, n, dir_div, w, b, L, o_rgb, o_sigma, 0, n, nullptr, device,
+                                  s)
+            : launch<false, false>(p, d, n, dir_div, w, b, L, o_rgb, o_sigma, 0, n, nullptr,
+                                   device, s);
+  return static_cast<int>(err);
+}
+
+// The wide f32 backward's recompute for one round: samples [row0, row0 +
+// rows) (row0 a multiple of 64; samples from n on read zeros) as
+// nerf_fused_mlp_wide_f32_forward computes them, every layer's output into
+// the workspace ws (fused_mlp_f32tc.cuh: ws_stride(depth, ldw, ldv, 64)
+// f32 a 64-sample tile, from row0's); no heads. Returns a cudaError_t
+// value (0 = launched).
+extern "C" int nerf_fused_mlp_wide_f32_record(const void* pts, const void* dirs, long long n,
+                                              long long dir_div, const void* weights,
+                                              const void* biases, const long long* layout,
+                                              int layout_len, int ldw, int ldv, int depth,
+                                              int sigma_only, long long row0, long long rows,
+                                              void* ws, int device, void* stream) {
+  WideLayout L;
+  if (!parse_wide_layout(layout, layout_len, ldw, ldv, depth, &L) || dir_div < 1 || n < 1 ||
+      row0 < 0 || row0 % kBlock != 0 || rows < 1 ||
+      reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* p = static_cast<const float*>(pts);
+  const float* d = static_cast<const float*>(dirs);
+  const float* w = static_cast<const float*>(weights);
+  const float* b = static_cast<const float*>(biases);
+  float* rec = static_cast<float*>(ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = sigma_only ? launch<true, true>(p, d, n, dir_div, w, b, L, nullptr, nullptr, row0, rows,
+                                        rec, device, s)
+                   : launch<false, true>(p, d, n, dir_div, w, b, L, nullptr, nullptr, row0, rows,
+                                         rec, device, s);
   return static_cast<int>(err);
 }

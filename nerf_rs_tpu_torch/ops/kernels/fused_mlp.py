@@ -11,7 +11,8 @@ v_width 256 and depth 16 it has two kernels, both on the tensor cores with
 weights bulk-copied into shared memory: float32
 (``csrc/fused_mlp_f32tc.cu``: split-f32, every product six bf16 ``wgmma``
 passes, :func:`split_f32_dense`) and bfloat16 (``csrc/fused_mlp_tc.cu``).
-Wider or deeper networks, up to ``MAX_WIDTH`` and ``MAX_DEPTH``, take the
+Wider or deeper networks, beyond ``NARROW_MAX_WIDTH`` or
+``NARROW_MAX_DEPTH`` and up to ``MAX_WIDTH`` and ``MAX_DEPTH``, take the
 wide pair: bfloat16 on ``wgmma`` (``csrc/fused_mlp_wide_tc.cu``) and
 float32 on the CUDA cores (``csrc/fused_mlp_wide_f32.cu``), with offset
 tables of ``MAX_DEPTH`` layers (``csrc/fused_mlp_wide.cuh``). The backward
@@ -23,8 +24,10 @@ pack: float32 runs K1 f32's kernel in record mode over a round of tiles
 (every layer's output into a workspace), then ``csrc/fused_mlp_bwd_tc.cu``
 (dW and W·dz as 3xTF32 ``mma.sync``) over the same tiles; bfloat16 is one
 kernel, ``csrc/fused_mlp_bwd_bf16.cu`` (every product a ``wgmma``). K2
-serves the narrow envelope only (``BWD_MAX_WIDTH``, ``BWD_MAX_DEPTH``):
-a wider network trains on the plain MLP.
+serves K1's envelope: a wide pack runs the wide pair of K2, float32
+``csrc/fused_mlp_wide_bwd_tc.cu`` after the wide f32 forward's record
+mode, bfloat16 ``csrc/fused_mlp_wide_bwd_bf16.cu`` (the recompute the wide
+bf16 forward's device code, ``csrc/fused_mlp_wide_tc.cuh``).
 
 - :func:`pack_params` lays the weights out for the kernels, once per
   network and dtype (``models.mlp.NerfMLP.packed`` keeps the pack).
@@ -34,9 +37,10 @@ a wider network trains on the plain MLP.
   ``fused_nerf_mlp.launches``, in ``fused_nerf_mlp.tc_launches`` when the
   kernel runs on the tensor cores, which all but the wide f32 kernel do,
   and in ``fused_nerf_mlp.wide_launches`` for the wide pair) and its
-  backward K2 (counted in
-  ``fused_nerf_mlp_backward.launches``); on CPU tensors they run the plain
-  versions instead. A CUDA tensor never reaches a plain version.
+  backward K2 (counted in ``fused_nerf_mlp_backward.launches``, and in
+  ``fused_nerf_mlp_backward.wide_launches`` for the wide pair); on CPU
+  tensors they run the plain versions instead. A CUDA tensor never
+  reaches a plain version.
 - :func:`fused_nerf_mlp_reference` and
   :func:`fused_nerf_mlp_backward_reference` are the plain versions: the
   same functions from the same packed weights, with the kernels' casting.
@@ -55,7 +59,7 @@ does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,15 +70,15 @@ from nerf_rs_tpu_torch.ops.kernels import _build
 _XF, _DF = 10, 4            # encoding bands the kernel serves (points, dirs)
 _ENC_X_RAW, _ENC_D_RAW = 3 + 6 * _XF, 3 + 6 * _DF   # 63, 27
 _ENC_X, _ENC_D = 64, 32     # the kernel's padded encode rows
-# K1's envelope (kWideMaxDepth, kWideMaxWidth in csrc/fused_mlp_wide.cuh):
-# the deepest trunk and the widest trunk or view branch the forward serves.
+# K1's and K2's envelope (kWideMaxDepth, kWideMaxWidth in
+# csrc/fused_mlp_wide.cuh): the deepest trunk and the widest trunk or view
+# branch the forward and the backward serve.
 MAX_DEPTH = 32
 MAX_WIDTH = 512
-# K2's envelope, and the narrow K1 kernels' (kMaxDepth, kMaxWidth in
-# csrc/fused_mlp_common.cuh): beyond it K1 runs the wide kernels and
-# training runs the plain MLP.
-BWD_MAX_DEPTH = 16
-BWD_MAX_WIDTH = 256
+# The narrow kernels' envelope (kMaxDepth, kMaxWidth in
+# csrc/fused_mlp_common.cuh): beyond it K1 and K2 run their wide kernels.
+NARROW_MAX_DEPTH = 16
+NARROW_MAX_WIDTH = 256
 _ALIGN = 8                  # segment offsets: 16-byte aligned bf16 loads
 _TC_PIECE = 64              # kPiece in csrc/fused_mlp_tc.cuh: tensor-core widths pad to it
 _STEP_K = 16                # kStepK in csrc/fused_mlp_f32tc.cuh: k rows a split-f32 chunk
@@ -83,6 +87,7 @@ _STEP_K = 16                # kStepK in csrc/fused_mlp_f32tc.cuh: k rows a split
 # hi.hi, into its own accumulator.
 SPLIT_F32_ORDER = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
 _BWD_TILE = 128             # kRows in csrc/fused_mlp_bwd_{tc,bf16}.cu: samples a backward tile
+_WIDE_BWD_TILE = 64         # kBlock of the wide backward kernels (csrc/fused_mlp_wide_bwd_*.cu)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -111,12 +116,12 @@ def supports_dims(width: int, v_width: int, depth: int) -> bool:
     return 1 <= width <= MAX_WIDTH and 1 <= v_width <= MAX_WIDTH and 1 <= depth <= MAX_DEPTH
 
 
-def supports_backward_dims(width: int, v_width: int, depth: int) -> bool:
-    """Whether the backward kernel K2 serves these dimensions (and the
-    narrow K1 kernels): widths up to ``BWD_MAX_WIDTH``, at most
-    ``BWD_MAX_DEPTH`` dense layers."""
-    return (1 <= width <= BWD_MAX_WIDTH and 1 <= v_width <= BWD_MAX_WIDTH
-            and 1 <= depth <= BWD_MAX_DEPTH)
+def narrow_dims(width: int, v_width: int, depth: int) -> bool:
+    """Whether the narrow kernels (K1's and K2's) serve these dimensions:
+    widths up to ``NARROW_MAX_WIDTH``, at most ``NARROW_MAX_DEPTH`` dense
+    layers. Beyond them the wide kernels run."""
+    return (1 <= width <= NARROW_MAX_WIDTH and 1 <= v_width <= NARROW_MAX_WIDTH
+            and 1 <= depth <= NARROW_MAX_DEPTH)
 
 
 def _dims(params) -> Tuple[int, int, int]:
@@ -128,10 +133,9 @@ def supports_arch(params) -> bool:
     return supports_dims(*_dims(params))
 
 
-def supports_backward_arch(params) -> bool:
-    """Whether K2 serves a network (a NerfMLP or a param tree): whether
-    ``impl="pallas"`` can train it."""
-    return supports_backward_dims(*_dims(params))
+# K2 serves what K1 serves: whether ``impl="pallas"`` can train a network.
+supports_backward_dims = supports_dims
+supports_backward_arch = supports_arch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,17 +150,17 @@ class PackedMLP:
     ``viewdirs``, ``viewdirs_dir`` (the dir-encode input of the view
     layer) and ``rgb``. Every padding entry is zero. ``layout`` is the
     int64 offset table in the order ``csrc/fused_mlp_common.cuh`` reads it,
-    with ``BWD_MAX_DEPTH`` layer slots; a ``wide`` pack (beyond K2's
-    envelope) has ``MAX_DEPTH`` slots in each of its tables, in the same
-    order (``csrc/fused_mlp_wide.cuh``), and no ``mma_wt``.
+    with ``NARROW_MAX_DEPTH`` layer slots; a ``wide`` pack (beyond the
+    narrow kernels' envelope) has ``MAX_DEPTH`` slots in each of its
+    tables, in the same order (``csrc/fused_mlp_wide.cuh``).
 
-    f32 packs hold ``mma_wt``, the f32 backward kernel's tensor-core pack
-    (``csrc/fused_mlp_bwd_tc.cu``): the transpose of every segment but the
+    f32 packs hold ``mma_wt``, the f32 backward kernels' tensor-core pack
+    (``csrc/fused_mlp_bwd_tc.cuh``): the transpose of every segment but the
     two heads (for the input-gradient products), tiled by :func:`mma_tile`
     into ``mma.sync`` B-fragment order, at the offsets of ``layout_mma``
-    (35 entries in the order dense{i}, dense{i}_enc, bottleneck, viewdirs,
-    viewdirs_dir). A transpose's K is the segment's ``ld`` padded to 16,
-    its N the segment's rows. It holds two rows, ``hi = tf32_rna(w)`` and
+    (2 x the layer slots + 3 entries, 35 or 67, in the order dense{i},
+    dense{i}_enc, bottleneck, viewdirs, viewdirs_dir). A transpose's K is
+    the segment's ``ld`` padded to 16, its N the segment's rows. It holds two rows, ``hi = tf32_rna(w)`` and
     ``lo = tf32_rna(w - hi)`` (:func:`tf32_split`), for the kernel's 3xTF32
     products.
 
@@ -199,8 +203,8 @@ class PackedMLP:
 
     @property
     def wide(self) -> bool:
-        """Whether K1 runs its wide kernels on this pack."""
-        return not supports_backward_dims(self.width, self.v_width, self.depth)
+        """Whether K1 and K2 run their wide kernels on this pack."""
+        return not narrow_dims(self.width, self.v_width, self.depth)
 
     def mat(self, name: str) -> torch.Tensor:
         """Segment ``name`` as a float32 (K, ld) matrix."""
@@ -231,8 +235,7 @@ def pack_params(params, dtype: str) -> PackedMLP:
             f"{MAX_DEPTH}; got width={width}, v_width={v_width}, depth={depth}")
     ldw, ldv = _round_up(width, 8), _round_up(v_width, 8)
     device = params["dense0"]["kernel"].device
-    narrow = supports_backward_dims(width, v_width, depth)
-    slots = BWD_MAX_DEPTH if narrow else MAX_DEPTH       # layer slots of every table
+    slots = NARROW_MAX_DEPTH if narrow_dims(width, v_width, depth) else MAX_DEPTH
 
     def kern(name):
         return params[name]["kernel"].detach().to(torch.float32)
@@ -278,7 +281,7 @@ def pack_params(params, dtype: str) -> PackedMLP:
         segments[name] = (off, rows, ld)
         off += size
         # K2's f32 pack (rows, ld: multiples of 8).
-        if narrow and dtype == "float32" and name not in ("alpha", "rgb"):
+        if dtype == "float32" and name not in ("alpha", "rgb"):
             pieces_wt.append(mma_tile(padded.t(), _round_up(ld, 16), rows))
             offsets_wt[name] = off_wt
             off_wt += pieces_wt[-1].numel()
@@ -333,13 +336,12 @@ def pack_params(params, dtype: str) -> PackedMLP:
 
     mma_wt = layout_mma = weights_tc = layout_tc = weights_f32tc = layout_f32tc = None
     if dtype == "float32":
-        if narrow:
-            mma_wt = torch.stack(tf32_split(torch.cat(pieces_wt)))
-            layout_mma = np.array(
-                [offsets_wt.get(f"dense{i}", -1) for i in range(slots)]
-                + [offsets_wt.get(f"dense{i}_enc", -1) for i in range(slots)]
-                + [offsets_wt[n] for n in ("bottleneck", "viewdirs", "viewdirs_dir")],
-                dtype=np.int64)
+        mma_wt = torch.stack(tf32_split(torch.cat(pieces_wt)))
+        layout_mma = np.array(
+            [offsets_wt.get(f"dense{i}", -1) for i in range(slots)]
+            + [offsets_wt.get(f"dense{i}_enc", -1) for i in range(slots)]
+            + [offsets_wt[n] for n in ("bottleneck", "viewdirs", "viewdirs_dir")],
+            dtype=np.int64)
         weights_f32tc, layout_f32tc = tensor_core_pack(f32tc_tile, heads=False)
         weights_f32tc = weights_f32tc.to(torch.bfloat16)    # exact: the pieces are bf16 values
     else:
@@ -797,35 +799,44 @@ def _forward_kernel(pk: PackedMLP, points: torch.Tensor, viewdirs: torch.Tensor,
     return rgb, sigma
 
 
-_F32_ROUND_TILES = 8         # 128-sample tiles a CTA takes a round in the f32 backward
+_F32_ROUND_TILES = 8         # tiles a CTA takes a round in the f32 backward
 
 
 def _backward_f32(lib, pk: PackedMLP, ptrs, partials, grid: int, tiles: int, sigma_only: bool,
                   outs) -> int:
-    """K2's f32 mode: round by round, K1 f32's record pass
-    (``nerf_fused_mlp_f32tc_record``: the recompute, every layer's output
-    into the round's workspace) and the backward over the same tiles
-    (``csrc/fused_mlp_bwd_tc.cu``), each CTA taking the same tiles of each
-    round, then the fixed-order sum of the partials. The workspace holds a
-    round: grid x _F32_ROUND_TILES tiles of 128 samples, each its encodes,
-    trunk, bottleneck and view outputs. -> a cudaError_t value."""
+    """K2's f32 mode: round by round, the record pass (the recompute,
+    every layer's output into the round's workspace) and the backward over
+    the same tiles, each CTA taking the same tiles of each round, then the
+    fixed-order sum of the partials. Narrow packs: K1 f32's record mode
+    (``nerf_fused_mlp_f32tc_record``) and ``csrc/fused_mlp_bwd_tc.cu`` on
+    128-sample tiles; wide packs: the wide f32 forward's
+    (``nerf_fused_mlp_wide_f32_record``) and
+    ``csrc/fused_mlp_wide_bwd_tc.cu`` on 64-sample tiles. The workspace
+    holds a round: grid x _F32_ROUND_TILES tiles, each its encodes, trunk,
+    bottleneck and view outputs. -> a cudaError_t value."""
     points, dirs, n, dir_div = ptrs[:4]
+    rows_a_tile = _WIDE_BWD_TILE if pk.wide else _BWD_TILE
     per_round = grid * _F32_ROUND_TILES
-    ws = torch.empty(min(tiles, per_round) * _BWD_TILE
+    ws = torch.empty(min(tiles, per_round) * rows_a_tile
                      * (_ENC_X + _ENC_D + (pk.depth + 1) * pk.ldw + pk.ldv),
                      dtype=torch.float32, device=partials.device)
     n_w, n_b = pk.weights.numel(), pk.biases.numel()
     device, stream = outs[-2:]
-    pack = (pk.weights.data_ptr(), pk.weights_f32tc.data_ptr(), pk.biases.data_ptr(),
-            pk.layout.ctypes.data, pk.layout_f32tc.ctypes.data, pk.layout.size, pk.ldw, pk.ldv,
-            pk.depth, int(sigma_only))
+    if pk.wide:
+        record, backward = lib.nerf_fused_mlp_wide_f32_record, lib.nerf_fused_mlp_wide_backward
+        pack = (pk.weights.data_ptr(), pk.biases.data_ptr(), pk.layout.ctypes.data,
+                pk.layout.size, pk.ldw, pk.ldv, pk.depth, int(sigma_only))
+    else:
+        record, backward = lib.nerf_fused_mlp_f32tc_record, lib.nerf_fused_mlp_backward
+        pack = (pk.weights.data_ptr(), pk.weights_f32tc.data_ptr(), pk.biases.data_ptr(),
+                pk.layout.ctypes.data, pk.layout_f32tc.ctypes.data, pk.layout.size, pk.ldw,
+                pk.ldv, pk.depth, int(sigma_only))
     for tile0 in range(0, tiles, per_round):
-        rows = min(tiles - tile0, per_round) * _BWD_TILE
-        err = lib.nerf_fused_mlp_f32tc_record(points, dirs, n, dir_div, *pack,
-                                              tile0 * _BWD_TILE, rows, ws.data_ptr(), device,
-                                              stream)
+        rows = min(tiles - tile0, per_round) * rows_a_tile
+        err = record(points, dirs, n, dir_div, *pack, tile0 * rows_a_tile, rows, ws.data_ptr(),
+                     device, stream)
         if err == 0:
-            err = lib.nerf_fused_mlp_backward(
+            err = backward(
                 *ptrs, pk.weights.data_ptr(), pk.mma_wt.data_ptr(), pk.mma_wt.shape[1],
                 pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout.size,
                 pk.layout_mma.ctypes.data, pk.layout_mma.size, pk.ldw, pk.ldv, pk.depth,
@@ -837,10 +848,63 @@ def _backward_f32(lib, pk: PackedMLP, ptrs, partials, grid: int, tiles: int, sig
                                            device, stream)
 
 
-def _unserved_backward(width: int, v_width: int, depth: int) -> str:
-    return (f"the fused backward K2 serves width, v_width <= {BWD_MAX_WIDTH} and depth <= "
-            f"{BWD_MAX_DEPTH}; got width={width}, v_width={v_width}, depth={depth} — train it "
-            "with impl='xla'")
+def _ws_order(rows: int, features: int, device) -> torch.Tensor:
+    """Where (sample row, feature) of a workspace slot of ``rows`` x
+    ``features`` lies in it (``csrc/fused_mlp_f32tc.cuh``'s ws_index)."""
+    r = torch.arange(rows, device=device)[:, None]
+    c = torch.arange(features, device=device)[None, :]
+    n8, low = features // 8, r & 15
+    return ((((r >> 4) * n8 + (c >> 3)) * 32 + 4 * (c & 7) + (low & 3)) * 4 + (low >> 2))
+
+
+def recorded_outputs(params, points: torch.Tensor, viewdirs: torch.Tensor) -> List[torch.Tensor]:
+    """What K2's f32 mode differentiates: every trunk layer's output, the
+    bottleneck's and the view layer's, (n, width) each, as its record pass
+    writes them (K1 f32's record mode, or the wide f32 forward's for wide
+    packs; each sample's row depends on its own inputs only), from which the
+    backward takes its ReLU masks. CPU tensors: the plain version's. Not a
+    path of the renderer or the trainer: checks read it (the kernel's own
+    mask where a pre-activation lies within f32's resolution of zero)."""
+    pk = _packed(params, "float32")
+    if points.device.type == "cpu":
+        pts, dirs = _flat_inputs(points, viewdirs)
+        mat = pk.mat
+
+        def bias(name):
+            return pk.bias(name)
+
+        enc_x = _encode(pts, 10, _ENC_X)
+        hs = _trunk(mat, bias, enc_x, lambda x: x, pk.depth, pk.segments)
+        bneck, hv = _color_branch(mat, bias, hs[-1], _encode(dirs, 4, _ENC_D), lambda x: x)
+        return [h[:, :pk.width] for h in hs] + [bneck[:, :pk.width], hv[:, :pk.v_width]]
+    dirs, dir_div, _, n = _kernel_inputs(pk, points, viewdirs)
+    rows_a_tile = _WIDE_BWD_TILE if pk.wide else _BWD_TILE
+    tiles = -(-n // rows_a_tile)
+    stride = rows_a_tile * (_ENC_X + _ENC_D + (pk.depth + 1) * pk.ldw + pk.ldv)
+    ws = torch.empty(tiles * stride, dtype=torch.float32, device=points.device)
+    lib = _build.load_library()
+    dev = points.device
+    if pk.wide:
+        err = lib.nerf_fused_mlp_wide_f32_record(
+            points.data_ptr(), dirs.data_ptr(), n, dir_div, pk.weights.data_ptr(),
+            pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout.size, pk.ldw, pk.ldv,
+            pk.depth, 0, 0, tiles * rows_a_tile, ws.data_ptr(), dev.index or 0, _stream(dev))
+    else:
+        err = lib.nerf_fused_mlp_f32tc_record(
+            points.data_ptr(), dirs.data_ptr(), n, dir_div, pk.weights.data_ptr(),
+            pk.weights_f32tc.data_ptr(), pk.biases.data_ptr(), pk.layout.ctypes.data,
+            pk.layout_f32tc.ctypes.data, pk.layout.size, pk.ldw, pk.ldv, pk.depth, 0, 0,
+            tiles * rows_a_tile, ws.data_ptr(), dev.index or 0, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"fused MLP record pass failed with CUDA error {err}")
+    ws = ws.view(tiles, stride)
+    out = []
+    for i, (ld, keep) in enumerate([(pk.ldw, pk.width)] * (pk.depth + 1) + [(pk.ldv, pk.v_width)]):
+        off = rows_a_tile * (_ENC_X + _ENC_D + i * pk.ldw)
+        order = _ws_order(rows_a_tile, ld, dev).reshape(-1)
+        slot = ws[:, off:off + rows_a_tile * ld][:, order].reshape(tiles * rows_a_tile, ld)
+        out.append(slot[:n, :keep])
+    return out
 
 
 def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor,
@@ -853,9 +917,10 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
     CUDA tensors launch K2 on the current stream without synchronizing,
     and count one launch per call in ``fused_nerf_mlp_backward.launches``
     (the kernel and its fixed-order sum of per-CTA partials; bf16 calls
-    also in ``fused_nerf_mlp_backward.bf16_launches``). Two calls on the
-    same inputs give bitwise-equal results. A network beyond K2's envelope
-    (:func:`supports_backward_arch`) raises NotImplementedError.
+    also in ``fused_nerf_mlp_backward.bf16_launches``, calls on a wide pack
+    in ``fused_nerf_mlp_backward.wide_launches``). Two calls on the same
+    inputs give bitwise-equal results. K2 serves every pack: its envelope
+    is K1's (:func:`supports_backward_arch`).
     """
     if points.device.type == "cpu":
         return fused_nerf_mlp_backward_reference(
@@ -865,8 +930,6 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
         raise ValueError(f"fused_nerf_mlp_backward takes CPU or CUDA tensors, got {points.device}")
     _check_call(x_freqs, d_freqs, dtype)
     pk = _packed(params, dtype)
-    if pk.wide:
-        raise NotImplementedError(_unserved_backward(pk.width, pk.v_width, pk.depth))
     dirs, dir_div, batch, n = _kernel_inputs(pk, points, viewdirs)
     dev = points.device
     g_rgb = g_rgb.to(torch.float32).reshape(n, 3).contiguous()
@@ -879,7 +942,7 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
         dpts = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         ddirs = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     if n > 0:
-        tiles = -(-n // _BWD_TILE)
+        tiles = -(-n // (_WIDE_BWD_TILE if pk.wide else _BWD_TILE))
         grid = min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
         partials = torch.zeros(grid * (n_w + n_b), dtype=torch.float32, device=dev)
         lib = _build.load_library()
@@ -890,12 +953,16 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
                 ddirs.data_ptr() if input_grads else None, dev.index or 0, _stream(dev))
         if dtype == "bfloat16":
             # Per CTA: the tile's trunk outputs and bottleneck output as
-            # shared-memory images (widths padded to 64), then 128 x 64 f32
-            # of encode gradient (csrc/fused_mlp_bwd_bf16.cu's workspace).
+            # shared-memory images (widths padded to 64), then a tile of 64
+            # f32 columns of encode gradient (csrc/fused_mlp_bwd_bf16.cu's
+            # and csrc/fused_mlp_wide_bwd_bf16.cu's workspace).
             nw = _round_up(pk.ldw, _TC_PIECE)
-            ws = torch.empty(grid * _BWD_TILE * ((pk.depth + 1) * nw + 2 * _ENC_X),
+            rows = _WIDE_BWD_TILE if pk.wide else _BWD_TILE
+            ws = torch.empty(grid * rows * ((pk.depth + 1) * nw + 2 * _ENC_X),
                              dtype=torch.bfloat16, device=dev)
-            err = lib.nerf_fused_mlp_backward_bf16(
+            launch = (lib.nerf_fused_mlp_wide_backward_bf16 if pk.wide
+                      else lib.nerf_fused_mlp_backward_bf16)
+            err = launch(
                 *ptrs, pk.weights_tc.data_ptr(), pk.biases.data_ptr(), pk.layout_tc.ctypes.data,
                 pk.layout.ctypes.data, pk.layout.size, pk.ldw, pk.ldv, pk.depth,
                 int(sigma_only), ws.data_ptr(), partials.data_ptr(), n_w, n_b, grid, *outs)
@@ -905,6 +972,7 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
             raise RuntimeError(f"fused MLP backward kernel launch failed with CUDA error {err}")
         fused_nerf_mlp_backward.launches += 1
         fused_nerf_mlp_backward.bf16_launches += int(dtype == "bfloat16")
+        fused_nerf_mlp_backward.wide_launches += int(pk.wide)
     if not input_grads:
         return dweights, dbiases, None, None
     return dweights, dbiases, dpts.view(*batch, 3), ddirs.view(*batch, 3)
@@ -912,6 +980,7 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
 
 fused_nerf_mlp_backward.launches = 0
 fused_nerf_mlp_backward.bf16_launches = 0
+fused_nerf_mlp_backward.wide_launches = 0
 
 
 class _FusedMLP(torch.autograd.Function):
@@ -921,9 +990,8 @@ class _FusedMLP(torch.autograd.Function):
     in place before backward raises, as autograd does. Forward and
     backward run the kernels on CUDA tensors and the plain versions on CPU
     tensors; points' and viewdirs' gradients are computed only when asked
-    for. (forward runs with grad mode off and cannot tell whether a
-    gradient will be asked for: :func:`fused_nerf_mlp` refuses a network
-    beyond K2's envelope before it applies this.)"""
+    for. K1 and K2 serve the same networks, so forward's pack refuses
+    every network K2 would.)"""
 
     @staticmethod
     def forward(ctx, params, opts, names, points, viewdirs, *leaves):
@@ -964,11 +1032,9 @@ def fused_nerf_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *,
     gives the color branch no gradient.
 
     CUDA tensors launch K1 (and, in backward, K2) on the current stream
-    without synchronizing; CPU tensors run the plain versions. K1 serves
-    :func:`supports_arch`. A call on CUDA tensors that will need K2 (grad
-    mode on, and an input or parameter that requires grad) raises
-    NotImplementedError before K1 launches unless K2 serves the network
-    too (:func:`supports_backward_arch`).
+    without synchronizing; CPU tensors run the plain versions. K1 and K2
+    serve :func:`supports_arch`; the pack of any other network raises
+    ValueError before K1 launches.
     """
     _check_call(x_freqs, d_freqs, dtype)
     if points.device.type not in ("cpu", "cuda"):
@@ -976,11 +1042,6 @@ def fused_nerf_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *,
     tree = params.tree() if hasattr(params, "tree") else params
     names = [(layer, part) for layer in tree for part in ("kernel", "bias")]
     leaves = [tree[layer][part] for layer, part in names]
-    if (points.device.type == "cuda" and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (points, viewdirs, *leaves))):
-        dims = _dims(tree)
-        if not supports_backward_dims(*dims):
-            raise NotImplementedError(_unserved_backward(*dims))
     opts = dict(x_freqs=x_freqs, d_freqs=d_freqs, dtype=dtype, sigma_only=sigma_only)
     return _FusedMLP.apply(params, opts, names, points, viewdirs, *leaves)
 

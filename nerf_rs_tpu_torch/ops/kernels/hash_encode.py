@@ -19,10 +19,16 @@ with the spatial hash and the trilinear blend of
   rounded once to the tables' dtype; output (..., L*F), point-major, then
   level, then feature.
 
-:func:`hash_encode_reference` is that function in plain ops, on any device.
+:func:`hash_encode_reference` is that function in plain ops, on any device
+and for any number of levels.
 :func:`fused_hash_encode` is differentiable in the tables and the points:
 on CUDA tensors its forward launches the kernel (counted in
-``fused_hash_encode.launches``), on CPU tensors it runs the plain version.
+``fused_hash_encode.launches``), on CPU tensors it runs the plain version;
+it serves the tables of :func:`supported` and raises for others.
+:func:`blocked_hash_encode` is the same function for any number of
+levels: on CUDA tensors one launch a block of up to ``MAX_LEVELS`` levels,
+each writing its columns of the output (``models.hashgrid.hash_encode``
+calls it).
 The backward is plain PyTorch on both devices, as the JAX package computes
 it in XLA outside any Pallas kernel: it recomputes each corner's rows and
 weights from the points (keeping them would cost about 1 KiB a sample at
@@ -115,6 +121,7 @@ class _Corners:
 
 
 def _check(tables: torch.Tensor, points: torch.Tensor, cfg) -> Tuple[int, int, int]:
+    """The shapes every version takes; -> (L, T, F)."""
     if tables.dim() != 3:
         raise ValueError(f"tables must be (L, T, F), got {tuple(tables.shape)}")
     levels, table_size, features = tables.shape
@@ -125,11 +132,19 @@ def _check(tables: torch.Tensor, points: torch.Tensor, cfg) -> Tuple[int, int, i
         raise ValueError(f"points must end in 3, got {tuple(points.shape)}")
     if tables.device != points.device:
         raise ValueError(f"tables on {tables.device}, points on {points.device}")
-    if not supported(tables):
+    return levels, table_size, features
+
+
+def _check_kernel(tables: torch.Tensor, points: torch.Tensor, cfg,
+                  blocked: bool = False) -> Tuple[int, int, int]:
+    """:func:`_check`, and the kernel's envelope (:func:`supported`; with
+    ``blocked`` any number of levels, in blocks of ``MAX_LEVELS``)."""
+    dims = _check(tables, points, cfg)
+    if not supported(tables[:MAX_LEVELS] if blocked else tables):
         raise NotImplementedError(
             f"the hash encode serves (L, T, F) f32 or bf16 tables with L <= {MAX_LEVELS} and "
             f"T <= 2^32; got {tuple(tables.shape)} {tables.dtype} (ROADMAP queue 1, item 12)")
-    return levels, table_size, features
+    return dims
 
 
 def hash_encode_reference(tables: torch.Tensor, points: torch.Tensor, cfg) -> torch.Tensor:
@@ -149,8 +164,9 @@ def hash_encode_reference(tables: torch.Tensor, points: torch.Tensor, cfg) -> to
 
 def _launch(tables: torch.Tensor, points: torch.Tensor, cfg) -> torch.Tensor:
     """The kernel on CUDA tensors, on the current stream, without
-    synchronizing."""
-    levels, table_size, features = _check(tables, points, cfg)
+    synchronizing: one launch a block of up to ``MAX_LEVELS`` levels, each
+    into its columns of the output."""
+    levels, table_size, features = _check_kernel(tables, points, cfg, blocked=True)
     if not tables.is_contiguous():
         raise ValueError("tables must be contiguous")
     dev = points.device
@@ -163,17 +179,26 @@ def _launch(tables: torch.Tensor, points: torch.Tensor, cfg) -> torch.Tensor:
     res, np1, direct = level_constants(cfg, table_size)
     lo, hi = cfg.aabb
     bf16 = tables.dtype == torch.bfloat16
-    # The paired loads read aligned pairs of rows (16 bytes in f32, 8 in bf16).
-    pair = (features == 2 and table_size % 2 == 0
-            and tables.data_ptr() % (8 if bf16 else 16) == 0)
-    err = _build.load_library().nerf_hash_encode(
-        pts.data_ptr(), n, tables.data_ptr(), levels, table_size, features, int(bf16), int(pair),
-        res.ctypes.data_as(ctypes.c_void_p), np1.ctypes.data_as(ctypes.c_void_p),
-        direct.ctypes.data_as(ctypes.c_void_p), float(lo), float(hi - lo), out.data_ptr(),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"hash encode kernel launch failed with CUDA error {err}")
-    fused_hash_encode.launches += 1
+    lib = _build.load_library()
+    for a in range(0, levels, MAX_LEVELS):
+        b = min(levels, a + MAX_LEVELS)
+        block = tables[a:b]
+        dst = out if b - a == levels else torch.empty((n, (b - a) * features),
+                                                     dtype=tables.dtype, device=dev)
+        # The paired loads read aligned pairs of rows (16 bytes in f32, 8 in bf16).
+        pair = (features == 2 and table_size % 2 == 0
+                and block.data_ptr() % (8 if bf16 else 16) == 0)
+        consts = [np.ascontiguousarray(c[a:b]) for c in (res, np1, direct)]
+        err = lib.nerf_hash_encode(
+            pts.data_ptr(), n, block.data_ptr(), b - a, table_size, features, int(bf16),
+            int(pair), *(c.ctypes.data_as(ctypes.c_void_p) for c in consts), float(lo),
+            float(hi - lo), dst.data_ptr(), dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"hash encode kernel launch failed with CUDA error {err}")
+        fused_hash_encode.launches += 1
+        if dst is not out:
+            out[:, a * features:b * features] = dst
     return out.reshape(*batch, levels * features)
 
 
@@ -274,8 +299,18 @@ def fused_hash_encode(tables: torch.Tensor, points: torch.Tensor, cfg) -> torch.
     synchronizing; CPU tensors run :func:`hash_encode_reference`. Tables
     outside :func:`supported` raise NotImplementedError on both devices.
     """
-    _check(tables, points, cfg)
+    _check_kernel(tables, points, cfg)
     return _HashEncode.apply(tables, points, cfg)
 
 
 fused_hash_encode.launches = 0
+
+
+def blocked_hash_encode(tables: torch.Tensor, points: torch.Tensor, cfg) -> torch.Tensor:
+    """:func:`fused_hash_encode` for any number of levels: CUDA tensors
+    launch the kernel once a block of up to ``MAX_LEVELS`` levels (each
+    launch counted in ``fused_hash_encode.launches``), CPU tensors run
+    :func:`hash_encode_reference`; the same backward. Tables the kernel
+    cannot read (their dtype, T > 2^32) raise NotImplementedError."""
+    _check_kernel(tables, points, cfg, blocked=True)
+    return _HashEncode.apply(tables, points, cfg)

@@ -43,7 +43,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 LEGO = ROOT / "assets" / "lego_rust"
 NOTE = "outside the fused kernels' range"
-K2_NOTE = "the fused backward K2 serves width, v_width <= 256, depth <= 16"
+K2_NOTE = "the fused backward K2 serves width, v_width <= 512, depth <= 32"
 INT8_NOTE = "outside the int8 kernel's range (width, v_width <= 256, depth <= 16)"
 # Wider than K2 and the int8 kernel serve (256), within K1's envelope (512),
 # a multiple of 128 as JAX's kernel takes.
@@ -149,13 +149,37 @@ TRAIN = ["train", "--device", "cpu", "--steps", "1", "--batch-rays", "16", "--co
 
 
 def test_cli_train_unserved_width_runs_xla_with_note(capsys):
-    """A width-384 student with ``--impl pallas`` trains on the plain MLP
-    with the note naming K2's envelope: K1 serves its forward, but the
-    fused backward stops at 256."""
-    rc = cli_main([*TRAIN, "--width", "384", "--depth", "2", "--skip-at", "0", "--impl", "pallas"])
+    """A width-640 student with ``--impl pallas`` trains on the plain MLP
+    with the note naming K2's envelope: neither K1 nor the fused backward
+    serves it (both stop at 512)."""
+    rc = cli_main([*TRAIN, "--width", "640", "--depth", "2", "--skip-at", "0", "--impl", "pallas"])
     assert rc == 0
     out = capsys.readouterr().out
     assert NOTE in out and K2_NOTE in out
+    assert re.search(r"^step 0: loss [0-9.]+ psnr", out, flags=re.M), out
+
+
+@pytest.mark.parametrize("width, depth", [(384, 2), (512, 20)], ids=["w384", "w512_d20"])
+def test_cli_train_wide_student_runs_fused_without_note(width, depth, monkeypatch, capsys):
+    """A student within K1's envelope (width 384, or 512 and 20 layers deep)
+    trains with ``--impl pallas`` through the fused path (K1 and K2; their
+    plain versions on the CPU) with no note: K2's envelope is K1's."""
+    import nerf_rs_tpu_torch.ops.kernels.fused_mlp as fm
+
+    seen = []
+    real = fm.fused_nerf_mlp_backward_reference
+
+    def spy(pk, *args, **kw):                      # K2's wrapper hands on its pack
+        seen.append((pk.width, pk.v_width, pk.depth))
+        return real(pk, *args, **kw)
+
+    monkeypatch.setattr(fm, "fused_nerf_mlp_backward_reference", spy)
+    rc = cli_main([*TRAIN, "--width", str(width), "--depth", str(depth), "--skip-at", "0",
+                   "--impl", "pallas"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert NOTE not in out and "fused backward K2" not in out
+    assert seen == [(width, 128, depth)] * 2          # K2's wrapper, coarse and fine
     assert re.search(r"^step 0: loss [0-9.]+ psnr", out, flags=re.M), out
 
 

@@ -3,7 +3,8 @@ tensor cores, split-f32 ``wgmma`` in f32 and ``wgmma`` in bf16, and past
 width 256 or depth 16 its wide pair, f32 on the CUDA cores and bf16
 ``wgmma``; backward K2
 on the tensor cores, ``mma.sync`` 3xTF32 in f32 with K1 f32's recompute,
-and ``wgmma`` in bf16),
+and ``wgmma`` in bf16, and past width 256 or depth 16 its wide pair, the
+same products with the wide forwards' recomputes),
 the fused resampler (K3), the hash encode and the int8 MLP kernel against
 their plain versions, and the packed accel render against the unpacked one.
 
@@ -162,30 +163,231 @@ def test_wide_kernel_matches_plain(card, arch, dtype, sigma_only):
 
 
 def test_wide_network_refuses_gradients_before_launch(card):
-    """Past K2's envelope the card refuses gradients: the autograd function
-    raises before K1 launches, and K2's wrapper raises; the int8 wrapper
-    refuses the network too, while the renderer's int8 choice runs the
-    plain int8 MLP."""
+    """Past K1's and K2's envelope (width 640) the card refuses gradients:
+    the autograd function raises before K1 launches (the pack cannot hold
+    the network), and K2's wrapper, K1 without gradients and the int8
+    wrapper refuse it too, while the renderer's int8 choice runs the plain
+    int8 MLP."""
     from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp
     from nerf_rs_tpu_torch.render import get_mlp_fn
 
-    net = NerfMLP(np_params(ArchConfig(width=384, v_width=128, depth=3, skip_at=1), 5),
+    net = NerfMLP(np_params(ArchConfig(width=640, v_width=128, depth=3, skip_at=1), 5),
                   device=card, requires_grad=True)
     pts, dirs = inputs(16, 8, 6, card)
-    before = fused_nerf_mlp.launches
-    with pytest.raises(NotImplementedError, match="backward K2 serves width, v_width <= 256"):
+    before = fused_nerf_mlp.launches, fused_nerf_mlp_backward.launches
+    with pytest.raises(ValueError, match="width, v_width <= 512 .* width=640"):
         fused_nerf_mlp(net, pts, dirs)
-    assert fused_nerf_mlp.launches == before
     g = torch.ones_like(pts[..., 0])
-    with pytest.raises(NotImplementedError, match="K2"):
+    with pytest.raises(ValueError, match="width=640"):
         fused_nerf_mlp_backward(net, pts, dirs, g[..., None].expand(16, 8, 3), g)
     with torch.no_grad():
-        fused_nerf_mlp(net, pts, dirs)
+        with pytest.raises(ValueError, match="width=640"):
+            fused_nerf_mlp(net, pts, dirs)
         with pytest.raises(NotImplementedError, match="int8 kernel serves"):
             fused_int8_mlp(net, pts, dirs)
         plain = get_mlp_fn(RenderConfig(impl="int8"), net, card)(net, pts, dirs)
-    assert fused_nerf_mlp.launches == before + 1
+    assert (fused_nerf_mlp.launches, fused_nerf_mlp_backward.launches) == before
     assert all(bool(torch.isfinite(t).all()) for t in plain)
+
+
+WIDE_ARCHS = [ArchConfig(width=384, v_width=192, depth=8, skip_at=4),
+              ArchConfig(width=512, v_width=512, depth=32, skip_at=10),
+              ArchConfig(width=200, v_width=264, depth=20, skip_at=1),
+              ArchConfig(width=64, v_width=64, depth=20, skip_at=4)]
+WIDE_IDS = ["384x192x8", "512x512x32", "200x264x20", "64x64x20"]
+
+
+def widened_lego(width, v_width, depth, device, requires_grad=False):
+    """The lego fine network widened to (width, v_width, depth) by
+    ``chip_smoke.widen_nerf``: the same function, so its activations and
+    ReLU masks are a trained network's, not a random one's."""
+    return NerfMLP(chip_smoke_module().widen_nerf(load_nerf_params(LEGO / "fine"), width,
+                                                  v_width, depth),
+                   device=device, requires_grad=requires_grad)
+
+
+def chip_smoke_module():
+    import sys
+
+    root = str(LEGO.parents[1])
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke
+
+
+@pytest.mark.parametrize("sigma_only", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("net_kind, dims", [
+    ("lego", (384, 192, 8)), ("lego", (512, 256, 32)), ("lego", (264, 136, 20)),
+    ("random", WIDE_ARCHS[0]), ("random", WIDE_ARCHS[1]), ("random", WIDE_ARCHS[2])],
+    ids=["384x192x8", "512x256x32", "264x136x20_unaligned", "random_384x192x8",
+         "random_512x512x32", "random_200x264x20"])
+def test_wide_backward_kernel_matches_plain(card, net_kind, dims, dtype, sigma_only):
+    """K2's wide pair (csrc/fused_mlp_wide_bwd_tc.cu after the wide f32
+    forward's record mode; csrc/fused_mlp_wide_bwd_bf16.cu) past width 256
+    or depth 16, ragged (37 x 29, not a multiple of the 64-sample tile): on
+    the lego widened (identity layers past its depth 8; unaligned widths
+    too), and on random networks (np_params, seed 5) at 384/192/8,
+    512/512/32 and 200/264/20, where the deep layers are not copies. One
+    launch, counted as wide; every leaf's gradient, d(points) and d(dirs)
+    at the narrow K2's bars: f32 within max(1e-4, 1.5 x the plain version's
+    distance) of the float64 evaluation, the ReLU masks f32 cannot resolve
+    set as the kernel's forward set them (chip_smoke.kernel_mask_exact,
+    PERF.md §2), bf16 within 3e-2 of the plain version; the color branch
+    exactly zero in sigma-only calls."""
+    if net_kind == "lego":
+        net = widened_lego(*dims, card)
+    else:
+        net = NerfMLP(np_params(dims, 5), device=card)
+    pts, dirs = inputs(37, 29, 5, card)
+    if net_kind == "lego":
+        pts = pts * 0.4
+    g_rgb, g_sig = cotangents(pts.shape[:-1], 6, card)
+    wide = fused_nerf_mlp_backward.wide_launches
+    got, want = backward_pair(net, pts, dirs, g_rgb, g_sig, dtype, sigma_only)
+    assert fused_nerf_mlp_backward.wide_launches == wide + 1
+    pk = net.packed(dtype)
+    smoke = chip_smoke_module()
+    named_k, named_p = smoke.named_gradients(pk, got), smoke.named_gradients(pk, want)
+    if dtype == "float32":
+        args = (pts, dirs, g_rgb, g_sig)
+        exact = fused_nerf_mlp_backward_reference(net, *(a.double() for a in args),
+                                                  sigma_only=sigma_only)
+        named_64 = smoke.named_gradients(pk, exact)
+        oracle, _ = smoke.kernel_mask_exact(net, args, sigma_only, named_64)
+    for key in named_p:
+        layer = key.split("/")[0]
+        if sigma_only and (layer in ("bottleneck", "viewdirs", "rgb") or key == "d(dirs)"):
+            assert not named_k[key].any() and not named_p[key].any(), key
+        elif dtype == "float32":
+            bar = max(BWD_TOL[dtype], 1.5 * rel_err(named_p[key].double(), named_64[key]))
+            assert rel_err(named_k[key].double(), oracle[key]) <= bar, (
+                key, rel_err(named_k[key].double(), oracle[key]), bar)
+        else:
+            assert rel_err(named_k[key], named_p[key]) <= BWD_TOL[dtype], (
+                key, rel_err(named_k[key], named_p[key]))
+
+
+@pytest.mark.parametrize("dims", [(256, 128, 8), (384, 192, 18)], ids=["narrow", "wide"])
+def test_recorded_outputs_are_the_forwards(card, dims):
+    """``recorded_outputs`` (K2's f32 record pass, read back) on the lego
+    widened (narrow: the lego fine itself): every layer within 1e-5 x its
+    largest entry of the plain f32 forward's, and the last trunk layer's
+    units bit for bit what K1's own forward gives them (the network with
+    a sigma head of e_k: its sigma is unit k), on a ragged sample count."""
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import recorded_outputs
+
+    if dims[0] == 256:
+        params = load_nerf_params(LEGO / "fine")
+    else:
+        params = chip_smoke_module().widen_nerf(load_nerf_params(LEGO / "fine"), *dims)
+    net = NerfMLP(params, device=card)
+    pts, dirs = inputs(37, 29, 13, card)
+    pts = pts * 0.4
+    got = recorded_outputs(net, pts, dirs)
+    want = recorded_outputs(NerfMLP(params, device=torch.device("cpu")), pts.cpu(), dirs.cpu())
+    assert len(got) == len(want) == dims[2] + 2
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g.cpu(), w, atol=1e-5 * float(w.abs().max()), rtol=0)
+    last = got[dims[2] - 1]
+    for k in (0, 5, dims[0] - 1):
+        tree = {layer: {p: torch.from_numpy(v).to(card) for p, v in part.items()}
+                for layer, part in params.items()}
+        head = torch.zeros((dims[0], 1), device=card)
+        head[k, 0] = 1.0
+        tree["alpha"] = {"kernel": head, "bias": torch.zeros(1, device=card)}
+        with torch.no_grad():
+            _, sig = fused_nerf_mlp(tree, pts, dirs, dtype="float32", sigma_only=True)
+        assert torch.equal(sig.reshape(-1), last[:, k]), k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_backward_kernel_is_deterministic(card, dtype):
+    """The wide K2 gives two calls bitwise equal, with and without input
+    gradients: each CTA adds its tiles into its own partial in a fixed
+    order (the f32 mode over several rounds of record and backward), and
+    the partials are summed in a fixed order."""
+    net = NerfMLP(np_params(WIDE_ARCHS[0], 7), device=card)
+    pts, dirs = inputs(512, 48, 8, card)
+    g_rgb, g_sig = cotangents(pts.shape[:-1], 9, card)
+    for input_grads in (True, False):
+        a = fused_nerf_mlp_backward(net, pts, dirs, g_rgb, g_sig, dtype=dtype,
+                                    input_grads=input_grads)
+        b = fused_nerf_mlp_backward(net, pts, dirs, g_rgb, g_sig, dtype=dtype,
+                                    input_grads=input_grads)
+        assert all(torch.equal(x, y) for x, y in zip(a[:2], b[:2]))
+        if input_grads:
+            assert torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_backward_recomputes_the_forwards_activations(card, dtype):
+    """The wide K2's recompute gives wide K1's trunk activations bit for
+    bit (test_backward_recomputes_the_forwards_activations's construction,
+    on the lego widened to width 384 and depth 18): with the sigma head's
+    weights at zero and its bias at 1 and a sigma cotangent of 1 on sample
+    s alone, K2's alpha gradient is the recomputed last trunk output of s;
+    with the weights at e_k and the bias at 0, wide K1's sigma is that
+    output's entry k."""
+    width = 384
+    params = chip_smoke_module().widen_nerf(load_nerf_params(LEGO / "fine"), width, 192, 18)
+    rays, samples = 37, 29
+    pts, dirs = inputs(rays, samples, 13, card)
+    pts = pts * 0.4
+
+    def tree(w_alpha, b_alpha):
+        t = {layer: {k: torch.from_numpy(v).to(card) for k, v in p.items()}
+             for layer, p in params.items()}
+        t["alpha"] = {"kernel": w_alpha.reshape(-1, 1).to(card),
+                      "bias": torch.full((1,), b_alpha, device=card)}
+        return t
+
+    h = torch.empty((rays * samples, width), device=card)
+    with torch.no_grad():
+        for k in range(width):
+            _, sig = fused_nerf_mlp(tree(torch.eye(width)[k], 0.0), pts, dirs, dtype=dtype,
+                                    sigma_only=True)
+            h[:, k] = sig.reshape(-1)
+    pk = pack_params(tree(torch.zeros(width), 1.0), dtype)
+    assert pk.wide
+    g_rgb = torch.zeros((rays, samples, 3), device=card)
+    for s in (0, 500, rays * samples - 1):            # first tile, a middle one, the ragged last
+        g_sig = torch.zeros(rays * samples, device=card)
+        g_sig[s] = 1.0
+        dw, db, _, _ = fused_nerf_mlp_backward(pk, pts, dirs, g_rgb, g_sig.reshape(rays, samples),
+                                               dtype=dtype, sigma_only=True, input_grads=False)
+        got = unpack_grads(pk, dw, db)["alpha"]["kernel"][:, 0]
+        assert torch.equal(got, h[s]), (s, float((got - h[s]).abs().max()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_autograd_through_kernels_matches_plain_autograd(card, dtype):
+    """The lego widened to 512/256/8: its gradients through fused_nerf_mlp
+    on the card (wide K1 and wide K2, input gradients included) against
+    the plain path's: f32 against torch autograd of the plain oracle, bf16
+    against fused_nerf_mlp on CPU tensors (the plain forward and
+    backward)."""
+    from nerf_rs_tpu_torch.models.mlp import nerf_mlp
+
+    plain = (nerf_mlp, card) if dtype == "float32" else (fused_nerf_mlp, torch.device("cpu"))
+    grads = []
+    before = fused_nerf_mlp_backward.wide_launches
+    for fn, device in ((fused_nerf_mlp, card), plain):
+        net = widened_lego(512, 256, 8, device, requires_grad=True)
+        pts, dirs = inputs(16, 40, 11, device)
+        pts = (pts * 0.4).requires_grad_(True)
+        kw = {} if fn is nerf_mlp else {"dtype": dtype}
+        rgb, sig = fn(net, pts, dirs, **kw)
+        (rgb.square().sum() + 1e-2 * sig.sum()).backward()
+        grads.append({**{k: p.grad.cpu() for k, p in net.weights.items()},
+                      "points": pts.grad.cpu()})
+    assert fused_nerf_mlp_backward.wide_launches == before + 1
+    for k, want in grads[1].items():
+        assert rel_err(grads[0][k], want) <= BWD_TOL[dtype], k
 
 
 def test_f32_kernel_near_float64_lego_fine(card):
@@ -607,6 +809,45 @@ def check_encode(tables, pts, cfg):
     else:
         atol = 2 * 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("levels", [65, 130], ids=["65", "130"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_hash_encode_past_64_levels_runs_the_kernel_in_blocks(card, dtype, levels):
+    """Past the 64 levels one launch serves, the field's encode
+    (``blocked_hash_encode``) launches the kernel once a block of 64 levels
+    (2 and 3 launches) and matches the plain version at
+    test_hash_encode_kernel_matches_plain's bars, two calls bitwise equal;
+    the field's table gradient is finite and non-zero; ``fused_hash_encode``
+    still refuses the tables."""
+    from nerf_rs_tpu_torch.config import HashGridConfig
+    from nerf_rs_tpu_torch.models.hashgrid import hash_encode
+    from nerf_rs_tpu_torch.ops.kernels.hash_encode import (
+        blocked_hash_encode,
+        fused_hash_encode,
+        hash_encode_reference,
+    )
+
+    cfg = HashGridConfig(levels=levels, table_log2=12, res_max=512)
+    tables, pts = hash_inputs(cfg, 4097, 27, card, dtype)
+    before = fused_hash_encode.launches
+    got = blocked_hash_encode(tables, pts, cfg)
+    again = blocked_hash_encode(tables, pts, cfg)
+    torch.cuda.synchronize()
+    assert fused_hash_encode.launches == before + 2 * -(-levels // 64)
+    want = hash_encode_reference(tables, pts, cfg)
+    assert got.shape == (4097, levels * cfg.features) and got.dtype == dtype
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        atol = 1e-5 * float(tables.abs().max())
+    else:
+        atol = 2 * 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    t = tables.clone().requires_grad_()
+    hash_encode(t, pts, cfg).float().square().sum().backward()
+    assert bool(torch.isfinite(t.grad.float()).all()) and float(t.grad.float().abs().max()) > 0
+    with pytest.raises(NotImplementedError, match="item 12"):
+        fused_hash_encode(tables, pts, cfg)
 
 
 @pytest.mark.parametrize("n", [1, 31, 64, 100, 4097])

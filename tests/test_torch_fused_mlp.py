@@ -146,8 +146,8 @@ PACK_IDS = ["small", "lego", "unaligned_noskip", *WIDE_IDS]
 
 
 def slots(layout) -> int:
-    """Layer slots of an offset table: 16 (the narrow kernels' and K2's),
-    32 (the wide kernels')."""
+    """Layer slots of an offset table: 16 (the narrow kernels'), 32 (the
+    wide kernels')."""
     return (layout.size - 9) // 3
 
 
@@ -210,14 +210,15 @@ def test_tc_pack_round_trip_and_padding(arch):
     segments cover the copy exactly once; its table has the order and the
     bias offsets of ``layout``. Its ``weights`` are the f32 pack's in bf16;
     it holds no transposed backward pack (the bf16 backward reads this copy
-    transposed), the f32 pack holds no tensor-core copy, and a wide f32
-    pack (beyond K2's envelope) none either."""
+    transposed), the f32 pack holds no tensor-core copy, and its transposed
+    pack's table has 2 x 16 + 3 entries, or 2 x 32 + 3 in a wide pack
+    (the wide f32 backward reads it)."""
     params = params_to_torch(np_params(arch, 8), "cpu")
     bf, f32 = pack_params(params, "bfloat16"), pack_params(params, "float32")
     assert f32.weights_tc is None and f32.layout_tc is None
     assert torch.equal(bf.weights, f32.weights.to(torch.bfloat16))
     assert bf.mma_wt is None and bf.layout_mma is None
-    assert (f32.layout_mma is None) if f32.wide else f32.layout_mma.size == 35
+    assert f32.layout_mma.size == (67 if f32.wide else 35)
     assert bf.weights_tc.dtype == torch.bfloat16
     d = slots(bf.layout)
     flat = bf.weights_tc.float().numpy()

@@ -169,8 +169,9 @@ def test_backward_wrapper_on_cpu_is_the_reference_and_counts_no_launch(small, dt
 
 
 @pytest.mark.parametrize("arch", [SMALL, ArchConfig(), ArchConfig(width=100, v_width=36, depth=3,
-                                                                    skip_at=5)],
-                         ids=["small", "canonical", "unaligned_noskip"])
+                                                                    skip_at=5),
+                                  ArchConfig(width=512, v_width=256, depth=32, skip_at=4)],
+                         ids=["small", "canonical", "unaligned_noskip", "wide_512x256x32"])
 def test_unpack_grads_inverts_pack(arch):
     """unpack_grads of a pack's own weights and biases gives the param
     tree back: every leaf lands where pack_params took it from."""
@@ -197,11 +198,13 @@ def untile_mma(flat, off, k, n):
 
 
 def mma_segments(pk, arch):
-    """{name: (index in the table, rows K, ld N)} of the product segments."""
+    """{name: (index in the table, rows K, ld N)} of the product segments;
+    the table has d layer slots (16, or 32 in a wide pack)."""
+    d = (pk.layout_mma.size - 3) // 2
     out = {f"dense{i}": (i, *pk.segments[f"dense{i}"][1:]) for i in range(arch.depth)}
-    out.update({f"dense{i}_enc": (16 + i, *pk.segments[f"dense{i}_enc"][1:])
+    out.update({f"dense{i}_enc": (d + i, *pk.segments[f"dense{i}_enc"][1:])
                 for i in range(1, arch.depth) if f"dense{i}_enc" in pk.segments})
-    out.update({name: (32 + j, *pk.segments[name][1:])
+    out.update({name: (2 * d + j, *pk.segments[name][1:])
                 for j, name in enumerate(("bottleneck", "viewdirs", "viewdirs_dir"))})
     return out
 
@@ -236,8 +239,9 @@ def test_transposed_pack_holds_every_product_segment(small):
 
 
 @pytest.mark.parametrize("arch", [SMALL, ArchConfig(), ArchConfig(width=100, v_width=36, depth=3,
-                                                                    skip_at=5)],
-                         ids=["small", "lego", "unaligned_noskip"])
+                                                                    skip_at=5),
+                                  ArchConfig(width=512, v_width=256, depth=32, skip_at=4)],
+                         ids=["small", "lego", "unaligned_noskip", "wide_512x256x32"])
 def test_mma_pack_split_round_trip(arch):
     """The f32 tensor-core pack splits each weight into tf32 hi and lo:
     both have their low 13 mantissa bits zero, hi + lo is within 2^-22 |w|

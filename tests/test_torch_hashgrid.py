@@ -175,6 +175,70 @@ def test_unserved_tables_raise():
         fused_hash_encode(torch.zeros(3, 16, 2), pts, TINY)
 
 
+# More levels than one launch of the encode kernel serves
+# (hash_encode.MAX_LEVELS = 64): the field's encode takes them in blocks.
+MANY_KW = dict(levels=65, table_log2=4, res_min=4, res_max=64, width=16, geo_features=7,
+               color_width=16, aabb=(-1.0, 1.0))
+MANY, JAX_MANY = HashGridConfig(**MANY_KW), JaxHashGridConfig(**MANY_KW)
+
+
+def test_field_past_the_kernels_levels_matches_jax():
+    """At 65 levels (one launch of the kernel serves 64) the field's encode
+    (``models.hashgrid.hash_encode``, ``blocked_hash_encode``: on the CPU
+    its plain version) is JAX's ``hash_encode`` within PERF.md §2's f32 bar
+    (1e-5 x max abs(table)); its table gradient is finite, non-zero and
+    JAX's gradient of the same function (its own sort-based sum: the same
+    rows' products summed in another order, within 1e-5 of the largest
+    entry). ``fused_hash_encode`` itself still refuses the tables."""
+    tables = np_tree(MANY_KW, 3)["hash_tables"]
+    pts = encode_points(4)
+    cot = np.random.default_rng(5).normal(size=(pts.shape[0], 65 * 2)).astype(np.float32)
+    assert not supported(torch.from_numpy(tables))
+    t = torch.tensor(tables, requires_grad=True)
+    got = hg.hash_encode(t, torch.from_numpy(pts), MANY)
+    (got * torch.from_numpy(cot)).sum().backward()
+    want, vjp = jax.vjp(lambda tb: jax_hg.hash_encode(tb, jnp.asarray(pts), JAX_MANY),
+                        jnp.asarray(tables))
+    top = float(np.abs(tables).max())
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-5 * top, rtol=0)
+    g = t.grad.numpy()
+    want_g = np.asarray(vjp(jnp.asarray(cot))[0])
+    assert np.isfinite(g).all() and np.abs(g).max() > 0
+    np.testing.assert_allclose(g, want_g, atol=1e-5 * float(np.abs(want_g).max()), rtol=0)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        fused_hash_encode(torch.from_numpy(tables), torch.from_numpy(pts), MANY)
+
+
+def test_blocked_encode_on_cpu_is_the_plain_version():
+    """``blocked_hash_encode`` on CPU tensors is ``hash_encode_reference``
+    at any number of levels, launches nothing, and refuses what the kernel
+    cannot read (f16 tables) as ``fused_hash_encode`` does."""
+    from nerf_rs_tpu_torch.ops.kernels.hash_encode import blocked_hash_encode
+
+    pts = torch.from_numpy(encode_points(6))
+    before = fused_hash_encode.launches
+    for kw, cfg in ((TINY_KW, TINY), (MANY_KW, MANY)):
+        tables = torch.from_numpy(np_tree(kw, 5)["hash_tables"])
+        assert torch.equal(blocked_hash_encode(tables, pts, cfg),
+                           hash_encode_reference(tables, pts, cfg))
+    assert fused_hash_encode.launches == before
+    with pytest.raises(NotImplementedError, match="item 12"):
+        blocked_hash_encode(torch.zeros(65, 16, 2, dtype=torch.float16), pts, MANY)
+
+
+def test_cli_train_hashgrid_past_the_kernels_levels(capsys):
+    """``train --model hashgrid --hash-levels 65`` trains as the JAX CLI
+    does: finite losses (on the CPU, the plain encode)."""
+    rc = cli_main(["train", "--device", "cpu", "--model", "hashgrid", "--hash-levels", "65",
+                   "--hash-table-log2", "4", "--hash-res-max", "64", "--steps", "2",
+                   "--batch-rays", "16", "--coarse-samples", "4", "--fine-samples", "4",
+                   "--log-every", "1"])
+    assert rc == 0
+    losses = [float(v) for v in re.findall(r"^step \d+: loss ([0-9.]+)", capsys.readouterr().out,
+                                           flags=re.M)]
+    assert len(losses) == 2 and all(np.isfinite(losses)), losses
+
+
 def field_inputs(seed, rays=6, samples=5):
     rng = np.random.default_rng(seed)
     pts = rng.uniform(-1.2, 1.2, (rays, samples, 3)).astype(np.float32)

@@ -1,8 +1,8 @@
 """PyTorch port, K1's wide envelope: networks wider than 256 or deeper than
 16, up to width and v_width 512 and depth 32, which the forward kernel K1
 serves through its wide pair (``csrc/fused_mlp_wide_tc.cu``,
-``csrc/fused_mlp_wide_f32.cu``) and which train on the plain MLP (the
-backward K2 stays at 256 and 16); and ``--impl int8`` beyond the int8
+``csrc/fused_mlp_wide_f32.cu``) and the backward K2 through its own
+(tests/test_torch_wide_bwd.py); and ``--impl int8`` beyond the int8
 kernel's envelope, which renders the plain int8 MLP.
 
 On the CPU the wrappers run the plain versions: the port's plain K1 at the
@@ -192,12 +192,12 @@ def test_cli_render_widened_lego_matches_jax_lego_frame(arch, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("dims, forward, backward", [
-    ((256, 128, 8), True, True), ((384, 128, 8), True, False), ((512, 512, 8), True, False),
-    ((256, 128, 32), True, False), ((576, 128, 8), False, False), ((640, 128, 8), False, False),
+    ((256, 128, 8), True, True), ((384, 128, 8), True, True), ((512, 512, 8), True, True),
+    ((256, 128, 32), True, True), ((576, 128, 8), False, False), ((640, 128, 8), False, False),
     ((256, 640, 8), False, False), ((256, 128, 33), False, False)])
 def test_envelopes(dims, forward, backward):
-    """K1's envelope (width, v_width <= 512, depth <= 32) and K2's (256,
-    16); the JAX kernel takes every one of these trunk widths that is a
+    """K1's envelope (width, v_width <= 512, depth <= 32) and K2's, the
+    same; the JAX kernel takes every one of these trunk widths that is a
     multiple of 128."""
     assert fm.supports_dims(*dims) == forward
     assert fm.supports_backward_dims(*dims) == backward
@@ -220,8 +220,8 @@ def test_pack_params_rejects_depth_past_32():
 
 def test_wide_grads_on_cpu_run_the_plain_versions():
     """Gradients at width 384 on CPU tensors: the plain forward and
-    backward (K2's envelope binds only on the card), equal to autograd
-    through ``models.mlp.nerf_mlp``."""
+    backward (the wide K2 runs on the card), equal to autograd through
+    ``models.mlp.nerf_mlp``."""
     params = jax_params((384, 192, 3, 1), 4)
     net = NerfMLP(params, requires_grad=True)
     ref = {k: v.detach().clone().requires_grad_(True) for k, v in net.weights.items()}

@@ -1,26 +1,38 @@
 #!/usr/bin/env python3
-"""K1's narrow kernels against another version of their sources: the lego
-networks' K1 calls at the render's shapes, f32 and bf16, timed in turns and
-held bit for bit.
+"""K1's and K2's kernels against another version of their sources: the
+narrow K1 on the lego networks' render calls, the narrow K2 on the lego
+networks' training calls, the wide K1 on a 512-wide network's render
+calls and the wide K2 on a 512-wide network's training call, f32 and
+bf16, timed in turns and held bit for bit.
 
     python3 tools/torch_k1_parent_ab.py --parent DIR
 
-``DIR`` holds another version of K1's two narrow sources
-(``fused_mlp_f32tc.cu``, ``fused_mlp_tc.cu``) beside the headers they
-include (``fused_mlp_common.cuh``, ``fused_mlp_tc.cuh``,
-``fused_mlp_f32tc.cuh``): for example the parent commit's, unpacked with
+``DIR`` holds another version of ``csrc/`` (every ``*.cu`` beside the
+headers they include): for example the parent commit's, unpacked with
 ``git archive <rev> nerf_rs_tpu_torch/ops/kernels/csrc`` into a gitignored
-directory such as ``scratch_checkout/``. The two sources are built from
-``DIR`` into a library of their own, one ``nvcc`` each, as the port builds
-its own (``ops/kernels/_build.py``, which builds the checkout's library as
-usual); the port's wrapper then launches the one or the other.
+directory such as ``scratch_checkout/``. Its sources are built into a
+library of their own, one ``nvcc`` each, as the port builds its own
+(``ops/kernels/_build.py``, which builds the checkout's library as usual);
+the port's wrappers then launch the one or the other. A call whose entry
+point ``DIR``'s sources lack (the wide K2 before it existed) is skipped,
+and said so.
 
-Calls: the lego fine network full at 8192 rays x 192 samples and the lego
-coarse network sigma-only at 8192 x 64 (``chip_smoke.main_path_inputs``,
-the 256x256 frame's center rays), f32 and bf16. Each is timed with CUDA
-events (median of 5 runs of 10 launches) in turns, parent, change, change,
-parent, ROUNDS times, and the two libraries' outputs are compared bit for
-bit. Each line names the card and its power limit. Exit 1 if any output
+Calls:
+- K1 (narrow): the lego fine network full at 8192 rays x 192 samples and
+  the lego coarse network sigma-only at 8192 x 64
+  (``chip_smoke.main_path_inputs``, the 256x256 frame's center rays);
+- K2 (narrow): the lego networks' backward at the training path's inputs
+  (``chip_smoke.main_path_backward_inputs``: fine 4096 x 192, coarse 4096
+  x 64, and coarse sigma-only), parameter and input gradients;
+- wide K1: a random 512/256/8 network (phase 29's) full at 8192 x 192 and
+  sigma-only at 8192 x 64;
+- wide K2: the lego fine network widened to 512/256/8
+  (``chip_smoke.widen_nerf``) at the fine training call's inputs.
+Each in f32 and bf16, timed with CUDA events (median of 5 runs of 10
+launches; 3 for K2 and wide K1, 1 for wide K2) in turns, parent, change,
+change, parent, ``--rounds`` times (3), and the two libraries' outputs
+compared bit for bit; ``--only TEXT`` keeps the calls whose label holds
+TEXT. Each line names the card and its power limit. Exit 1 if any output
 differs. Needs one CUDA card and nvcc.
 """
 
@@ -36,38 +48,55 @@ import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-SOURCES = ("fused_mlp_f32tc.cu", "fused_mlp_tc.cu")
 ROUNDS = 3
 
 
-def build_other(src_dir: Path, out_dir: Path) -> ctypes.CDLL:
-    """K1's two narrow sources from ``src_dir`` (headers found beside them)
-    as one shared library, with their forward entry points declared."""
+class _Sink:
+    """Takes the signature ``_build.declare`` gives an entry point that a
+    library lacks."""
+
+
+class _Present:
+    """A loaded library seen through ``_build.declare``: the entry points
+    it lacks are collected in ``missing`` instead of raising."""
+
+    def __init__(self, lib):
+        self._lib, self.missing = lib, []
+
+    def __getattr__(self, name):
+        try:
+            return getattr(self._lib, name)
+        except AttributeError:
+            self.missing.append(name)
+            return _Sink()
+
+
+def build_other(src_dir: Path, out_dir: Path):
+    """Every ``*.cu`` of ``src_dir`` (headers found beside them) as one
+    shared library, its entry points declared as ``_build.declare``
+    declares the checkout's. -> (library, names of the entry points it
+    lacks)."""
     from nerf_rs_tpu_torch.ops.kernels import _build
 
     nvcc = _build._nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for name in SOURCES:
-        obj = out_dir / f"{Path(name).stem}.o"
+    for src in sorted(src_dir.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.o"
         jobs.append((obj, subprocess.Popen(
-            [nvcc, *_build.COMPILE_FLAGS, "-c", "-o", str(obj), str(src_dir / name)],
+            [nvcc, *_build.COMPILE_FLAGS, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     for obj, proc in jobs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {obj.name}:\n{out[-3000:]}")
-    so = out_dir / "k1_other.so"
+    so = out_dir / "k1_k2_other.so"
     subprocess.run([nvcc, *_build.ARCH_FLAGS, "-shared", "-o", str(so),
                     *(str(obj) for obj, _ in jobs)], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
-    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.nerf_fused_mlp_f32tc_forward.argtypes = [p, p, ll, ll, p, p, p, p, p, i, i, i, i, i, p, p,
-                                                 i, p]
-    lib.nerf_fused_mlp_tc_forward.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, p, p, i, p]
-    for fn in (lib.nerf_fused_mlp_f32tc_forward, lib.nerf_fused_mlp_tc_forward):
-        fn.restype = ctypes.c_int
-    return lib
+    seen = _Present(lib)
+    _build.declare(seen)
+    return lib, seen.missing
 
 
 @contextlib.contextmanager
@@ -108,7 +137,11 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", type=Path, required=True,
-                        help="directory with another version of K1's narrow sources and headers")
+                        help="directory with another version of the sources and headers")
+    parser.add_argument("--only", action="append", default=[],
+                        help="run only the calls whose label holds this text (repeatable)")
+    parser.add_argument("--rounds", type=int, default=ROUNDS,
+                        help=f"rounds of parent, change, change, parent (default {ROUNDS})")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("error: needs a CUDA card", file=sys.stderr)
@@ -116,51 +149,82 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     import chip_smoke as smoke
 
+    from nerf_rs_tpu_torch.config import ArchConfig
     from nerf_rs_tpu_torch.io.golden import camera_from_golden, load_golden
     from nerf_rs_tpu_torch.io.weights import find_lego_assets, load_nerf_params
-    from nerf_rs_tpu_torch.models.mlp import NerfMLP
+    from nerf_rs_tpu_torch.models.mlp import NerfMLP, init_nerf_params
     from nerf_rs_tpu_torch.ops.kernels import _build
-    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import fused_nerf_mlp
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import fused_nerf_mlp, fused_nerf_mlp_backward
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
     _build.load_library()
     tmp = tempfile.TemporaryDirectory(prefix="k1_parent_ab_")
-    other = build_other(args.parent, Path(tmp.name))
+    other, missing = build_other(args.parent, Path(tmp.name))
     dev = torch.device("cuda", 0)
     assets = find_lego_assets()
     nets = {n: NerfMLP(load_nerf_params(assets / n), device=dev) for n in ("coarse", "fine")}
     cam = camera_from_golden(load_golden(assets / "tf_reference_samples.json"))
     pts_c, pts_f, vd = smoke.main_path_inputs(cam, dev)
-    calls = [("fine full", nets["fine"], pts_f, False),
-             ("coarse sigma-only", nets["coarse"], pts_c, True)]
+    wide = NerfMLP(init_nerf_params(torch.Generator(device=dev).manual_seed(29),
+                                    ArchConfig(*smoke.WIDE_RANDOM[1])), device=dev)
+    bwd = smoke.main_path_backward_inputs(dev)
+
+    def k1(net, pts, so):
+        return lambda dtype: fused_nerf_mlp(net, pts, vd, dtype=dtype, sigma_only=so)
+
+    def k2(name, so=False, net=None):
+        lego, *inputs = bwd[name]
+        return lambda dtype: fused_nerf_mlp_backward(net or lego, *inputs, dtype=dtype,
+                                                     sigma_only=so)
+
+    wide_fine = NerfMLP(smoke.widen_nerf(load_nerf_params(assets / "fine"), 512, 256, 8),
+                        device=dev)
+    wide_k2 = ("nerf_fused_mlp_wide_f32_record", "nerf_fused_mlp_wide_backward",
+               "nerf_fused_mlp_wide_backward_bf16")
+
+    calls = [("K1 fine full", k1(nets["fine"], pts_f, False), tuple(pts_f.shape[:-1]), 10),
+             ("K1 coarse sigma-only", k1(nets["coarse"], pts_c, True), tuple(pts_c.shape[:-1]),
+              10),
+             ("K2 fine", k2("fine"), tuple(bwd["fine"][1].shape[:-1]), 3),
+             ("K2 coarse", k2("coarse"), tuple(bwd["coarse"][1].shape[:-1]), 3),
+             ("K2 coarse sigma-only", k2("coarse", True), tuple(bwd["coarse"][1].shape[:-1]), 3),
+             ("wide K1 512/256/8 full", k1(wide, pts_f, False), tuple(pts_f.shape[:-1]), 3),
+             ("wide K1 512/256/8 sigma-only", k1(wide, pts_c, True), tuple(pts_c.shape[:-1]),
+              3),
+             ("wide K2 lego fine widened to 512/256/8", k2("fine", net=wide_fine),
+              tuple(bwd["fine"][1].shape[:-1]), 1)]
+    calls = [c for c in calls if not args.only or any(o in c[0] for o in args.only)]
+    skipped = [c[0] for c in calls if c[0].startswith("wide K2") and set(wide_k2) & set(missing)]
+    for label in skipped:
+        print(f"{label}: skipped, {args.parent}'s sources lack {sorted(set(wide_k2) & set(missing))}",
+              flush=True)
+    calls = [c for c in calls if c[0] not in skipped]
     sides = {"parent": other, "change": None}
     same = True
     times = {}
-    for label, net, pts, so in calls:
+    for label, call, shape, inner in calls:
         for dtype in ("float32", "bfloat16"):
             outs = {}
             for side, lib in sides.items():
                 with launching(lib), torch.no_grad():
-                    outs[side] = fused_nerf_mlp(net, pts, vd, dtype=dtype, sigma_only=so)
+                    outs[side] = call(dtype)
             torch.cuda.synchronize()
             bitwise = all(torch.equal(a, b) for a, b in zip(outs["parent"], outs["change"]))
             same &= bitwise
-            print(f"{label} {tuple(pts.shape[:-1])} {dtype}: parent and change bit for bit: "
-                  f"{bitwise}", flush=True)
-            for _ in range(ROUNDS):
+            print(f"{label} {shape} {dtype}: parent and change bit for bit: {bitwise}", flush=True)
+            for _ in range(args.rounds):
                 for side in ("parent", "change", "change", "parent"):
                     with launching(sides[side]), torch.no_grad():
-                        ms = event_ms(lambda: fused_nerf_mlp(net, pts, vd, dtype=dtype,
-                                                             sigma_only=so))
+                        ms = event_ms(lambda: call(dtype), inner=inner)
                     times.setdefault((label, dtype, side), []).append(ms)
-    for label, _, pts, _ in calls:
+    for label, _, shape, _ in calls:
         for dtype in ("float32", "bfloat16"):
             p, c = (times[(label, dtype, side)] for side in ("parent", "change"))
-            print(f"{card}: K1 {dtype} {label} {tuple(pts.shape[:-1])}, in turns (parent, change, "
-                  f"change, parent) x {ROUNDS}: parent median {statistics.median(p):.3f} ms "
-                  f"({min(p):.3f}-{max(p):.3f}), change median {statistics.median(c):.3f} ms "
-                  f"({min(c):.3f}-{max(c):.3f}); change / parent "
+            print(f"{card}: {label} {dtype} {shape}, in turns (parent, change, change, parent) x "
+                  f"{args.rounds}: parent median {statistics.median(p):.3f} ms ({min(p):.3f}-"
+                  f"{max(p):.3f}), change median {statistics.median(c):.3f} ms ({min(c):.3f}-"
+                  f"{max(c):.3f}); change / parent "
                   f"{statistics.median(c) / statistics.median(p):.4f}", flush=True)
     print("every output bit for bit the parent's" if same else "OUTPUTS DIFFER", flush=True)
     tmp.cleanup()
