@@ -47,10 +47,16 @@ evaluated and served. Phases, each reported on its own line:
    instructions in both variants (sigma_only or not) of K1 f32 and bf16,
    of K1's wide bf16 kernel,
    of K1 f32's record mode (K2 f32's recompute) and of K2's bf16 kernel,
+   narrow and wide, and of the wide K2's dW kernel in both modes,
    HMMA (``mma.sync``) instructions, every one tf32, in both variants
-   of K2's f32 kernel, and IGMMA (s8 ``wgmma``) instructions in both
-   variants of the int8 kernel; ptxas's registers and spills of the hash
-   encode's four instances and K3's seven are printed, and a spill fails;
+   of K2's f32 kernel, narrow and wide, and IGMMA (s8 ``wgmma``)
+   instructions in both variants of the int8 kernel; ptxas's registers
+   and spills of the hash encode's four instances, K3's seven and the
+   wide K2's ten (its two per-tile kernels, the f32 record's split into
+   planes, its dW kernel and the dW sum in both modes, the small sums)
+   are printed, and a spill in any of them, or ptxas serializing the
+   wgmmas of a wide K2 kernel, fails; the build's time is printed beside
+   the previous design's;
 3. K1 against its plain PyTorch version at the render's shapes (8192 rays
    x 64 samples sigma-only, 8192 x 192 full), f32 and bf16, two calls
    bitwise equal; the kernel's and the plain version's f32 distance from
@@ -387,7 +393,8 @@ def phase_build():
     _build.load_library()
     secs = time.perf_counter() - t0
     names = ", ".join(src.name for src in _build.sources())
-    say("2 build", f"{names} built and loaded in {secs:.1f} s ({_build.library_path().name})")
+    say("2 build", f"{names} built and loaded in {secs:.1f} s ({_build.library_path().name}; "
+        f"the build before the dW kernel: {PARTIALS_BUILD_S} s)")
     log = _build.library_path().with_suffix(".log")
     if log.exists():
         injected = 0
@@ -395,10 +402,11 @@ def phase_build():
             entry = re.search(r"entry function '.*?(fused_mlp_bwd_tc_kernel|fused_mlp_tc_kernel|"
                               r"fused_mlp_bwd_bf16_kernel|fused_mlp_wide_tc_kernel|"
                               r"fused_mlp_wide_f32_kernel|fused_mlp_wide_bwd_tc_kernel|"
-                              r"fused_mlp_wide_bwd_bf16_kernel|"
+                              r"fused_mlp_wide_bwd_bf16_kernel|fused_mlp_wide_dw_kernel|"
+                              r"dw_sum_kernel|small_sum_kernel|record_planes_kernel|"
                               r"fused_mlp_f32tc_kernel|reduce_partials|resample_kernel|"
                               r"hash_encode_kernel|int8_mlp_tc_kernel)"
-                              r"(I\w*?Lb[01]E)?", line)
+                              r"(I\w*?L[bi][0-9]E)?", line)
             if "(C7519)" in line:              # an arrive ptxas adds before a wgmma
                 injected += 1
             elif entry:
@@ -414,6 +422,20 @@ def phase_build():
         if len(usage) != 4 + 7 or spilled:
             raise PhaseFailure(f"the hash encode (4 instances) and K3 (7) as built: "
                                f"{sorted(usage)}; spilled: {spilled}")
+        # The wide K2: no spill and no serialized wgmmas (ptxas's C75xx
+        # notes name the function) in any of its kernels.
+        wide = ptxas_usage(log.read_text(), WIDE_K2_KERNELS)
+        serialized = sorted({m.group(1) + m.group(2) for m in re.finditer(
+            r"wgmma\.mma_async instructions are serialized.*?" + WIDE_K2_KERNELS,
+            log.read_text())})
+        say("2 build", "ptxas, the wide K2: " + "; ".join(
+            f"{name} {regs} registers, spill stores {st} B, loads {ld} B"
+            for name, (regs, st, ld) in sorted(wide.items()))
+            + f"; wgmmas serialized in {serialized or 'none'}")
+        spilled = [name for name, (_, st, ld) in wide.items() if st or ld]
+        if len(wide) != WIDE_K2_INSTANCES or spilled or serialized:
+            raise PhaseFailure(f"the wide K2 as built: {sorted(wide)}; spilled: {spilled}; "
+                               f"wgmmas serialized: {serialized}")
     sass = tensor_core_instructions(_build)
     say("2 build", "tensor-core instructions in the SASS: " + ", ".join(
         f"{re.search(TC_KERNEL, fn).group(0)} {count} {kind}"
@@ -426,7 +448,8 @@ def phase_build():
              for kernel in ("fused_mlp_f32tc_kernelILb[01]ELb0E",   # K1 f32
                             "fused_mlp_f32tc_kernelILb[01]ELb1E",   # its record mode
                             "fused_mlp_tc_kernel", "fused_mlp_bwd_bf16_kernel",
-                            "fused_mlp_wide_tc_kernel", "fused_mlp_wide_bwd_bf16_kernel")}
+                            "fused_mlp_wide_tc_kernel", "fused_mlp_wide_bwd_bf16_kernel",
+                            "fused_mlp_wide_dw_kernel")}   # its bf16 and f32 modes
     for kernel, counts in hgmma.items():
         if len(counts) != 2 or not all(counts):
             raise PhaseFailure(f"{kernel} (both variants) has no HGMMA instructions in the built "
@@ -449,6 +472,16 @@ def phase_build():
 # The hash encode's instances (f32, bf16 x paired or generic) and K3's (K
 # values a lane: 1, 2, ..., 64), as ptxas names them.
 GATHER_KERNELS = r"(hash_encode_kernel|resample_kernel)(I\w+?E)E?v"
+# The wide K2's kernels: the per-tile kernels (sigma-only or not), the f32
+# record's split into planes, the dW kernel and its sum (bf16 and f32
+# modes, ILi1E and ILi3E) and the small sums: ten instances.
+WIDE_K2_KERNELS = (r"(fused_mlp_wide_bwd_bf16_kernel|fused_mlp_wide_bwd_tc_kernel|"
+                   r"fused_mlp_wide_dw_kernel|dw_sum_kernel|small_sum_kernel|"
+                   r"record_planes_kernel)(I(?:Lb[01]E|Li[13]E)|(?=E))")
+WIDE_K2_INSTANCES = 10
+# The wide K2 with per-tile partials (before its dW kernel): the build and
+# the whole run of its final chip_smoke run (PERF.md).
+PARTIALS_BUILD_S, PARTIALS_TOTAL_S = 118.7, 882.5
 
 
 def ptxas_usage(log: str, pattern: str) -> dict:
@@ -474,7 +507,8 @@ def ptxas_usage(log: str, pattern: str) -> dict:
     return {fn: tuple(v) for fn, v in usage.items()}
 
 
-MLP_KERNEL = r"fused_mlp(?:_wide)?(?:_bwd)?_(?:tc|bf16|f32tc)_kernel(?:I(?:Lb[01]E)+)?"
+MLP_KERNEL = (r"(?:fused_mlp(?:_wide)?(?:_bwd)?_(?:tc|bf16|f32tc)_kernel(?:I(?:Lb[01]E)+)?"
+              r"|fused_mlp_wide_dw_kernelILi[13]E)")
 INT8_KERNEL = r"int8_mlp_tc_kernelILb[01]E"
 TC_KERNEL = rf"(?:{MLP_KERNEL}|{INT8_KERNEL})"
 
@@ -745,16 +779,16 @@ def main_path_backward_inputs(dev):
         return real(pk, points, viewdirs, g_rgb, g_sigma, **kw)
 
     # The wrapper counts through its module name.
-    record.launches, record.bf16_launches, record.wide_launches = (
-        real.launches, real.bf16_launches, real.wide_launches)
+    record.launches, record.bf16_launches, record.wide_launches, record.dw_launches = (
+        real.launches, real.bf16_launches, real.wide_launches, real.dw_launches)
     fm.fused_nerf_mlp_backward = record
     try:
         loss, _ = nerf_loss(nets, batch, random.fold_in(key, torch.tensor(0)), cfg)
         loss.backward()
     finally:
         fm.fused_nerf_mlp_backward = real
-        real.launches, real.bf16_launches, real.wide_launches = (
-            record.launches, record.bf16_launches, record.wide_launches)
+        real.launches, real.bf16_launches, real.wide_launches, real.dw_launches = (
+            record.launches, record.bf16_launches, record.wide_launches, record.dw_launches)
     by_samples = {args[0].shape[-2]: args for args in seen}
     return {"coarse": (nets["coarse"], *by_samples[N_COARSE]),
             "fine": (nets["fine"], *by_samples[N_COARSE + N_FINE])}
@@ -1595,9 +1629,10 @@ def backward_bounds(net, pts, viewdirs, g_rgb, g_sigma) -> dict:
     three forwards of products. "float32" is the f32 mode's route: the
     recompute as K1 f32 (six bf16 passes a product) and the dW and W dz
     products as 3xTF32 (three tf32 products each); "wide_float32" the wide
-    f32 mode's: the recompute on the CUDA cores (the wide f32 forward), dW
-    and W dz as 3xTF32; "cuda_cores" all three forwards on the CUDA cores;
-    "bfloat16" all three in bf16."""
+    f32 mode's: the recompute on the CUDA cores (the wide f32 forward), W
+    dz as 3xTF32 and dW as split-f32 (six bf16 passes, the dW kernel);
+    "cuda_cores" all three forwards on the CUDA cores; "bfloat16" all
+    three in bf16."""
     n = pts.numel() // 3
     fwd = mlp_flops(net, False) * n
     io = 4 * (pts.numel() + viewdirs.numel() + g_rgb.numel() + g_sigma.numel())
@@ -1609,7 +1644,8 @@ def backward_bounds(net, pts, viewdirs, g_rgb, g_sigma) -> dict:
 
     return {"float32": at(io + 8 * n_w, (SPLIT_F32_PASSES * fwd / BF16_FLOP_S
                                          + 3 * 2 * fwd / TF32_FLOP_S) * 1e3),
-            "wide_float32": at(io + 8 * n_w, (fwd / F32_FLOP_S + 3 * 2 * fwd / TF32_FLOP_S) * 1e3),
+            "wide_float32": at(io + 8 * n_w, (fwd / F32_FLOP_S + 3 * fwd / TF32_FLOP_S
+                                              + SPLIT_F32_PASSES * fwd / BF16_FLOP_S) * 1e3),
             "cuda_cores": at(io + 8 * n_w, 3 * fwd / F32_FLOP_S * 1e3),
             "bfloat16": at(io + 6 * n_w, 3 * fwd / BF16_FLOP_S * 1e3)}
 
@@ -1663,22 +1699,24 @@ def counters():
 
 def save_counts():
     """Every launch count: each wrapper's, then K1's tensor-core count,
-    K2's bf16 count, K1's wide count and K2's wide count."""
+    K2's bf16 count, K1's wide count, K2's wide count and the wide K2's
+    dW kernel's."""
     fns = counters()
     return [fn.launches for fn in fns] + [fns[0].tc_launches, fns[1].bf16_launches,
-                                          fns[0].wide_launches, fns[1].wide_launches]
+                                          fns[0].wide_launches, fns[1].wide_launches,
+                                          fns[1].dw_launches]
 
 
 def restore_counts(saved) -> None:
     fns = counters()
     for fn, n in zip(fns, saved):
         fn.launches = n
-    (fns[0].tc_launches, fns[1].bf16_launches, fns[0].wide_launches,
-     fns[1].wide_launches) = saved[-4:]
+    (fns[0].tc_launches, fns[1].bf16_launches, fns[0].wide_launches, fns[1].wide_launches,
+     fns[1].dw_launches) = saved[-5:]
 
 
 def zero_counts() -> None:
-    restore_counts([0] * (len(counters()) + 4))
+    restore_counts([0] * (len(counters()) + 5))
 
 
 def read_counts() -> dict:
@@ -1686,7 +1724,8 @@ def read_counts() -> dict:
     return {**{fn.__name__: fn.launches for fn in fns}, "fused_nerf_mlp_tc": fns[0].tc_launches,
             "fused_nerf_mlp_backward_bf16": fns[1].bf16_launches,
             "fused_nerf_mlp_wide": fns[0].wide_launches,
-            "fused_nerf_mlp_backward_wide": fns[1].wide_launches}
+            "fused_nerf_mlp_backward_wide": fns[1].wide_launches,
+            "fused_nerf_mlp_backward_dw": fns[1].dw_launches}
 
 
 def encode_vs_plain(tables, pts, cfg, top: float):
@@ -3931,6 +3970,8 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
     launched["bfloat16"] += c16["fused_nerf_mlp_wide"]
     launched["k2_float32"] = c_train["fused_nerf_mlp_backward_wide"]
     launched["k2_bfloat16"] = c16["fused_nerf_mlp_backward_wide"]
+    launched["dw_float32"] = c_train["fused_nerf_mlp_backward_dw"]
+    launched["dw_bfloat16"] = c16["fused_nerf_mlp_backward_dw"]
     losses = [float(v) for v in re.findall(r"^step \d+: loss ([0-9.e+-]+)", out, flags=re.M)]
     losses16 = [float(v) for v in re.findall(r"^step \d+: loss ([0-9.e+-]+)", out16, flags=re.M)]
     last = ckpt_io.latest_checkpoint(ck)
@@ -3941,7 +3982,9 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
           and c_train["fused_nerf_mlp_wide"] == n_k2
           and c_train["fused_nerf_mlp_backward_bf16"] == 0
           and c16["fused_nerf_mlp_backward"] == c16["fused_nerf_mlp_backward_wide"]
-          == c16["fused_nerf_mlp_backward_bf16"] == n_k2_16)
+          == c16["fused_nerf_mlp_backward_bf16"] == n_k2_16
+          and c_train["fused_nerf_mlp_backward_dw"] >= n_k2
+          and c16["fused_nerf_mlp_backward_dw"] >= n_k2_16)
     say("29 wide", f"train --width 512 --v-width 256 --steps {WIDE_STEPS}: note printed: "
         f"{K2_NOTE in out or FRONT_NOTE in out}; losses {losses}; K2 launches "
         f"{c_train['fused_nerf_mlp_backward']}, wide {c_train['fused_nerf_mlp_backward_wide']}, "
@@ -3949,7 +3992,9 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
         f"networks a step); checkpoint {last}; --dtype bfloat16 --steps {WIDE_BF16_STEPS}: "
         f"note printed: {K2_NOTE in out16 or FRONT_NOTE in out16}, losses {losses16}, K2 "
         f"launches {c16['fused_nerf_mlp_backward']}, wide {c16['fused_nerf_mlp_backward_wide']}, "
-        f"bf16 {c16['fused_nerf_mlp_backward_bf16']} (expected {n_k2_16} each) -> "
+        f"bf16 {c16['fused_nerf_mlp_backward_bf16']} (expected {n_k2_16} each); the dW kernel "
+        f"{c_train['fused_nerf_mlp_backward_dw']} and {c16['fused_nerf_mlp_backward_dw']} "
+        f"times (a round a launch, at least one a K2 launch) -> "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise PhaseFailure("the 512-wide student did not train through wide K1 and wide K2")
@@ -4052,8 +4097,8 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
               "cuda_cores": k2_bnd["cuda_cores"]}
     for dtype in ("float32", "bfloat16"):
         k_ms, p_ms, lib_ms = k2_times[dtype]
-        route = ("the recompute on the CUDA cores, dW and W dz 3xTF32" if dtype == "float32"
-                 else "bf16")
+        route = ("the recompute on the CUDA cores, W dz 3xTF32, dW split-f32"
+                 if dtype == "float32" else "bf16")
         say("29 times", f"{card}: wide K2 {dtype} on the lego widened to 512/256/8, "
             f"{tuple(k2_args[0].shape[:-1])} fine, parameter gradients: kernel {k_ms:.3f} ms, "
             f"plain {p_ms:.3f} ms, library (autograd through models.mlp.nerf_mlp, {dtype}) "
@@ -4070,6 +4115,7 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
 
     f32_ms, f32_plain, f32_bnd, f32_lib = times[(WIDE_RANDOM[1], False, "float32")]
     b_ms, b_plain, b_bnd, b_lib = times[(WIDE_RANDOM[1], False, "bfloat16")]
+    csrc = "nerf_rs_tpu_torch/ops/kernels/csrc"
     replaces = "nerf_rs_tpu/ops/kernels/fused_mlp.py:779"
     return [
         {"name": "fused_nerf_mlp_wide", "route": "cuda",
@@ -4083,15 +4129,21 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
          "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bnd[0], "bound_by": b_bnd[1],
          "library_ms": b_lib, "shapes": wide_shapes(times, "bfloat16")},
         *({"name": "fused_nerf_mlp_backward_wide" + ("_bf16" if dtype == "bfloat16" else ""),
-           "route": "cuda", "source": f"nerf_rs_tpu_torch/ops/kernels/csrc/{source}",
+           "route": "cuda", "source": f"{csrc}/{source}",
+           "sources": [f"{csrc}/{name}" for name in (*extra_sources, source,
+                                                       "fused_mlp_wide_dw.cu",
+                                                       "fused_mlp_wide_dw.cuh")],
            "replaces": "nerf_rs_tpu/ops/kernels/fused_mlp.py:663",
-           "launches": launched[f"k2_{dtype}"], "max_abs_err": bwd_errs[dtype],
+           "launches": launched[f"k2_{dtype}"], "dw_launches": launched[f"dw_{dtype}"],
+           "max_abs_err": bwd_errs[dtype],
            "ms": k2_times[dtype][0], "plain_ms": k2_times[dtype][1],
            "bound_ms": k2_bnd[dtype][0], "bound_by": k2_bnd[dtype][1],
            "library_ms": k2_times[dtype][2], "bound_ms_cuda_cores": k2_bnd["cuda_cores"][0],
            "peak_scratch_gib": k2_scratch[dtype]}
-          for dtype, source in (("float32", "fused_mlp_wide_bwd_tc.cu"),
-                                ("bfloat16", "fused_mlp_wide_bwd_bf16.cu"))),
+          for dtype, source, extra_sources in (
+              ("float32", "fused_mlp_wide_bwd_tc.cu", ("fused_mlp_wide_f32.cu",
+                                                       "fused_mlp_bwd_tc.cuh")),
+              ("bfloat16", "fused_mlp_wide_bwd_bf16.cu", ("fused_mlp_wide_tc.cuh",)))),
     ]
 
 
@@ -4104,6 +4156,7 @@ def wide_shapes(times, dtype: str):
 def main() -> int:
     import torch
 
+    t_run = time.perf_counter()
     name, card = phase_device()
     sys.path.insert(0, str(REPO))
     from nerf_rs_tpu_torch.io.golden import camera_from_golden, load_golden
@@ -4352,6 +4405,8 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library_ms, **extra}
 
+    say("end", f"{card}: every phase ok in {time.perf_counter() - t_run:.1f} s (the run before the dW "
+        f"kernel: {PARTIALS_TOTAL_S} s)")
     print(json.dumps({"kernels": [
         entry("fused_nerf_mlp", "fused_mlp_f32tc.cu", "nerf_rs_tpu/ops/kernels/fused_mlp.py:779",
               launches["fused_nerf_mlp"] + extra["fused_nerf_mlp"], k1_errs["float32"], k_ms,

@@ -112,17 +112,32 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     wide_rec = lib.nerf_fused_mlp_wide_f32_record
     wide_rec.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, ll, ll, p, i, p]
     wide_rec.restype = ctypes.c_int
-    for bwd in (lib.nerf_fused_mlp_backward, lib.nerf_fused_mlp_wide_backward):
-        bwd.argtypes = [p, p, ll, ll, p, p, p, p, ll, p, p, i, p, i, i, i, i, i, p, ll, i, p, ll,
-                        ll, i, p, p, i, p]
-        bwd.restype = ctypes.c_int
+    bwd = lib.nerf_fused_mlp_backward
+    bwd.argtypes = [p, p, ll, ll, p, p, p, p, ll, p, p, i, p, i, i, i, i, i, p, ll, i, p, ll, ll, i,
+                    p, p, i, p]
+    bwd.restype = ctypes.c_int
     bsum = lib.nerf_fused_mlp_backward_sum
     bsum.argtypes = [p, i, ll, ll, p, p, i, p]
     bsum.restype = ctypes.c_int
-    for bwd16 in (lib.nerf_fused_mlp_backward_bf16, lib.nerf_fused_mlp_wide_backward_bf16):
-        bwd16.argtypes = [p, p, ll, ll, p, p, p, p, p, p, i, i, i, i, i, p, p, ll, ll, i, p, p, p,
-                          p, i, p]
-        bwd16.restype = ctypes.c_int
+    bwd16 = lib.nerf_fused_mlp_backward_bf16
+    bwd16.argtypes = [p, p, ll, ll, p, p, p, p, p, p, i, i, i, i, i, p, p, ll, ll, i, p, p, p, p,
+                      i, p]
+    bwd16.restype = ctypes.c_int
+    # The wide K2: its per-tile kernels, the dW kernel, the per-CTA sums.
+    wide16 = lib.nerf_wide_bwd_bf16_tiles
+    wide16.argtypes = [p, p, ll, ll, p, p, p, p, p, i, i, i, i, i, p, ll, ll, ll, p, ll, ll, p, i,
+                       p, p, i, p]
+    wide16.restype = ctypes.c_int
+    wide32 = lib.nerf_wide_bwd_f32_tiles
+    wide32.argtypes = [p, p, ll, ll, p, p, p, p, ll, p, p, i, p, i, i, i, i, i, p, p, ll, ll, ll,
+                       p, ll, ll, i, p, p, i, p]
+    wide32.restype = ctypes.c_int
+    dw = lib.nerf_wide_dw
+    dw.argtypes = [p, ll, p, i, i, ll, i, i, i, i, p, p, i, i, p]
+    dw.restype = ctypes.c_int
+    small = lib.nerf_wide_small_sum
+    small.argtypes = [p, i, ll, ll, i, ll, ll, p, p, i, p]
+    small.restype = ctypes.c_int
     f = ctypes.c_float
     res = lib.nerf_fused_resample
     res.argtypes = [p, p, p, p, ll, f, ll, i, i, f, f, f, p, i, p]

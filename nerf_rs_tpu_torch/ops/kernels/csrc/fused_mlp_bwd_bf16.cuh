@@ -1,13 +1,11 @@
-// The device code K2's two bf16 kernels share: the narrow kernel
-// (fused_mlp_bwd_bf16.cu: 128-sample tiles, each consumer warpgroup on 64
-// of them, widths up to 256) and the wide one (fused_mlp_wide_bwd_bf16.cu:
-// 64-sample tiles, the two warpgroups on the two halves of each product's
-// N, widths up to 512). BwdBf16<kRows> holds, for a tile of kRows samples
-// in K-major core-matrix buffers, the dW products over the tile's samples
-// and their reductions into the CTA's partial, the bias sums, and the
-// launch. The recompute and the input-gradient products differ between the
-// two (each runs its own forward's code and splits the work its own way),
-// so they stay in the kernels' sources.
+// The device code of K2's narrow bf16 kernel (fused_mlp_bwd_bf16.cu:
+// 128-sample tiles, each consumer warpgroup on 64 of them, widths up to
+// 256), of which the wide per-tile kernel (fused_mlp_wide_bwd_bf16.cu:
+// 64-sample tiles, its dW in fused_mlp_wide_dw.cu) uses the fragment
+// coordinates and the bias sums. BwdBf16<kRows> holds, for a tile of kRows
+// samples in K-major core-matrix buffers, the dW products over the tile's
+// samples and their reductions into the CTA's partial, the bias sums, and
+// the launch.
 
 #pragma once
 

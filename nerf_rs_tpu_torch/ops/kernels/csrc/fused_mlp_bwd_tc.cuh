@@ -1,13 +1,12 @@
 // The device code of K2's f32 mode (3xTF32 mma.sync, fused_mlp_bwd_tc.cu's
-// design notes), shared by the narrow kernel (fused_mlp_bwd_tc.cu: 128
-// samples a tile, widths up to 256, depth up to 16) and the wide one
-// (fused_mlp_wide_bwd_tc.cu: 64 samples a tile, widths up to 512, depth up
-// to 32). BwdTc<kRows, kMaxWidth, kMaxDepth> holds the helpers of one
-// configuration; bwd_tc_tiles is the kernel body, which each source wraps
-// in a __global__ of its own name. The products, their order and the
-// owner-thread partials are the same in both: only the tile's rows and the
-// widest layer differ, so the register tile (kMi m16 x kNt n8 tiles a
-// warp) keeps 128 accumulators a thread in both (8 x 4 and 4 x 8).
+// design notes). BwdTc<kRows, kMaxWidth, kMaxDepth> holds the helpers of
+// one configuration: the narrow kernel (fused_mlp_bwd_tc.cu: 128 samples a
+// tile, widths up to 256, depth up to 16) runs bwd_tc_tiles, the kernel
+// body, at 128 x 256 (kMi 8 m16 x kNt 4 n8 tiles a warp, 128 accumulators
+// a thread); the wide per-tile kernel (fused_mlp_wide_bwd_tc.cu: 64
+// samples, widths up to 512, depth up to 32) its fragment loads, products
+// and sums at 64 x 512, in a body of its own (its dW in
+// fused_mlp_wide_dw.cu).
 
 #pragma once
 

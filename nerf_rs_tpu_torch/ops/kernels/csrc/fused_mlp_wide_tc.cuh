@@ -64,9 +64,11 @@ using WidePipe = Pipe<S, kStageBytesW>;
 // Accumulates the 64-row A buffer at shared address a (k columns) times the
 // next ring chunks (k x n) into this warpgroup's NP pieces from piece p0.
 // A warpgroup without pieces (NP = 0) still walks and releases the chunks.
-template <int NP, int S>
-__device__ __forceinline__ void wide_mma_source(float (&acc)[4][32], WidePipe<S>& q, uint32_t a,
-                                                int k, int n, int p0, bool& first) {
+// Q: the consumers' side of the ring (WidePipe, or a ring that a consumer
+// thread feeds), with acquire, advance and release.
+template <int NP, class Q>
+__device__ __forceinline__ void wide_mma_source(float (&acc)[4][32], Q& q, uint32_t a, int k,
+                                                int n, int p0, bool& first) {
   const int ck = chunk_k(n);
   for (int c = 0; c < k; c += ck) {
     const int kc = min(ck, k - c);
@@ -89,10 +91,10 @@ __device__ __forceinline__ void wide_mma_source(float (&acc)[4][32], WidePipe<S>
 
 // One layer: out = act(a1 w1 [+ a2 w2] + bias), bf16, this warpgroup's NP
 // pieces from p0 into the activation buffer. n_valid: columns with a bias.
-template <int NP, int S>
-__device__ __forceinline__ void wide_layer(WidePipe<S>& q, uint32_t a1, int k1, uint32_t a2,
-                                           int k2, int n, int p0, const float* __restrict__ bias,
-                                           int n_valid, bool relu, uint8_t* act) {
+template <int NP, class Q>
+__device__ __forceinline__ void wide_layer(Q& q, uint32_t a1, int k1, uint32_t a2, int k2, int n,
+                                           int p0, const float* __restrict__ bias, int n_valid,
+                                           bool relu, uint8_t* act) {
   float acc[4][32];
   fence_acc<NP>(acc);
   bool first = true;
@@ -132,8 +134,8 @@ __device__ __forceinline__ void wide_layer(WidePipe<S>& q, uint32_t a1, int k1, 
 
 // wide_layer<count> for this warpgroup's runtime piece count (0..4),
 // inlined at each call site so that the accumulators stay in registers.
-template <int S>
-__device__ __forceinline__ void wide_layer_any(int count, WidePipe<S>& q, uint32_t a1, int k1,
+template <class Q>
+__device__ __forceinline__ void wide_layer_any(int count, Q& q, uint32_t a1, int k1,
                                                uint32_t a2, int k2, int n, int p0,
                                                const float* __restrict__ bias, int n_valid,
                                                bool relu, uint8_t* act) {

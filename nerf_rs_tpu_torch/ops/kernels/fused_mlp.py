@@ -24,10 +24,14 @@ pack: float32 runs K1 f32's kernel in record mode over a round of tiles
 (every layer's output into a workspace), then ``csrc/fused_mlp_bwd_tc.cu``
 (dW and W·dz as 3xTF32 ``mma.sync``) over the same tiles; bfloat16 is one
 kernel, ``csrc/fused_mlp_bwd_bf16.cu`` (every product a ``wgmma``). K2
-serves K1's envelope: a wide pack runs the wide pair of K2, float32
+serves K1's envelope: a wide pack runs the wide K2 in rounds of tiles
+(:func:`wide_plan`): per round a per-tile kernel, float32
 ``csrc/fused_mlp_wide_bwd_tc.cu`` after the wide f32 forward's record
 mode, bfloat16 ``csrc/fused_mlp_wide_bwd_bf16.cu`` (the recompute the wide
-bf16 forward's device code, ``csrc/fused_mlp_wide_tc.cuh``).
+bf16 forward's device code, ``csrc/fused_mlp_wide_tc.cuh``), writes every
+layer's input and output gradient to a workspace, and the dW kernel
+``csrc/fused_mlp_wide_dw.cu`` sums the weight gradients over the round
+(:func:`wide_dw_jobs`).
 
 - :func:`pack_params` lays the weights out for the kernels, once per
   network and dtype (``models.mlp.NerfMLP.packed`` keeps the pack).
@@ -38,7 +42,9 @@ bf16 forward's device code, ``csrc/fused_mlp_wide_tc.cuh``).
   kernel runs on the tensor cores, which all but the wide f32 kernel do,
   and in ``fused_nerf_mlp.wide_launches`` for the wide pair) and its
   backward K2 (counted in ``fused_nerf_mlp_backward.launches``, and in
-  ``fused_nerf_mlp_backward.wide_launches`` for the wide pair); on CPU
+  ``fused_nerf_mlp_backward.wide_launches`` for the wide K2, whose dW
+  kernel's launches, one a round, ``fused_nerf_mlp_backward.dw_launches``
+  counts); on CPU
   tensors they run the plain versions instead. A CUDA tensor never
   reaches a plain version.
 - :func:`fused_nerf_mlp_reference` and
@@ -799,44 +805,34 @@ def _forward_kernel(pk: PackedMLP, points: torch.Tensor, viewdirs: torch.Tensor,
     return rgb, sigma
 
 
-_F32_ROUND_TILES = 8         # tiles a CTA takes a round in the f32 backward
+_F32_ROUND_TILES = 8         # tiles a CTA takes a round in the narrow f32 backward
 
 
 def _backward_f32(lib, pk: PackedMLP, ptrs, partials, grid: int, tiles: int, sigma_only: bool,
                   outs) -> int:
-    """K2's f32 mode: round by round, the record pass (the recompute,
-    every layer's output into the round's workspace) and the backward over
-    the same tiles, each CTA taking the same tiles of each round, then the
-    fixed-order sum of the partials. Narrow packs: K1 f32's record mode
-    (``nerf_fused_mlp_f32tc_record``) and ``csrc/fused_mlp_bwd_tc.cu`` on
-    128-sample tiles; wide packs: the wide f32 forward's
-    (``nerf_fused_mlp_wide_f32_record``) and
-    ``csrc/fused_mlp_wide_bwd_tc.cu`` on 64-sample tiles. The workspace
-    holds a round: grid x _F32_ROUND_TILES tiles, each its encodes, trunk,
-    bottleneck and view outputs. -> a cudaError_t value."""
+    """K2's narrow f32 mode: round by round, K1 f32's record mode
+    (``nerf_fused_mlp_f32tc_record``: the recompute, every layer's output
+    into the round's workspace) and ``csrc/fused_mlp_bwd_tc.cu`` over the
+    same 128-sample tiles, each CTA taking the same tiles of each round,
+    then the fixed-order sum of the partials. The workspace holds a round:
+    grid x _F32_ROUND_TILES tiles, each its encodes, trunk, bottleneck and
+    view outputs. -> a cudaError_t value."""
     points, dirs, n, dir_div = ptrs[:4]
-    rows_a_tile = _WIDE_BWD_TILE if pk.wide else _BWD_TILE
     per_round = grid * _F32_ROUND_TILES
-    ws = torch.empty(min(tiles, per_round) * rows_a_tile
+    ws = torch.empty(min(tiles, per_round) * _BWD_TILE
                      * (_ENC_X + _ENC_D + (pk.depth + 1) * pk.ldw + pk.ldv),
                      dtype=torch.float32, device=partials.device)
     n_w, n_b = pk.weights.numel(), pk.biases.numel()
     device, stream = outs[-2:]
-    if pk.wide:
-        record, backward = lib.nerf_fused_mlp_wide_f32_record, lib.nerf_fused_mlp_wide_backward
-        pack = (pk.weights.data_ptr(), pk.biases.data_ptr(), pk.layout.ctypes.data,
-                pk.layout.size, pk.ldw, pk.ldv, pk.depth, int(sigma_only))
-    else:
-        record, backward = lib.nerf_fused_mlp_f32tc_record, lib.nerf_fused_mlp_backward
-        pack = (pk.weights.data_ptr(), pk.weights_f32tc.data_ptr(), pk.biases.data_ptr(),
-                pk.layout.ctypes.data, pk.layout_f32tc.ctypes.data, pk.layout.size, pk.ldw,
-                pk.ldv, pk.depth, int(sigma_only))
+    pack = (pk.weights.data_ptr(), pk.weights_f32tc.data_ptr(), pk.biases.data_ptr(),
+            pk.layout.ctypes.data, pk.layout_f32tc.ctypes.data, pk.layout.size, pk.ldw,
+            pk.ldv, pk.depth, int(sigma_only))
     for tile0 in range(0, tiles, per_round):
-        rows = min(tiles - tile0, per_round) * rows_a_tile
-        err = record(points, dirs, n, dir_div, *pack, tile0 * rows_a_tile, rows, ws.data_ptr(),
-                     device, stream)
+        rows = min(tiles - tile0, per_round) * _BWD_TILE
+        err = lib.nerf_fused_mlp_f32tc_record(points, dirs, n, dir_div, *pack, tile0 * _BWD_TILE,
+                                              rows, ws.data_ptr(), device, stream)
         if err == 0:
-            err = backward(
+            err = lib.nerf_fused_mlp_backward(
                 *ptrs, pk.weights.data_ptr(), pk.mma_wt.data_ptr(), pk.mma_wt.shape[1],
                 pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout.size,
                 pk.layout_mma.ctypes.data, pk.layout_mma.size, pk.ldw, pk.ldv, pk.depth,
@@ -846,6 +842,209 @@ def _backward_f32(lib, pk: PackedMLP, ptrs, partials, grid: int, tiles: int, sig
             return err
     return lib.nerf_fused_mlp_backward_sum(partials.data_ptr(), grid, n_w, n_b, *outs[:2],
                                            device, stream)
+
+
+# The wide K2 (past NARROW_MAX_WIDTH or NARROW_MAX_DEPTH) runs in rounds of
+# tiles: per round a per-tile kernel (csrc/fused_mlp_wide_bwd_bf16.cu, or
+# after the wide f32 forward's record pass csrc/fused_mlp_wide_bwd_tc.cu)
+# writes every layer's input H and output gradient dZ to a workspace, and
+# the dW kernel (csrc/fused_mlp_wide_dw.cu) sums H^T dZ over the round. The
+# round is sized from the bytes: as many tiles a CTA as WIDE_ROUND_BYTES of
+# the dtype's workspace (and, in f32, record) hold, at least one. A tile
+# takes 1.22 MB in bf16 and 4.94 MB in f32 at 512/256/8 (19.1 KB of
+# images a sample, three planes of them in f32, and the record), so the
+# budgets give 4 and 3 tiles a CTA there: of the rounds timed there (1, 2
+# and these tiles a CTA, tools/torch_wide_k2_profile.py --per-cta), the
+# fastest. No round fits the 50 MB L2: one tile a CTA is 161 MB in bf16.
+WIDE_ROUND_BYTES = {"bfloat16": 768 * 2 ** 20, "float32": 2048 * 2 ** 20}
+_DW_TILE_M = 128             # kTileM of csrc/fused_mlp_wide_dw.cu: input features a job
+_DW_JOB_FIELDS = 8           # kJobLen: int64 fields a job
+_DW_MIN_SHARE = 0.85         # the dW items' least share of full waves on the SMs
+_DW_MAX_SPLITS = 16
+
+
+def wide_planes(dtype: str) -> int:
+    """bf16 planes a workspace value takes: 1 (bf16), or 3 (the hi, mid
+    and lo pieces of an f32 value, :func:`bf16_split3`)."""
+    return 1 if dtype == "bfloat16" else 3
+
+
+_DW_TILE_N = 128             # kTileN: output columns a job
+
+
+def wide_slot_cols(pk: PackedMLP) -> List[int]:
+    """Columns of the wide workspace's slots (``csrc/fused_mlp_wide_dw.cuh``),
+    in its order: the point and dir encodes, the trunk outputs and the
+    bottleneck's, then the gradients of the trunk layers, the bottleneck
+    and the view layer; widths padded to 64."""
+    nw, nv = _round_up(pk.ldw, _TC_PIECE), _round_up(pk.ldv, _TC_PIECE)
+    return [_ENC_X, _ENC_D] + [nw] * (pk.depth + 1) * 2 + [nv]
+
+
+def _record_floats(pk: PackedMLP) -> int:
+    """Floats of one 64-sample tile of the wide f32 record pass's workspace
+    (``csrc/fused_mlp_f32tc.cuh``'s ws_stride at 64 rows)."""
+    return _WIDE_BWD_TILE * (_ENC_X + _ENC_D + (pk.depth + 1) * pk.ldw + pk.ldv)
+
+
+def wide_dw_jobs(pk: PackedMLP, sigma_only: bool) -> np.ndarray:
+    """The dW kernel's jobs: one row of ``_DW_JOB_FIELDS`` int64 a job (an
+    output tile of one segment: ``_DW_TILE_M`` input features by
+    ``_DW_TILE_N`` columns), in ``csrc/fused_mlp_wide_dw.cu``'s field
+    order: the workspace slot of its H and the job's first feature in it,
+    the slot of its dZ and the job's first column in it; the gradient's
+    offset in dweights, its row stride, and the rows and columns to store.
+    Where a slot's images lie is ``csrc/fused_mlp_wide_dw.cuh``'s to say.
+    The heads and the biases are summed per CTA instead; sigma-only calls
+    have no color-branch jobs."""
+    depth = pk.depth
+    h = lambda i: 2 + i                 # noqa: E731 (i = depth: the bottleneck)
+    dz = lambda i: 3 + depth + i        # noqa: E731 (i = depth: the bottleneck)
+    dz_view = 4 + 2 * depth
+    segs = [("dense0", 0, dz(0))]
+    for i in range(1, depth):
+        if f"dense{i}_enc" in pk.segments:
+            segs.append((f"dense{i}_enc", 0, dz(i)))
+        segs.append((f"dense{i}", h(i - 1), dz(i)))
+    if not sigma_only:
+        segs += [("bottleneck", h(depth - 1), dz(depth)), ("viewdirs", h(depth), dz_view),
+                 ("viewdirs_dir", 1, dz_view)]
+    jobs = []
+    for name, a, b in segs:
+        off, k, ld = pk.segments[name]
+        for m0 in range(0, k, _DW_TILE_M):
+            for n0 in range(0, ld, _DW_TILE_N):
+                jobs.append([a, m0, b, n0, off + m0 * ld + n0, ld, min(_DW_TILE_M, k - m0),
+                             min(_DW_TILE_N, ld - n0)])
+    return np.array(jobs, dtype=np.int64).reshape(-1, _DW_JOB_FIELDS)
+
+
+def wide_dw_splits(n_jobs: int, sms: int, round_tiles: int) -> int:
+    """Slices of a round's tiles that each dW job is cut into: the fewest
+    that fill ``_DW_MIN_SHARE`` of whole waves of ``sms`` CTAs with its
+    n_jobs x splits items, else the best share up to ``_DW_MAX_SPLITS``;
+    never more than the round's tiles."""
+    best, best_share = 1, 0.0
+    for s in range(1, min(_DW_MAX_SPLITS, round_tiles) + 1):
+        items = n_jobs * s
+        share = items / (-(-items // sms) * sms)
+        if share >= _DW_MIN_SHARE:
+            return s
+        if share > best_share + 1e-9:
+            best, best_share = s, share
+    return best
+
+
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    """How the wide K2 runs one call: ``tiles`` tiles of 64 samples on
+    ``grid`` CTAs, in rounds of ``round_tiles`` (the last may be ragged),
+    each round's dW jobs cut into ``splits`` slices; the scratch each
+    buffer takes, in bytes (``record`` is the f32 record pass's round)."""
+
+    tiles: int
+    grid: int
+    round_tiles: int
+    rounds: int
+    planes: int
+    jobs: np.ndarray
+    splits: int
+    small_stride: int
+    ws_bytes: int
+    record_bytes: int
+    part_bytes: int
+    small_bytes: int
+    de_bytes: int
+
+    @property
+    def scratch_bytes(self) -> int:
+        return (self.ws_bytes + self.record_bytes + self.part_bytes + self.small_bytes
+                + self.de_bytes)
+
+    def round_splits(self, tiles: int) -> int:
+        """Slices of a round of ``tiles`` tiles (the ragged last: fewer)."""
+        return min(self.splits, tiles)
+
+
+def wide_plan(pk: PackedMLP, n: int, sms: int, sigma_only: bool) -> WidePlan:
+    """The wide K2's plan for ``n`` samples on a card of ``sms`` SMs."""
+    budget = WIDE_ROUND_BYTES[pk.dtype]
+    tiles = -(-n // _WIDE_BWD_TILE)
+    grid = min(tiles, sms)
+    planes = wide_planes(pk.dtype)
+    tile_ws = 128 * planes * sum(wide_slot_cols(pk))
+    tile_rec = 4 * _record_floats(pk) if pk.dtype == "float32" else 0
+    per_cta = max(1, min(budget // (grid * (tile_ws + tile_rec)), -(-tiles // grid)))
+    round_tiles = min(grid * per_cta, tiles)
+    jobs = wide_dw_jobs(pk, sigma_only)
+    splits = wide_dw_splits(len(jobs), sms, round_tiles)
+    small_stride = pk.biases.numel() + pk.ldw + 3 * pk.ldv
+    return WidePlan(
+        tiles=tiles, grid=grid, round_tiles=round_tiles, rounds=-(-tiles // round_tiles),
+        planes=planes, jobs=jobs, splits=splits, small_stride=small_stride,
+        ws_bytes=tile_ws * round_tiles, record_bytes=tile_rec * round_tiles,
+        part_bytes=4 * splits * len(jobs) * _DW_TILE_M * _DW_TILE_N,
+        small_bytes=4 * grid * small_stride,
+        de_bytes=4 * grid * _WIDE_BWD_TILE * _ENC_X if pk.dtype == "bfloat16" else 0)
+
+
+def _backward_wide(lib, pk: PackedMLP, ptrs, n: int, sigma_only: bool, outs, dev: torch.device,
+                   sms: int) -> int:
+    """K2 on a wide pack (:func:`wide_plan`): per round the record pass (f32:
+    ``nerf_fused_mlp_wide_f32_record``), the per-tile kernel
+    (``nerf_wide_bwd_bf16_tiles`` or ``nerf_wide_bwd_f32_tiles``) and the
+    dW kernel (``nerf_wide_dw``, counted in
+    ``fused_nerf_mlp_backward.dw_launches``); then the per-CTA sums of the
+    biases and heads (``nerf_wide_small_sum``). Scratch on ``dev``, the
+    plan for ``sms`` SMs. -> a cudaError_t value."""
+    dweights, dbiases, dpts, ddirs, device, stream = outs
+    plan = wide_plan(pk, n, sms, sigma_only)
+    ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
+    small = torch.zeros(plan.small_bytes // 4, dtype=torch.float32, device=dev)
+    part = torch.empty(plan.part_bytes // 4, dtype=torch.float32, device=dev)
+    jobs = torch.from_numpy(plan.jobs).to(dev)
+    n_b = pk.biases.numel()
+    points, dirs, _, dir_div = ptrs[:4]
+    if pk.dtype == "float32":
+        rec = torch.empty(plan.record_bytes // 4, dtype=torch.float32, device=dev)
+        de = None
+    else:
+        rec = None
+        de = torch.empty(plan.de_bytes // 4, dtype=torch.float32, device=dev)
+    for tile0 in range(0, plan.tiles, plan.round_tiles):
+        tiles = min(plan.tiles - tile0, plan.round_tiles)
+        if pk.dtype == "float32":
+            err = lib.nerf_fused_mlp_wide_f32_record(
+                points, dirs, n, dir_div, pk.weights.data_ptr(), pk.biases.data_ptr(),
+                pk.layout.ctypes.data, pk.layout.size, pk.ldw, pk.ldv, pk.depth,
+                int(sigma_only), tile0 * _WIDE_BWD_TILE, tiles * _WIDE_BWD_TILE, rec.data_ptr(),
+                device, stream)
+            if err == 0:
+                err = lib.nerf_wide_bwd_f32_tiles(
+                    *ptrs, pk.weights.data_ptr(), pk.mma_wt.data_ptr(), pk.mma_wt.shape[1],
+                    pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout.size,
+                    pk.layout_mma.ctypes.data, pk.layout_mma.size, pk.ldw, pk.ldv, pk.depth,
+                    int(sigma_only), rec.data_ptr(), ws.data_ptr(), plan.round_tiles, tile0,
+                    tiles, small.data_ptr(), n_b, plan.small_stride, plan.grid, dpts, ddirs,
+                    device, stream)
+        else:
+            err = lib.nerf_wide_bwd_bf16_tiles(
+                *ptrs, pk.weights_tc.data_ptr(), pk.biases.data_ptr(), pk.layout_tc.ctypes.data,
+                pk.layout_tc.size, pk.ldw, pk.ldv, pk.depth, int(sigma_only), ws.data_ptr(),
+                plan.round_tiles, tile0, tiles, small.data_ptr(), n_b, plan.small_stride,
+                de.data_ptr(), plan.grid, dpts, ddirs, device, stream)
+        if err == 0:
+            splits = plan.round_splits(tiles)
+            err = lib.nerf_wide_dw(ws.data_ptr(), plan.round_tiles, jobs.data_ptr(),
+                                   len(plan.jobs), splits, tiles, plan.planes, pk.ldw, pk.ldv,
+                                   pk.depth, part.data_ptr(), dweights,
+                                   min(len(plan.jobs) * splits, sms), device, stream)
+            fused_nerf_mlp_backward.dw_launches += int(err == 0)
+        if err != 0:
+            return err
+    return lib.nerf_wide_small_sum(small.data_ptr(), plan.grid, plan.small_stride, n_b, pk.ldw,
+                                   pk.segments["alpha"][0], pk.segments["rgb"][0], dweights,
+                                   dbiases, device, stream)
 
 
 def _ws_order(rows: int, features: int, device) -> torch.Tensor:
@@ -918,9 +1117,10 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
     and count one launch per call in ``fused_nerf_mlp_backward.launches``
     (the kernel and its fixed-order sum of per-CTA partials; bf16 calls
     also in ``fused_nerf_mlp_backward.bf16_launches``, calls on a wide pack
-    in ``fused_nerf_mlp_backward.wide_launches``). Two calls on the same
-    inputs give bitwise-equal results. K2 serves every pack: its envelope
-    is K1's (:func:`supports_backward_arch`).
+    in ``fused_nerf_mlp_backward.wide_launches``, which run in rounds,
+    their dW kernel's launches in ``fused_nerf_mlp_backward.dw_launches``).
+    Two calls on the same inputs give bitwise-equal results. K2 serves
+    every pack: its envelope is K1's (:func:`supports_backward_arch`).
     """
     if points.device.type == "cpu":
         return fused_nerf_mlp_backward_reference(
@@ -942,32 +1142,34 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
         dpts = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         ddirs = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     if n > 0:
-        tiles = -(-n // (_WIDE_BWD_TILE if pk.wide else _BWD_TILE))
-        grid = min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
-        partials = torch.zeros(grid * (n_w + n_b), dtype=torch.float32, device=dev)
         lib = _build.load_library()
         ptrs = (points.data_ptr(), dirs.data_ptr(), n, dir_div, g_rgb.data_ptr(),
                 g_sigma.data_ptr())
         outs = (dweights.data_ptr(), dbiases.data_ptr(),
                 dpts.data_ptr() if input_grads else None,
                 ddirs.data_ptr() if input_grads else None, dev.index or 0, _stream(dev))
-        if dtype == "bfloat16":
-            # Per CTA: the tile's trunk outputs and bottleneck output as
-            # shared-memory images (widths padded to 64), then a tile of 64
-            # f32 columns of encode gradient (csrc/fused_mlp_bwd_bf16.cu's
-            # and csrc/fused_mlp_wide_bwd_bf16.cu's workspace).
-            nw = _round_up(pk.ldw, _TC_PIECE)
-            rows = _WIDE_BWD_TILE if pk.wide else _BWD_TILE
-            ws = torch.empty(grid * rows * ((pk.depth + 1) * nw + 2 * _ENC_X),
-                             dtype=torch.bfloat16, device=dev)
-            launch = (lib.nerf_fused_mlp_wide_backward_bf16 if pk.wide
-                      else lib.nerf_fused_mlp_backward_bf16)
-            err = launch(
-                *ptrs, pk.weights_tc.data_ptr(), pk.biases.data_ptr(), pk.layout_tc.ctypes.data,
-                pk.layout.ctypes.data, pk.layout.size, pk.ldw, pk.ldv, pk.depth,
-                int(sigma_only), ws.data_ptr(), partials.data_ptr(), n_w, n_b, grid, *outs)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        if pk.wide:
+            err = _backward_wide(lib, pk, ptrs, n, sigma_only, outs, dev, sms)
         else:
-            err = _backward_f32(lib, pk, ptrs, partials, grid, tiles, sigma_only, outs)
+            tiles = -(-n // _BWD_TILE)
+            grid = min(tiles, sms)
+            partials = torch.zeros(grid * (n_w + n_b), dtype=torch.float32, device=dev)
+            if dtype == "bfloat16":
+                # Per CTA: the tile's trunk outputs and bottleneck output as
+                # shared-memory images (widths padded to 64), then a tile of
+                # 64 f32 columns of encode gradient (csrc/fused_mlp_bwd_bf16.cu's
+                # workspace).
+                nw = _round_up(pk.ldw, _TC_PIECE)
+                ws = torch.empty(grid * _BWD_TILE * ((pk.depth + 1) * nw + 2 * _ENC_X),
+                                 dtype=torch.bfloat16, device=dev)
+                err = lib.nerf_fused_mlp_backward_bf16(
+                    *ptrs, pk.weights_tc.data_ptr(), pk.biases.data_ptr(),
+                    pk.layout_tc.ctypes.data, pk.layout.ctypes.data, pk.layout.size, pk.ldw,
+                    pk.ldv, pk.depth, int(sigma_only), ws.data_ptr(), partials.data_ptr(), n_w,
+                    n_b, grid, *outs)
+            else:
+                err = _backward_f32(lib, pk, ptrs, partials, grid, tiles, sigma_only, outs)
         if err != 0:
             raise RuntimeError(f"fused MLP backward kernel launch failed with CUDA error {err}")
         fused_nerf_mlp_backward.launches += 1
@@ -981,6 +1183,7 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
 fused_nerf_mlp_backward.launches = 0
 fused_nerf_mlp_backward.bf16_launches = 0
 fused_nerf_mlp_backward.wide_launches = 0
+fused_nerf_mlp_backward.dw_launches = 0
 
 
 class _FusedMLP(torch.autograd.Function):

@@ -308,9 +308,9 @@ def test_recorded_outputs_are_the_forwards(card, dims):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wide_backward_kernel_is_deterministic(card, dtype):
     """The wide K2 gives two calls bitwise equal, with and without input
-    gradients: each CTA adds its tiles into its own partial in a fixed
-    order (the f32 mode over several rounds of record and backward), and
-    the partials are summed in a fixed order."""
+    gradients: the dW kernel sums each weight over a round's slices in a
+    fixed order and adds the rounds in order; the per-CTA bias and head
+    sums are summed in a fixed order."""
     net = NerfMLP(np_params(WIDE_ARCHS[0], 7), device=card)
     pts, dirs = inputs(512, 48, 8, card)
     g_rgb, g_sig = cotangents(pts.shape[:-1], 9, card)
@@ -322,6 +322,51 @@ def test_wide_backward_kernel_is_deterministic(card, dtype):
         assert all(torch.equal(x, y) for x, y in zip(a[:2], b[:2]))
         if input_grads:
             assert torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_backward_over_several_rounds_is_deterministic_and_plain(card, dtype, monkeypatch):
+    """A wide K2 call cut into at least three rounds (the round budget at
+    one byte: one tile a CTA a round), its last round and last tile ragged
+    (509 x 53 samples): two calls bitwise equal, with and without input
+    gradients; one dW launch a round; every gradient at
+    test_wide_backward_kernel_matches_plain's bars (f32 against the float64
+    evaluation with the kernel's unresolvable masks, bf16 against the plain
+    version)."""
+    from nerf_rs_tpu_torch.ops.kernels import fused_mlp as fm
+
+    monkeypatch.setitem(fm.WIDE_ROUND_BYTES, dtype, 1)
+    net = NerfMLP(np_params(WIDE_ARCHS[0], 7), device=card)
+    pts, dirs = inputs(509, 53, 8, card)
+    g_rgb, g_sig = cotangents(pts.shape[:-1], 9, card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = fm.wide_plan(net.packed(dtype), pts.numel() // 3, sms, sigma_only=False)
+    assert plan.rounds >= 3 and plan.tiles % plan.round_tiles and (pts.numel() // 3) % 64
+    before = fused_nerf_mlp_backward.dw_launches
+    got, want = backward_pair(net, pts, dirs, g_rgb, g_sig, dtype, False)
+    assert fused_nerf_mlp_backward.dw_launches == before + plan.rounds
+    for input_grads in (True, False):
+        a = fused_nerf_mlp_backward(net, pts, dirs, g_rgb, g_sig, dtype=dtype,
+                                    input_grads=input_grads)
+        assert all(torch.equal(x, y) for x, y in zip(a[:2], got[:2]))
+        if input_grads:
+            assert torch.equal(a[2], got[2]) and torch.equal(a[3], got[3])
+    pk = net.packed(dtype)
+    smoke = chip_smoke_module()
+    named_k, named_p = smoke.named_gradients(pk, got), smoke.named_gradients(pk, want)
+    if dtype == "float32":
+        args = (pts, dirs, g_rgb, g_sig)
+        exact = fused_nerf_mlp_backward_reference(net, *(x.double() for x in args))
+        named_64 = smoke.named_gradients(pk, exact)
+        oracle, _ = smoke.kernel_mask_exact(net, args, False, named_64)
+    for key in named_p:
+        if dtype == "float32":
+            bar = max(BWD_TOL[dtype], 1.5 * rel_err(named_p[key].double(), named_64[key]))
+            assert rel_err(named_k[key].double(), oracle[key]) <= bar, (
+                key, rel_err(named_k[key].double(), oracle[key]), bar)
+        else:
+            assert rel_err(named_k[key], named_p[key]) <= BWD_TOL[dtype], (
+                key, rel_err(named_k[key], named_p[key]))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

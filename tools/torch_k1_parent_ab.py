@@ -14,8 +14,10 @@ directory such as ``scratch_checkout/``. Its sources are built into a
 library of their own, one ``nvcc`` each, as the port builds its own
 (``ops/kernels/_build.py``, which builds the checkout's library as usual);
 the port's wrappers then launch the one or the other. A call whose entry
-point ``DIR``'s sources lack (the wide K2 before it existed) is skipped,
-and said so.
+points ``DIR``'s sources lack (the wide K2 before it existed, or before
+its dW kernel: its C interface changed with it) is skipped, and said so;
+``tools/torch_wide_k2_profile.py --parent`` times an older wide K2 through
+its own interface.
 
 Calls:
 - K1 (narrow): the lego fine network full at 8192 rays x 192 samples and
@@ -180,8 +182,8 @@ def main() -> int:
 
     wide_fine = NerfMLP(smoke.widen_nerf(load_nerf_params(assets / "fine"), 512, 256, 8),
                         device=dev)
-    wide_k2 = ("nerf_fused_mlp_wide_f32_record", "nerf_fused_mlp_wide_backward",
-               "nerf_fused_mlp_wide_backward_bf16")
+    wide_k2 = ("nerf_fused_mlp_wide_f32_record", "nerf_wide_bwd_f32_tiles",
+               "nerf_wide_bwd_bf16_tiles", "nerf_wide_dw", "nerf_wide_small_sum")
 
     calls = [("K1 fine full", k1(nets["fine"], pts_f, False), tuple(pts_f.shape[:-1]), 10),
              ("K1 coarse sigma-only", k1(nets["coarse"], pts_c, True), tuple(pts_c.shape[:-1]),

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The CLI's ``train`` of a 512-wide student, this checkout against another
-one, in turns: what the wide kernels change end to end.
+one and against the plain MLP, in turns: what the wide kernels change end
+to end.
 
     python3 tools/torch_train_ab.py --parent DIR [--rounds 1] [--steps 16]
 
@@ -13,11 +14,13 @@ kernels at first use), at the CLI's other train defaults (4096 rays,
 64 + 128 samples, distillation from the lego networks), in f32 and with
 ``--dtype bfloat16``. A run's time is its steady step
 (``chip_smoke.steady_step_ms``: from the second logged step to the last,
-read from the step lines' rays/s). Per dtype: one warm-up run a side,
-then parent, change, change, parent, ``--rounds`` times. Prints every
-run, whether it printed a note (the parent trains a 512-wide student on
-the plain MLP, with a note), each side's median, their ratio, and the
-card's name and power limit. Needs one card.
+read from the step lines' rays/s). A third side, "plain", is this
+checkout with ``--impl xla`` (the plain MLP, cuBLAS products and autograd).
+Per dtype: one warm-up run a side, then parent, change, plain, plain,
+change, parent, ``--rounds`` times. Prints every run, whether it printed
+a note (a checkout whose kernels do not serve the student trains it on
+the plain MLP, with a note), each side's median, the ratios to the
+parent and to plain, and the card's name and power limit. Needs one card.
 """
 
 from __future__ import annotations
@@ -59,29 +62,35 @@ def main() -> int:
     if card.returncode != 0:
         sys.exit("error: needs a CUDA card (nvidia-smi failed)")
     card = card.stdout.strip().splitlines()[0]
-    sides = {"parent": args.parent.resolve(), "change": REPO}
+    sides = {"parent": args.parent.resolve(), "change": REPO, "plain": REPO}
     for dtype in ("float32", "bfloat16"):
         argv = ["train", "--device", "cuda", "--width", "512", "--v-width", "256", "--steps",
                 str(args.steps), "--log-every", "3"]
         if dtype == "bfloat16":
             argv += ["--dtype", "bfloat16"]
-        for side, root in sides.items():
-            out = run(root, argv)
+
+        def run_side(side):
+            return run(sides[side], argv + (["--impl", "xla"] if side == "plain" else []))
+
+        for side in sides:
+            out = run_side(side)
             print(f"{dtype} {side} warm-up {steady_step_ms(out, TRAIN_RAYS):.2f} ms; note printed: "
                   f"{'note:' in out}", flush=True)
         times = {side: [] for side in sides}
         for r in range(args.rounds):
-            for side in ("parent", "change", "change", "parent"):
-                out = run(sides[side], argv)
+            for side in ("parent", "change", "plain", "plain", "change", "parent"):
+                out = run_side(side)
                 times[side].append(steady_step_ms(out, TRAIN_RAYS))
                 print(f"{dtype} round {r} {side} {times[side][-1]:.2f} ms; note printed: "
                       f"{'note:' in out}", flush=True)
-        p, c = (statistics.median(times[side]) for side in ("parent", "change"))
+        med = {side: statistics.median(v) for side, v in times.items()}
+        spread = {side: f"{min(v):.2f}-{max(v):.2f}" for side, v in times.items()}
         print(f"{card}: train --width 512 --v-width 256 {dtype}, 4096 rays 64+128, steady step "
-              f"in turns (parent, change, change, parent) x {args.rounds}: parent median "
-              f"{p:.2f} ms ({min(times['parent']):.2f}-{max(times['parent']):.2f}), change median "
-              f"{c:.2f} ms ({min(times['change']):.2f}-{max(times['change']):.2f}); change / "
-              f"parent {c / p:.4f}", flush=True)
+              f"in turns (parent, change, plain, plain, change, parent) x {args.rounds}: parent "
+              f"median {med['parent']:.2f} ms ({spread['parent']}), change {med['change']:.2f} "
+              f"ms ({spread['change']}), plain MLP {med['plain']:.2f} ms ({spread['plain']}); "
+              f"change / parent {med['change'] / med['parent']:.4f}, change / plain "
+              f"{med['change'] / med['plain']:.4f}", flush=True)
     return 0
 
 
