@@ -51,12 +51,14 @@ evaluated and served. Phases, each reported on its own line:
    HMMA (``mma.sync``) instructions, every one tf32, in both variants
    of K2's f32 kernel, narrow and wide, and IGMMA (s8 ``wgmma``)
    instructions in both variants of the int8 kernel; ptxas's registers
-   and spills of the hash encode's four instances, K3's seven and the
-   wide K2's ten (its two per-tile kernels, the f32 record's split into
-   planes, its dW kernel and the dW sum in both modes, the small sums)
-   are printed, and a spill in any of them, or ptxas serializing the
-   wgmmas of a wide K2 kernel, fails; the build's time is printed beside
-   the previous design's;
+   and spills of the hash encode's four instances, K3's seven, the wide
+   K1's six (bf16, sigma_only or not; f32 on the CUDA cores and its
+   record mode, each sigma_only or not) and the wide K2's ten (its two
+   per-tile kernels, the f32 record's split into planes, its dW kernel and
+   the dW sum in both modes, the small sums) are printed, and a spill in
+   any of them, or ptxas serializing the wgmmas of a wide K1 or wide K2
+   kernel (its C75xx notes), fails; the build's time is printed beside the
+   previous design's;
 3. K1 against its plain PyTorch version at the render's shapes (8192 rays
    x 64 samples sigma-only, 8192 x 192 full), f32 and bf16, two calls
    bitwise equal; the kernel's and the plain version's f32 distance from
@@ -231,9 +233,9 @@ evaluated and served. Phases, each reported on its own line:
     frame against the plain frame (>= 60 dB), one K1 launch a rendered
     chunk. Comparison and timing launches do not count;
 29. K1's and K2's wide envelope (K1: ``fused_mlp_wide_tc.cu``, bf16 on
-    the tensor cores, and ``fused_mlp_wide_f32.cu``, f32 on the CUDA
-    cores; K2: ``fused_mlp_wide_bwd_bf16.cu`` and, after the wide f32
-    forward's record pass, ``fused_mlp_wide_bwd_tc.cu``): (a) the lego networks widened by ``widen_nerf`` (same function)
+    the tensor cores in thread-block clusters, and ``fused_mlp_wide_f32.cu``,
+    f32 on the CUDA cores; K2: ``fused_mlp_wide_bwd_bf16.cu`` and, after the
+    wide f32 forward's record pass, ``fused_mlp_wide_bwd_tc.cu``): (a) the lego networks widened by ``widen_nerf`` (same function)
     to (width, v_width, depth) = (512, 256, 8), (384, 192, 8) and (512,
     256, 20), through ``render --weights DIR --impl pallas``: f32 256x256
     64+128 > 45 dB from the golden and >= 60 dB from ``--impl xla``, no
@@ -255,8 +257,9 @@ evaluated and served. Phases, each reported on its own line:
     launch (the plain int8 MLP), > 25 dB from its f32 frame; (e) times:
     K1 f32 and bf16 at (512, 256, 8) full and sigma-only and at (384, 192,
     8) full, wide K2 at the fine training call, each beside the plain
-    version, the library call and the bound, and the widened lego's
-    frames.
+    version, the library call and the bound, wide K2 f32 with its record
+    pass's share (one call under ``torch.profiler``), and the widened
+    lego's frames.
 
 Any failed phase exits non-zero. The line before the last is a JSON
 summary of the kernels, each with its bound (the larger of its bytes over
@@ -422,20 +425,22 @@ def phase_build():
         if len(usage) != 4 + 7 or spilled:
             raise PhaseFailure(f"the hash encode (4 instances) and K3 (7) as built: "
                                f"{sorted(usage)}; spilled: {spilled}")
-        # The wide K2: no spill and no serialized wgmmas (ptxas's C75xx
-        # notes name the function) in any of its kernels.
-        wide = ptxas_usage(log.read_text(), WIDE_K2_KERNELS)
-        serialized = sorted({m.group(1) + m.group(2) for m in re.finditer(
-            r"wgmma\.mma_async instructions are serialized.*?" + WIDE_K2_KERNELS,
-            log.read_text())})
-        say("2 build", "ptxas, the wide K2: " + "; ".join(
-            f"{name} {regs} registers, spill stores {st} B, loads {ld} B"
-            for name, (regs, st, ld) in sorted(wide.items()))
-            + f"; wgmmas serialized in {serialized or 'none'}")
-        spilled = [name for name, (_, st, ld) in wide.items() if st or ld]
-        if len(wide) != WIDE_K2_INSTANCES or spilled or serialized:
-            raise PhaseFailure(f"the wide K2 as built: {sorted(wide)}; spilled: {spilled}; "
-                               f"wgmmas serialized: {serialized}")
+        # The wide K1 and K2: no spill and no serialized wgmmas (ptxas's
+        # C75xx notes name the function) in any of their kernels.
+        for label, pattern, instances in (("K1", WIDE_K1_KERNELS, WIDE_K1_INSTANCES),
+                                          ("K2", WIDE_K2_KERNELS, WIDE_K2_INSTANCES)):
+            wide = ptxas_usage(log.read_text(), pattern)
+            serialized = sorted({m.group(1) + m.group(2) for m in re.finditer(
+                r"wgmma\.mma_async instructions are serialized.*?" + pattern,
+                log.read_text())})
+            say("2 build", f"ptxas, the wide {label}: " + "; ".join(
+                f"{name} {regs} registers, spill stores {st} B, loads {ld} B"
+                for name, (regs, st, ld) in sorted(wide.items()))
+                + f"; wgmmas serialized in {serialized or 'none'}")
+            spilled = [name for name, (_, st, ld) in wide.items() if st or ld]
+            if len(wide) != instances or spilled or serialized:
+                raise PhaseFailure(f"the wide {label} as built: {sorted(wide)}; spilled: "
+                                   f"{spilled}; wgmmas serialized: {serialized}")
     sass = tensor_core_instructions(_build)
     say("2 build", "tensor-core instructions in the SASS: " + ", ".join(
         f"{re.search(TC_KERNEL, fn).group(0)} {count} {kind}"
@@ -472,6 +477,10 @@ def phase_build():
 # The hash encode's instances (f32, bf16 x paired or generic) and K3's (K
 # values a lane: 1, 2, ..., 64), as ptxas names them.
 GATHER_KERNELS = r"(hash_encode_kernel|resample_kernel)(I\w+?E)E?v"
+# The wide K1's kernels: bf16 (sigma-only or not), f32 and its record mode
+# (each sigma-only or not): six instances.
+WIDE_K1_KERNELS = r"(fused_mlp_wide_tc_kernel|fused_mlp_wide_f32_kernel)(I(?:Lb[01]E)+)"
+WIDE_K1_INSTANCES = 6
 # The wide K2's kernels: the per-tile kernels (sigma-only or not), the f32
 # record's split into planes, the dW kernel and its sum (bf16 and f32
 # modes, ILi1E and ILi3E) and the small sums: ten instances.
@@ -4092,6 +4101,20 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
         torch.cuda.synchronize()
         k2_scratch[dtype] = (torch.cuda.max_memory_allocated() - base_bytes) / 2 ** 30
         k2_times[dtype] = (k_ms, p_ms, lib_ms)
+    # The f32 call's record pass (the wide f32 forward in record mode):
+    # its share of one call's device time, under torch.profiler.
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fused_nerf_mlp_backward(k2_net, *k2_args, dtype="float32", input_grads=False)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    k2_busy = sum(e.device_time_total for e in events) / 1e3
+    record_ms = sum(e.device_time_total for e in events
+                    if "fused_mlp_wide_f32_kernel<false, true>" in e.key) / 1e3
+    say("29 times", f"{card}: wide K2 f32's record pass (fused_mlp_wide_f32_kernel in record "
+        f"mode): {record_ms:.3f} ms of the call's {k2_busy:.3f} ms device time "
+        f"({record_ms / max(k2_busy, 1e-9):.1%}), one call under torch.profiler")
+    if record_ms <= 0:
+        raise PhaseFailure("the profiled wide K2 f32 call shows no record pass on the device")
     k2_bnd = backward_bounds(k2_net, *k2_args)
     k2_bnd = {"float32": k2_bnd["wide_float32"], "bfloat16": k2_bnd["bfloat16"],
               "cuda_cores": k2_bnd["cuda_cores"]}
@@ -4119,12 +4142,14 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
     replaces = "nerf_rs_tpu/ops/kernels/fused_mlp.py:779"
     return [
         {"name": "fused_nerf_mlp_wide", "route": "cuda",
-         "source": "nerf_rs_tpu_torch/ops/kernels/csrc/fused_mlp_wide_f32.cu",
+         "source": f"{csrc}/fused_mlp_wide_f32.cu",
          "replaces": replaces, "launches": launched["float32"], "max_abs_err": errs["float32"],
          "ms": f32_ms, "plain_ms": f32_plain, "bound_ms": f32_bnd[0], "bound_by": f32_bnd[1],
          "library_ms": f32_lib, "shapes": wide_shapes(times, "float32")},
         {"name": "fused_nerf_mlp_wide_bf16", "route": "cuda",
-         "source": "nerf_rs_tpu_torch/ops/kernels/csrc/fused_mlp_wide_tc.cu",
+         "source": f"{csrc}/fused_mlp_wide_tc.cu",
+         "sources": [f"{csrc}/{name}" for name in ("fused_mlp_wide_tc.cu", "fused_mlp_wide_tc.cuh",
+                                                   "fused_mlp_cluster.cuh")],
          "replaces": replaces, "launches": launched["bfloat16"], "max_abs_err": errs["bfloat16"],
          "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bnd[0], "bound_by": b_bnd[1],
          "library_ms": b_lib, "shapes": wide_shapes(times, "bfloat16")},
@@ -4139,7 +4164,8 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
            "ms": k2_times[dtype][0], "plain_ms": k2_times[dtype][1],
            "bound_ms": k2_bnd[dtype][0], "bound_by": k2_bnd[dtype][1],
            "library_ms": k2_times[dtype][2], "bound_ms_cuda_cores": k2_bnd["cuda_cores"][0],
-           "peak_scratch_gib": k2_scratch[dtype]}
+           "peak_scratch_gib": k2_scratch[dtype],
+           **({"record_ms": record_ms} if dtype == "float32" else {})}
           for dtype, source, extra_sources in (
               ("float32", "fused_mlp_wide_bwd_tc.cu", ("fused_mlp_wide_f32.cu",
                                                        "fused_mlp_bwd_tc.cuh")),

@@ -22,34 +22,50 @@
 // f32.
 //
 // What bounds it on the H100: at width 512 a fine sample costs 4.60 MFLOP
-// (7.32 ms a 8192 x 192 call at 989 TFLOP/s), but the whole bf16 pack
-// (4.6 MB for a 512/256 network of depth 8) streams from L2 through shared
-// memory once per 64-sample tile, about 113 GB a 8192 x 192 call: L2, not
-// the tensor cores, is the expected bound. The design is fused_mlp_tc.cu's
-// with the two consumer warpgroups on the two halves of each layer's N
-// instead of on 64 rows each, so that each keeps at most four 64-column
-// f32 accumulators (128 registers a thread) at width 512:
-// - a persistent grid, one CTA of 384 threads an SM, walking 64-sample
+// (7.32 ms a 8192 x 192 call at 989 TFLOP/s). The whole bf16 pack (4.6 MB
+// for a 512/256 network of depth 8) streams from L2 through shared memory
+// once per 64-sample tile, and each chunk's way there and back (copy,
+// wgmmas, release) bounds how fast a ring of 128 KB turns over: without
+// its products, the kernel still takes 11.7 ms, and with its copies cut
+// to 16 bytes it is not faster (tools/torch_wide_k1_profile.py). So the
+// design shares and shortens that walk rather than adding tensor work:
+// - a persistent grid of thread-block clusters of kClusterW CTAs, one CTA
+//   of 384 threads an SM, the cluster's CTAs on consecutive 64-sample
 //   tiles (one wgmma M): a producer warpgroup, whose registers setmaxnreg
 //   hands to the consumers, and two consumer warpgroups, warpgroup g on
-//   pieces [p0(g), p0(g) + count(g)) of every layer (the first half of the
-//   64-column pieces rounded up, then the rest);
-// - the producer copies each layer's weights, 32 K-rows at a time above
-//   width 256 (64 at or below), with one cp.async.bulk onto an mbarrier
-//   into a ring of 4 stages of 32 KB, running ahead across layers and
-//   tiles; the pack is fused_mlp.py::tc_tile's, one contiguous run a chunk;
+//   pieces [p0(g), p0(g) + count(g)) of every layer (the first half of
+//   the 64-column pieces rounded up, then the rest), each keeping at most
+//   four 64-column f32 accumulators (128 registers a thread) at width 512;
+// - the cluster's CTAs share one weight stream (fused_mlp_cluster.cuh):
+//   each chunk (32 K-rows above width 256, 64 at or below; the pack is
+//   fused_mlp.py::tc_tile's, one contiguous run a chunk) is read from L2
+//   once, every CTA's producer thread copying its 1/kClusterW slice into
+//   all of them with one multicast cp.async.bulk, into a ring of 4 stages
+//   of 32 KB, running ahead across layers and tiles; a stage is refilled
+//   once every CTA's consumer warps have released it (remote arrives);
 // - each consumer warpgroup issues m64n64k16 wgmmas (A: the 64-row
-//   activation or encode buffer, all of K; B: its pieces of the chunk);
-//   the two warpgroups meet at a barrier of the 256 consumer threads
+//   activation or encode buffer, all of K; B: its pieces of the chunk),
+//   and each chunk's wgmmas retire before the next chunk's are issued, so
+//   that its stage goes back to the ring at once;
+// - the two warpgroups meet at a barrier of the 256 consumer threads
 //   before the epilogue overwrites the one activation buffer in place
-//   (both have read all of it), and again after it;
+//   (both have read all of it), and again after it; every layer runs from
+//   one call site;
+// - every CTA of a cluster walks as many tiles as its first: past the last
+//   tile a CTA computes a tile of zeros and stores nothing, so the ring's
+//   chunks stay in step, and the CTAs meet at a cluster barrier before
+//   they exit;
 // - the encode (64 x 96 bf16, filled once a tile) and the heads (four
 //   threads a row, a quarter of K each) run on the consumers' CUDA cores.
+// The arithmetic, the chunks' K-order and the rounding points are the
+// unclustered kernel's: its output is bit for bit the same
+// (tools/torch_k1_parent_ab.py).
 // Shared memory: ring 128 KB, activations 64 x 512 x 2 B = 64 KB, encodes
 // 12 KB, heads 8 KB: 212 KB of the 227 KB a block may use. Widths pad to
 // multiples of 64; padding weights and biases are zero, so padding columns
 // stay 0.
 
+#include "fused_mlp_cluster.cuh"
 #include "fused_mlp_wide_tc.cuh"
 
 namespace {
@@ -60,6 +76,10 @@ using namespace nerf::wide;
 using f32tc::head_row;
 using f32tc::head_sum;
 
+constexpr int kClusterW = 2;   // CTAs that share the weight stream
+// The ring: 4 stages of 32 KB, chunks of wide::chunk_k rows. (8 stages of
+// 16 KB, half the rows a chunk, measured slower:
+// tools/torch_wide_k1_profile.py.)
 constexpr int kStagesW = 4;
 
 // Shared memory, in bytes from the dynamic base.
@@ -70,6 +90,26 @@ constexpr int kHeadOff = kEncDOff + kBlock * kEncD * 2;       // alpha [512], rg
 constexpr int kBarOff = kHeadOff + 4 * kWideMaxWidth * 4;     // full[kStagesW], empty[kStagesW]
 constexpr int kSmemBytes = kBarOff + 2 * kStagesW * 8;
 static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
+
+// Layer i's segments in the order the kernel reads them: i < depth the
+// trunk layers (a skip layer's encode part first), then the bottleneck and
+// the view layer (its dir-encode part second).
+struct LayerIo {
+  int off1, off2;   // segments in the pack (-1: none)
+  int k1, k2, n;
+};
+
+__device__ __forceinline__ LayerIo layer_io(const WideLayout& L, int i, int nw, int nv) {
+  if (i == 0) return {static_cast<int>(L.w_dense[0]), -1, kEncX, 0, nw};
+  if (i < L.depth) {
+    if (L.w_skip[i] >= 0) {
+      return {static_cast<int>(L.w_skip[i]), static_cast<int>(L.w_dense[i]), kEncX, nw, nw};
+    }
+    return {static_cast<int>(L.w_dense[i]), -1, nw, 0, nw};
+  }
+  if (i == L.depth) return {static_cast<int>(L.w_bneck), -1, nw, 0, nw};
+  return {static_cast<int>(L.w_view), static_cast<int>(L.w_view_dir), nw, kEncD, nv};
+}
 
 template <bool kSigmaOnly>
 __global__ void __launch_bounds__(kThreadsTc, 1)
@@ -84,40 +124,47 @@ fused_mlp_wide_tc_kernel(const float* __restrict__ pts, const float* __restrict_
   float* w_alpha = reinterpret_cast<float*>(smem + kHeadOff);
   float* w_rgb = w_alpha + kWideMaxWidth;
   const uint32_t bars = smem_u32(smem + kBarOff);
-  const long long tiles = (n + kBlock - 1) / kBlock;
+  const int tiles = static_cast<int>((n + kBlock - 1) / kBlock);
   const int tid = threadIdx.x;
+  const int layers = kSigmaOnly ? L.depth : L.depth + 2;
+  // The cluster's CTAs share the ring; its tiles are base + rank, base
+  // the same in every CTA (tiles past the last: zeros, stores masked).
+  const int rank = static_cast<int>(cluster::ctarank());
+  const int first_base = static_cast<int>(blockIdx.x) - rank;
 
   if (tid == 0) {
-    for (int s = 0; s < kStagesW; ++s) {
-      mbar_init(bars + 8 * s, 1);
-      mbar_init(bars + 8 * (kStagesW + s), kConsumers);
-    }
+    cluster::init_ring<kStagesW, kClusterW>(bars);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   for (int k = tid; k < L.ldw; k += kThreadsTc) w_alpha[k] = load1(w + L.w_alpha + k);
   for (int k = tid; k < 3 * L.ldv; k += kThreadsTc) w_rgb[k] = load1(w + L.w_rgb + k);
-  __syncthreads();
+  cluster::cluster_sync();   // every CTA's barriers, before any copy or remote arrive
 
-  // The role split on a warp-uniform value, never rejoined.
+  // The role split on a warp-uniform value, rejoined only at the cluster
+  // barrier before the exit.
   const int warp = __shfl_sync(0xFFFFFFFFu, tid >> 5, 0);
   if (warp >= kConsumers / 32) {
-    // Producer warpgroup: one thread copies the chunks in the consumers'
-    // order; the warpgroup hands its registers to the consumers.
+    // Producer warpgroup: one thread copies its slices of the chunks in
+    // the consumers' order; the warpgroup hands its registers to the
+    // consumers.
     reg_dealloc<kProducerRegs>();
-    if (tid != kConsumers) return;
-    WideProducer<kStagesW> pr{smem_u32(smem), bars, 0, 0u};
-    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      pr.emit(w, L.w_dense[0], kEncX, nw);
-      for (int i = 1; i < L.depth; ++i) {
-        if (L.w_skip[i] >= 0) pr.emit(w, L.w_skip[i], kEncX, nw);
-        pr.emit(w, L.w_dense[i], nw, nw);
-      }
-      if (!kSigmaOnly) {
-        pr.emit(w, L.w_bneck, nw, nw);
-        pr.emit(w, L.w_view, nw, nv);
-        pr.emit(w, L.w_view_dir, kEncD, nv);
+    if (tid == kConsumers) {
+      cluster::ClusterProducer<kStagesW, kStageBytesW, kClusterW> pr{
+          smem_u32(smem), bars, {static_cast<uint16_t>((1 << kClusterW) - 1), rank}, 0, 0u};
+      for (int base = first_base; base < tiles; base += gridDim.x) {
+        for (int i = 0; i < layers; ++i) {
+          const LayerIo io = layer_io(L, i, nw, nv);
+          const int ck = chunk_k(io.n);
+          for (int seg = 0; seg < 2; ++seg) {
+            const int off = seg ? io.off2 : io.off1, k = seg ? io.k2 : io.k1;
+            for (int c = 0; c < k; c += ck) {
+              pr.put(w + off + c * io.n, static_cast<uint32_t>(min(ck, k - c) * io.n * 2));
+            }
+          }
+        }
       }
     }
+    cluster::cluster_sync();
     return;
   }
 
@@ -126,66 +173,61 @@ fused_mlp_wide_tc_kernel(const float* __restrict__ pts, const float* __restrict_
   reg_alloc<kConsumerRegs>();
   const int g = warp >> 2;
   const Share sw(nw / kPiece, g), sv(nv / kPiece, g);
-  WidePipe<kStagesW> q{smem_u32(smem), bars, 0, 0u, -1};
+  cluster::ClusterPipe<kStagesW, kStageBytesW, kClusterW> q{smem_u32(smem), bars, 0, 0u};
   const uint32_t a_act = smem_u32(act), a_ex = smem_u32(enc_x), a_ed = smem_u32(enc_d);
   const int hrow = head_row();
   auto row = [&](int i) { return ld_act(act, hrow, i); };
 
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (int base = first_base; base < tiles; base += gridDim.x) {
+    const long long tile = base + rank;
     // The tile's encode. (The last tile's reads of the encodes ended
     // behind its layers' barriers.)
     encode_tile(pts, dirs, n, dir_div, tile, enc_x, enc_d);
     fence_async_smem();
     consumers_barrier();
 
-    // Trunk.
-    wide_layer_any(sw.count, q, a_ex, kEncX, 0, 0, nw, sw.p0, bias + L.b_dense[0], L.ldw, true,
-                   act);
-    for (int i = 1; i < L.depth; ++i) {
-      if (L.w_skip[i] >= 0) {
-        wide_layer_any(sw.count, q, a_ex, kEncX, a_act, nw, nw, sw.p0, bias + L.b_dense[i],
-                       L.ldw, true, act);
-      } else {
-        wide_layer_any(sw.count, q, a_act, nw, 0, 0, nw, sw.p0, bias + L.b_dense[i], L.ldw, true,
-                       act);
-      }
-    }
-
-    // Sigma head. The barriers inside `layer` keep these reads before the
-    // bottleneck's writes.
+    // The trunk, then (unless sigma-only) the bottleneck (no activation)
+    // and the view layer (bottleneck part plus dir-encode part, ReLU),
+    // from one call site: with a call site a kind of layer, ptxas spilled.
     const long long s = tile * kBlock + hrow;
     const bool mine = !(tid & 3) && s < n;   // the first of the row's four threads stores
-    const float sig = fmaxf(head_sum(row, L.ldw, w_alpha, 1, 0) + __ldg(bias + L.b_alpha), 0.f);
-    if (mine) sigma[s] = sig;
-    if (kSigmaOnly) {
-      if (mine) {
+    for (int i = 0; i < layers; ++i) {
+      const LayerIo io = layer_io(L, i, nw, nv);
+      const bool view = i == L.depth + 1;
+      const bool enc = i == 0 || (i < L.depth && L.w_skip[i] >= 0);
+      const long long b = i < L.depth ? L.b_dense[i] : (view ? L.b_view : L.b_bneck);
+      wide_layer_any(view ? sv.count : sw.count, q, enc ? a_ex : a_act, io.k1,
+                     view ? a_ed : a_act, io.k2, io.n, view ? sv.p0 : sw.p0, bias + b,
+                     view ? L.ldv : L.ldw, i != L.depth, act);
+      if (i != L.depth - 1) continue;
+      // Sigma head. The barriers inside the next layer keep these reads
+      // before its writes.
+      const float sig =
+          fmaxf(head_sum(row, L.ldw, w_alpha, 1, 0) + __ldg(bias + L.b_alpha), 0.f);
+      if (mine) sigma[s] = sig;
+      if (kSigmaOnly && mine) {
         rgb[s * 3] = 0.f;
         rgb[s * 3 + 1] = 0.f;
         rgb[s * 3 + 2] = 0.f;
       }
-      continue;
     }
-
-    // Bottleneck (no activation), then the view layer: bottleneck part
-    // plus dir-encode part, ReLU.
-    wide_layer_any(sw.count, q, a_act, nw, 0, 0, nw, sw.p0, bias + L.b_bneck, L.ldw, false, act);
-    wide_layer_any(sv.count, q, a_act, nw, a_ed, kEncD, nv, sv.p0, bias + L.b_view, L.ldv, true,
-                   act);
-
-    // Rgb head with sigmoid; its reads end before the next tile's first
-    // epilogue.
-    float out[3];
+    if constexpr (!kSigmaOnly) {
+      // Rgb head with sigmoid; its reads end before the next tile's first
+      // epilogue.
+      float out[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float x = head_sum(row, L.ldv, w_rgb, 3, c) + __ldg(bias + L.b_rgb + c);
-      out[c] = 1.f / (1.f + expf(-x));
-    }
-    if (mine) {
-      rgb[s * 3] = out[0];
-      rgb[s * 3 + 1] = out[1];
-      rgb[s * 3 + 2] = out[2];
+      for (int c = 0; c < 3; ++c) {
+        const float x = head_sum(row, L.ldv, w_rgb, 3, c) + __ldg(bias + L.b_rgb + c);
+        out[c] = 1.f / (1.f + expf(-x));
+      }
+      if (mine) {
+        rgb[s * 3] = out[0];
+        rgb[s * 3 + 1] = out[1];
+        rgb[s * 3 + 2] = out[2];
+      }
     }
   }
+  cluster::cluster_sync();   // no CTA leaves while its peers may arrive on its barriers
 }
 
 template <bool kSigmaOnly>
@@ -196,15 +238,32 @@ cudaError_t launch(const float* pts, const float* dirs, long long n, long long d
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  (void)device;
+  // Clusters of kClusterW CTAs, as many as fit the card at once (one CTA
+  // an SM) and the tiles need.
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kClusterW;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kClusterW);
+  cfg.blockDim = dim3(kThreadsTc);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int fit = 0;
+  err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
   if (err != cudaSuccess) return err;
+  if (fit < 1) return cudaErrorInvalidConfiguration;
   const long long tiles = (n + kBlock - 1) / kBlock;
-  const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  const long long need = (tiles + kClusterW - 1) / kClusterW;
+  cfg.gridDim = dim3(static_cast<unsigned>((need < fit ? need : fit) * kClusterW));
   const int nw = (L.ldw + kPiece - 1) / kPiece * kPiece;   // widths in the pack
   const int nv = (L.ldv + kPiece - 1) / kPiece * kPiece;
-  kernel<<<grid, kThreadsTc, kSmemBytes, stream>>>(pts, dirs, n, dir_div, w, bias, L, nw, nv, rgb,
-                                                   sigma);
+  err = cudaLaunchKernelEx(&cfg, kernel, pts, dirs, n, dir_div, w, bias, L, nw, nv, rgb, sigma);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

@@ -13,8 +13,9 @@ weights bulk-copied into shared memory: float32
 passes, :func:`split_f32_dense`) and bfloat16 (``csrc/fused_mlp_tc.cu``).
 Wider or deeper networks, beyond ``NARROW_MAX_WIDTH`` or
 ``NARROW_MAX_DEPTH`` and up to ``MAX_WIDTH`` and ``MAX_DEPTH``, take the
-wide pair: bfloat16 on ``wgmma`` (``csrc/fused_mlp_wide_tc.cu``) and
-float32 on the CUDA cores (``csrc/fused_mlp_wide_f32.cu``), with offset
+wide pair: bfloat16 on ``wgmma`` in clusters of two CTAs that share the
+weight stream (``csrc/fused_mlp_wide_tc.cu``) and float32 on the CUDA
+cores (``csrc/fused_mlp_wide_f32.cu``), with offset
 tables of ``MAX_DEPTH`` layers (``csrc/fused_mlp_wide.cuh``). The backward
 kernel K2 replaces
 ``_backward_t`` / ``_kernel_bwd``: it recomputes the forward per tile,
@@ -769,7 +770,8 @@ def _forward_kernel(pk: PackedMLP, points: torch.Tensor, viewdirs: torch.Tensor,
     f32 packs launch the split-f32 kernel (``csrc/fused_mlp_f32tc.cu``),
     bf16 packs ``csrc/fused_mlp_tc.cu``; both on the tensor cores, counted
     also in ``fused_nerf_mlp.tc_launches``. Wide packs launch
-    ``csrc/fused_mlp_wide_tc.cu`` (bf16, tensor cores) or
+    ``csrc/fused_mlp_wide_tc.cu`` (bf16, tensor cores, thread-block
+    clusters) or
     ``csrc/fused_mlp_wide_f32.cu`` (f32, CUDA cores), counted also in
     ``fused_nerf_mlp.wide_launches``."""
     dirs, dir_div, batch, n = _kernel_inputs(pk, points, viewdirs)
