@@ -446,7 +446,7 @@ def f32tc_tile(m: torch.Tensor, k: int, n: int) -> torch.Tensor:
     return blocks.permute(1, 0, 2, 4, 5, 3).reshape(-1)
 
 
-def split_f32_dense(sources, b: torch.Tensor) -> torch.Tensor:
+def split_f32_dense(sources, b: torch.Tensor, group: Optional[int] = None) -> torch.Tensor:
     """:func:`_dense` in the f32 kernels' arithmetic as built
     (``csrc/fused_mlp_f32tc.cuh``), for the CPU tests: each operand split by
     :func:`bf16_split3`; the sources in order, each in k-steps of 16 (zero
@@ -454,19 +454,37 @@ def split_f32_dense(sources, b: torch.Tensor) -> torch.Tensor:
     ``SPLIT_F32_ORDER``, each added with one rounding (its 16 products
     summed in float64) to its float32 accumulator: hi.hi to the big one,
     the other five to the small one; then (big + small) + b. Float32 in
-    and out."""
-    acc = {}
+    and out.
 
-    def add(key, term):
-        acc[key] = term.float() if key not in acc else (acc[key].double() + term).float()
+    With ``group``, the arithmetic studied for a split-f32 route of the
+    wide f32 kernel (tools/torch_wide_split_f32_groups.py): the big
+    accumulator takes the hi.hi products of ``group`` k-steps at a time,
+    counted over the layer's sources in order, and each group's sum is
+    added, rounded, to a running sum once it ends: ((g0 + g1) + g2) ...,
+    then (that + small) + b. A group as long as the layer is the narrow
+    kernel's arithmetic."""
+    big = small = total = None
 
+    def add(acc, term):
+        return term.float() if acc is None else (acc.double() + term).float()
+
+    step = 0
     for a, w in sources:
         xs, ws = bf16_split3(a), bf16_split3(w)
         for k0 in range(0, a.shape[-1], _STEP_K):
+            if group and step and step % group == 0:
+                total = big if total is None else total + big
+                big = None
             for i, j in SPLIT_F32_ORDER:
-                add("big" if i == j == 0 else "small",
-                    xs[i][:, k0:k0 + _STEP_K].double() @ ws[j][k0:k0 + _STEP_K].double())
-    return (acc["big"] + acc["small"]) + b
+                term = xs[i][:, k0:k0 + _STEP_K].double() @ ws[j][k0:k0 + _STEP_K].double()
+                if i == j == 0:
+                    big = add(big, term)
+                else:
+                    small = add(small, term)
+            step += 1
+    if total is not None:
+        big = total + big
+    return (big + small) + b
 
 
 def _packed(params, dtype: str) -> PackedMLP:
