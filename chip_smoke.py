@@ -36,8 +36,8 @@ gallery and the vendored networks' serving presets — every
 presets on ``assets/trained/`` at 800x800 against the lego teacher's
 frame — and K1's wide envelope — the lego networks widened to width 512 and
 384 and deepened to 20 layers, computing the same function, rendered
-through ``render --weights``, and a 512-wide student trained, rendered,
-evaluated and served. Phases, each reported on its own line:
+through ``render --weights`` (``--impl int8`` through the wide int8
+kernel), and a 512-wide student trained, rendered, evaluated and served. Phases, each reported on its own line:
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: the fused MLP kernels K1 and K2 (both on the tensor cores, f32
@@ -50,14 +50,15 @@ evaluated and served. Phases, each reported on its own line:
    narrow and wide, and of the wide K2's dW kernel in both modes,
    HMMA (``mma.sync``) instructions, every one tf32, in both variants
    of K2's f32 kernel, narrow and wide, and IGMMA (s8 ``wgmma``)
-   instructions in both variants of the int8 kernel; ptxas's registers
-   and spills of the hash encode's four instances, K3's seven, the wide
-   K1's six (bf16, sigma_only or not; f32 on the CUDA cores and its
-   record mode, each sigma_only or not) and the wide K2's ten (its two
-   per-tile kernels, the f32 record's split into planes, its dW kernel and
-   the dW sum in both modes, the small sums) are printed, and a spill in
-   any of them, or ptxas serializing the wgmmas of a wide K1 or wide K2
-   kernel (its C75xx notes), fails; the build's time is printed beside the
+   instructions in both variants of both int8 kernels, narrow and wide;
+   ptxas's registers and spills of the hash encode's four instances, K3's
+   seven, the wide K1's six (bf16, sigma_only or not; f32 on the CUDA
+   cores and its record mode, each sigma_only or not), the wide K2's ten
+   (its two per-tile kernels, the f32 record's split into planes, its dW
+   kernel and the dW sum in both modes, the small sums) and the wide int8
+   kernel's two are printed, and a spill in any of them, or ptxas
+   serializing the wgmmas of a wide K1, K2 or int8 kernel (its C75xx
+   notes), fails; the build's time is printed beside the
    previous design's;
 3. K1 against its plain PyTorch version at the render's shapes (8192 rays
    x 64 samples sigma-only, 8192 x 192 full), f32 and bf16, two calls
@@ -137,7 +138,12 @@ evaluated and served. Phases, each reported on its own line:
     accel+K3 with their idle shares and top device kernels;
 21. the int8 kernel against its plain version on phase 3's inputs (coarse
     sigma-only at 8192 x 64, fine full at 8192 x 192): sigma bitwise
-    equal, rgb within 2e-6, two calls bitwise equal;
+    equal, rgb within 2e-6, two calls bitwise equal, and its outputs'
+    sha256 the parent's (NARROW_INT8_SHA256); then the wide int8 kernel
+    (``csrc/int8_mlp_wide_tc.cu``, past width 256 or depth 16) at the same
+    bars on the same inputs, sigma-only and full, on the lego widened by
+    ``widen_nerf`` to WIDE_INT8_LEGOS and on the random networks
+    WIDE_INT8_RANDOM, every call a wide launch;
 22. the post-training int8 256x256 frame: against the f32 K1 frame (> 25
     dB), against the plain int8 frame (>= 60 dB), two int8 launches per
     chunk and no K1; the int8 accel+K3 frame on phase 12's grid against
@@ -148,7 +154,9 @@ evaluated and served. Phases, each reported on its own line:
     student's int8 kernel frame against its int8qat frame (>= 40 dB), and
     against the lego teacher's (reported);
 24. times: the int8 kernel, its plain version and ``torch._int_mm`` of the
-    same layers at the phase-21 shapes, the int8 frame with the kernel and
+    same layers at the phase-21 shapes, the wide int8 kernel likewise and
+    with its bound on the lego widened to 512/256/8 (fine full, coarse
+    sigma-only) and 384/192/8 (fine full), the int8 frame with the kernel and
     the plain version, the int8 frame under ``torch.profiler`` (device busy,
     idle share, top kernels), the int8qat step and its peak memory;
 25. checkpoints, data and front ends, through ``nerf_rs_tpu_torch.cli.main``
@@ -253,13 +261,14 @@ evaluated and served. Phases, each reported on its own line:
     then ``render --checkpoint`` through wide K1 without a note,
     ``evaluate`` (PSNR finite) and one ``/render`` of ``serve``'s handler
     byte for byte ``pixels_to_rgba(render_image(...))``; (d) ``render
-    --impl int8`` of the lego widened to 512: the note, no int8 kernel
-    launch (the plain int8 MLP), > 25 dB from its f32 frame; (e) times:
+    --impl int8`` of the lego widened to 512/256/8 and 512/256/20 through
+    the wide int8 kernel: no note, two wide int8 launches a chunk, >= 60 dB
+    from the plain int8 frame, > 25 dB from its f32 frame; (e) times:
     K1 f32 and bf16 at (512, 256, 8) full and sigma-only and at (384, 192,
     8) full, wide K2 at the fine training call, each beside the plain
     version, the library call and the bound, wide K2 f32 with its record
     pass's share (one call under ``torch.profiler``), and the widened
-    lego's frames.
+    lego's frames (f32, bf16, int8 with the wide int8 kernel and plain).
 
 Any failed phase exits non-zero. The line before the last is a JSON
 summary of the kernels, each with its bound (the larger of its bytes over
@@ -269,7 +278,7 @@ for K1 bf16 and K2's bf16 mode, K2's f32 mode its recompute as K1 f32
 and its dW and W dz as 3xTF32 at the tf32 peak (the f32 entries also
 carry their all-CUDA-core bound), f32 on the CUDA cores for K3 and the
 hash encode and K1's wide f32 kernel, bf16 for K1's wide bf16 kernel,
-int8 for the int8 kernel — from this run's shapes; the hash encode's entry
+int8 for the int8 kernels — from this run's shapes; the hash encode's entry
 also lists its four shapes in both dtypes, the wide kernels' their three);
 the last line is the JSON device record.
 Never imports JAX.
@@ -408,7 +417,7 @@ def phase_build():
                               r"fused_mlp_wide_bwd_bf16_kernel|fused_mlp_wide_dw_kernel|"
                               r"dw_sum_kernel|small_sum_kernel|record_planes_kernel|"
                               r"fused_mlp_f32tc_kernel|reduce_partials|resample_kernel|"
-                              r"hash_encode_kernel|int8_mlp_tc_kernel)"
+                              r"hash_encode_kernel|int8_mlp_tc_kernel|int8_mlp_wide_tc_kernel)"
                               r"(I\w*?L[bi][0-9]E)?", line)
             if "(C7519)" in line:              # an arrive ptxas adds before a wgmma
                 injected += 1
@@ -425,10 +434,11 @@ def phase_build():
         if len(usage) != 4 + 7 or spilled:
             raise PhaseFailure(f"the hash encode (4 instances) and K3 (7) as built: "
                                f"{sorted(usage)}; spilled: {spilled}")
-        # The wide K1 and K2: no spill and no serialized wgmmas (ptxas's
-        # C75xx notes name the function) in any of their kernels.
+        # The wide K1, K2 and int8 kernels: no spill and no serialized
+        # wgmmas (ptxas's C75xx notes name the function) in any of them.
         for label, pattern, instances in (("K1", WIDE_K1_KERNELS, WIDE_K1_INSTANCES),
-                                          ("K2", WIDE_K2_KERNELS, WIDE_K2_INSTANCES)):
+                                          ("K2", WIDE_K2_KERNELS, WIDE_K2_INSTANCES),
+                                          ("int8", WIDE_INT8_KERNELS, 2)):
             wide = ptxas_usage(log.read_text(), pattern)
             serialized = sorted({m.group(1) + m.group(2) for m in re.finditer(
                 r"wgmma\.mma_async instructions are serialized.*?" + pattern,
@@ -466,12 +476,14 @@ def phase_build():
                                    for fn, count in k2.items()):
             raise PhaseFailure(f"K2's f32 kernel ({kernel}, both variants) lacks HMMA "
                                "instructions, or has some that are not tf32")
-    # The int8 kernel: IGMMA (integer wgmma) in both instances.
-    igmma = [count for (fn, kind), count in sass.items()
-             if kind == "IGMMA" and re.search(INT8_KERNEL, fn)]
-    if len(igmma) != 2 or not all(igmma):
-        raise PhaseFailure("int8_mlp_tc_kernel (both variants) has no IGMMA instructions in the "
-                           "built library")
+    # The int8 kernels, narrow and wide: IGMMA (integer wgmma) in both
+    # instances of each.
+    for kernel in (INT8_KERNEL, WIDE_INT8_KERNEL):
+        igmma = [count for (fn, kind), count in sass.items()
+                 if kind == "IGMMA" and re.search(kernel, fn)]
+        if len(igmma) != 2 or not all(igmma):
+            raise PhaseFailure(f"{kernel} (both variants) has no IGMMA instructions in the "
+                               "built library")
 
 
 # The hash encode's instances (f32, bf16 x paired or generic) and K3's (K
@@ -488,6 +500,8 @@ WIDE_K2_KERNELS = (r"(fused_mlp_wide_bwd_bf16_kernel|fused_mlp_wide_bwd_tc_kerne
                    r"fused_mlp_wide_dw_kernel|dw_sum_kernel|small_sum_kernel|"
                    r"record_planes_kernel)(I(?:Lb[01]E|Li[13]E)|(?=E))")
 WIDE_K2_INSTANCES = 10
+# The wide int8 kernel's two instances (sigma-only or not).
+WIDE_INT8_KERNELS = r"(int8_mlp_wide_tc_kernel)(ILb[01]E)"
 # The wide K2 with per-tile partials (before its dW kernel): the build and
 # the whole run of its final chip_smoke run (PERF.md).
 PARTIALS_BUILD_S, PARTIALS_TOTAL_S = 118.7, 882.5
@@ -519,7 +533,8 @@ def ptxas_usage(log: str, pattern: str) -> dict:
 MLP_KERNEL = (r"(?:fused_mlp(?:_wide)?(?:_bwd)?_(?:tc|bf16|f32tc)_kernel(?:I(?:Lb[01]E)+)?"
               r"|fused_mlp_wide_dw_kernelILi[13]E)")
 INT8_KERNEL = r"int8_mlp_tc_kernelILb[01]E"
-TC_KERNEL = rf"(?:{MLP_KERNEL}|{INT8_KERNEL})"
+WIDE_INT8_KERNEL = r"int8_mlp_wide_tc_kernelILb[01]E"
+TC_KERNEL = rf"(?:{MLP_KERNEL}|{INT8_KERNEL}|{WIDE_INT8_KERNEL})"
 
 
 def tensor_core_instructions(build) -> dict:
@@ -1708,12 +1723,12 @@ def counters():
 
 def save_counts():
     """Every launch count: each wrapper's, then K1's tensor-core count,
-    K2's bf16 count, K1's wide count, K2's wide count and the wide K2's
-    dW kernel's."""
+    K2's bf16 count, K1's wide count, K2's wide count, the wide K2's dW
+    kernel's and the wide int8 kernel's."""
     fns = counters()
     return [fn.launches for fn in fns] + [fns[0].tc_launches, fns[1].bf16_launches,
                                           fns[0].wide_launches, fns[1].wide_launches,
-                                          fns[1].dw_launches]
+                                          fns[1].dw_launches, fns[4].wide_launches]
 
 
 def restore_counts(saved) -> None:
@@ -1721,11 +1736,11 @@ def restore_counts(saved) -> None:
     for fn, n in zip(fns, saved):
         fn.launches = n
     (fns[0].tc_launches, fns[1].bf16_launches, fns[0].wide_launches, fns[1].wide_launches,
-     fns[1].dw_launches) = saved[-5:]
+     fns[1].dw_launches, fns[4].wide_launches) = saved[-6:]
 
 
 def zero_counts() -> None:
-    restore_counts([0] * (len(counters()) + 5))
+    restore_counts([0] * (len(counters()) + 6))
 
 
 def read_counts() -> dict:
@@ -1734,7 +1749,8 @@ def read_counts() -> dict:
             "fused_nerf_mlp_backward_bf16": fns[1].bf16_launches,
             "fused_nerf_mlp_wide": fns[0].wide_launches,
             "fused_nerf_mlp_backward_wide": fns[1].wide_launches,
-            "fused_nerf_mlp_backward_dw": fns[1].dw_launches}
+            "fused_nerf_mlp_backward_dw": fns[1].dw_launches,
+            "fused_int8_mlp_wide": fns[4].wide_launches}
 
 
 def encode_vs_plain(tables, pts, cfg, top: float):
@@ -2074,6 +2090,31 @@ INT8_RGB_ATOL = 2e-6           # only the kernel's expf may differ from torch.si
 INT8_VS_F32_BAR_DB = 25.0      # tests/test_quant.py:76, post-training int8 vs exact frame
 QAT_BAR_DB = 40.0              # the trained student's kernel frame vs its fake-quant frame
 INT8_OPS_S = 1979e12           # one H100 SXM's dense int8 tensor-core peak (data sheet, 700 W)
+# sha256 of the narrow int8 kernel's outputs on phase 21's inputs (int8_digest:
+# rgb, then sigma), as the narrow kernel's sources before the wide int8 kernel
+# gave them on an H100 80GB HBM3 (tools/torch_k1_parent_ab.py --only int8
+# prints both sides' digests; PERF.md): the narrow kernel is held to them bit
+# for bit.
+NARROW_INT8_SHA256 = {
+    "coarse": "408a631679d58301f787aca93cebbaa946edbf2dc7d351757cb224a956c8f128",
+    "fine": "fb2caa4172d3ac3d34878e009412598287a06f81495964d4aebd06317e65b6b7"}
+# The wide int8 kernel against its plain version (phase 21): the lego
+# networks widened by widen_nerf (coarse sigma-only, fine full, as the render
+# pairs them), and random networks (width, v_width, depth, skip_at), each
+# sigma-only and full: narrow in width but deep (256/128/20) and the
+# envelope's corner (512/512/32).
+WIDE_INT8_LEGOS = ((384, 192, 8), (512, 256, 8), (512, 256, 20))
+WIDE_INT8_RANDOM = ((512, 512, 32, 10), (256, 128, 20, 4))
+
+
+def int8_digest(rgb, sigma) -> str:
+    """sha256 of an int8 call's outputs: rgb's then sigma's f32 bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (rgb, sigma):
+        h.update(t.detach().float().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 @contextlib.contextmanager
@@ -2115,18 +2156,113 @@ def phase_int8_vs_plain(coarse, fine, cam, dev):
             rgb_err = float((rgb - rgb_r).abs().max())
             sig_err = float((sig - sig_r).abs().max())
             bitwise = torch.equal(rgb, rgb2) and torch.equal(sig, sig2)
+            digest = int8_digest(rgb, sig)
+            parent = digest == NARROW_INT8_SHA256[name]
             ok = (tuple(sig.shape) == shape and tuple(rgb.shape) == (*shape, 3) and finite
-                  and same_sigma and rgb_err <= INT8_RGB_ATOL and bitwise)
+                  and same_sigma and rgb_err <= INT8_RGB_ATOL and bitwise and parent)
             say("21 int8", f"{name} {shape} sigma_only={sigma_only}: sigma bitwise equal "
                 f"{same_sigma} ({int((sig != sig_r).sum())} samples differ, max |d sigma| "
                 f"{sig_err:.3e}), max |d rgb| {rgb_err:.3e} (atol {INT8_RGB_ATOL}), two calls "
-                f"bitwise equal {bitwise} -> {'ok' if ok else 'FAIL'}")
+                f"bitwise equal {bitwise}; outputs sha256 {digest[:16]}, bit for bit the "
+                f"parent's (NARROW_INT8_SHA256): {parent} -> {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise PhaseFailure(f"the int8 kernel disagrees with its plain version: {name}")
             worst = max(worst, rgb_err, sig_err)
             cases.append((name, net, pts, sigma_only))
     restore_counts(saved)                      # comparison launches do not count
     return worst, cases, vd
+
+
+def phase_wide_int8_vs_plain(cam, dev, assets: Path):
+    """The wide int8 kernel against its plain version at phase 21's bars on
+    phase 3's inputs (RAY_CHUNK x 64 sigma-only, RAY_CHUNK x 192 full):
+    the lego networks widened to WIDE_INT8_LEGOS and the random networks
+    WIDE_INT8_RANDOM; every call on the wide kernel. -> (worst error,
+    {(arch, sigma_only): (net, points)}, viewdirs) for the times."""
+    import torch
+
+    from nerf_rs_tpu_torch.config import ArchConfig
+    from nerf_rs_tpu_torch.io.weights import load_nerf_params
+    from nerf_rs_tpu_torch.models.mlp import NerfMLP, init_nerf_params
+    from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp, fused_int8_mlp_reference
+
+    pts_c, pts_f, vd = main_path_inputs(cam, dev)
+    saved = save_counts()
+    nets = []
+    for arch in WIDE_INT8_LEGOS:
+        for seed, (net, pts, so) in enumerate((("coarse", pts_c, True), ("fine", pts_f, False))):
+            tree = widen_nerf(load_nerf_params(assets / net), *arch, seed=seed)
+            nets.append((f"lego {net} widened to {arch}", arch, NerfMLP(tree, device=dev), pts,
+                         so))
+    for arch in WIDE_INT8_RANDOM:
+        g = torch.Generator(device=dev).manual_seed(21)
+        net = NerfMLP(init_nerf_params(g, ArchConfig(*arch)), device=dev)
+        nets += [(f"random {arch}", arch[:3], net, pts, so)
+                 for pts, so in ((pts_c, True), (pts_f, False))]
+    worst, cases = 0.0, {}
+    with torch.no_grad():
+        for label, arch, net, pts, so in nets:
+            wide0 = fused_int8_mlp.wide_launches
+            rgb, sig = fused_int8_mlp(net, pts, vd, sigma_only=so)
+            rgb2, sig2 = fused_int8_mlp(net, pts, vd, sigma_only=so)
+            wide = fused_int8_mlp.wide_launches - wide0
+            rgb_r, sig_r = fused_int8_mlp_reference(net, pts, vd, sigma_only=so)
+            torch.cuda.synchronize()
+            shape = tuple(pts.shape[:-1])
+            finite = bool(torch.isfinite(rgb).all()) and bool(torch.isfinite(sig).all())
+            same_sigma = torch.equal(sig, sig_r)
+            rgb_err = float((rgb - rgb_r).abs().max())
+            sig_err = float((sig - sig_r).abs().max())
+            bitwise = torch.equal(rgb, rgb2) and torch.equal(sig, sig2)
+            ok = (tuple(sig.shape) == shape and tuple(rgb.shape) == (*shape, 3) and finite
+                  and same_sigma and rgb_err <= INT8_RGB_ATOL and bitwise and wide == 2)
+            say("21 int8 wide", f"{label} {shape} sigma_only={so}: sigma bitwise equal "
+                f"{same_sigma} ({int((sig != sig_r).sum())} samples differ, max |d sigma| "
+                f"{sig_err:.3e}), max |d rgb| {rgb_err:.3e} (atol {INT8_RGB_ATOL}), two calls "
+                f"bitwise equal {bitwise}, wide int8 launches {wide} (expected 2) -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise PhaseFailure(f"the wide int8 kernel disagrees with its plain version: "
+                                   f"{label}")
+            worst = max(worst, rgb_err, sig_err)
+            if label.startswith("lego"):
+                cases[(arch, so)] = (net, pts)
+    restore_counts(saved)                      # comparison launches do not count
+    return worst, cases, vd
+
+
+def phase_wide_int8_times(cases, vd, card):
+    """The wide int8 kernel, its plain version, torch._int_mm of the same
+    layers and the bound at 512/256/8 (fine full, coarse sigma-only) and
+    384/192/8 (fine full), on the widened legos. -> {(arch, sigma_only):
+    (ms, plain ms, bound, library ms)}."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp, fused_int8_mlp_reference
+
+    saved = save_counts()
+    times = {}
+    with torch.no_grad():
+        for key in (((512, 256, 8), False), ((512, 256, 8), True), ((384, 192, 8), False)):
+            net, pts = cases[key]
+            so = key[1]
+            k_ms = timed_ms(lambda: fused_int8_mlp(net, pts, vd, sigma_only=so))
+            p_ms = timed_ms(lambda: fused_int8_mlp_reference(net, pts, vd, sigma_only=so))
+            n, rays = pts.numel() // 3, vd.numel() // 3
+            pk = net.packed("int8")
+            ops = mlp_flops(net, so)
+            bnd = bound(4 * (n * 7 + rays * 3) + sum(
+                t.numel() * t.element_size() for t in (pk.weights, pk.epilogue)), ops * n,
+                INT8_OPS_S)
+            lib_ms = int_mm_ms(net, n, so)
+            times[key] = (k_ms, p_ms, bnd, lib_ms)
+            say("24 int8 times", f"{card}: wide int8 kernel at {key[0]}, {tuple(pts.shape[:-1])} "
+                f"{'sigma-only' if so else 'full'} ({ops / 1e6:.3f} M operations a sample): "
+                f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, torch._int_mm of the same layers "
+                f"{lib_ms:.3f} ms; bound {bnd[0]:.3f} ms ({bnd[1]}, at {INT8_OPS_S / 1e12:g} "
+                f"TOP/s), {bnd[0] / k_ms:.1%} of it (medians of 3)")
+    restore_counts(saved)                      # timing launches do not count
+    return times
 
 
 def phase_int8_frames(coarse, fine, cam, dev, img_f32, grid):
@@ -3690,7 +3826,8 @@ def run_phase_examples(root: Path, cam, dev, card):
 # networks widened to the same function at (width, v_width, depth) =
 # WIDE_LEGOS, rendered through the CLI; random networks at WIDE_RANDOM
 # against the plain version; a 512-wide student trained, checkpointed,
-# rendered, evaluated and served; `--impl int8` beyond the int8 kernel.
+# rendered, evaluated and served; `--impl int8` through the wide int8
+# kernel (csrc/int8_mlp_wide_tc.cu).
 WIDE_LEGOS = ((512, 256, 8), (384, 192, 8), (512, 256, 20))
 WIDE_RANDOM = ((384, 192, 8, 4), (512, 256, 8, 4), (512, 256, 20, 4))
 WIDE_STEPS = 20
@@ -3796,10 +3933,11 @@ def wide_cli_frame(argv, out: Path):
     return load_ppm(out), text, read_counts()
 
 
-def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
-    """Phase 29: K1's wide kernels on their main paths, each run with the
-    counts set to 0 just before and read just after; -> the wide kernels'
-    entries of the kernels line (launches from the main-path runs)."""
+def run_phase_wide(root: Path, cam, dev, card, assets: Path):
+    """Phase 29: K1's, K2's and the int8 wide kernels on their main paths,
+    each run with the counts set to 0 just before and read just after; ->
+    (the wide K1 and K2 entries of the kernels line, the wide int8 kernel's
+    launches in the main-path runs)."""
     import threading
     import urllib.request
     from http.server import ThreadingHTTPServer
@@ -4041,18 +4179,29 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
     if not ok:
         raise PhaseFailure("the 512-wide checkpoint's front ends went around wide K1 or disagree")
 
-    # (d) `--impl int8` beyond the int8 kernel's envelope: the plain int8 MLP.
-    d, img_f32 = frames[WIDE_LEGOS[0]]
-    q8, text, c = wide_cli_frame(["--weights", str(d), "--impl", "int8"], root / "q.ppm")
-    q8_db = psnr(q8, img_f32)
-    ok = (INT8_NOTE in text and q8_db > INT8_VS_F32_BAR_DB and c["fused_int8_mlp"] == 0
-          and c["fused_nerf_mlp"] == 0)
-    say("29 wide", f"render --impl int8 of the lego widened to 512: note printed: "
-        f"{INT8_NOTE in text}; vs its f32 frame {q8_db:.2f} dB (bar > {INT8_VS_F32_BAR_DB}); "
-        f"int8 kernel launches {c['fused_int8_mlp']}, K1 {c['fused_nerf_mlp']} (expected 0: "
-        f"the plain int8 MLP) -> {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise PhaseFailure("--impl int8 at width 512 missed its note or its bar")
+    # (d) `--impl int8` through the wide int8 kernel: the lego widened to
+    # 512/256/8 and 512/256/20, against the plain int8 frame and the f32
+    # frame.
+    int8_launched = 0
+    for arch in (WIDE_LEGOS[0], WIDE_LEGOS[2]):
+        d, img_f32 = frames[arch]
+        q8, text, c = wide_cli_frame(["--weights", str(d), "--impl", "int8"], root / "q.ppm")
+        int8_launched += c["fused_int8_mlp_wide"]
+        with plain_int8():
+            plain, _, _ = wide_cli_frame(["--weights", str(d), "--impl", "int8"],
+                                         root / "qp.ppm")
+        q8_db, plain_db = psnr(q8, img_f32), psnr(plain, q8)
+        ok = (INT8_NOTE not in text and q8_db > INT8_VS_F32_BAR_DB and plain_db >= PLAIN_BAR_DB
+              and c["fused_int8_mlp"] == c["fused_int8_mlp_wide"] == 2 * chunks
+              and c["fused_nerf_mlp"] == 0)
+        say("29 wide", f"render --impl int8 of the lego widened to {arch}: note printed: "
+            f"{INT8_NOTE in text}; vs the plain int8 frame {plain_db:.2f} dB (bar >= "
+            f"{PLAIN_BAR_DB}), vs its f32 frame {q8_db:.2f} dB (bar > {INT8_VS_F32_BAR_DB}); "
+            f"int8 launches {c['fused_int8_mlp']}, wide {c['fused_int8_mlp_wide']} (expected "
+            f"{2 * chunks}), K1 {c['fused_nerf_mlp']} (expected 0) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailure(f"--impl int8 at {arch} printed the note, missed a bar or went "
+                               "around the wide int8 kernel")
 
     # (e) Times, not counted: K1 and the plain version and the library
     # call at the render's shapes, bounds, frames.
@@ -4082,6 +4231,11 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
     frame_ms = {dtype: timed_ms(lambda: render(wide["coarse"], wide["fine"], cam, dev, "pallas",
                                                dtype))
                 for dtype in ("float32", "bfloat16")}
+    frame_ms["int8"] = timed_ms(lambda: render(wide["coarse"], wide["fine"], cam, dev, "int8",
+                                               "float32"))
+    with plain_int8():
+        frame_ms["plain int8"] = timed_ms(lambda: render(wide["coarse"], wide["fine"], cam, dev,
+                                                         "int8", "float32"))
     accel_ms = timed_ms(lambda: render_accel(wide["coarse"], wide["fine"], cam, dev, cfg, grid,
                                              BENCH_SIZE))
     # Wide K2 at the training path's fine inputs on the lego widened to
@@ -4131,7 +4285,8 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
             "(medians of 3)")
     restore_counts(saved)
     say("29 times", f"{card}: the lego widened to 512/256/8, {W}x{H} {N_COARSE}+{N_FINE} frame "
-        f"f32 {frame_ms['float32']:.1f} ms, bf16 {frame_ms['bfloat16']:.1f} ms; "
+        f"f32 {frame_ms['float32']:.1f} ms, bf16 {frame_ms['bfloat16']:.1f} ms, int8 (wide int8 "
+        f"kernel) {frame_ms['int8']:.1f} ms, int8 plain {frame_ms['plain int8']:.1f} ms; "
         f"{BENCH_SIZE}x{BENCH_SIZE} bf16 accel+K3 frame {accel_ms:.1f} ms (first runs: dense "
         f"{dense_ms:.0f}, accel {fast_ms:.0f}); medians of 3; phase 29 took "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -4170,7 +4325,7 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path) -> list:
               ("float32", "fused_mlp_wide_bwd_tc.cu", ("fused_mlp_wide_f32.cu",
                                                        "fused_mlp_bwd_tc.cuh")),
               ("bfloat16", "fused_mlp_wide_bwd_bf16.cu", ("fused_mlp_wide_tc.cuh",)))),
-    ]
+    ], int8_launched
 
 
 def wide_shapes(times, dtype: str):
@@ -4384,9 +4539,12 @@ def main() -> int:
     # The int8 family: the kernel against its plain version, the
     # post-training int8 frames, QAT distillation, times.
     int8_err, int8_cases, int8_vd = phase_int8_vs_plain(coarse, fine, cam, dev)
+    wide_int8_err, wide_int8_cases, wide_int8_vd = phase_wide_int8_vs_plain(cam, dev, assets)
     int8_launches = phase_int8_frames(coarse, fine, cam, dev, img_f32, grid)
     phase_qat(cam, dev, img_f32)
     int8_times = phase_int8_times(int8_cases, int8_vd, cam, dev, card)
+    wide_int8_times = phase_wide_int8_times(wide_int8_cases, wide_int8_vd, card)
+    del wide_int8_cases
 
     # Checkpoints, the nerf_synthetic dataset and the CLI's front ends.
     phase_data(coarse, fine, cam, dev, card)
@@ -4402,7 +4560,7 @@ def main() -> int:
     extra = phase_examples(cam, dev, card)
 
     # K1's wide envelope: networks wider than 256 or deeper than 16.
-    wide_entries = phase_wide(cam, dev, card, assets)
+    wide_entries, wide_int8_launches = phase_wide(cam, dev, card, assets)
 
     # Bounds from this run's shapes (bytes: each input read once, each
     # output written once; operations at the peak of their type).
@@ -4460,6 +4618,13 @@ def main() -> int:
         entry("int8_mlp", "int8_mlp_tc.cu", "tools/pallas_int8_probe.py:66",
               int8_launches["fused_int8_mlp"] + extra["int8_mlp"], int8_err, q_ms, q_plain_ms,
               q_bound, q_lib_ms),
+        entry("int8_mlp_wide", "int8_mlp_wide_tc.cu", "tools/pallas_int8_probe.py:66",
+              wide_int8_launches, wide_int8_err, *wide_int8_times[((512, 256, 8), False)],
+              sources=[f"nerf_rs_tpu_torch/ops/kernels/csrc/{name}"
+                       for name in ("int8_mlp_wide_tc.cu", "int8_mlp_tc.cuh")],
+              shapes=[{"arch": list(arch), "sigma_only": so, "ms": k, "plain_ms": p,
+                       "bound_ms": b[0], "bound_by": b[1], "library_ms": lib}
+                      for (arch, so), (k, p, b, lib) in wide_int8_times.items()]),
         *wide_entries,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -145,7 +145,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     enc = lib.nerf_hash_encode
     enc.argtypes = [p, ll, p, i, ll, i, i, i, p, p, p, f, f, p, i, p]
     enc.restype = ctypes.c_int
-    q8 = lib.nerf_int8_mlp_forward
-    q8.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, p, p, i, p]
-    q8.restype = ctypes.c_int
+    for q8 in (lib.nerf_int8_mlp_forward, lib.nerf_int8_mlp_wide_forward):
+        q8.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, p, p, i, p]
+        q8.restype = ctypes.c_int
     return lib

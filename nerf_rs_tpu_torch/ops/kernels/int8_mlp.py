@@ -1,13 +1,18 @@
 """W8A8 NeRF MLP: the int8 CUDA kernel's wrapper, its weight packing and
 its plain PyTorch version.
 
-The kernel (``csrc/int8_mlp_tc.cu``) is the port's counterpart of the JAX
-package's int8 probe P2 (``tools/pallas_int8_probe.py:66``): a chain of
-int8 x int8 -> int32 products with the weights resident, each followed by
-an f32 epilogue and a per-sample absmax requantize to int8. Here that chain
-is the real W8A8 NeRF MLP, ``models.quant.int8_nerf_mlp(fake=False)``,
-both the full and the ``sigma_only`` variant, in one launch per call, with
-the products on s8 ``wgmma`` (Hopper's tensor cores).
+The kernels are the port's counterpart of the JAX package's int8 probe P2
+(``tools/pallas_int8_probe.py:66``): a chain of int8 x int8 -> int32
+products with the weights resident, each followed by an f32 epilogue and a
+per-sample absmax requantize to int8. Here that chain is the real W8A8 NeRF
+MLP, ``models.quant.int8_nerf_mlp(fake=False)``, both the full and the
+``sigma_only`` variant, in one launch per call, with the products on s8
+``wgmma`` (Hopper's tensor cores). Two kernels share the arithmetic and its
+device code (``csrc/int8_mlp_tc.cuh``), as K1's narrow and wide pairs do:
+``csrc/int8_mlp_tc.cu`` serves trunk and view widths up to
+``INT8_NARROW_MAX_WIDTH`` and depths up to ``INT8_NARROW_MAX_DEPTH``, and
+``csrc/int8_mlp_wide_tc.cu`` the rest of the envelope, up to
+``INT8_MAX_WIDTH`` and ``INT8_MAX_DEPTH`` (K1's).
 
 - :func:`pack_int8_params` quantizes every layer once with
   ``models.quant.quantize_weights`` and tiles the codes for ``wgmma``
@@ -15,12 +20,13 @@ the products on s8 ``wgmma`` (Hopper's tensor cores).
   ``models.mlp.NerfMLP.packed("int8")`` keeps the pack until a parameter
   changes.
 - :func:`fused_int8_mlp` launches the kernel on CUDA tensors (counted in
-  ``fused_int8_mlp.launches``) and runs the plain version on CPU tensors.
-  A CUDA tensor never reaches the plain version: an arch or encoding the
-  kernel does not serve raises ``NotImplementedError``. Its envelope is its
-  own (:func:`supports_arch`: widths up to ``INT8_MAX_WIDTH``, depth up to
-  ``INT8_MAX_DEPTH``), narrower than K1's; ``render.get_mlp_fn(cfg, params, device)`` picks
-  the plain version up front for a wider network on the card.
+  ``fused_int8_mlp.launches``, the wide kernel's also in
+  ``fused_int8_mlp.wide_launches``) and runs the plain version on CPU
+  tensors. A CUDA tensor never reaches the plain version: an arch or
+  encoding the kernels do not serve raises ``NotImplementedError``. Their
+  envelope (:func:`supports_arch`) is K1's; ``render.get_mlp_fn(cfg,
+  params, device)`` picks the plain version up front for a wider network
+  on the card.
 - :func:`fused_int8_mlp_reference` is the plain version,
   ``models.quant.int8_nerf_mlp(fake=False)``.
 
@@ -52,28 +58,37 @@ from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
     infer_arch,
 )
 
-INT8_MAX_DEPTH = 16         # kMaxDepth in csrc/int8_mlp_tc.cu
-INT8_MAX_WIDTH = 256        # kMaxWidth there: widest trunk or view branch served
-_PIECE = 64                 # kPiece: the kernel's wgmma N; widths pad to it
+INT8_MAX_DEPTH = 32         # kMaxDepth in csrc/int8_mlp_wide_tc.cu
+INT8_MAX_WIDTH = 512        # kMaxWidth there: widest trunk or view branch served
+INT8_NARROW_MAX_DEPTH = 16  # kMaxDepth in csrc/int8_mlp_tc.cu
+INT8_NARROW_MAX_WIDTH = 256  # kMaxWidth there
+_PIECE = 64                 # kPiece: the kernels' wgmma N; widths pad to it
 _HEAD_LD = 8                # the alpha and rgb heads' padded column count
 
 
 def supports_dims(width: int, v_width: int, depth: int) -> bool:
-    """Whether the int8 kernel serves these dimensions: trunk and view
+    """Whether the int8 kernels serve these dimensions: trunk and view
     widths up to ``INT8_MAX_WIDTH``, at most ``INT8_MAX_DEPTH`` dense
     layers."""
     return (1 <= width <= INT8_MAX_WIDTH and 1 <= v_width <= INT8_MAX_WIDTH
             and 1 <= depth <= INT8_MAX_DEPTH)
 
 
+def narrow_dims(width: int, v_width: int, depth: int) -> bool:
+    """Whether the narrow kernel (``csrc/int8_mlp_tc.cu``) serves these
+    dimensions; the wide one serves the rest of :func:`supports_dims`."""
+    return (width <= INT8_NARROW_MAX_WIDTH and v_width <= INT8_NARROW_MAX_WIDTH
+            and depth <= INT8_NARROW_MAX_DEPTH)
+
+
 def supports_arch(params) -> bool:
-    """Whether the int8 kernel serves a network (a NerfMLP or a param
+    """Whether the int8 kernels serve a network (a NerfMLP or a param
     tree)."""
     return supports_dims(*_dims(params))
 
 
 def unserved_note(params) -> str:
-    """Why the int8 kernel refuses a network."""
+    """Why the int8 kernels refuse a network."""
     width, v_width, depth = _dims(params)
     return (f"int8 kernel serves width, v_width <= {INT8_MAX_WIDTH} and depth <= "
             f"{INT8_MAX_DEPTH}; got width={width}, v_width={v_width}, depth={depth}")
@@ -92,8 +107,11 @@ class PackedInt8MLP:
     as ``[sw, sw, b, b]`` at ``epilogue[2 offset + 4 i:]``, one 16-byte
     load; ``scales`` and ``biases`` are views of it, flat like the slots.
     Every padding code, scale and bias is zero. ``ldw`` and ``ldv`` are the trunk
-    and view widths padded to 64, the kernel's N. ``layout`` is the int64
-    table in the order ``csrc/int8_mlp_tc.cu`` reads it.
+    and view widths padded to 64, the kernels' N. ``layout`` is the int64
+    table of the kernel that serves the network (``wide``: the wide one),
+    in the order it reads it: ``csrc/int8_mlp_tc.cu``'s 56 entries, or
+    ``csrc/int8_mlp_wide_tc.cu``'s 104 (three entries a dense-layer slot,
+    ``INT8_NARROW_MAX_DEPTH`` or ``INT8_MAX_DEPTH`` slots, and 8).
     """
 
     weights: torch.Tensor
@@ -106,6 +124,7 @@ class PackedInt8MLP:
     depth: int
     ldw: int
     ldv: int
+    wide: bool
 
     @property
     def scales(self) -> torch.Tensor:
@@ -165,7 +184,11 @@ def pack_int8_params(params) -> PackedInt8MLP:
     to the kernel's input layout: the encode 63 -> 64 (placed first in the
     skip layer), widths to a multiple of 64, the dir encode 27 -> 32 after
     the bottleneck's rows; columns pad to a multiple of 64 (the heads' to
-    8). Serves what :func:`supports_arch` serves; anything else raises
+    8). The segments are the same for both kernels: every 16 K-rows of a
+    layer are one contiguous run, so either kernel copies any run of rows
+    (the narrow one 128 at a time, the wide one 64 above width 256) in one
+    bulk copy; only the layout table differs (:class:`PackedInt8MLP`).
+    Serves what :func:`supports_arch` serves; anything else raises
     ValueError.
     """
     if not supports_arch(params):
@@ -228,16 +251,18 @@ def pack_int8_params(params) -> PackedInt8MLP:
     def slot(name):
         return slots[name][0]
 
+    wide = not narrow_dims(width, v_width, depth)
+    d = INT8_MAX_DEPTH if wide else INT8_NARROW_MAX_DEPTH
     layout = np.array(
-        [seg(f"dense{i}") if i < depth else -1 for i in range(INT8_MAX_DEPTH)]
-        + [slot(f"dense{i}") if i < depth else -1 for i in range(INT8_MAX_DEPTH)]
-        + [int(i in skips) for i in range(INT8_MAX_DEPTH)]
+        [seg(f"dense{i}") if i < depth else -1 for i in range(d)]
+        + [slot(f"dense{i}") if i < depth else -1 for i in range(d)]
+        + [int(i in skips) for i in range(d)]
         + [seg(n) for n in ("alpha", "bottleneck", "viewdirs", "rgb")]
         + [slot(n) for n in ("alpha", "bottleneck", "viewdirs", "rgb")],
         dtype=np.int64)
     return PackedInt8MLP(weights=torch.cat(codes_tc), epilogue=torch.cat(epilogue),
                          segments=segments, slots=slots, layout=layout,
-                         width=width, v_width=v_width, depth=depth, ldw=ldw, ldv=ldv)
+                         width=width, v_width=v_width, depth=depth, ldw=ldw, ldv=ldv, wide=wide)
 
 
 def fused_int8_mlp_reference(params, points: torch.Tensor, viewdirs: torch.Tensor, *,
@@ -258,8 +283,9 @@ def fused_int8_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *, x_fr
     f32 -> (rgb (..., 3), sigma (...,)) f32. With ``sigma_only`` rgb is
     zeros.
 
-    CUDA tensors launch the kernel on the current stream without
-    synchronizing, one launch per call; CPU tensors run
+    CUDA tensors launch a kernel on the current stream without
+    synchronizing, one launch per call: the narrow one within
+    :func:`narrow_dims`, the wide one beyond; CPU tensors run
     :func:`fused_int8_mlp_reference`. On the card an arch beyond
     :func:`supports_arch` or other encodings than (10, 4) raise
     NotImplementedError: no quiet fallback here (the renderer's choice,
@@ -283,7 +309,9 @@ def fused_int8_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *, x_fr
     sigma = torch.empty(batch, dtype=torch.float32, device=points.device)
     if n == 0:
         return rgb, sigma
-    err = _build.load_library().nerf_int8_mlp_forward(
+    lib = _build.load_library()
+    launch = lib.nerf_int8_mlp_wide_forward if pk.wide else lib.nerf_int8_mlp_forward
+    err = launch(
         points.data_ptr(), dirs.data_ptr(), n, dir_div, pk.weights.data_ptr(),
         pk.epilogue.data_ptr(), pk.layout.ctypes.data, pk.layout.size,
         pk.ldw, pk.ldv, pk.depth, int(sigma_only), rgb.data_ptr(), sigma.data_ptr(),
@@ -291,7 +319,10 @@ def fused_int8_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *, x_fr
     if err != 0:
         raise RuntimeError(f"int8 MLP kernel launch failed with CUDA error {err}")
     fused_int8_mlp.launches += 1
+    if pk.wide:
+        fused_int8_mlp.wide_launches += 1
     return rgb, sigma
 
 
 fused_int8_mlp.launches = 0
+fused_int8_mlp.wide_launches = 0

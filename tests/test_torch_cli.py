@@ -10,7 +10,7 @@ cannot serve run ``impl="xla"`` with a note (``nerf_rs_tpu/cli.py``,
 only for the MLP family, whose teacher then renders through the fused
 kernel. The port does the same, with its own envelopes: the forward K1
 serves widths up to 512 and depths up to 32, the backward K2 (training)
-256 and 16, and the int8 kernel 256 and 16, beyond which ``--impl int8``
+the same, and the int8 kernels the same, beyond which ``--impl int8``
 renders the plain int8 MLP with a note."""
 
 import contextlib
@@ -44,9 +44,9 @@ ROOT = Path(__file__).resolve().parents[1]
 LEGO = ROOT / "assets" / "lego_rust"
 NOTE = "outside the fused kernels' range"
 K2_NOTE = "the fused backward K2 serves width, v_width <= 512, depth <= 32"
-INT8_NOTE = "outside the int8 kernel's range (width, v_width <= 256, depth <= 16)"
-# Wider than K2 and the int8 kernel serve (256), within K1's envelope (512),
-# a multiple of 128 as JAX's kernel takes.
+INT8_NOTE = "outside the int8 kernel's range (width, v_width <= 512, depth <= 32)"
+# Wider than the narrow kernels serve (256), within K1's envelope (512), a
+# multiple of 128 as JAX's kernel takes.
 WIDE = JaxArchConfig(width=384, v_width=128, depth=2, skip_at=0)
 # Wider than K1 serves (512), still a multiple of 128.
 WIDER = JaxArchConfig(width=640, v_width=128, depth=2, skip_at=0)
@@ -123,13 +123,15 @@ def test_cli_render_width_384_runs_fused_without_note(wide_assets, tmp_path, cap
 
 def test_cli_render_int8_beyond_the_int8_kernel_notes_and_matches_jax(tmp_path, capsys):
     """``--impl int8`` on the lego widened to 384 (``chip_smoke.widen_nerf``,
-    as phase 29 renders it), beyond the int8 kernel's envelope: the note,
-    the int8 impl kept (the plain int8 MLP on the card, chosen per network
-    by ``render.get_mlp_fn``), and JAX's ``render --impl int8`` frame of
-    the same weights (its int8 path is XLA at every width) within one 8-bit
-    level. (Random-init networks miss that level against JAX at every
-    width, 128 and 256 included: an activation code that rounds the other
-    way moves a near-zero density's samples.)"""
+    as phase 29 renders it), beyond the narrow int8 kernel and within the
+    wide one's envelope (512, 32): no note, the int8 impl (the wide int8
+    kernel on the card, its plain version here), and JAX's ``render --impl
+    int8`` frame of the same weights (its int8 path is XLA at every width)
+    within one 8-bit level. (Random-init networks miss that level against
+    JAX at every width, 128 and 256 included: an activation code that
+    rounds the other way moves a near-zero density's samples.) Past the
+    envelope the note stays:
+    test_cli_render_int8_past_the_int8_envelope_notes."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
@@ -139,9 +141,36 @@ def test_cli_render_int8_beyond_the_int8_kernel_notes_and_matches_jax(tmp_path, 
     path = tmp_path / "int8.ppm"
     assert cli_main([*RENDER, "--weights", str(assets), "--impl", "int8", "-o", str(path)]) == 0
     text = capsys.readouterr().out
-    assert INT8_NOTE in text and "(int8/float32" in text and NOTE not in text
+    assert "outside the int8 kernel's range" not in text
+    assert "(int8/float32" in text and NOTE not in text
     got = load_ppm(path)
     assert np.abs(got - _jax_frame(assets, "int8")).max() <= 1.0 / 255 + 1e-6
+
+
+def test_cli_render_int8_past_the_int8_envelope_notes(wider_assets, tmp_path, capsys):
+    """``--impl int8`` on width-640 weights, past the int8 kernels' envelope
+    (and K1's): the note with the envelope's numbers, the int8 impl kept
+    (``render.get_mlp_fn`` picks the plain int8 MLP per network on the
+    card), no K1 note, and the frame the plain int8 MLP renders."""
+    from nerf_rs_tpu_torch.config import RenderConfig
+    from nerf_rs_tpu_torch.io.golden import camera_from_golden, load_golden
+    from nerf_rs_tpu_torch.io.weights import load_nerf_params
+    from nerf_rs_tpu_torch.models.mlp import NerfMLP
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.render import render_image
+
+    path = tmp_path / "int8.ppm"
+    assert cli_main([*RENDER, "--weights", str(wider_assets), "--impl", "int8",
+                     "-o", str(path)]) == 0
+    text = capsys.readouterr().out
+    assert INT8_NOTE in text and "(int8/float32" in text and NOTE not in text
+    coarse, fine = (NerfMLP(load_nerf_params(wider_assets / n)) for n in ("coarse", "fine"))
+    cam = camera_from_golden(load_golden(wider_assets / "tf_reference_samples.json"))
+    want = render_image(coarse, fine, cam, 6, 8, random.key(0, "cpu"),
+                        RenderConfig(n_coarse=4, n_fine=4, ray_chunk=16, impl="int8"))
+    got = load_ppm(path)
+    assert got.shape == (6, 8, 3)
+    assert np.abs(got - np.clip(want.numpy(), 0, 1)).max() <= 0.5 / 255 + 1e-6
 
 
 TRAIN = ["train", "--device", "cpu", "--steps", "1", "--batch-rays", "16", "--coarse-samples",

@@ -1039,16 +1039,93 @@ def test_int8_kernel_exact_at_saturated_codes(card):
 
 
 def test_int8_kernel_refuses_what_it_does_not_serve(card):
+    """Past the int8 kernels' envelope (width 576, depth 33) and for other
+    encodings: NotImplementedError, no launch."""
     from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp
 
-    wide = NerfMLP(np_params(ArchConfig(width=264, v_width=32, depth=2, skip_at=5), 33),
-                   device=card)
     pts, dirs = inputs(4, 8, 34, card)
-    with pytest.raises(NotImplementedError, match="width=264"):
-        fused_int8_mlp(wide, pts, dirs)
+    before = fused_int8_mlp.launches
+    for arch, text in ((ArchConfig(width=576, v_width=32, depth=2, skip_at=5), "width=576"),
+                       (ArchConfig(width=64, v_width=32, depth=33, skip_at=4), "depth=33")):
+        net = NerfMLP(np_params(arch, 33), device=card)
+        with pytest.raises(NotImplementedError, match=text):
+            fused_int8_mlp(net, pts, dirs)
+    assert fused_int8_mlp.launches == before
     net = NerfMLP(np_params(SMALL, 35), device=card)
     with pytest.raises(NotImplementedError, match="L=\\(10,4\\)"):
         fused_int8_mlp(net, pts, dirs, x_freqs=8)
+
+
+# The wide int8 kernel (csrc/int8_mlp_wide_tc.cu): past width 256 or depth
+# 16, up to 512 and 32, at check_int8's bars.
+WIDE_INT8 = [ArchConfig(width=300, v_width=72, depth=18, skip_at=4),
+             ArchConfig(width=264, v_width=32, depth=2, skip_at=0),
+             ArchConfig(width=64, v_width=64, depth=17, skip_at=4),
+             ArchConfig(width=256, v_width=128, depth=20, skip_at=4),
+             ArchConfig(width=512, v_width=512, depth=32, skip_at=10)]
+
+
+def check_wide_int8(net, pts, dirs, sigma_only):
+    from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp
+
+    before = fused_int8_mlp.wide_launches
+    check_int8(net, pts, dirs, sigma_only)
+    assert fused_int8_mlp.wide_launches == before + 2
+
+
+@pytest.mark.parametrize("sigma_only", [False, True])
+@pytest.mark.parametrize("arch", WIDE_INT8, ids=["300x72x18", "264x32x2", "64x64x17",
+                                                 "256x128x20", "512x512x32"])
+def test_wide_int8_kernel_matches_plain_ragged(card, arch, sigma_only):
+    """A ragged sample count (37 x 29), ragged widths, one 64-column piece
+    (the second warpgroup without columns), 32 layers at 512; per-ray and
+    per-sample dirs; two calls bitwise equal, both on the wide kernel."""
+    net = NerfMLP(np_params(arch, 40), device=card)
+    pts, dirs = inputs(37, 29, 41, card)
+    check_wide_int8(net, pts * 0.4, dirs, sigma_only)
+    check_wide_int8(net, pts * 0.4, dirs.expand(37, 29, 3).contiguous(), sigma_only)
+
+
+@pytest.mark.parametrize("arch", [(512, 256, 20), (384, 192, 8)], ids=["512x256x20", "384x192x8"])
+@pytest.mark.parametrize("net", ["coarse", "fine"])
+def test_wide_int8_kernel_matches_plain_widened_lego(card, net, arch):
+    """The lego networks widened by chip_smoke.widen_nerf (phase 29's),
+    331 x 157 samples: many tiles a CTA, the last one ragged."""
+    import sys
+
+    sys.path.insert(0, str(LEGO.parents[1]))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(LEGO.parents[1]))
+    tree = chip_smoke.widen_nerf(load_nerf_params(LEGO / net), *arch,
+                                 seed=("coarse", "fine").index(net))
+    module = NerfMLP(tree, device=card)
+    pts, dirs = inputs(331, 157, 42, card)
+    check_wide_int8(module, pts * 0.4, dirs, net == "coarse")
+
+
+def test_wide_int8_kernel_exact_at_saturated_codes(card):
+    """saturating_params at 512/256/8: whole rows of codes at 127, the
+    skip layer's K = 576, the wide kernel's largest sums: sigma bit for
+    bit, rgb within INT8_RGB_ATOL."""
+    net = NerfMLP(saturating_params(ArchConfig(width=512, v_width=256, depth=8, skip_at=4), 43),
+                  device=card)
+    pts, dirs = inputs(64, 96, 44, card)
+    check_wide_int8(net, pts * 0.4, dirs, False)
+    check_wide_int8(net, pts * 0.4, dirs, True)
+
+
+def test_wide_int8_kernel_empty_batch(card):
+    """No samples: empty outputs and no launch."""
+    from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp
+
+    net = NerfMLP(np_params(WIDE_INT8[0], 45), device=card)
+    before = fused_int8_mlp.launches, fused_int8_mlp.wide_launches
+    rgb, sig = fused_int8_mlp(net, torch.zeros(0, 7, 3, device=card),
+                              torch.zeros(0, 1, 3, device=card))
+    assert rgb.shape == (0, 7, 3) and sig.shape == (0, 7)
+    assert (fused_int8_mlp.launches, fused_int8_mlp.wide_launches) == before
 
 
 def test_int8_render_on_card_matches_plain(card):

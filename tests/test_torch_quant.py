@@ -465,11 +465,19 @@ def test_fused_int8_mlp_refuses_other_devices():
 
 
 def test_pack_refuses_what_the_kernel_does_not_serve():
-    """Widths beyond 256 are outside the kernel's envelope: the pack
-    raises (on the card the wrapper raises NotImplementedError first)."""
-    wide = port_tree(np_params(ArchConfig(width=264, v_width=32, depth=2, skip_at=5), 12))
-    with pytest.raises(ValueError, match="width=264"):
+    """Widths beyond 512 and depths beyond 32 are outside the kernels'
+    envelope: the pack raises (on the card the wrapper raises
+    NotImplementedError first). Width 264, beyond the narrow kernel, is
+    served: the wide kernel's pack."""
+    wide = port_tree(np_params(ArchConfig(width=576, v_width=32, depth=2, skip_at=5), 12))
+    with pytest.raises(ValueError, match="width=576"):
         pack_int8_params(wide)
+    deep = port_tree(np_params(ArchConfig(width=64, v_width=32, depth=33, skip_at=4), 12))
+    with pytest.raises(ValueError, match="depth=33"):
+        pack_int8_params(deep)
+    served = pack_int8_params(port_tree(np_params(ArchConfig(width=264, v_width=32, depth=2,
+                                                             skip_at=5), 12)))
+    assert served.wide and served.ldw == 320
 
 
 def test_get_mlp_fn_routes_the_int8_family():

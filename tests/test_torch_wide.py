@@ -2,8 +2,9 @@
 16, up to width and v_width 512 and depth 32, which the forward kernel K1
 serves through its wide pair (``csrc/fused_mlp_wide_tc.cu``,
 ``csrc/fused_mlp_wide_f32.cu``) and the backward K2 through its own
-(tests/test_torch_wide_bwd.py); and ``--impl int8`` beyond the int8
-kernel's envelope, which renders the plain int8 MLP.
+(tests/test_torch_wide_bwd.py); and ``--impl int8``, which the int8
+kernels serve within the same envelope (tests/test_torch_wide_int8.py)
+and which renders the plain int8 MLP beyond it.
 
 On the CPU the wrappers run the plain versions: the port's plain K1 at the
 wide architectures against the JAX Pallas kernel (interpret mode, as
@@ -239,30 +240,35 @@ def test_wide_grads_on_cpu_run_the_plain_versions():
 
 def test_int8_route_picks_the_plain_function_beyond_the_kernel_on_the_card():
     """``render.get_mlp_fn`` for one network: ``impl="int8"`` on a card
-    device beyond the int8 kernel's envelope (256, 16: narrower than
-    K1's) resolves up front to ``models.quant.int8_nerf_mlp(fake=False)``,
-    the same real-int8 arithmetic without the kernel; within it, or on the
-    CPU, to the kernel's wrapper, which keeps refusing what the kernel does
-    not serve (its pack raises)."""
+    device within the int8 kernels' envelope (512, 32: K1's) resolves to
+    the kernels' wrapper, for a network the narrow kernel serves (256/128/3)
+    and for those only the wide one serves (300/72/18 and 512/256/20, and
+    512/512/32 at the envelope's edge); beyond it (width 640) up front to
+    ``models.quant.int8_nerf_mlp(fake=False)``, the same real-int8
+    arithmetic without a kernel. On the CPU it is always the wrapper, which
+    keeps refusing what the kernels do not serve (its pack raises)."""
     from nerf_rs_tpu_torch.config import RenderConfig
     from nerf_rs_tpu_torch.models.quant import int8_nerf_mlp
     from nerf_rs_tpu_torch.ops.kernels import int8_mlp
     from nerf_rs_tpu_torch.render import get_mlp_fn
 
-    wide, narrow = (NerfMLP(jax_params(arch, 8)) for arch in ((384, 192, 3, 1), (256, 128, 3, 1)))
     cfg = RenderConfig(impl="int8", dtype="bfloat16")
     card, cpu = torch.device("cuda", 0), torch.device("cpu")
-    fn = get_mlp_fn(cfg, wide, card)
+    for arch in ((256, 128, 3, 1), (300, 72, 18, 4), (512, 256, 20, 4), (512, 512, 32, 10)):
+        net = NerfMLP(jax_params(arch, 8))
+        assert int8_mlp.supports_arch(net), arch
+        assert get_mlp_fn(cfg, net, card).func is int8_mlp.fused_int8_mlp, arch
+    assert (int8_mlp.INT8_MAX_WIDTH, int8_mlp.INT8_MAX_DEPTH) == (512, 32)
+    wider = NerfMLP(jax_params((640, 128, 3, 1), 8))
+    fn = get_mlp_fn(cfg, wider, card)
     assert fn.func is int8_nerf_mlp and fn.keywords["fake"] is False
-    assert get_mlp_fn(cfg, narrow, card).func is int8_mlp.fused_int8_mlp
-    assert get_mlp_fn(cfg, wide, cpu).func is int8_mlp.fused_int8_mlp
+    assert get_mlp_fn(cfg, wider, cpu).func is int8_mlp.fused_int8_mlp
     assert get_mlp_fn(cfg).func is int8_mlp.fused_int8_mlp
-    assert get_mlp_fn(RenderConfig(impl="pallas"), wide, card).func is fused_nerf_mlp
-    assert not int8_mlp.supports_arch(wide) and int8_mlp.supports_arch(narrow)
-    assert (int8_mlp.INT8_MAX_WIDTH, int8_mlp.INT8_MAX_DEPTH) == (256, 16)
-    with pytest.raises(ValueError, match="width=384"):
-        int8_mlp.pack_int8_params(wide.tree())
+    assert get_mlp_fn(RenderConfig(impl="pallas"), wider, card).func is fused_nerf_mlp
+    assert not int8_mlp.supports_arch(wider)
+    with pytest.raises(ValueError, match="width=640"):
+        int8_mlp.pack_int8_params(wider.tree())
     pts, dirs = (torch.from_numpy(a) for a in np_inputs(64, 9))
-    got = fn(wide, pts, dirs)
-    want = int8_mlp.fused_int8_mlp(wide, pts, dirs)      # on the CPU: the plain version
+    got = fn(wider, pts, dirs)
+    want = int8_mlp.fused_int8_mlp(wider, pts, dirs)      # on the CPU: the plain version
     assert all(torch.equal(a, b) for a, b in zip(got, want))

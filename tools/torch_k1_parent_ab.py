@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""K1's and K2's kernels against another version of their sources: the
-narrow K1 on the lego networks' render calls, the narrow K2 on the lego
-networks' training calls, the wide K1 on a 512-wide network's render
-calls and the wide K2 on a 512-wide network's training call, f32 and
-bf16, timed in turns and held bit for bit.
+"""K1's, K2's and the int8 kernels against another version of their
+sources: the narrow K1 on the lego networks' render calls, the narrow K2 on
+the lego networks' training calls, the wide K1 on a 512-wide network's
+render calls and the wide K2 on a 512-wide network's training call, f32
+and bf16, and the narrow int8 kernel on the lego networks' render calls,
+timed in turns and held bit for bit.
 
     python3 tools/torch_k1_parent_ab.py --parent DIR
 
@@ -29,8 +30,15 @@ Calls:
 - wide K1: a random 512/256/8 network (phase 29's) full at 8192 x 192 and
   sigma-only at 8192 x 64;
 - wide K2: the lego fine network widened to 512/256/8
-  (``chip_smoke.widen_nerf``) at the fine training call's inputs.
-Each in f32 and bf16, timed with CUDA events (median of 5 runs of 10
+  (``chip_smoke.widen_nerf``) at the fine training call's inputs;
+- int8 (narrow): the lego fine network full and the coarse one sigma-only
+  at K1's render calls, with each side's ``chip_smoke.int8_digest`` of the
+  outputs (phase 21 holds the narrow int8 kernel to the parent's digests,
+  ``chip_smoke.NARROW_INT8_SHA256``);
+- wide int8: the lego networks widened to 512/256/8 (fine full, coarse
+  sigma-only) and 384/192/8 (fine full) at the same calls, skipped, and
+  said so, where ``DIR``'s sources lack the wide int8 kernel.
+K1 and K2 each in f32 and bf16, timed with CUDA events (median of 5 runs of 10
 launches; 3 for K2 and wide K1, 1 for wide K2) in turns, parent, change,
 change, parent, ``--rounds`` times (3), and the two libraries' outputs
 compared bit for bit; ``--only TEXT`` keeps the calls whose label holds
@@ -175,6 +183,11 @@ def main() -> int:
     def k1(net, pts, so):
         return lambda dtype: fused_nerf_mlp(net, pts, vd, dtype=dtype, sigma_only=so)
 
+    def q8(net, pts, so):
+        from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp
+
+        return lambda dtype: fused_int8_mlp(net, pts, vd, sigma_only=so)
+
     def k2(name, so=False, net=None):
         lego, *inputs = bwd[name]
         return lambda dtype: fused_nerf_mlp_backward(net or lego, *inputs, dtype=dtype,
@@ -182,6 +195,11 @@ def main() -> int:
 
     wide_fine = NerfMLP(smoke.widen_nerf(load_nerf_params(assets / "fine"), 512, 256, 8),
                         device=dev)
+    widened = {(net, arch): NerfMLP(smoke.widen_nerf(load_nerf_params(assets / net), *arch,
+                                                     seed=("coarse", "fine").index(net)),
+                                    device=dev)
+               for net, arch in (("fine", (512, 256, 8)), ("coarse", (512, 256, 8)),
+                                 ("fine", (384, 192, 8)))}
     wide_k2 = ("nerf_fused_mlp_wide_f32_record", "nerf_wide_bwd_f32_tiles",
                "nerf_wide_bwd_bf16_tiles", "nerf_wide_dw", "nerf_wide_small_sum")
 
@@ -195,18 +213,33 @@ def main() -> int:
              ("wide K1 512/256/8 sigma-only", k1(wide, pts_c, True), tuple(pts_c.shape[:-1]),
               3),
              ("wide K2 lego fine widened to 512/256/8", k2("fine", net=wide_fine),
-              tuple(bwd["fine"][1].shape[:-1]), 1)]
+              tuple(bwd["fine"][1].shape[:-1]), 1),
+             ("int8 fine full", q8(nets["fine"], pts_f, False), tuple(pts_f.shape[:-1]), 10),
+             ("int8 coarse sigma-only", q8(nets["coarse"], pts_c, True), tuple(pts_c.shape[:-1]),
+              10),
+             ("int8 wide 512/256/8 full", q8(widened[("fine", (512, 256, 8))], pts_f, False),
+              tuple(pts_f.shape[:-1]), 5),
+             ("int8 wide 512/256/8 sigma-only", q8(widened[("coarse", (512, 256, 8))], pts_c,
+                                                   True), tuple(pts_c.shape[:-1]), 5),
+             ("int8 wide 384/192/8 full", q8(widened[("fine", (384, 192, 8))], pts_f, False),
+              tuple(pts_f.shape[:-1]), 5)]
     calls = [c for c in calls if not args.only or any(o in c[0] for o in args.only)]
-    skipped = [c[0] for c in calls if c[0].startswith("wide K2") and set(wide_k2) & set(missing)]
-    for label in skipped:
-        print(f"{label}: skipped, {args.parent}'s sources lack {sorted(set(wide_k2) & set(missing))}",
-              flush=True)
+    skipped = {c[0]: sorted(set(wide_k2) & set(missing)) for c in calls
+               if c[0].startswith("wide K2") and set(wide_k2) & set(missing)}
+    if "nerf_int8_mlp_wide_forward" in missing:
+        skipped.update({c[0]: ["nerf_int8_mlp_wide_forward"] for c in calls
+                        if c[0].startswith("int8 wide")})
+    for label, lacks in skipped.items():
+        print(f"{label}: skipped, {args.parent}'s sources lack {lacks}", flush=True)
     calls = [c for c in calls if c[0] not in skipped]
     sides = {"parent": other, "change": None}
     same = True
     times = {}
+    def dtypes(label):
+        return ("int8",) if label.startswith("int8") else ("float32", "bfloat16")
+
     for label, call, shape, inner in calls:
-        for dtype in ("float32", "bfloat16"):
+        for dtype in dtypes(label):
             outs = {}
             for side, lib in sides.items():
                 with launching(lib), torch.no_grad():
@@ -214,14 +247,19 @@ def main() -> int:
             torch.cuda.synchronize()
             bitwise = all(torch.equal(a, b) for a, b in zip(outs["parent"], outs["change"]))
             same &= bitwise
-            print(f"{label} {shape} {dtype}: parent and change bit for bit: {bitwise}", flush=True)
+            digests = ""
+            if dtype == "int8":
+                digests = "; sha256 " + ", ".join(
+                    f"{side} {smoke.int8_digest(*outs[side])}" for side in sides)
+            print(f"{label} {shape} {dtype}: parent and change bit for bit: {bitwise}{digests}",
+                  flush=True)
             for _ in range(args.rounds):
                 for side in ("parent", "change", "change", "parent"):
                     with launching(sides[side]), torch.no_grad():
                         ms = event_ms(lambda: call(dtype), inner=inner)
                     times.setdefault((label, dtype, side), []).append(ms)
     for label, _, shape, _ in calls:
-        for dtype in ("float32", "bfloat16"):
+        for dtype in dtypes(label):
             p, c = (times[(label, dtype, side)] for side in ("parent", "change"))
             print(f"{card}: {label} {dtype} {shape}, in turns (parent, change, change, parent) x "
                   f"{args.rounds}: parent median {statistics.median(p):.3f} ms ({min(p):.3f}-"
