@@ -245,7 +245,7 @@ kernel), and a 512-wide student trained, rendered, evaluated and served. Phases,
     f32 on the CUDA cores; K2: ``fused_mlp_wide_bwd_bf16.cu`` and, after the
     wide f32 forward's record pass, ``fused_mlp_wide_bwd_tc.cu``): (a) the lego networks widened by ``widen_nerf`` (same function)
     to (width, v_width, depth) = (512, 256, 8), (384, 192, 8) and (512,
-    256, 20), through ``render --weights DIR --impl pallas``: f32 256x256
+    256, 12), through ``render --weights DIR --impl pallas``: f32 256x256
     64+128 > 45 dB from the golden and >= 60 dB from ``--impl xla``, no
     note, every K1 launch wide (2 a chunk); at (512, 256, 8) the bf16 frame
     >= BF16_FRAME_BAR_DB from the f32 frame, and the 800x800 bf16 accel
@@ -261,9 +261,17 @@ kernel), and a 512-wide student trained, rendered, evaluated and served. Phases,
     then ``render --checkpoint`` through wide K1 without a note,
     ``evaluate`` (PSNR finite) and one ``/render`` of ``serve``'s handler
     byte for byte ``pixels_to_rgba(render_image(...))``; (d) ``render
-    --impl int8`` of the lego widened to 512/256/8 and 512/256/20 through
+    --impl int8`` of the lego widened to 512/256/8 and 512/256/12 through
     the wide int8 kernel: no note, two wide int8 launches a chunk, >= 60 dB
-    from the plain int8 frame, > 25 dB from its f32 frame; (e) times:
+    from the plain int8 frame, > 25 dB from its f32 frame; (e) K1 past
+    width 512, the wide1k pair (``fused_mlp_wide1k_f32.cu``,
+    ``fused_mlp_wide1k_tc.cu``): the lego widened 4x to WIDE1K_LEGO through
+    ``render --weights``, f32 > 45 dB from the golden and >= 60 dB from
+    ``--impl xla``, bf16 >= BF16_FRAME_BAR_DB from f32, no note, every K1
+    launch a wide1k launch (2 a chunk); its bf16 grid and 256x256 accel+K3
+    frame >= 40 dB from the dense bf16 frame; one bf16 ``/render`` byte for
+    byte; the pair against plain on WIDE1K_RANDOM and the widened lego at
+    (b)'s bars, every call a wide1k launch; times at 1024/512/8; (f) times:
     K1 f32 and bf16 at (512, 256, 8) full and sigma-only and at (384, 192,
     8) full, wide K2 at the fine training call, each beside the plain
     version, the library call and the bound, wide K2 f32 with its record
@@ -277,9 +285,10 @@ the kernel's route — K1 f32 six bf16 passes a product (split-f32), bf16
 for K1 bf16 and K2's bf16 mode, K2's f32 mode its recompute as K1 f32
 and its dW and W dz as 3xTF32 at the tf32 peak (the f32 entries also
 carry their all-CUDA-core bound), f32 on the CUDA cores for K3 and the
-hash encode and K1's wide f32 kernel, bf16 for K1's wide bf16 kernel,
+hash encode and K1's wide f32 kernels, bf16 for K1's wide bf16 kernels,
 int8 for the int8 kernels — from this run's shapes; the hash encode's entry
-also lists its four shapes in both dtypes, the wide kernels' their three);
+also lists its four shapes in both dtypes, the wide kernels' their three,
+the wide1k kernels' their two);
 the last line is the JSON device record.
 Never imports JAX.
 """
@@ -417,7 +426,8 @@ def phase_build():
                               r"fused_mlp_wide_bwd_bf16_kernel|fused_mlp_wide_dw_kernel|"
                               r"dw_sum_kernel|small_sum_kernel|record_planes_kernel|"
                               r"fused_mlp_f32tc_kernel|reduce_partials|resample_kernel|"
-                              r"hash_encode_kernel|int8_mlp_tc_kernel|int8_mlp_wide_tc_kernel)"
+                              r"hash_encode_kernel|int8_mlp_tc_kernel|int8_mlp_wide_tc_kernel|"
+                              r"fused_mlp_wide1k_tc_kernel|fused_mlp_wide1k_f32_kernel)"
                               r"(I\w*?L[bi][0-9]E)?", line)
             if "(C7519)" in line:              # an arrive ptxas adds before a wgmma
                 injected += 1
@@ -438,7 +448,8 @@ def phase_build():
         # wgmmas (ptxas's C75xx notes name the function) in any of them.
         for label, pattern, instances in (("K1", WIDE_K1_KERNELS, WIDE_K1_INSTANCES),
                                           ("K2", WIDE_K2_KERNELS, WIDE_K2_INSTANCES),
-                                          ("int8", WIDE_INT8_KERNELS, 2)):
+                                          ("int8", WIDE_INT8_KERNELS, 2),
+                                          ("K1 past width 512", WIDE1K_K1_KERNELS, 4)):
             wide = ptxas_usage(log.read_text(), pattern)
             serialized = sorted({m.group(1) + m.group(2) for m in re.finditer(
                 r"wgmma\.mma_async instructions are serialized.*?" + pattern,
@@ -464,7 +475,8 @@ def phase_build():
                             "fused_mlp_f32tc_kernelILb[01]ELb1E",   # its record mode
                             "fused_mlp_tc_kernel", "fused_mlp_bwd_bf16_kernel",
                             "fused_mlp_wide_tc_kernel", "fused_mlp_wide_bwd_bf16_kernel",
-                            "fused_mlp_wide_dw_kernel")}   # its bf16 and f32 modes
+                            "fused_mlp_wide_dw_kernel",    # its bf16 and f32 modes
+                            "fused_mlp_wide1k_tc_kernel")}
     for kernel, counts in hgmma.items():
         if len(counts) != 2 or not all(counts):
             raise PhaseFailure(f"{kernel} (both variants) has no HGMMA instructions in the built "
@@ -502,6 +514,8 @@ WIDE_K2_KERNELS = (r"(fused_mlp_wide_bwd_bf16_kernel|fused_mlp_wide_bwd_tc_kerne
 WIDE_K2_INSTANCES = 10
 # The wide int8 kernel's two instances (sigma-only or not).
 WIDE_INT8_KERNELS = r"(int8_mlp_wide_tc_kernel)(ILb[01]E)"
+# K1 past width 512: bf16 and f32 (each sigma-only or not): four instances.
+WIDE1K_K1_KERNELS = r"(fused_mlp_wide1k_tc_kernel|fused_mlp_wide1k_f32_kernel)(ILb[01]E)"
 # The wide K2 with per-tile partials (before its dW kernel): the build and
 # the whole run of its final chip_smoke run (PERF.md).
 PARTIALS_BUILD_S, PARTIALS_TOTAL_S = 118.7, 882.5
@@ -530,7 +544,7 @@ def ptxas_usage(log: str, pattern: str) -> dict:
     return {fn: tuple(v) for fn, v in usage.items()}
 
 
-MLP_KERNEL = (r"(?:fused_mlp(?:_wide)?(?:_bwd)?_(?:tc|bf16|f32tc)_kernel(?:I(?:Lb[01]E)+)?"
+MLP_KERNEL = (r"(?:fused_mlp(?:_wide(?:1k)?)?(?:_bwd)?_(?:tc|bf16|f32tc)_kernel(?:I(?:Lb[01]E)+)?"
               r"|fused_mlp_wide_dw_kernelILi[13]E)")
 INT8_KERNEL = r"int8_mlp_tc_kernelILb[01]E"
 WIDE_INT8_KERNEL = r"int8_mlp_wide_tc_kernelILb[01]E"
@@ -603,15 +617,16 @@ def recorded_k1(run):
         return real(params, points, viewdirs, **kw)
 
     # The wrapper counts through its module name.
-    record.launches, record.tc_launches, record.wide_launches = (
-        real.launches, real.tc_launches, real.wide_launches)
+    names = ("launches", "tc_launches", "wide_launches", "wide1k_launches")
+    for name in names:
+        setattr(record, name, getattr(real, name))
     fm.fused_nerf_mlp = record
     try:
         out = run()
     finally:
         fm.fused_nerf_mlp = real
-        real.launches, real.tc_launches, real.wide_launches = (
-            record.launches, record.tc_launches, record.wide_launches)
+        for name in names:
+            setattr(real, name, getattr(record, name))
     return out, seen
 
 
@@ -1721,26 +1736,30 @@ def counters():
             fused_int8_mlp)
 
 
+# The wrappers' other counts, (index in counters(), attribute): K1's
+# tensor-core count, K2's bf16 count, K1's wide count, K2's wide count, the
+# wide K2's dW kernel's, the wide int8 kernel's and K1's wide1k count.
+SUB_COUNTS = ((0, "tc_launches"), (1, "bf16_launches"), (0, "wide_launches"),
+              (1, "wide_launches"), (1, "dw_launches"), (4, "wide_launches"),
+              (0, "wide1k_launches"))
+
+
 def save_counts():
-    """Every launch count: each wrapper's, then K1's tensor-core count,
-    K2's bf16 count, K1's wide count, K2's wide count, the wide K2's dW
-    kernel's and the wide int8 kernel's."""
+    """Every launch count: each wrapper's, then SUB_COUNTS."""
     fns = counters()
-    return [fn.launches for fn in fns] + [fns[0].tc_launches, fns[1].bf16_launches,
-                                          fns[0].wide_launches, fns[1].wide_launches,
-                                          fns[1].dw_launches, fns[4].wide_launches]
+    return [fn.launches for fn in fns] + [getattr(fns[i], a) for i, a in SUB_COUNTS]
 
 
 def restore_counts(saved) -> None:
     fns = counters()
     for fn, n in zip(fns, saved):
         fn.launches = n
-    (fns[0].tc_launches, fns[1].bf16_launches, fns[0].wide_launches, fns[1].wide_launches,
-     fns[1].dw_launches, fns[4].wide_launches) = saved[-6:]
+    for (i, a), n in zip(SUB_COUNTS, saved[len(fns):]):
+        setattr(fns[i], a, n)
 
 
 def zero_counts() -> None:
-    restore_counts([0] * (len(counters()) + 6))
+    restore_counts([0] * (len(counters()) + len(SUB_COUNTS)))
 
 
 def read_counts() -> dict:
@@ -1750,7 +1769,8 @@ def read_counts() -> dict:
             "fused_nerf_mlp_wide": fns[0].wide_launches,
             "fused_nerf_mlp_backward_wide": fns[1].wide_launches,
             "fused_nerf_mlp_backward_dw": fns[1].dw_launches,
-            "fused_int8_mlp_wide": fns[4].wide_launches}
+            "fused_int8_mlp_wide": fns[4].wide_launches,
+            "fused_nerf_mlp_wide1k": fns[0].wide1k_launches}
 
 
 def encode_vs_plain(tables, pts, cfg, top: float):
@@ -3827,9 +3847,18 @@ def run_phase_examples(root: Path, cam, dev, card):
 # WIDE_LEGOS, rendered through the CLI; random networks at WIDE_RANDOM
 # against the plain version; a 512-wide student trained, checkpointed,
 # rendered, evaluated and served; `--impl int8` through the wide int8
-# kernel (csrc/int8_mlp_wide_tc.cu).
-WIDE_LEGOS = ((512, 256, 8), (384, 192, 8), (512, 256, 20))
-WIDE_RANDOM = ((384, 192, 8, 4), (512, 256, 8, 4), (512, 256, 20, 4))
+# kernel (csrc/int8_mlp_wide_tc.cu); past width 512, the wide1k pair
+# (WIDE1K_LEGO, WIDE1K_RANDOM).
+WIDE_LEGOS = ((512, 256, 8), (384, 192, 8), (512, 256, 12))
+WIDE_RANDOM = ((384, 192, 8, 4), (512, 256, 8, 4), (512, 256, 12, 4))
+# Past width 512 (phase 29 (e)): K1's wide1k pair (csrc/fused_mlp_wide1k_tc.cu
+# in bf16, csrc/fused_mlp_wide1k_f32.cu in f32) on the lego widened 4x to
+# mip-NeRF 360's trunk width, and random networks (width, v_width, depth,
+# skip_at): that width with the NeRF view width, widths not a multiple of
+# 64, and the envelope's edge.
+WIDE1K_LEGO = (1024, 512, 8)
+WIDE1K_RANDOM = ((1024, 512, 8, 4), (1024, 128, 8, 4), (776, 264, 12, 4), (1024, 1024, 32, 10))
+WIDE1K_FRAME = 256                      # the accel+K3 frame's size past width 512
 WIDE_STEPS = 20
 WIDE_BF16_STEPS = 5                     # train --dtype bfloat16 steps of the 512-wide student
 WIDE_EXACT_RAYS = 1024                  # rays a chunk of the float64 evaluation of wide K2
@@ -3843,10 +3872,14 @@ def widen_nerf(tree, width: int, v_width: int, depth: int = 0, seed: int = 0):
     ``v_width`` and ``depth`` dense layers (default: the same) that
     computes the function of ``tree`` (numpy or torch leaves): each
     hidden unit of the trunk, the bottleneck and the view layer is kept,
-    and ``width - w`` (or ``v_width - v``) of them are copied once (at most
-    doubling a layer). A copy keeps its unit's incoming weights and bias;
-    the outgoing rows of a copied unit are halved in both copies, exact in
-    binary, so the next layer sums the same products (in another order).
+    and copied so that it appears 1, 2 or 4 times (up to doubling a layer,
+    ``width - w`` (or ``v_width - v``) units twice and the rest once; past
+    that, some units 4 times, at most quadrupling a layer). Never 3
+    times: a copy keeps its unit's incoming weights and bias, and the
+    outgoing rows of a unit that appears c times are divided by c in every
+    copy, which is exact in binary for c = 2 and 4 but not for 3, so the
+    next layer sums the same products (in another order). Widths that
+    would need a unit 3 times (4 w - 1) are refused.
     The encode rows of the skip and view layers stay as they are. Each
     layer's units are placed by a permutation drawn from ``seed``, so a
     kernel that reads the wrong columns cannot pass. Layers past the
@@ -3864,9 +3897,16 @@ def widen_nerf(tree, width: int, v_width: int, depth: int = 0, seed: int = 0):
 
     def spread(n, m):
         """(source unit of each of m units, the factor of its outgoing rows)."""
-        if not n <= m <= 2 * n:
+        extra = m - n
+        quads = max(0, -(-(extra - n) // 2))           # units 4 times; 3 extra copies each
+        if not 0 <= extra <= 3 * n or 3 * quads > extra:
             raise ValueError(f"cannot widen a layer of {n} units to {m}")
-        src = np.concatenate([np.arange(n), rng.choice(n, m - n, replace=False)])
+        if quads:
+            picks = rng.choice(n, extra - 2 * quads, replace=False)
+            copies = np.concatenate([np.repeat(picks[:quads], 3), picks[quads:]])
+        else:
+            copies = rng.choice(n, extra, replace=False)
+        src = np.concatenate([np.arange(n), copies])
         rng.shuffle(src)
         return src, (1.0 / np.bincount(src, minlength=n)[src]).astype(np.float32)
 
@@ -3953,7 +3993,6 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path):
     from nerf_rs_tpu_torch.models.mlp import NerfMLP, init_nerf_params
     from nerf_rs_tpu_torch.ops import random
     from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
-        bf16_sigma_agrees,
         fused_nerf_mlp,
         fused_nerf_mlp_backward,
         fused_nerf_mlp_backward_reference,
@@ -4047,33 +4086,10 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path):
         net = nets[arch] = NerfMLP(init_nerf_params(g, ArchConfig(*arch)), device=dev)
         for pts, so in ((pts_c, True), (pts_f, False)):
             for dtype in ("float32", "bfloat16"):
-                with torch.no_grad():
-                    k = fused_nerf_mlp(net, pts, vd, dtype=dtype, sigma_only=so)
-                    k2 = fused_nerf_mlp(net, pts, vd, dtype=dtype, sigma_only=so)
-                    p = fused_nerf_mlp_reference(net, pts, vd, dtype=dtype, sigma_only=so)
-                torch.cuda.synchronize()
-                rerun = all(torch.equal(a, b) for a, b in zip(k, k2))
-                tol = TOLERANCES[dtype]
-                rgb_err = float((k[0] - p[0]).abs().max())
-                sig_err = float((k[1] - p[1]).abs().max())
-                if dtype == "float32":
-                    sig_ok = bool(torch.allclose(k[1], p[1], atol=tol["sigma_atol"],
-                                                 rtol=tol["sigma_rtol"]))
-                    witness = ""
-                else:
-                    with torch.no_grad():
-                        exact = fused_nerf_mlp_reference(net, pts.double(), vd.double(),
-                                                         dtype=dtype, sigma_only=so)[1]
-                    sig_ok, counts = bf16_sigma_agrees(k[1], p[1], exact)
-                    witness = (f", sigma outside the bars: kernel vs plain "
-                               f"{counts['kernel_vs_plain']}, vs float64 kernel "
-                               f"{counts['kernel_vs_exact']}, plain {counts['plain_vs_exact']}")
-                ok = rerun and sig_ok and rgb_err <= tol["rgb_atol"]
-                errs[dtype] = max(errs[dtype], rgb_err, sig_err)
+                ok, err, line, _ = k1_vs_plain(net, pts, vd, dtype, so)
+                errs[dtype] = max(errs[dtype], err)
                 say("29 wide", f"K1 {dtype} at {arch}, {tuple(pts.shape[:-1])} "
-                    f"{'sigma-only' if so else 'full'}: max |rgb - plain| {rgb_err:.3g} (bar "
-                    f"{tol['rgb_atol']}), max |sigma - plain| {sig_err:.3g}{witness}; reruns "
-                    f"bitwise {rerun} -> {'ok' if ok else 'FAIL'}")
+                    f"{'sigma-only' if so else 'full'}: {line} -> {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise PhaseFailure(f"wide K1 {dtype} at {arch} disagrees with its plain "
                                        "version")
@@ -4180,7 +4196,7 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path):
         raise PhaseFailure("the 512-wide checkpoint's front ends went around wide K1 or disagree")
 
     # (d) `--impl int8` through the wide int8 kernel: the lego widened to
-    # 512/256/8 and 512/256/20, against the plain int8 frame and the f32
+    # 512/256/8 and 512/256/12, against the plain int8 frame and the f32
     # frame.
     int8_launched = 0
     for arch in (WIDE_LEGOS[0], WIDE_LEGOS[2]):
@@ -4203,7 +4219,10 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path):
             raise PhaseFailure(f"--impl int8 at {arch} printed the note, missed a bar or went "
                                "around the wide int8 kernel")
 
-    # (e) Times, not counted: K1 and the plain version and the library
+    # (e) Past width 512: K1's wide1k pair.
+    wide1k_entries = run_wide1k(root, cam, dev, card, assets, pts_c, pts_f, vd, golden, chunks)
+
+    # (f) Times, not counted: K1 and the plain version and the library
     # call at the render's shapes, bounds, frames.
     saved = save_counts()
     times = {}
@@ -4325,7 +4344,243 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path):
               ("float32", "fused_mlp_wide_bwd_tc.cu", ("fused_mlp_wide_f32.cu",
                                                        "fused_mlp_bwd_tc.cuh")),
               ("bfloat16", "fused_mlp_wide_bwd_bf16.cu", ("fused_mlp_wide_tc.cuh",)))),
+        *wide1k_entries,
     ], int8_launched
+
+
+def k1_vs_plain(net, pts, vd, dtype: str, sigma_only: bool):
+    """K1 against its plain version on the same inputs, two kernel calls
+    (bitwise equal), f32 at TOLERANCES, bf16 rgb at its bar and sigma by
+    ``bf16_sigma_agrees`` -> (ok, max |kernel - plain| over rgb and sigma,
+    a line of what was seen, the kernel's K1 launches and wide1k launches)."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
+        bf16_sigma_agrees,
+        fused_nerf_mlp,
+        fused_nerf_mlp_reference,
+    )
+
+    before = fused_nerf_mlp.launches, fused_nerf_mlp.wide1k_launches
+    with torch.no_grad():
+        k = fused_nerf_mlp(net, pts, vd, dtype=dtype, sigma_only=sigma_only)
+        k2 = fused_nerf_mlp(net, pts, vd, dtype=dtype, sigma_only=sigma_only)
+        launched = (fused_nerf_mlp.launches - before[0], fused_nerf_mlp.wide1k_launches - before[1])
+        p = fused_nerf_mlp_reference(net, pts, vd, dtype=dtype, sigma_only=sigma_only)
+    torch.cuda.synchronize()
+    rerun = all(torch.equal(a, b) for a, b in zip(k, k2))
+    tol = TOLERANCES[dtype]
+    rgb_err = float((k[0] - p[0]).abs().max())
+    sig_err = float((k[1] - p[1]).abs().max())
+    if dtype == "float32":
+        sig_ok = bool(torch.allclose(k[1], p[1], atol=tol["sigma_atol"], rtol=tol["sigma_rtol"]))
+        witness = ""
+    else:
+        with torch.no_grad():
+            exact = fused_nerf_mlp_reference(net, pts.double(), vd.double(), dtype=dtype,
+                                             sigma_only=sigma_only)[1]
+        sig_ok, counts = bf16_sigma_agrees(k[1], p[1], exact)
+        witness = (f", sigma outside the bars: kernel vs plain {counts['kernel_vs_plain']}, vs "
+                   f"float64 kernel {counts['kernel_vs_exact']}, plain {counts['plain_vs_exact']}")
+    finite = all(bool(torch.isfinite(t).all()) for t in k)
+    ok = rerun and sig_ok and finite and rgb_err <= tol["rgb_atol"]
+    line = (f"max |rgb - plain| {rgb_err:.3g} (bar {tol['rgb_atol']}), max |sigma - plain| "
+            f"{sig_err:.3g}{witness}; reruns bitwise {rerun}")
+    return ok, max(rgb_err, sig_err), line, launched
+
+
+def run_wide1k(root: Path, cam, dev, card, assets: Path, pts_c, pts_f, vd, golden, chunks: int):
+    """Phase 29 (e): K1 past width 512 on its main paths, each run with the
+    counts set to 0 just before and read just after: the lego widened to
+    WIDE1K_LEGO through `render --weights` (f32 against the golden and the
+    plain frame, bf16 against f32), its bf16 grid and accel+K3 frame, one
+    served frame; then the wide1k pair against the plain version on the
+    random networks and the widened lego (not counted), and times at
+    1024/512/8. -> the two kernels' entries of the kernels line."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from nerf_rs_tpu_torch import api, serve
+    from nerf_rs_tpu_torch.accel import build_scene_grid
+    from nerf_rs_tpu_torch.config import ArchConfig, RenderConfig
+    from nerf_rs_tpu_torch.io.image import pixels_to_rgba
+    from nerf_rs_tpu_torch.io.weights import load_nerf_params
+    from nerf_rs_tpu_torch.models.mlp import NerfMLP, init_nerf_params
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import fused_nerf_mlp, fused_nerf_mlp_reference
+    from nerf_rs_tpu_torch.render import render_image
+
+    t_step = time.perf_counter()
+    launched = {"float32": 0, "bfloat16": 0}           # wide1k launches of the main-path runs
+    d = write_wide_lego(root, assets, *WIDE1K_LEGO)
+    t0 = time.perf_counter()
+    img, text, c = wide_cli_frame(["--weights", str(d), "--impl", "pallas"], root / "k1k.ppm")
+    f32_ms = (time.perf_counter() - t0) * 1e3
+    launched["float32"] += c["fused_nerf_mlp_wide1k"]
+    plain, _, _ = wide_cli_frame(["--weights", str(d), "--impl", "xla"], root / "p1k.ppm")
+    golden_db, plain_db = psnr(img, golden), psnr(plain, img)
+    ok = (golden_db > GOLDEN_BAR_DB and plain_db >= PLAIN_BAR_DB and FRONT_NOTE not in text
+          and c["fused_nerf_mlp"] == c["fused_nerf_mlp_wide1k"] == 2 * chunks
+          and c["fused_nerf_mlp_tc"] == 0)
+    say("29 wide1k", f"lego widened to {WIDE1K_LEGO}: render --impl pallas {W}x{H} f32 vs golden "
+        f"{golden_db:.2f} dB (bar > {GOLDEN_BAR_DB}), vs --impl xla {plain_db:.2f} dB (bar >= "
+        f"{PLAIN_BAR_DB}); note printed: {FRONT_NOTE in text}; K1 launches "
+        f"{c['fused_nerf_mlp']}, wide1k {c['fused_nerf_mlp_wide1k']} (expected {2 * chunks}, none "
+        f"on the tensor cores); {f32_ms:.0f} ms through the CLI -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure(f"the lego widened to {WIDE1K_LEGO} misses its bars or went around "
+                           "the wide1k f32 kernel")
+    img16, text, c = wide_cli_frame(["--weights", str(d), "--dtype", "bfloat16"],
+                                    root / "b1k.ppm")
+    launched["bfloat16"] += c["fused_nerf_mlp_wide1k"]
+    bf16_db = psnr(img16, img)
+    ok = (bf16_db >= BF16_FRAME_BAR_DB and FRONT_NOTE not in text
+          and c["fused_nerf_mlp"] == c["fused_nerf_mlp_wide1k"] == c["fused_nerf_mlp_tc"]
+          == 2 * chunks)
+    say("29 wide1k", f"width 1024 bf16 frame vs f32 frame {bf16_db:.2f} dB (bar >= "
+        f"{BF16_FRAME_BAR_DB}); note printed: {FRONT_NOTE in text}; K1 launches "
+        f"{c['fused_nerf_mlp']}, wide1k {c['fused_nerf_mlp_wide1k']}, on the tensor cores "
+        f"{c['fused_nerf_mlp_tc']} (expected {2 * chunks}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the width-1024 bf16 frame misses its bar or went around the wide1k "
+                           "bf16 kernel")
+
+    # The bf16 grid and accel+K3 frame against the dense bf16 frame.
+    wide = {net: NerfMLP(load_nerf_params(d / net), device=dev) for net in ("coarse", "fine")}
+    zero_counts()
+    grid = build_scene_grid(wide["coarse"], wide["fine"], resolution=GRID_RES)
+    torch.cuda.synchronize()
+    c_grid = read_counts()
+    cfg = accel_cfg(dtype="bfloat16")
+    _, n_rendered = rendered_chunks(grid, cam, WIDE1K_FRAME, cfg, dev)
+    zero_counts()
+    fast, fast_ms = render_accel(wide["coarse"], wide["fine"], cam, dev, cfg, grid, WIDE1K_FRAME)
+    c_fast = read_counts()
+    dense, dense_ms = render(wide["coarse"], wide["fine"], cam, dev, "pallas", "bfloat16",
+                             WIDE1K_FRAME)
+    launched["bfloat16"] += c_grid["fused_nerf_mlp_wide1k"] + c_fast["fused_nerf_mlp_wide1k"]
+    accel_db = psnr(fast.cpu().numpy(), dense)
+    sweeps = 2 * -(-GRID_RES ** 3 // (1 << 18))       # accel.build_scene_grid's chunk
+    ok = (accel_db >= ACCEL_BAR_DB
+          and c_grid["fused_nerf_mlp_wide1k"] == c_grid["fused_nerf_mlp"] == sweeps
+          and c_fast["fused_nerf_mlp_wide1k"] == c_fast["fused_nerf_mlp_tc"] == 2 * n_rendered
+          and c_fast["fused_resample"] == n_rendered)
+    say("29 wide1k", f"width 1024 bf16 accel frame {WIDE1K_FRAME}x{WIDE1K_FRAME} (grid "
+        f"{GRID_RES}^3 through the wide1k bf16 kernel sigma-only: {c_grid['fused_nerf_mlp_wide1k']}"
+        f" launches (expected {sweeps}), {float(grid.occ.float().mean()):.4f} occupied; "
+        f"{PROBES} probes, stride {STRIDE}, packing, K3) vs the dense bf16 frame {accel_db:.2f} "
+        f"dB (bar >= {ACCEL_BAR_DB}); {n_rendered} chunks rendered, wide1k launches "
+        f"{c_fast['fused_nerf_mlp_wide1k']} (expected {2 * n_rendered}), K3 "
+        f"{c_fast['fused_resample']}; first runs: accel {fast_ms:.0f} ms, dense {dense_ms:.0f} "
+        f"ms -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the width-1024 accel frame misses its bar or went around the wide1k "
+                           "kernel")
+
+    # One /render request through serve.Handler, bf16 (init_renderer on the
+    # widened weights), byte for byte the render it stands for.
+    api._state.clear()
+    api.init_renderer(str(d), cfg=RenderConfig(ray_chunk=BENCH_CHUNK, impl="pallas",
+                                               dtype="bfloat16"), device=dev, checkpoint=None)
+    state = dict(api._state)
+    zero_counts()
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), serve.Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.server_address[1]}/render?width={W}&height={H}&seed=0",
+            timeout=300).read()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        api._state.clear()
+    c_serve = read_counts()
+    launched["bfloat16"] += c_serve["fused_nerf_mlp_wide1k"]
+    saved = save_counts()
+    want = pixels_to_rgba(render_image(state["params"]["coarse"], state["params"]["fine"],
+                                       state["camera"], H, W, random.key(0, dev), state["cfg"],
+                                       device=dev, grid=state["grid"]))
+    restore_counts(saved)
+    served = body == want.tobytes()
+    serve_chunks = -(-H * W // BENCH_CHUNK)
+    ok = (served and state["cfg"].impl == "pallas"
+          and c_serve["fused_nerf_mlp_wide1k"] == c_serve["fused_nerf_mlp_tc"] == 2 * serve_chunks)
+    say("29 wide1k", f"serve (init_renderer on the width-1024 weights, bf16) impl "
+        f"{state['cfg'].impl}, one /render {W}x{H} byte for byte pixels_to_rgba(render_image(...)):"
+        f" {served}; wide1k launches {c_serve['fused_nerf_mlp_wide1k']} (expected "
+        f"{2 * serve_chunks}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the width-1024 served frame disagrees or went around the wide1k kernel")
+
+    # The pair against the plain version at the render's shapes, not
+    # counted: the random networks and the widened lego (coarse sigma-only,
+    # fine full, as the render pairs them).
+    saved = save_counts()
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    nets = {}
+    for arch in WIDE1K_RANDOM:
+        g = torch.Generator(device=dev).manual_seed(29)
+        nets[arch] = NerfMLP(init_nerf_params(g, ArchConfig(*arch)), device=dev)
+    cases = [(arch, nets[arch], pts, so) for arch in WIDE1K_RANDOM
+             for pts, so in ((pts_c, True), (pts_f, False))]
+    cases += [(f"lego {name} {WIDE1K_LEGO}", wide[name], pts, so)
+              for name, pts, so in (("coarse", pts_c, True), ("fine", pts_f, False))]
+    for label, net, pts, so in cases:
+        for dtype in ("float32", "bfloat16"):
+            ok, err, line, (k1, w1k) = k1_vs_plain(net, pts, vd, dtype, so)
+            ok = ok and k1 == w1k == 2
+            errs[dtype] = max(errs[dtype], err)
+            say("29 wide1k", f"K1 {dtype} at {label}, {tuple(pts.shape[:-1])} "
+                f"{'sigma-only' if so else 'full'}: {line}; wide1k launches {w1k} of {k1} "
+                f"(expected 2) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise PhaseFailure(f"K1 {dtype} at {label} disagrees with its plain version or "
+                                   "went around the wide1k kernel")
+
+    # Times at 1024/512/8, not counted: the kernel, the plain version and
+    # the library call (models.mlp.nerf_mlp in the same dtype), medians of 3.
+    times = {}
+    net = nets[WIDE1K_RANDOM[0]]
+    for pts, so in ((pts_f, False), (pts_c, True)):
+        for dtype in ("float32", "bfloat16"):
+            with torch.no_grad():
+                k_ms = timed_ms(lambda: fused_nerf_mlp(net, pts, vd, dtype=dtype, sigma_only=so))
+                p_ms = timed_ms(lambda: fused_nerf_mlp_reference(net, pts, vd, dtype=dtype,
+                                                                 sigma_only=so))
+                lib_ms = library_mlp_ms(net, pts, vd, dtype, so)
+            n = pts.numel() // 3
+            flops = mlp_flops(net, so) * n
+            peak = F32_FLOP_S if dtype == "float32" else BF16_FLOP_S
+            w_bytes = 4 if dtype == "float32" else 2
+            bnd = bound(4 * (n * 7 + vd.numel()) + w_bytes * sum(
+                int(p.numel()) for p in net.parameters()), flops, peak)
+            times[(WIDE1K_RANDOM[0], so, dtype)] = (k_ms, p_ms, bnd, lib_ms)
+            say("29 times", f"{card}: wide1k K1 {dtype} at {WIDE1K_RANDOM[0][:3]}, "
+                f"{tuple(pts.shape[:-1])} {'sigma-only' if so else 'full'} "
+                f"({flops / n / 1e6:.3f} MFLOP a sample): kernel {k_ms:.3f} ms, plain "
+                f"{p_ms:.3f} ms, library (models.mlp.nerf_mlp, {dtype}) {lib_ms:.3f} ms; bound "
+                f"{bnd[0]:.3f} ms ({bnd[1]}, at {peak / 1e12:g} TFLOP/s), {bnd[0] / k_ms:.1%} of "
+                "it (median of 3)")
+    restore_counts(saved)
+    say("29 wide1k", f"step (e) took {time.perf_counter() - t_step:.1f} s")
+
+    csrc = "nerf_rs_tpu_torch/ops/kernels/csrc"
+    entries = []
+    for dtype, name, source, extra in (
+            ("float32", "fused_nerf_mlp_wide1k", "fused_mlp_wide1k_f32.cu", ()),
+            ("bfloat16", "fused_nerf_mlp_wide1k_bf16", "fused_mlp_wide1k_tc.cu",
+             ("fused_mlp_wide_tc.cuh", "fused_mlp_cluster.cuh"))):
+        k_ms, p_ms, bnd, lib_ms = times[(WIDE1K_RANDOM[0], False, dtype)]
+        entries.append({
+            "name": name, "route": "cuda", "source": f"{csrc}/{source}",
+            "sources": [f"{csrc}/{f}" for f in (source, "fused_mlp_wide1k.cuh", *extra)],
+            "replaces": "nerf_rs_tpu/ops/kernels/fused_mlp.py:779", "launches": launched[dtype],
+            "max_abs_err": errs[dtype], "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": lib_ms, "shapes": wide_shapes(times, dtype)})
+    return entries
 
 
 def wide_shapes(times, dtype: str):

@@ -12,12 +12,17 @@ weights bulk-copied into shared memory: float32
 (``csrc/fused_mlp_f32tc.cu``: split-f32, every product six bf16 ``wgmma``
 passes, :func:`split_f32_dense`) and bfloat16 (``csrc/fused_mlp_tc.cu``).
 Wider or deeper networks, beyond ``NARROW_MAX_WIDTH`` or
-``NARROW_MAX_DEPTH`` and up to ``MAX_WIDTH`` and ``MAX_DEPTH``, take the
+``NARROW_MAX_DEPTH`` and up to ``WIDE_MAX_WIDTH`` and ``MAX_DEPTH``, take the
 wide pair: bfloat16 on ``wgmma`` in clusters of two CTAs that share the
 weight stream (``csrc/fused_mlp_wide_tc.cu``) and float32 on the CUDA
 cores (``csrc/fused_mlp_wide_f32.cu``), with offset
-tables of ``MAX_DEPTH`` layers (``csrc/fused_mlp_wide.cuh``). The backward
-kernel K2 replaces
+tables of ``MAX_DEPTH`` layers (``csrc/fused_mlp_wide.cuh``). Past
+``WIDE_MAX_WIDTH``, up to ``MAX_WIDTH``, the same tables reach the wide1k
+pair (``csrc/fused_mlp_wide1k.cuh``): bfloat16 on ``wgmma`` in clusters of
+two CTAs that split every layer's columns and exchange its output through
+distributed shared memory (``csrc/fused_mlp_wide1k_tc.cu``), and float32 on
+the CUDA cores in 32-sample tiles (``csrc/fused_mlp_wide1k_f32.cu``). The
+backward kernel K2 replaces
 ``_backward_t`` / ``_kernel_bwd``: it recomputes the forward per tile,
 backpropagates, and sums every layer's weight and bias gradient over the
 samples. Each mode recomputes with its K1's own device code on its K1's
@@ -25,7 +30,8 @@ pack: float32 runs K1 f32's kernel in record mode over a round of tiles
 (every layer's output into a workspace), then ``csrc/fused_mlp_bwd_tc.cu``
 (dW and W·dz as 3xTF32 ``mma.sync``) over the same tiles; bfloat16 is one
 kernel, ``csrc/fused_mlp_bwd_bf16.cu`` (every product a ``wgmma``). K2
-serves K1's envelope: a wide pack runs the wide K2 in rounds of tiles
+serves widths up to ``WIDE_MAX_WIDTH`` (:func:`supports_backward_dims`): a
+wide pack runs the wide K2 in rounds of tiles
 (:func:`wide_plan`): per round a per-tile kernel, float32
 ``csrc/fused_mlp_wide_bwd_tc.cu`` after the wide f32 forward's record
 mode, bfloat16 ``csrc/fused_mlp_wide_bwd_bf16.cu`` (the recompute the wide
@@ -40,8 +46,9 @@ layer's input and output gradient to a workspace, and the dW kernel
   :class:`_FusedMLP` (the counterpart of ``_make_op``'s ``custom_vjp``).
   On CUDA tensors its forward launches K1 (counted in
   ``fused_nerf_mlp.launches``, in ``fused_nerf_mlp.tc_launches`` when the
-  kernel runs on the tensor cores, which all but the wide f32 kernel do,
-  and in ``fused_nerf_mlp.wide_launches`` for the wide pair) and its
+  kernel runs on the tensor cores, which all but the wide f32 kernels do,
+  in ``fused_nerf_mlp.wide_launches`` for the wide pair and the wide1k
+  pair, and in ``fused_nerf_mlp.wide1k_launches`` for the wide1k pair) and its
   backward K2 (counted in ``fused_nerf_mlp_backward.launches``, and in
   ``fused_nerf_mlp_backward.wide_launches`` for the wide K2, whose dW
   kernel's launches, one a round, ``fused_nerf_mlp_backward.dw_launches``
@@ -77,11 +84,15 @@ from nerf_rs_tpu_torch.ops.kernels import _build
 _XF, _DF = 10, 4            # encoding bands the kernel serves (points, dirs)
 _ENC_X_RAW, _ENC_D_RAW = 3 + 6 * _XF, 3 + 6 * _DF   # 63, 27
 _ENC_X, _ENC_D = 64, 32     # the kernel's padded encode rows
-# K1's and K2's envelope (kWideMaxDepth, kWideMaxWidth in
-# csrc/fused_mlp_wide.cuh): the deepest trunk and the widest trunk or view
-# branch the forward and the backward serve.
+# K1's envelope (kWideMaxDepth in csrc/fused_mlp_wide.cuh, kWide1kMaxWidth
+# in csrc/fused_mlp_wide1k.cuh): the deepest trunk and the widest trunk or
+# view branch the forward serves.
 MAX_DEPTH = 32
-MAX_WIDTH = 512
+MAX_WIDTH = 1024
+# The wide kernels' width (kWideMaxWidth in csrc/fused_mlp_wide.cuh): K1's
+# wide pair serves up to it, its wide1k pair past it; it is also K2's
+# envelope, with MAX_DEPTH.
+WIDE_MAX_WIDTH = 512
 # The narrow kernels' envelope (kMaxDepth, kMaxWidth in
 # csrc/fused_mlp_common.cuh): beyond it K1 and K2 run their wide kernels.
 NARROW_MAX_DEPTH = 16
@@ -123,6 +134,14 @@ def supports_dims(width: int, v_width: int, depth: int) -> bool:
     return 1 <= width <= MAX_WIDTH and 1 <= v_width <= MAX_WIDTH and 1 <= depth <= MAX_DEPTH
 
 
+def supports_backward_dims(width: int, v_width: int, depth: int) -> bool:
+    """Whether the backward kernel K2 serves these dimensions (whether
+    ``impl="pallas"`` can train such a network): trunk and view widths up
+    to ``WIDE_MAX_WIDTH``, at most ``MAX_DEPTH`` dense layers."""
+    return (1 <= width <= WIDE_MAX_WIDTH and 1 <= v_width <= WIDE_MAX_WIDTH
+            and 1 <= depth <= MAX_DEPTH)
+
+
 def narrow_dims(width: int, v_width: int, depth: int) -> bool:
     """Whether the narrow kernels (K1's and K2's) serve these dimensions:
     widths up to ``NARROW_MAX_WIDTH``, at most ``NARROW_MAX_DEPTH`` dense
@@ -140,9 +159,14 @@ def supports_arch(params) -> bool:
     return supports_dims(*_dims(params))
 
 
-# K2 serves what K1 serves: whether ``impl="pallas"`` can train a network.
-supports_backward_dims = supports_dims
-supports_backward_arch = supports_arch
+def supports_backward_arch(params) -> bool:
+    """Whether K2 serves a network (a NerfMLP or a param tree)."""
+    return supports_backward_dims(*_dims(params))
+
+
+def _backward_refusal(width: int, v_width: int, depth: int) -> str:
+    return (f"fused backward K2 serves width, v_width <= {WIDE_MAX_WIDTH} and depth <= "
+            f"{MAX_DEPTH}; got width={width}, v_width={v_width}, depth={depth}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,21 +183,23 @@ class PackedMLP:
     int64 offset table in the order ``csrc/fused_mlp_common.cuh`` reads it,
     with ``NARROW_MAX_DEPTH`` layer slots; a ``wide`` pack (beyond the
     narrow kernels' envelope) has ``MAX_DEPTH`` slots in each of its
-    tables, in the same order (``csrc/fused_mlp_wide.cuh``).
+    tables, in the same order (``csrc/fused_mlp_wide.cuh``); a ``wide1k``
+    pack (past ``WIDE_MAX_WIDTH``) the same tables.
 
-    f32 packs hold ``mma_wt``, the f32 backward kernels' tensor-core pack
-    (``csrc/fused_mlp_bwd_tc.cuh``): the transpose of every segment but the
-    two heads (for the input-gradient products), tiled by :func:`mma_tile`
-    into ``mma.sync`` B-fragment order, at the offsets of ``layout_mma``
+    f32 packs within K2's envelope hold ``mma_wt``, the f32 backward
+    kernels' tensor-core pack (``csrc/fused_mlp_bwd_tc.cuh``): the transpose
+    of every segment but the two heads (for the input-gradient products),
+    tiled by :func:`mma_tile` into ``mma.sync`` B-fragment order, at the
+    offsets of ``layout_mma``
     (2 x the layer slots + 3 entries, 35 or 67, in the order dense{i},
     dense{i}_enc, bottleneck, viewdirs, viewdirs_dir). A transpose's K is
     the segment's ``ld`` padded to 16, its N the segment's rows. It holds two rows, ``hi = tf32_rna(w)`` and
     ``lo = tf32_rna(w - hi)`` (:func:`tf32_split`), for the kernel's 3xTF32
     products.
 
-    f32 packs also hold ``weights_f32tc``, the split pack that the f32
-    forward (``csrc/fused_mlp_f32tc.cu``) and the f32 backward's recompute
-    read: every layer segment (not the heads, which the kernels read from
+    f32 packs within K2's envelope also hold ``weights_f32tc``, the split
+    pack that the f32 forward (``csrc/fused_mlp_f32tc.cu``) and the f32
+    backward's recompute read: every layer segment (not the heads, which the kernels read from
     ``weights``) tiled by :func:`f32tc_tile` as bf16 hi, mid and lo planes,
     widths and the K of the layers that read the trunk padded to multiples
     of 64, with ``layout_f32tc``, an offset table in ``layout``'s order
@@ -187,7 +213,9 @@ class PackedMLP:
     :func:`tc_tile`: trunk and view widths pad to multiples of 64, and so
     does the K of the layers that read the trunk; the encodes keep K = 64
     and 32. Its two head segments are those of ``weights``. Each pack
-    holds ``None`` in the other's fields.
+    holds ``None`` in the other's fields, and a ``wide1k`` f32 pack (which
+    only the wide1k f32 forward reads, from ``weights``) in ``mma_wt`` and
+    ``weights_f32tc`` too.
     """
 
     weights: torch.Tensor
@@ -210,8 +238,15 @@ class PackedMLP:
 
     @property
     def wide(self) -> bool:
-        """Whether K1 and K2 run their wide kernels on this pack."""
+        """Whether K1 and K2 run their wide kernels on this pack (K1 the
+        wide pair or, past ``WIDE_MAX_WIDTH``, the wide1k pair)."""
         return not narrow_dims(self.width, self.v_width, self.depth)
+
+    @property
+    def wide1k(self) -> bool:
+        """Whether K1 runs its wide1k pair on this pack (a trunk or view
+        width past ``WIDE_MAX_WIDTH``), which K2 does not serve."""
+        return max(self.width, self.v_width) > WIDE_MAX_WIDTH
 
     def mat(self, name: str) -> torch.Tensor:
         """Segment ``name`` as a float32 (K, ld) matrix."""
@@ -243,6 +278,8 @@ def pack_params(params, dtype: str) -> PackedMLP:
     ldw, ldv = _round_up(width, 8), _round_up(v_width, 8)
     device = params["dense0"]["kernel"].device
     slots = NARROW_MAX_DEPTH if narrow_dims(width, v_width, depth) else MAX_DEPTH
+    # The packs only K2 (and the narrow f32 K1) read: f32, within K2's envelope.
+    backward = dtype == "float32" and supports_backward_dims(width, v_width, depth)
 
     def kern(name):
         return params[name]["kernel"].detach().to(torch.float32)
@@ -288,7 +325,7 @@ def pack_params(params, dtype: str) -> PackedMLP:
         segments[name] = (off, rows, ld)
         off += size
         # K2's f32 pack (rows, ld: multiples of 8).
-        if dtype == "float32" and name not in ("alpha", "rgb"):
+        if backward and name not in ("alpha", "rgb"):
             pieces_wt.append(mma_tile(padded.t(), _round_up(ld, 16), rows))
             offsets_wt[name] = off_wt
             off_wt += pieces_wt[-1].numel()
@@ -342,7 +379,7 @@ def pack_params(params, dtype: str) -> PackedMLP:
         return torch.cat(flats), table(offsets)
 
     mma_wt = layout_mma = weights_tc = layout_tc = weights_f32tc = layout_f32tc = None
-    if dtype == "float32":
+    if backward:
         mma_wt = torch.stack(tf32_split(torch.cat(pieces_wt)))
         layout_mma = np.array(
             [offsets_wt.get(f"dense{i}", -1) for i in range(slots)]
@@ -351,7 +388,7 @@ def pack_params(params, dtype: str) -> PackedMLP:
             dtype=np.int64)
         weights_f32tc, layout_f32tc = tensor_core_pack(f32tc_tile, heads=False)
         weights_f32tc = weights_f32tc.to(torch.bfloat16)    # exact: the pieces are bf16 values
-    else:
+    elif dtype == "bfloat16":
         weights_tc, layout_tc = tensor_core_pack(tc_tile, heads=True)
         weights_tc = weights_tc.to(torch.bfloat16)
     return PackedMLP(weights=weights, biases=biases, segments=segments,
@@ -791,7 +828,11 @@ def _forward_kernel(pk: PackedMLP, points: torch.Tensor, viewdirs: torch.Tensor,
     ``csrc/fused_mlp_wide_tc.cu`` (bf16, tensor cores, thread-block
     clusters) or
     ``csrc/fused_mlp_wide_f32.cu`` (f32, CUDA cores), counted also in
-    ``fused_nerf_mlp.wide_launches``."""
+    ``fused_nerf_mlp.wide_launches``; packs past ``WIDE_MAX_WIDTH`` launch
+    ``csrc/fused_mlp_wide1k_tc.cu`` (bf16, tensor cores, clusters that
+    split the columns) or ``csrc/fused_mlp_wide1k_f32.cu`` (f32, CUDA
+    cores), counted also in ``fused_nerf_mlp.wide_launches`` and
+    ``fused_nerf_mlp.wide1k_launches``."""
     dirs, dir_div, batch, n = _kernel_inputs(pk, points, viewdirs)
     rgb = torch.empty((*batch, 3), dtype=torch.float32, device=points.device)
     sigma = torch.empty(batch, dtype=torch.float32, device=points.device)
@@ -802,7 +843,15 @@ def _forward_kernel(pk: PackedMLP, points: torch.Tensor, viewdirs: torch.Tensor,
     tail = (pk.ldw, pk.ldv, pk.depth, int(sigma_only), rgb.data_ptr(), sigma.data_ptr(),
             points.device.index or 0, _stream(points.device))
     tensor_cores = not (pk.wide and pk.dtype == "float32")
-    if pk.wide and pk.dtype == "bfloat16":
+    if pk.wide1k and pk.dtype == "bfloat16":
+        err = lib.nerf_fused_mlp_wide1k_tc_forward(
+            *head, pk.weights_tc.data_ptr(), pk.biases.data_ptr(), pk.layout_tc.ctypes.data,
+            pk.layout_tc.size, *tail)
+    elif pk.wide1k:
+        err = lib.nerf_fused_mlp_wide1k_f32_forward(
+            *head, pk.weights.data_ptr(), pk.biases.data_ptr(), pk.layout.ctypes.data,
+            pk.layout.size, *tail)
+    elif pk.wide and pk.dtype == "bfloat16":
         err = lib.nerf_fused_mlp_wide_tc_forward(
             *head, pk.weights_tc.data_ptr(), pk.biases.data_ptr(), pk.layout_tc.ctypes.data,
             pk.layout_tc.size, *tail)
@@ -822,6 +871,7 @@ def _forward_kernel(pk: PackedMLP, points: torch.Tensor, viewdirs: torch.Tensor,
     fused_nerf_mlp.launches += 1
     fused_nerf_mlp.tc_launches += int(tensor_cores)
     fused_nerf_mlp.wide_launches += int(pk.wide)
+    fused_nerf_mlp.wide1k_launches += int(pk.wide1k)
     return rgb, sigma
 
 
@@ -1085,6 +1135,8 @@ def recorded_outputs(params, points: torch.Tensor, viewdirs: torch.Tensor) -> Li
     path of the renderer or the trainer: checks read it (the kernel's own
     mask where a pre-activation lies within f32's resolution of zero)."""
     pk = _packed(params, "float32")
+    if pk.wide1k:
+        raise ValueError(_backward_refusal(pk.width, pk.v_width, pk.depth))
     if points.device.type == "cpu":
         pts, dirs = _flat_inputs(points, viewdirs)
         mat = pk.mat
@@ -1140,16 +1192,19 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
     in ``fused_nerf_mlp_backward.wide_launches``, which run in rounds,
     their dW kernel's launches in ``fused_nerf_mlp_backward.dw_launches``).
     Two calls on the same inputs give bitwise-equal results. K2 serves
-    every pack: its envelope is K1's (:func:`supports_backward_arch`).
+    :func:`supports_backward_arch`, widths up to ``WIDE_MAX_WIDTH``: a
+    wider pack (which K1 serves) raises ValueError on every device.
     """
-    if points.device.type == "cpu":
-        return fused_nerf_mlp_backward_reference(
-            params, points, viewdirs, g_rgb, g_sigma, x_freqs=x_freqs, d_freqs=d_freqs,
-            dtype=dtype, sigma_only=sigma_only, input_grads=input_grads)
-    if points.device.type != "cuda":
+    if points.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_nerf_mlp_backward takes CPU or CUDA tensors, got {points.device}")
     _check_call(x_freqs, d_freqs, dtype)
     pk = _packed(params, dtype)
+    if not supports_backward_dims(pk.width, pk.v_width, pk.depth):
+        raise ValueError(_backward_refusal(pk.width, pk.v_width, pk.depth))
+    if points.device.type == "cpu":
+        return fused_nerf_mlp_backward_reference(
+            pk, points, viewdirs, g_rgb, g_sigma, x_freqs=x_freqs, d_freqs=d_freqs,
+            dtype=dtype, sigma_only=sigma_only, input_grads=input_grads)
     dirs, dir_div, batch, n = _kernel_inputs(pk, points, viewdirs)
     dev = points.device
     g_rgb = g_rgb.to(torch.float32).reshape(n, 3).contiguous()
@@ -1213,8 +1268,8 @@ class _FusedMLP(torch.autograd.Function):
     in place before backward raises, as autograd does. Forward and
     backward run the kernels on CUDA tensors and the plain versions on CPU
     tensors; points' and viewdirs' gradients are computed only when asked
-    for. K1 and K2 serve the same networks, so forward's pack refuses
-    every network K2 would.)"""
+    for. K1 serves networks past K2's envelope (``WIDE_MAX_WIDTH``); their
+    backward raises ValueError."""
 
     @staticmethod
     def forward(ctx, params, opts, names, points, viewdirs, *leaves):
@@ -1255,9 +1310,10 @@ def fused_nerf_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *,
     gives the color branch no gradient.
 
     CUDA tensors launch K1 (and, in backward, K2) on the current stream
-    without synchronizing; CPU tensors run the plain versions. K1 and K2
-    serve :func:`supports_arch`; the pack of any other network raises
-    ValueError before K1 launches.
+    without synchronizing; CPU tensors run the plain versions. K1 serves
+    :func:`supports_arch`; the pack of any other network raises ValueError
+    before K1 launches. K2 serves :func:`supports_backward_arch`; a
+    backward through a wider network raises ValueError.
     """
     _check_call(x_freqs, d_freqs, dtype)
     if points.device.type not in ("cpu", "cuda"):
@@ -1272,3 +1328,4 @@ def fused_nerf_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *,
 fused_nerf_mlp.launches = 0
 fused_nerf_mlp.tc_launches = 0
 fused_nerf_mlp.wide_launches = 0
+fused_nerf_mlp.wide1k_launches = 0

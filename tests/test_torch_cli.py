@@ -45,11 +45,13 @@ LEGO = ROOT / "assets" / "lego_rust"
 NOTE = "outside the fused kernels' range"
 K2_NOTE = "the fused backward K2 serves width, v_width <= 512, depth <= 32"
 INT8_NOTE = "outside the int8 kernel's range (width, v_width <= 512, depth <= 32)"
-# Wider than the narrow kernels serve (256), within K1's envelope (512), a
+# Wider than the narrow kernels serve (256), within K1's envelope (1024), a
 # multiple of 128 as JAX's kernel takes.
 WIDE = JaxArchConfig(width=384, v_width=128, depth=2, skip_at=0)
-# Wider than K1 serves (512), still a multiple of 128.
-WIDER = JaxArchConfig(width=640, v_width=128, depth=2, skip_at=0)
+# Wider than K1 serves (1024), still a multiple of 128.
+WIDER = JaxArchConfig(width=1152, v_width=128, depth=2, skip_at=0)
+# Wider than K2 and the int8 kernels serve (512), within K1's envelope.
+PAST_512 = JaxArchConfig(width=640, v_width=128, depth=2, skip_at=0)
 
 
 def _assets(root, arch):
@@ -72,6 +74,11 @@ def wider_assets(tmp_path_factory):
     return _assets(tmp_path_factory.mktemp("wider"), WIDER)
 
 
+@pytest.fixture(scope="module")
+def past_512_assets(tmp_path_factory):
+    return _assets(tmp_path_factory.mktemp("past_512"), PAST_512)
+
+
 def _jax_frame(assets, impl):
     """JAX's render of the same weights at RENDER's size and samples."""
     from nerf_rs_tpu.io.weights import load_nerf_params as jax_load_nerf_params
@@ -88,10 +95,10 @@ RENDER = ["render", "--device", "cpu", "--width", "8", "--height", "6", "--coars
 
 
 def test_cli_render_unserved_width_runs_xla_with_note(wider_assets, tmp_path, capsys):
-    """``--impl pallas`` (the default) on width-640 weights, beyond K1's
-    envelope, prints the note and writes the ``--impl xla`` image, which
-    is JAX's plain render of the same weights to a level of the 8-bit
-    image."""
+    """``--impl pallas`` (the default) on width-1152 weights, beyond K1's
+    envelope (1024), prints the note and writes the ``--impl xla`` image,
+    which is JAX's plain render of the same weights to a level of the
+    8-bit image."""
     out = {}
     for impl in ("pallas", "xla"):
         path = tmp_path / f"{impl}.ppm"
@@ -99,7 +106,7 @@ def test_cli_render_unserved_width_runs_xla_with_note(wider_assets, tmp_path, ca
                          "-o", str(path)]) == 0
         out[impl] = (path.read_bytes(), capsys.readouterr().out)
     assert NOTE in out["pallas"][1] and NOTE not in out["xla"][1]
-    assert "(width, v_width <= 512, depth <= 32)" in out["pallas"][1]
+    assert "(width, v_width <= 1024, depth <= 32)" in out["pallas"][1]
     assert "(xla/float32" in out["pallas"][1]
     assert out["pallas"][0] == out["xla"][0]
     got = load_ppm(tmp_path / "pallas.ppm")
@@ -147,9 +154,9 @@ def test_cli_render_int8_beyond_the_int8_kernel_notes_and_matches_jax(tmp_path, 
     assert np.abs(got - _jax_frame(assets, "int8")).max() <= 1.0 / 255 + 1e-6
 
 
-def test_cli_render_int8_past_the_int8_envelope_notes(wider_assets, tmp_path, capsys):
+def test_cli_render_int8_past_the_int8_envelope_notes(past_512_assets, tmp_path, capsys):
     """``--impl int8`` on width-640 weights, past the int8 kernels' envelope
-    (and K1's): the note with the envelope's numbers, the int8 impl kept
+    (512; within K1's): the note with the envelope's numbers, the int8 impl kept
     (``render.get_mlp_fn`` picks the plain int8 MLP per network on the
     card), no K1 note, and the frame the plain int8 MLP renders."""
     from nerf_rs_tpu_torch.config import RenderConfig
@@ -160,12 +167,12 @@ def test_cli_render_int8_past_the_int8_envelope_notes(wider_assets, tmp_path, ca
     from nerf_rs_tpu_torch.render import render_image
 
     path = tmp_path / "int8.ppm"
-    assert cli_main([*RENDER, "--weights", str(wider_assets), "--impl", "int8",
+    assert cli_main([*RENDER, "--weights", str(past_512_assets), "--impl", "int8",
                      "-o", str(path)]) == 0
     text = capsys.readouterr().out
     assert INT8_NOTE in text and "(int8/float32" in text and NOTE not in text
-    coarse, fine = (NerfMLP(load_nerf_params(wider_assets / n)) for n in ("coarse", "fine"))
-    cam = camera_from_golden(load_golden(wider_assets / "tf_reference_samples.json"))
+    coarse, fine = (NerfMLP(load_nerf_params(past_512_assets / n)) for n in ("coarse", "fine"))
+    cam = camera_from_golden(load_golden(past_512_assets / "tf_reference_samples.json"))
     want = render_image(coarse, fine, cam, 6, 8, random.key(0, "cpu"),
                         RenderConfig(n_coarse=4, n_fine=4, ray_chunk=16, impl="int8"))
     got = load_ppm(path)
@@ -179,8 +186,8 @@ TRAIN = ["train", "--device", "cpu", "--steps", "1", "--batch-rays", "16", "--co
 
 def test_cli_train_unserved_width_runs_xla_with_note(capsys):
     """A width-640 student with ``--impl pallas`` trains on the plain MLP
-    with the note naming K2's envelope: neither K1 nor the fused backward
-    serves it (both stop at 512)."""
+    with the note naming K2's envelope: the fused backward does not serve
+    it (K2 stops at 512; K1 serves it, but training needs both)."""
     rc = cli_main([*TRAIN, "--width", "640", "--depth", "2", "--skip-at", "0", "--impl", "pallas"])
     assert rc == 0
     out = capsys.readouterr().out

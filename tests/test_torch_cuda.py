@@ -1,7 +1,7 @@
 """PyTorch port on the card: the fused MLP kernels (forward K1 on the
 tensor cores, split-f32 ``wgmma`` in f32 and ``wgmma`` in bf16, and past
 width 256 or depth 16 its wide pair, f32 on the CUDA cores and bf16
-``wgmma``; backward K2
+``wgmma``, and past width 512 its wide1k pair; backward K2
 on the tensor cores, ``mma.sync`` 3xTF32 in f32 with K1 f32's recompute,
 and ``wgmma`` in bf16, and past width 256 or depth 16 its wide pair, the
 same products with the wide forwards' recomputes),
@@ -129,25 +129,40 @@ def test_kernel_matches_plain_lego(card, net, dtype, sigma_only):
 @pytest.mark.parametrize("arch", [ArchConfig(width=384, v_width=192, depth=8, skip_at=4),
                                   ArchConfig(width=512, v_width=512, depth=32, skip_at=10),
                                   ArchConfig(width=200, v_width=264, depth=20, skip_at=1),
-                                  ArchConfig(width=64, v_width=64, depth=20, skip_at=4)],
-                         ids=["384x192x8", "512x512x32", "200x264x20", "64x64x20"])
+                                  ArchConfig(width=64, v_width=64, depth=20, skip_at=4),
+                                  ArchConfig(width=1024, v_width=512, depth=8, skip_at=4),
+                                  ArchConfig(width=1024, v_width=128, depth=8, skip_at=4),
+                                  ArchConfig(width=776, v_width=264, depth=12, skip_at=4),
+                                  ArchConfig(width=1024, v_width=1024, depth=32, skip_at=10),
+                                  ArchConfig(width=200, v_width=600, depth=3, skip_at=0),
+                                  ArchConfig(width=520, v_width=64, depth=2, skip_at=5)],
+                         ids=["384x192x8", "512x512x32", "200x264x20", "64x64x20", "1024x512x8",
+                              "1024x128x8", "776x264x12", "1024x1024x32", "200x600x3",
+                              "520x64x2"])
 def test_wide_kernel_matches_plain(card, arch, dtype, sigma_only):
     """K1's wide pair (csrc/fused_mlp_wide_tc.cu in bf16 on the tensor
     cores, csrc/fused_mlp_wide_f32.cu in f32 on the CUDA cores) past width
-    256 or depth 16, ragged and at unaligned widths: one launch, counted
-    as wide (and on the tensor cores in bf16 only), against the plain
-    version at check's bars; a second call bitwise equal."""
+    256 or depth 16, and its wide1k pair past width 512
+    (csrc/fused_mlp_wide1k_tc.cu in bf16 on the tensor cores in clusters
+    that split each layer's columns, csrc/fused_mlp_wide1k_f32.cu in f32 on
+    the CUDA cores), ragged, at widths not a multiple of 64 or 128, with
+    only the view branch past 512, and with one 64-column piece in a layer
+    (520x64: the second CTA of a cluster owns none of the view layer): one
+    launch, counted as wide (and on the tensor cores in bf16 only, and as
+    wide1k past 512), against the plain version at check's bars; a second
+    call bitwise equal."""
     net = NerfMLP(np_params(arch, 3), device=card)
     pts, dirs = inputs(331, 67, 4, card)
     rgb_atol, sig_atol, sig_rtol = TOL[dtype]
-    counts = (fused_nerf_mlp.launches, fused_nerf_mlp.tc_launches, fused_nerf_mlp.wide_launches)
+    counts = (fused_nerf_mlp.launches, fused_nerf_mlp.tc_launches, fused_nerf_mlp.wide_launches,
+              fused_nerf_mlp.wide1k_launches)
     with torch.no_grad():
         rgb, sig = fused_nerf_mlp(net, pts, dirs, dtype=dtype, sigma_only=sigma_only)
         torch.cuda.synchronize()
         assert (fused_nerf_mlp.launches, fused_nerf_mlp.tc_launches,
-                fused_nerf_mlp.wide_launches) == (counts[0] + 1,
-                                                  counts[1] + (dtype == "bfloat16"),
-                                                  counts[2] + 1)
+                fused_nerf_mlp.wide_launches, fused_nerf_mlp.wide1k_launches) == (
+                    counts[0] + 1, counts[1] + (dtype == "bfloat16"), counts[2] + 1,
+                    counts[3] + (max(arch.width, arch.v_width) > 512))
         rgb_r, sig_r = fused_nerf_mlp_reference(net, pts, dirs, dtype=dtype,
                                                 sigma_only=sigma_only)
         torch.testing.assert_close(rgb, rgb_r, atol=rgb_atol, rtol=0)
@@ -163,26 +178,29 @@ def test_wide_kernel_matches_plain(card, arch, dtype, sigma_only):
 
 
 def test_wide_network_refuses_gradients_before_launch(card):
-    """Past K1's and K2's envelope (width 640) the card refuses gradients:
-    the autograd function raises before K1 launches (the pack cannot hold
-    the network), and K2's wrapper, K1 without gradients and the int8
-    wrapper refuse it too, while the renderer's int8 choice runs the plain
-    int8 MLP."""
+    """Past K1's envelope (width 1152) the card refuses the network: the
+    autograd function raises before K1 launches (the pack cannot hold it),
+    and so does K1 without gradients. Past K2's envelope (width 640, which
+    K1 serves) K2's wrapper refuses it before it launches, and so does the
+    int8 wrapper, while the renderer's int8 choice runs the plain int8
+    MLP."""
     from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp
     from nerf_rs_tpu_torch.render import get_mlp_fn
 
+    wider = NerfMLP(np_params(ArchConfig(width=1152, v_width=128, depth=3, skip_at=1), 5),
+                    device=card, requires_grad=True)
     net = NerfMLP(np_params(ArchConfig(width=640, v_width=128, depth=3, skip_at=1), 5),
                   device=card, requires_grad=True)
     pts, dirs = inputs(16, 8, 6, card)
     before = fused_nerf_mlp.launches, fused_nerf_mlp_backward.launches
-    with pytest.raises(ValueError, match="width, v_width <= 512 .* width=640"):
-        fused_nerf_mlp(net, pts, dirs)
+    with pytest.raises(ValueError, match="width, v_width <= 1024 .* width=1152"):
+        fused_nerf_mlp(wider, pts, dirs)
     g = torch.ones_like(pts[..., 0])
-    with pytest.raises(ValueError, match="width=640"):
+    with pytest.raises(ValueError, match="K2 serves width, v_width <= 512 .* width=640"):
         fused_nerf_mlp_backward(net, pts, dirs, g[..., None].expand(16, 8, 3), g)
     with torch.no_grad():
-        with pytest.raises(ValueError, match="width=640"):
-            fused_nerf_mlp(net, pts, dirs)
+        with pytest.raises(ValueError, match="width=1152"):
+            fused_nerf_mlp(wider, pts, dirs)
         with pytest.raises(NotImplementedError, match="int8 kernel serves"):
             fused_int8_mlp(net, pts, dirs)
         plain = get_mlp_fn(RenderConfig(impl="int8"), net, card)(net, pts, dirs)

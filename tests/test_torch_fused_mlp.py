@@ -374,10 +374,10 @@ def test_bf16_sigma_agrees_catches_a_wrong_tile(moved, ok):
 
 
 def test_pack_params_rejects_unserved_arch():
-    """Beyond K1's envelope (width 512): 640, a multiple of 128 that the
+    """Beyond K1's envelope (width 1024): 1152, a multiple of 128 that the
     JAX kernel takes."""
-    with pytest.raises(ValueError, match="width=640"):
-        pack_params(params_to_torch(np_params(ArchConfig(width=640), 6), "cpu"), "float32")
+    with pytest.raises(ValueError, match="width=1152"):
+        pack_params(params_to_torch(np_params(ArchConfig(width=1152), 6), "cpu"), "float32")
 
 
 def test_wrapper_on_cpu_is_the_reference_and_counts_no_launch(small):

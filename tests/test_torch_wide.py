@@ -147,7 +147,8 @@ def test_widened_lego_computes_the_lego_function(arch, net):
 def test_widen_nerf_places_copies_by_permutation():
     """Every unit kept, the extra ones copied once, placed by a seeded
     permutation (not appended), the copies' outgoing rows halved; more
-    than doubling a layer is refused."""
+    than quadrupling a layer (1152 from 256), or a unit 3 times (1023), is
+    refused."""
     cs = chip_smoke()
     lego = load_nerf_params(LEGO / "fine")
     k0 = np.asarray(lego["dense0"]["kernel"])
@@ -165,8 +166,9 @@ def test_widen_nerf_places_copies_by_permutation():
         want = np.asarray(lego["dense1"]["kernel"])[src] / counts[src][:, None]
         for j in range(width):
             assert (want == rows[:, [j]]).all(0).any(), j
-    with pytest.raises(ValueError, match="cannot widen"):
-        cs.widen_nerf(lego, 640, 128)
+    for width in (1152, 1023):
+        with pytest.raises(ValueError, match="cannot widen"):
+            cs.widen_nerf(lego, width, 128)
 
 
 @pytest.mark.parametrize("arch", [(512, 256, 8), (512, 256, 20)], ids=["512x256x8", "512x256x20"])
@@ -194,11 +196,12 @@ def test_cli_render_widened_lego_matches_jax_lego_frame(arch, tmp_path, capsys):
 
 @pytest.mark.parametrize("dims, forward, backward", [
     ((256, 128, 8), True, True), ((384, 128, 8), True, True), ((512, 512, 8), True, True),
-    ((256, 128, 32), True, True), ((576, 128, 8), False, False), ((640, 128, 8), False, False),
-    ((256, 640, 8), False, False), ((256, 128, 33), False, False)])
+    ((256, 128, 32), True, True), ((576, 128, 8), True, False), ((640, 128, 8), True, False),
+    ((256, 640, 8), True, False), ((256, 128, 33), False, False),
+    ((1152, 128, 8), False, False)])
 def test_envelopes(dims, forward, backward):
-    """K1's envelope (width, v_width <= 512, depth <= 32) and K2's, the
-    same; the JAX kernel takes every one of these trunk widths that is a
+    """K1's envelope (width, v_width <= 1024, depth <= 32) and K2's (512,
+    32); the JAX kernel takes every one of these trunk widths that is a
     multiple of 128."""
     assert fm.supports_dims(*dims) == forward
     assert fm.supports_backward_dims(*dims) == backward

@@ -63,8 +63,9 @@ def main() -> int:
             return real(params, points, viewdirs, **kw)
 
         # The wrapper counts through its module name.
-        record.launches, record.tc_launches, record.wide_launches = (
-            real.launches, real.tc_launches, real.wide_launches)
+        names = ("launches", "tc_launches", "wide_launches", "wide1k_launches")
+        for name in names:
+            setattr(record, name, getattr(real, name))
         fm.fused_nerf_mlp = record
         try:
             with torch.no_grad():
@@ -72,8 +73,8 @@ def main() -> int:
             torch.cuda.synchronize()
         finally:
             fm.fused_nerf_mlp = real
-            real.launches, real.tc_launches, real.wide_launches = (
-                record.launches, record.tc_launches, record.wide_launches)
+            for name in names:
+                setattr(real, name, getattr(record, name))
         return seen
 
     def report(name, nets, seen):

@@ -24,6 +24,18 @@ layer's dW = H^T dZ from it, against the kernel's dW and the float64
 evaluation. If the kernel lies as near the chain as the chain's own
 roundings allow, its W·dz and dW compute the function on its
 activations, and what parts it from plain comes from the activations.
+
+With ``--activations`` (bf16): the same call's recomputed activations (the
+wide bf16 forward's device code, ``csrc/fused_mlp_wide_tc.cuh``, which K2
+runs for its recompute), layer by layer against (a) the plain version's
+chain on the same inputs and (b) one step of the function from the
+kernel's own layer input, evaluated in float64 and rounded to bf16 where
+the plain version rounds: entries that differ, entries more than one bf16
+ulp apart (the ulp of the larger magnitude) and the largest gap in ulps.
+If (b) stays within one ulp everywhere, the kernel's rounding points and
+operands are the plain version's and only the f32 summation order parts
+them; the first layer where (a) exceeds one ulp on more than a handful of
+entries is where the gap enters.
 """
 
 from __future__ import annotations
@@ -49,6 +61,8 @@ def main() -> int:
     parser.add_argument("--dtype", action="append", choices=["float32", "bfloat16"])
     parser.add_argument("--witness", action="store_true",
                         help="bf16: the backward on the kernel's own activations")
+    parser.add_argument("--activations", action="store_true",
+                        help="bf16: the recomputed activations against plain, layer by layer")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("error: needs a CUDA card", file=sys.stderr)
@@ -90,6 +104,8 @@ def main() -> int:
                   f"{rel(plain[key], exact[key]):.3e}", flush=True)
         if args.witness and dtype == "bfloat16":
             witness(net, call, card, args.arch, exact)
+        if args.activations and dtype == "bfloat16":
+            activations(net, call, card, args.arch)
     return 0
 
 
@@ -116,10 +132,12 @@ class KeepWorkspace:
         return call
 
 
-def witness(net, call, card, arch_name, exact) -> None:
+def kept_workspace(net, call):
+    """The bf16 K2 call once more, its round's workspace kept -> (its
+    output, the pack, n, tiles, slot): slot(s, width) reads workspace slot
+    s's values, (n, width) float64 (csrc/fused_mlp_wide_dw.cuh)."""
     import torch
 
-    import chip_smoke as smoke
     from nerf_rs_tpu_torch.ops.kernels import _build
     from nerf_rs_tpu_torch.ops.kernels import fused_mlp as fm
 
@@ -139,7 +157,7 @@ def witness(net, call, card, arch_name, exact) -> None:
         fm._build.load_library = load
     torch.cuda.synchronize()
     cols = fm.wide_slot_cols(pk)
-    tiles, depth, ldw, ldv = plan.round_tiles, pk.depth, pk.ldw, pk.ldv
+    tiles = plan.round_tiles
 
     def slot(s, width):
         """Slot s's values, (n, width) float64 (csrc/fused_mlp_wide_dw.cuh)."""
@@ -151,6 +169,74 @@ def witness(net, call, card, arch_name, exact) -> None:
         idx = (128 * sum(cols[:s]) * tiles + t * 128 * c + off[None]) // 2
         v = keep.ws.view(torch.int16)[idx.reshape(-1)].view(torch.bfloat16)
         return v.reshape(tiles * 64, c)[:n, :width].double()
+
+    return out, pk, n, tiles, slot
+
+
+def activations(net, call, card, arch_name) -> None:
+    import torch
+
+    from nerf_rs_tpu_torch.ops.kernels import fused_mlp as fm
+
+    _, pk, n, tiles, slot = kept_workspace(net, call)
+    depth, w = pk.depth, pk.width
+    pts, _ = fm._flat_inputs(call[0], call[1])
+
+    def bf16(x):
+        return x.to(torch.bfloat16).to(x.dtype)
+
+    def mat(name, dt=torch.float32):
+        return pk.mat(name).to(dt)
+
+    def bias(name, dt=torch.float32):
+        return pk.bias(name).to(dt)
+
+    enc_plain = bf16(fm._encode(pts, 10, 64))
+    hs = fm._trunk(mat, bias, enc_plain, bf16, depth, pk.segments)
+    hs.append(bf16(fm._dense([(hs[-1], mat("bottleneck"))], bias("bottleneck"))))
+    hs = [h[:, :w] for h in hs]
+    kern = [slot(2 + i, pk.ldw)[:, :w] for i in range(depth + 1)]   # depth: the bottleneck
+    enc_k = slot(0, 64)
+
+    def ulp_gap(a, b):
+        """(entries that differ, entries more than one bf16 ulp apart, the
+        largest gap in ulps), the ulp of the larger magnitude."""
+        a, b = a.double(), b.double()
+        big = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+        ulps = (a - b).abs() / torch.exp2(torch.floor(torch.log2(big)) - 7)
+        return int((a != b).sum()), int((ulps > 1).sum()), round(float(ulps.max()), 3)
+
+    def step(i):
+        """Layer i from the kernel's own input, float64, rounded as plain."""
+        e = enc_k.double()
+        if i == 0:
+            z = e @ mat("dense0", torch.float64) + bias("dense0", torch.float64)
+        else:
+            name = "bottleneck" if i == depth else f"dense{i}"
+            z = kern[i - 1] @ mat(name, torch.float64)[:w] + bias(name, torch.float64)
+            if f"dense{i}_enc" in pk.segments:
+                z = z + e @ mat(f"dense{i}_enc", torch.float64)
+        z = z[:, :w]
+        return bf16(z if i == depth else torch.relu(z))
+
+    print(f"{card}: wide bf16 forward (K2's recompute) activations, random {arch_name}, {n} "
+          f"samples, {tiles} tiles: layer, (a) kernel vs the plain chain, (b) kernel vs one "
+          "float64 step from its own input: entries that differ, entries > 1 ulp, max ulps "
+          f"(of {n * w} entries a layer)", flush=True)
+    print(f"        {'encode':12s} (a) {ulp_gap(enc_k[:, :63], enc_plain[:, :63])}", flush=True)
+    for i in range(depth + 1):
+        name = "bottleneck" if i == depth else f"dense{i}"
+        print(f"        {name:12s} (a) {ulp_gap(kern[i], hs[i])} (b) {ulp_gap(kern[i], step(i))}",
+              flush=True)
+
+
+def witness(net, call, card, arch_name, exact) -> None:
+    import torch
+
+    import chip_smoke as smoke
+
+    out, pk, n, tiles, slot = kept_workspace(net, call)
+    depth, ldw, ldv = pk.depth, pk.ldw, pk.ldv
 
     def bf16(x):
         return x.to(torch.bfloat16).double()
