@@ -99,12 +99,11 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points' signatures on a loaded library
     (``c_void_p`` for every pointer and the stream)."""
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fwd = lib.nerf_fused_mlp_f32tc_forward
-    fwd.argtypes = [p, p, ll, ll, p, p, p, p, p, i, i, i, i, i, p, p, i, p]
-    fwd.restype = ctypes.c_int
+    for fwd in (lib.nerf_fused_mlp_f32tc_forward, lib.nerf_fused_mlp_wide1k_f32tc_forward):
+        fwd.argtypes = [p, p, ll, ll, p, p, p, p, p, i, i, i, i, i, p, p, i, p]
+        fwd.restype = ctypes.c_int
     for tc in (lib.nerf_fused_mlp_tc_forward, lib.nerf_fused_mlp_wide_tc_forward,
-               lib.nerf_fused_mlp_wide_f32_forward, lib.nerf_fused_mlp_wide1k_tc_forward,
-               lib.nerf_fused_mlp_wide1k_f32_forward):
+               lib.nerf_fused_mlp_wide_f32_forward, lib.nerf_fused_mlp_wide1k_tc_forward):
         tc.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, p, p, i, p]
         tc.restype = ctypes.c_int
     rec = lib.nerf_fused_mlp_f32tc_record

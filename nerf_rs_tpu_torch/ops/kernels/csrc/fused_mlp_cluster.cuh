@@ -8,9 +8,9 @@
 // cluster (its members named by a 16-bit mask of cluster ranks) consumes
 // the same chunk sequence into the same stages. For every chunk each
 // member's producer thread expects the whole chunk's bytes on its own
-// full[s] barrier and copies its 1/G slice into stage s of every member
-// (one multicast copy, which signals each member's full[s] with the bytes
-// it lands there). A member's stage is written by all G producers, so it
+// full[s] barrier and copies its share of the chunk's runs into stage s
+// of every member (multicast copies, each of which signals each member's
+// full[s] with the bytes it lands there). A member's stage is written by all G producers, so it
 // may be refilled only once every member's consumers have released it:
 // each consumer warp arrives, after its wgmmas on the chunk have retired,
 // on empty[s] of every member (remote arrives through mapa), and empty[s]
@@ -98,14 +98,19 @@ struct ClusterProducer {
   int stage;
   uint32_t phase;
 
-  // Copies the next chunk, `bytes` from src (a multiple of 16 G), once
-  // every member has released its stage: this CTA's slice to every member.
-  __device__ __forceinline__ void put(const void* src, uint32_t bytes) {
+  // Copies the next chunk, `runs` runs of run_bytes (a multiple of 16)
+  // from src, `stride` bytes apart in global memory, laid end to end in
+  // the stage, once every member has released its stage: the member of
+  // index i copies runs i, i + G, ... into every member.
+  __device__ __forceinline__ void put(const void* src, uint32_t run_bytes, int runs,
+                                      long long stride) {
     mbar_wait(bars + 8 * (S + stage), phase ^ 1);
-    mbar_expect_tx(bars + 8 * stage, bytes);
-    const uint32_t slice = bytes / G, off = slice * grp.index;
-    bulk_copy_multicast(ring + stage * kBytes + off, static_cast<const uint8_t*>(src) + off,
-                        slice, bars + 8 * stage, grp.mask);
+    mbar_expect_tx(bars + 8 * stage, run_bytes * runs);
+    for (int r = grp.index; r < runs; r += G) {
+      bulk_copy_multicast(ring + stage * kBytes + r * run_bytes,
+                          static_cast<const uint8_t*>(src) + r * stride, run_bytes,
+                          bars + 8 * stage, grp.mask);
+    }
     if (++stage == S) {
       stage = 0;
       phase ^= 1;

@@ -1,5 +1,5 @@
 // The offset table of K1's kernels past width 512 (fused_mlp_wide1k_tc.cu,
-// bf16, and fused_mlp_wide1k_f32.cu, f32): trunk or view widths from 513 up
+// bf16, and fused_mlp_wide1k_f32tc.cu, f32): trunk or view widths from 513 up
 // to kWide1kMaxWidth, at most kWideMaxDepth dense layers. The table is the
 // wide kernels' (fused_mlp_wide.cuh: the same order, 32 layer slots, the
 // same WideLayout); only the widest ld differs. kWideMaxWidth stays the

@@ -18,21 +18,26 @@
 // derivatives); dW, db and the encode gradient accumulated in f32.
 //
 // The recompute is the wide bf16 forward itself: fused_mlp_wide_tc.cuh's
-// encode_tile and wide_layer, and f32tc::head_sum for the heads, on the
-// same pack (PackedMLP.weights_tc of a wide pack) in the same chunks, so
-// its activations and ReLU masks are bit for bit those of K1's wide bf16
-// forward, the ones that made the loss.
+// encode_tile and wide_layer (passes of two pieces a warpgroup, each ring
+// chunk summed from zero and added to a running f32 sum), and
+// f32tc::head_sum for the heads, on the same pack (PackedMLP.weights_tc
+// of a wide pack) in the same chunks, so its activations and ReLU masks
+// are bit for bit those of K1's wide bf16 forward, the ones that made the
+// loss. Its layers write the two 64 x 512 buffers in turn, the last one
+// (h_last, or the view output) into the activation buffer.
 //
 // Layout, the wide forward's: 64-sample tiles, the two warpgroups on the
 // two halves of each product's N. Consumer thread 0 bulk-copies every
 // weight chunk the tile needs, in the consumers' order (a chunk table
-// built once, walked once a tile), onto a ring of 2 stages of 32 KB
-// (32 K-rows a chunk above width 256, 64 at or below); two kinds of
-// product, both wgmma from shared memory:
-// - the recompute, x W: A the tile's 64 rows (K-major), B a ring chunk, N
-//   split between the warpgroups (wide_layer);
+// built once, walked once a tile), onto a ring of 2 stages of 32 KB; two
+// kinds of product, both wgmma from shared memory:
+// - the recompute, x W: A the tile's 64 rows (K-major), B a ring chunk of
+//   a pass's columns (wide::layer_chunks: one bulk copy a k-group of 8
+//   rows), each pass split between the warpgroups (wide_layer);
 // - the input gradients, dZ W^T: A the tile's 64 rows of dZ, B the same
-//   ring chunks read transposed (MN-major): a chunk of 64 input rows of a
+//   ring chunks (all of a segment's columns: 32 K-rows above width 256,
+//   64 at or below; one contiguous run) read transposed (MN-major): a
+//   chunk of 64 input rows of a
 //   segment gives one 64-column piece of dZ W^T (m64n64k16), a chunk of 32
 //   rows half a piece (m64n32k16); warpgroup g takes its Share of the
 //   pieces one at a time and walks past the other's chunks. The chunk
@@ -58,10 +63,10 @@
 // recompute is one call site, a loop over the layers, (2) thread 0's ring
 // feeder reads a ready chunk table and (3) the addresses an epilogue
 // derives are kept from being hoisted out of the tile loop (opaque()).
-// Shared memory (227,696 bytes): the ring (64 KB), the two 64 x 512 bf16
+// Shared memory (227,704 bytes): the ring (64 KB), the two 64 x 512 bf16
 // buffers (activations, then gradients; 64 KB each), the dir and point
 // encodes (4 and 8 KB), the head weights (8 KB), the head gradients (1
-// KB), the chunk table (9.3 KB), the barriers. The encode gradients go to
+// KB), the chunk table (9.4 KB), the barriers. The encode gradients go to
 // a per-CTA scratch in f32.
 
 #include "fused_mlp_bwd_bf16.cuh"
@@ -79,11 +84,11 @@ using f32tc::head_sum;
 
 constexpr int kStages = 2;
 constexpr int kThreads = kConsumers;                      // two warpgroups, no producer
-// Ring chunks a tile's walk reads, at most: each way (recompute, backward)
-// a 512-row segment of 16 chunks and a skip of 2 each layer past the
-// first, dense0's 2, the bottleneck's and the view layer's 16, the dir
-// encode's 1.
-constexpr int kMaxChunks = 2 * (2 + (kWideMaxDepth - 1) * 18 + 33);
+// Ring chunks a tile's walk reads, at most: the recompute's
+// (kMaxFwdChunks), then the backward's, a 512-row segment of 16 chunks
+// and a skip of 2 each layer past the first, dense0's 2, the bottleneck's
+// and the view layer's 16, the dir encode's 1.
+constexpr int kMaxChunks = kMaxFwdChunks + (2 + (kWideMaxDepth - 1) * 18 + 33);
 constexpr int kBufBytes = kBlock * kWideMaxWidth * 2;
 constexpr int kActOff = kStages * kStageBytesW;           // ring first
 constexpr int kDzOff = kActOff + kBufBytes;
@@ -99,11 +104,6 @@ static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
 
 using B = BwdBf16<kBlock>;
 
-
-// A ring chunk of the pack: `bytes` bytes from element `off`.
-struct Chunk {
-  uint32_t off, bytes;
-};
 
 // Thread 0's side of the ring, in shared memory (so that no consumer
 // thread holds it in registers): the walk over the tile's chunk table,
@@ -144,8 +144,12 @@ struct Ring {
     if (!wait && !f32tc::mbar_test(empty, f.fill_phase ^ 1)) return;
     mbar_wait(empty, f.fill_phase ^ 1);
     const Chunk ch = feed_chunk(f.i);
-    mbar_expect_tx(full, ch.bytes);
-    bulk_copy(q.ring + f.fill_stage * kStageBytesW, f.w + ch.off, ch.bytes, full);
+    const uint32_t run = ch.run16 * 16u;
+    mbar_expect_tx(full, run * ch.runs);
+    for (int r = 0; r < ch.runs; ++r) {
+      bulk_copy(q.ring + f.fill_stage * kStageBytesW + r * run, f.w + ch.off + r * 64 * ch.n8,
+                run, full);
+    }
     if (++f.i == f.count) {
       f.i = 0;
       --f.laps;
@@ -165,19 +169,20 @@ struct Ring {
     }
     return q.acquire();   // (its __syncwarp rejoins thread 0)
   }
-  // After the wgmmas on the acquired chunk are committed: the chunk
-  // before retires (an unconditional wait, so that ptxas sees it), and is
-  // released.
+  // After the wgmmas on the acquired chunk are committed: they retire
+  // (every product waits for its chunk's sums anyway), and the chunk is
+  // released at once, so that thread 0 may refill its stage while the
+  // next chunk is multiplied.
   __device__ __forceinline__ void advance() {
-    wgmma_wait<1>();
-    if (q.pending >= 0) mbar_arrive(q.bars + 8 * (kStages + q.pending));
-    q.pending = q.stage;
+    wgmma_wait<0>();
+    mbar_arrive(q.bars + 8 * (kStages + q.stage));
     if (++q.stage == kStages) {
       q.stage = 0;
       q.phase ^= 1;
     }
   }
-  __device__ __forceinline__ void release() { q.release(); }
+  // tc::Pipe's release of the last chunk: none is held.
+  __device__ __forceinline__ void release() {}
 };
 
 // d (64 x 32, f32) = a (64 x 16, bf16) * b (16 x 32, bf16) + (scale_d ? d :
@@ -410,26 +415,36 @@ fused_mlp_wide_bwd_bf16_kernel(const float* __restrict__ pts, const float* __res
   const bool want_dx = dpts != nullptr;
 
   // Every chunk of a tile in the order the consumers take them: the
-  // recompute's (K1's order), then the backward's (thread 0's table).
+  // recompute's (K1's: wide::layer_chunks), then the backward's (thread
+  // 0's table).
   int count = 0;
+  auto put = [&](long long off, uint32_t run_bytes, int runs, int stride) {
+    if (tid == 0) chunks[count] = ring_chunk(off, run_bytes, runs, stride);
+    ++count;
+  };
+  layer_chunks(L.w_dense[0], kEncX, -1, 0, nw, put);
+  for (int i = 1; i < depth; ++i) {
+    if (L.w_skip[i] >= 0) {
+      layer_chunks(L.w_skip[i], kEncX, L.w_dense[i], nw, nw, put);
+    } else {
+      layer_chunks(L.w_dense[i], nw, -1, 0, nw, put);
+    }
+  }
+  if (!kSigmaOnly) {
+    layer_chunks(L.w_bneck, nw, -1, 0, nw, put);
+    layer_chunks(L.w_view, nw, L.w_view_dir, kEncD, nv, put);
+  }
   auto add = [&](long long off, int k, int nn) {
     for (int c = 0; c < k; c += chunk_k(nn)) {
       if (tid == 0) {
+        const int bytes = min(chunk_k(nn), k - c) * nn * 2;
         chunks[count] = {static_cast<uint32_t>(off + static_cast<long long>(c) * nn),
-                         static_cast<uint32_t>(min(chunk_k(nn), k - c) * nn * 2)};
+                         static_cast<uint16_t>(bytes / 16), 1, 0};
       }
       ++count;
     }
   };
-  add(L.w_dense[0], kEncX, nw);
-  for (int i = 1; i < depth; ++i) {
-    if (L.w_skip[i] >= 0) add(L.w_skip[i], kEncX, nw);
-    add(L.w_dense[i], nw, nw);
-  }
   if (!kSigmaOnly) {
-    add(L.w_bneck, nw, nw);
-    add(L.w_view, nw, nv);
-    add(L.w_view_dir, kEncD, nv);
     if (want_dx) add(L.w_view_dir, kEncD, nv);
     add(L.w_view, nw, nv);
     add(L.w_bneck, nw, nw);
@@ -458,8 +473,7 @@ fused_mlp_wide_bwd_bf16_kernel(const float* __restrict__ pts, const float* __res
   // is uniform across a warp, or guards stores only.
   const int g = __shfl_sync(0xFFFFFFFFu, tid >> 7, 0);
   const int ldw = L.ldw, ldv = L.ldv;
-  const int npw = nw / kPiece, npv = nv / kPiece;
-  const Share sw(npw, g), sv(npv, g);
+  const Share sw(nw / kPiece, g);   // the input-gradient products' pieces
   const int laps = static_cast<int>((tiles - blockIdx.x + gridDim.x - 1) / gridDim.x);
   if (tid == 0) feed() = Feed{w, count, laps, 0, 0, 0, 0u};
   consumers_barrier();
@@ -490,23 +504,27 @@ fused_mlp_wide_bwd_bf16_kernel(const float* __restrict__ pts, const float* __res
     buf_out(enc_d, image(D, 1, t), kEncD);
 
     // Recompute: K1's layers through one call site, the trunk (i < depth),
-    // the bottleneck (i = depth) and the view layer; each trunk output and
-    // the bottleneck's also to its workspace slot; the sigma head on h_last
-    // before the bottleneck overwrites it. (The arguments that a layer's
-    // epilogue derives its addresses from are opaque: see opaque().)
+    // the bottleneck (i = depth) and the view layer, into act and dz in
+    // turn so that the last layer writes act (h_last, the view output);
+    // each trunk output and the bottleneck's also to its workspace slot;
+    // the sigma head on h_last (act) before the view layer overwrites it.
+    // (The arguments that a layer's epilogue derives its addresses from
+    // are opaque: see opaque().)
     const int layers = kSigmaOnly ? depth : depth + 2;
     for (int i = 0; i < layers; ++i) {
       const bool view = i == depth + 1;
       const bool skip = i > 0 && i < depth && L.w_skip[i] >= 0;
-      const uint32_t a1 = i == 0 || skip ? s_ex : s_act;
+      const bool odd = (layers - 1 - i) & 1;
+      uint8_t* out = opaque(odd ? dz : act);
+      const uint32_t s_in = odd ? s_act : s_dz;
+      const uint32_t a1 = i == 0 || skip ? s_ex : s_in;
       const int k1 = i == 0 || skip ? kEncX : nw;
-      const uint32_t a2 = skip ? s_act : (view ? smem_u32(enc_d) : 0u);
+      const uint32_t a2 = skip ? s_in : (view ? smem_u32(enc_d) : 0u);
       const int k2 = skip ? nw : (view ? kEncD : 0);
       const long long b_off = i < depth ? L.b_dense[i] : (view ? L.b_view : L.b_bneck);
-      wide_layer_any(view ? sv.count : sw.count, q, a1, k1, a2, k2, view ? nv : nw,
-                     opaque(view ? sv.p0 : sw.p0), opaque(bias) + b_off, view ? ldv : ldw,
-                     i != depth, opaque(act));
-      if (i <= depth) buf_out(act, image(D, DwWs::h(i), t), nw);
+      wide_layer(q, a1, k1, a2, k2, view ? nv : nw, opaque(bias + b_off), view ? ldv : ldw,
+                 i != depth, out, g);
+      if (i <= depth) buf_out(out, image(D, DwWs::h(i), t), nw);
       if (i != depth - 1) continue;
       // Sigma head, K1's sum: gs becomes d(pre-ReLU sigma); its dW and db.
       {

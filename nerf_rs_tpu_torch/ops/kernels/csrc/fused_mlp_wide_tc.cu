@@ -17,53 +17,60 @@
 //
 // Numerics: fused_mlp_tc.cu's bf16 contract. The encode (exact sincosf),
 // the weights and each layer's input activations are bf16; wgmma
-// multiplies bf16 and accumulates in f32; bias, ReLU and the round to
-// bf16 follow each layer; the heads read the rounded activations and write
-// f32.
+// multiplies bf16, each ring chunk's products are summed in f32 from zero
+// and added to a running f32 sum, rounded to nearest; bias, ReLU and the
+// round to bf16 follow each layer; the heads read the rounded activations
+// and write f32.
 //
 // What bounds it on the H100: at width 512 a fine sample costs 4.60 MFLOP
 // (7.32 ms a 8192 x 192 call at 989 TFLOP/s). The whole bf16 pack (4.6 MB
 // for a 512/256 network of depth 8) streams from L2 through shared memory
 // once per 64-sample tile, and each chunk's way there and back (copy,
-// wgmmas, release) bounds how fast a ring of 128 KB turns over: without
-// its products, the kernel still takes 11.7 ms, and with its copies cut
-// to 16 bytes it is not faster (tools/torch_wide_k1_profile.py). So the
-// design shares and shortens that walk rather than adding tensor work:
+// wgmmas, release) bounds how fast the ring turns over: without its
+// products, the earlier one-accumulator kernel still took 11.7 ms, and
+// with its copies cut to 16 bytes it was not faster
+// (tools/torch_wide_k1_profile.py). So the design shares and shortens
+// that walk rather than adding tensor work:
 // - a persistent grid of thread-block clusters of kClusterW CTAs, one CTA
 //   of 384 threads an SM, the cluster's CTAs on consecutive 64-sample
 //   tiles (one wgmma M): a producer warpgroup, whose registers setmaxnreg
-//   hands to the consumers, and two consumer warpgroups, warpgroup g on
-//   pieces [p0(g), p0(g) + count(g)) of every layer (the first half of
-//   the 64-column pieces rounded up, then the rest), each keeping at most
-//   four 64-column f32 accumulators (128 registers a thread) at width 512;
+//   hands to the consumers, and two consumer warpgroups;
 // - the cluster's CTAs share one weight stream (fused_mlp_cluster.cuh):
-//   each chunk (32 K-rows above width 256, 64 at or below; the pack is
-//   fused_mlp.py::tc_tile's, one contiguous run a chunk) is read from L2
-//   once, every CTA's producer thread copying its 1/kClusterW slice into
-//   all of them with one multicast cp.async.bulk, into a ring of 4 stages
-//   of 32 KB, running ahead across layers and tiles; a stage is refilled
-//   once every CTA's consumer warps have released it (remote arrives);
+//   each chunk is read from L2 once, every CTA's producer thread copying
+//   its share of the chunk's runs (one a k-group of 8 rows) into all of
+//   them with multicast cp.async.bulk, into a ring of 4 stages of 16 KB,
+//   running ahead across layers and tiles; a stage is refilled once every
+//   CTA's consumer warps have released it (remote arrives);
 // - each consumer warpgroup issues m64n64k16 wgmmas (A: the 64-row
 //   activation or encode buffer, all of K; B: its pieces of the chunk),
 //   and each chunk's wgmmas retire before the next chunk's are issued, so
 //   that its stage goes back to the ring at once;
-// - the two warpgroups meet at a barrier of the 256 consumer threads
-//   before the epilogue overwrites the one activation buffer in place
-//   (both have read all of it), and again after it; every layer runs from
-//   one call site;
+// - a layer runs in passes of at most four 64-column pieces, two a
+//   consumer warpgroup (wide::Share), and each ring chunk (a pass's
+//   columns of 64 K-rows, 32 KB at most) is summed by wgmmas from zero and
+//   added to a running f32 sum (fused_mlp_wide_tc.cuh: a wgmma accumulator
+//   rounds toward zero, and over a whole layer's K its drift flips bf16
+//   roundings that a deep chain carries); a chunk is as many wgmmas as the
+//   one-accumulator kernel's (two k-steps of four pieces then, four of two
+//   now), so the ring turns over as often. (Chunks of 32 K-rows in a ring
+//   of 16 KB stages, with the output in a second buffer, took 1.74x as
+//   long: twice the chunks for the same products; PERF.md §6.);
+// - each pass's rounded outputs stay in registers as bf16 pairs until the
+//   two warpgroups have met at a barrier of the 256 consumer threads
+//   (both have read the whole layer input), then overwrite it in place;
+//   they meet again after the epilogue; every layer runs from one call
+//   site;
 // - every CTA of a cluster walks as many tiles as its first: past the last
 //   tile a CTA computes a tile of zeros and stores nothing, so the ring's
 //   chunks stay in step, and the CTAs meet at a cluster barrier before
 //   they exit;
 // - the encode (64 x 96 bf16, filled once a tile) and the heads (four
 //   threads a row, a quarter of K each) run on the consumers' CUDA cores.
-// The arithmetic, the chunks' K-order and the rounding points are the
-// unclustered kernel's: its output is bit for bit the same
-// (tools/torch_k1_parent_ab.py).
 // Shared memory: ring 128 KB, activations 64 x 512 x 2 B = 64 KB, encodes
-// 12 KB, heads 8 KB: 212 KB of the 227 KB a block may use. Widths pad to
-// multiples of 64; padding weights and biases are zero, so padding columns
-// stay 0.
+// 12 KB, heads 8 KB, the producer's chunk table 4.6 KB: 217 KB of the 227
+// KB a block may use.
+// Widths pad to multiples of 64; padding weights and biases are zero, so
+// padding columns stay 0.
 
 #include "fused_mlp_cluster.cuh"
 #include "fused_mlp_wide_tc.cuh"
@@ -77,9 +84,9 @@ using f32tc::head_row;
 using f32tc::head_sum;
 
 constexpr int kClusterW = 2;   // CTAs that share the weight stream
-// The ring: 4 stages of 32 KB, chunks of wide::chunk_k rows. (8 stages of
-// 16 KB, half the rows a chunk, measured slower:
-// tools/torch_wide_k1_profile.py.)
+// The ring: 4 stages of 32 KB, a pass's chunk each (wide::layer_chunks).
+// (8 stages of 16 KB, half the rows a chunk, measured slower with the
+// one-accumulator kernel: tools/torch_wide_k1_profile.py.)
 constexpr int kStagesW = 4;
 
 // Shared memory, in bytes from the dynamic base.
@@ -87,7 +94,8 @@ constexpr int kActOff = kStagesW * kStageBytesW;              // ring first
 constexpr int kEncXOff = kActOff + kBlock * kWideMaxWidth * 2;
 constexpr int kEncDOff = kEncXOff + kBlock * kEncX * 2;
 constexpr int kHeadOff = kEncDOff + kBlock * kEncD * 2;       // alpha [512], rgb [512][3] f32
-constexpr int kBarOff = kHeadOff + 4 * kWideMaxWidth * 4;     // full[kStagesW], empty[kStagesW]
+constexpr int kChunkOff = kHeadOff + 4 * kWideMaxWidth * 4;   // the producer's chunk table
+constexpr int kBarOff = kChunkOff + kMaxFwdChunks * 8;         // full[kStagesW], empty[kStagesW]
 constexpr int kSmemBytes = kBarOff + 2 * kStagesW * 8;
 static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
 
@@ -136,6 +144,19 @@ fused_mlp_wide_tc_kernel(const float* __restrict__ pts, const float* __restrict_
     cluster::init_ring<kStagesW, kClusterW>(bars);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  // The producer thread's chunk table (wide::layer_chunks), built while it
+  // has the registers: after setmaxnreg it only walks it.
+  Chunk* chunks = reinterpret_cast<Chunk*>(smem + kChunkOff);
+  int count = 0;
+  if (tid == kConsumers) {
+    for (int i = 0; i < layers; ++i) {
+      const LayerIo io = layer_io(L, i, nw, nv);
+      layer_chunks(io.off1, io.k1, io.off2, io.k2, io.n,
+                   [&](long long off, uint32_t run_bytes, int runs, int stride) {
+                     chunks[count++] = ring_chunk(off, run_bytes, runs, stride);
+                   });
+    }
+  }
   for (int k = tid; k < L.ldw; k += kThreadsTc) w_alpha[k] = load1(w + L.w_alpha + k);
   for (int k = tid; k < 3 * L.ldv; k += kThreadsTc) w_rgb[k] = load1(w + L.w_rgb + k);
   cluster::cluster_sync();   // every CTA's barriers, before any copy or remote arrive
@@ -152,15 +173,9 @@ fused_mlp_wide_tc_kernel(const float* __restrict__ pts, const float* __restrict_
       cluster::ClusterProducer<kStagesW, kStageBytesW, kClusterW> pr{
           smem_u32(smem), bars, {static_cast<uint16_t>((1 << kClusterW) - 1), rank}, 0, 0u};
       for (int base = first_base; base < tiles; base += gridDim.x) {
-        for (int i = 0; i < layers; ++i) {
-          const LayerIo io = layer_io(L, i, nw, nv);
-          const int ck = chunk_k(io.n);
-          for (int seg = 0; seg < 2; ++seg) {
-            const int off = seg ? io.off2 : io.off1, k = seg ? io.k2 : io.k1;
-            for (int c = 0; c < k; c += ck) {
-              pr.put(w + off + c * io.n, static_cast<uint32_t>(min(ck, k - c) * io.n * 2));
-            }
-          }
+        for (int e = 0; e < count; ++e) {
+          const Chunk ch = chunks[e];
+          pr.put(w + ch.off, ch.run16 * 16u, ch.runs, 128LL * ch.n8);
         }
       }
     }
@@ -172,7 +187,6 @@ fused_mlp_wide_tc_kernel(const float* __restrict__ pts, const float* __restrict_
   // stores only.
   reg_alloc<kConsumerRegs>();
   const int g = warp >> 2;
-  const Share sw(nw / kPiece, g), sv(nv / kPiece, g);
   cluster::ClusterPipe<kStagesW, kStageBytesW, kClusterW> q{smem_u32(smem), bars, 0, 0u};
   const uint32_t a_act = smem_u32(act), a_ex = smem_u32(enc_x), a_ed = smem_u32(enc_d);
   const int hrow = head_row();
@@ -196,9 +210,8 @@ fused_mlp_wide_tc_kernel(const float* __restrict__ pts, const float* __restrict_
       const bool view = i == L.depth + 1;
       const bool enc = i == 0 || (i < L.depth && L.w_skip[i] >= 0);
       const long long b = i < L.depth ? L.b_dense[i] : (view ? L.b_view : L.b_bneck);
-      wide_layer_any(view ? sv.count : sw.count, q, enc ? a_ex : a_act, io.k1,
-                     view ? a_ed : a_act, io.k2, io.n, view ? sv.p0 : sw.p0, bias + b,
-                     view ? L.ldv : L.ldw, i != L.depth, act);
+      wide_layer_in_place(q, enc ? a_ex : a_act, io.k1, view ? a_ed : a_act, io.k2, io.n,
+                          bias + b, view ? L.ldv : L.ldw, i != L.depth, act, g);
       if (i != L.depth - 1) continue;
       // Sigma head. The barriers inside the next layer keep these reads
       // before its writes.

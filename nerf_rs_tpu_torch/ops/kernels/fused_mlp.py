@@ -20,8 +20,10 @@ tables of ``MAX_DEPTH`` layers (``csrc/fused_mlp_wide.cuh``). Past
 ``WIDE_MAX_WIDTH``, up to ``MAX_WIDTH``, the same tables reach the wide1k
 pair (``csrc/fused_mlp_wide1k.cuh``): bfloat16 on ``wgmma`` in clusters of
 two CTAs that split every layer's columns and exchange its output through
-distributed shared memory (``csrc/fused_mlp_wide1k_tc.cu``), and float32 on
-the CUDA cores in 32-sample tiles (``csrc/fused_mlp_wide1k_f32.cu``). The
+distributed shared memory (``csrc/fused_mlp_wide1k_tc.cu``), and float32 as
+split-f32 ``wgmma`` in clusters of four CTAs that split every layer's
+columns and read each other's outputs through distributed shared memory
+(``csrc/fused_mlp_wide1k_f32tc.cu``, :func:`f32tc1k_tile`). The
 backward kernel K2 replaces
 ``_backward_t`` / ``_kernel_bwd``: it recomputes the forward per tile,
 backpropagates, and sums every layer's weight and bias gradient over the
@@ -46,7 +48,7 @@ layer's input and output gradient to a workspace, and the dW kernel
   :class:`_FusedMLP` (the counterpart of ``_make_op``'s ``custom_vjp``).
   On CUDA tensors its forward launches K1 (counted in
   ``fused_nerf_mlp.launches``, in ``fused_nerf_mlp.tc_launches`` when the
-  kernel runs on the tensor cores, which all but the wide f32 kernels do,
+  kernel runs on the tensor cores, which all but the wide f32 kernel do,
   in ``fused_nerf_mlp.wide_launches`` for the wide pair and the wide1k
   pair, and in ``fused_nerf_mlp.wide1k_launches`` for the wide1k pair) and its
   backward K2 (counted in ``fused_nerf_mlp_backward.launches``, and in
@@ -104,6 +106,16 @@ _STEP_K = 16                # kStepK in csrc/fused_mlp_f32tc.cuh: k rows a split
 # order csrc/fused_mlp_f32tc.cuh issues them (0 hi, 1 mid, 2 lo); the last,
 # hi.hi, into its own accumulator.
 SPLIT_F32_ORDER = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+# The wide1k f32 kernel (csrc/fused_mlp_wide1k_f32tc.cu): k-steps of hi.hi
+# products it sums from zero before it adds them to its running sum (one
+# ring chunk), and the multiple of k its sources pad to with zeros. Its
+# arithmetic is split_f32_dense(..., group=WIDE1K_GROUP_STEPS,
+# pad=WIDE1K_PAD_K).
+WIDE1K_GROUP_STEPS = 1
+WIDE1K_PAD_K = 64
+# CTAs of the wide1k f32 kernel's cluster, each on a quarter of a layer's
+# 64-column pieces (kQuarters).
+WIDE1K_QUARTERS = 4
 _BWD_TILE = 128             # kRows in csrc/fused_mlp_bwd_{tc,bf16}.cu: samples a backward tile
 _WIDE_BWD_TILE = 64         # kBlock of the wide backward kernels (csrc/fused_mlp_wide_bwd_*.cu)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -213,9 +225,15 @@ class PackedMLP:
     :func:`tc_tile`: trunk and view widths pad to multiples of 64, and so
     does the K of the layers that read the trunk; the encodes keep K = 64
     and 32. Its two head segments are those of ``weights``. Each pack
-    holds ``None`` in the other's fields, and a ``wide1k`` f32 pack (which
-    only the wide1k f32 forward reads, from ``weights``) in ``mma_wt`` and
-    ``weights_f32tc`` too.
+    holds ``None`` in the other's fields.
+
+    A ``wide1k`` f32 pack holds neither K2's packs nor ``weights_f32tc``
+    but ``weights_f32tc1k``, the split pack of the wide1k f32 forward
+    (``csrc/fused_mlp_wide1k_f32tc.cu``): ``weights_f32tc``'s segments,
+    pieces and padding, each k-step of 16 rows laid out by
+    :func:`f32tc1k_tile` quarter by quarter of its 64-column pieces, with
+    ``layout_f32tc1k`` in ``layout``'s order (head entries -1: the kernel
+    reads the heads from ``weights``).
     """
 
     weights: torch.Tensor
@@ -235,6 +253,8 @@ class PackedMLP:
     layout_tc: Optional[np.ndarray] = None
     weights_f32tc: Optional[torch.Tensor] = None
     layout_f32tc: Optional[np.ndarray] = None
+    weights_f32tc1k: Optional[torch.Tensor] = None
+    layout_f32tc1k: Optional[np.ndarray] = None
 
     @property
     def wide(self) -> bool:
@@ -379,6 +399,7 @@ def pack_params(params, dtype: str) -> PackedMLP:
         return torch.cat(flats), table(offsets)
 
     mma_wt = layout_mma = weights_tc = layout_tc = weights_f32tc = layout_f32tc = None
+    weights_f32tc1k = layout_f32tc1k = None
     if backward:
         mma_wt = torch.stack(tf32_split(torch.cat(pieces_wt)))
         layout_mma = np.array(
@@ -391,12 +412,16 @@ def pack_params(params, dtype: str) -> PackedMLP:
     elif dtype == "bfloat16":
         weights_tc, layout_tc = tensor_core_pack(tc_tile, heads=True)
         weights_tc = weights_tc.to(torch.bfloat16)
+    elif max(width, v_width) > WIDE_MAX_WIDTH:
+        weights_f32tc1k, layout_f32tc1k = tensor_core_pack(f32tc1k_tile, heads=False)
+        weights_f32tc1k = weights_f32tc1k.to(torch.bfloat16)   # exact: bf16 values
     return PackedMLP(weights=weights, biases=biases, segments=segments,
                      bias_slots=bias_slots, layout=layout, mma_wt=mma_wt,
                      layout_mma=layout_mma, width=width, v_width=v_width, depth=depth,
                      ldw=ldw, ldv=ldv, dtype=dtype, weights_tc=weights_tc,
                      layout_tc=layout_tc, weights_f32tc=weights_f32tc,
-                     layout_f32tc=layout_f32tc)
+                     layout_f32tc=layout_f32tc, weights_f32tc1k=weights_f32tc1k,
+                     layout_f32tc1k=layout_f32tc1k)
 
 
 def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -483,7 +508,35 @@ def f32tc_tile(m: torch.Tensor, k: int, n: int) -> torch.Tensor:
     return blocks.permute(1, 0, 2, 4, 5, 3).reshape(-1)
 
 
-def split_f32_dense(sources, b: torch.Tensor, group: Optional[int] = None) -> torch.Tensor:
+def quarters(pieces: int) -> List[Tuple[int, int]]:
+    """(first piece, pieces) of each of the wide1k f32 kernel's
+    ``WIDE1K_QUARTERS`` CTAs for a layer of ``pieces`` 64-column pieces
+    (``Quarter`` in ``csrc/fused_mlp_wide1k_f32tc.cu``): the first
+    ``pieces % 4`` take one more than the rest."""
+    base, rem = divmod(pieces, WIDE1K_QUARTERS)
+    return [(q * base + min(q, rem), base + (q < rem)) for q in range(WIDE1K_QUARTERS)]
+
+
+def f32tc1k_tile(m: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """A (K, N) weight matrix zero-padded to (k, n), in the order the wide1k
+    f32 kernel copies it: per k-step of 16 rows, the column blocks of the
+    :func:`quarters` of its n / 64 pieces in turn, each block
+    :func:`f32tc_tile`'s chunk of those columns (hi, mid and lo planes in
+    core-matrix order), so that a CTA's columns of a k-step are one
+    contiguous run. k must be a multiple of 16, n of 64. Returns float32
+    (bf16 values)."""
+    if k % _STEP_K or n % _TC_PIECE or m.shape[0] > k or m.shape[1] > n:
+        raise ValueError(f"cannot tile a {tuple(m.shape)} matrix to ({k}, {n})")
+    padded = torch.zeros((k, n), dtype=torch.float32, device=m.device)
+    padded[:m.shape[0], :m.shape[1]] = m
+    blocks = [f32tc_tile(padded[:, _TC_PIECE * p0:_TC_PIECE * (p0 + count)], k,
+                         _TC_PIECE * count).reshape(k // _STEP_K, -1)
+              for p0, count in quarters(n // _TC_PIECE) if count]
+    return torch.cat(blocks, dim=1).reshape(-1)
+
+
+def split_f32_dense(sources, b: torch.Tensor, group: Optional[int] = None,
+                    pad: Optional[int] = None) -> torch.Tensor:
     """:func:`_dense` in the f32 kernels' arithmetic as built
     (``csrc/fused_mlp_f32tc.cuh``), for the CPU tests: each operand split by
     :func:`bf16_split3`; the sources in order, each in k-steps of 16 (zero
@@ -499,7 +552,13 @@ def split_f32_dense(sources, b: torch.Tensor, group: Optional[int] = None) -> to
     counted over the layer's sources in order, and each group's sum is
     added, rounded, to a running sum once it ends: ((g0 + g1) + g2) ...,
     then (that + small) + b. A group as long as the layer is the narrow
-    kernel's arithmetic."""
+    kernel's arithmetic.
+
+    With ``pad``, each source's k is first padded with zeros to a multiple
+    of ``pad``, as a kernel pads its sources (the trunk to widths of 64),
+    so that its zero k-steps count toward the groups where the kernel's
+    do. The wide1k f32 kernel computes ``group=WIDE1K_GROUP_STEPS,
+    pad=WIDE1K_PAD_K``."""
     big = small = total = None
 
     def add(acc, term):
@@ -507,6 +566,10 @@ def split_f32_dense(sources, b: torch.Tensor, group: Optional[int] = None) -> to
 
     step = 0
     for a, w in sources:
+        if pad and a.shape[-1] % pad:
+            extra = pad - a.shape[-1] % pad
+            a = torch.nn.functional.pad(a, (0, extra))
+            w = torch.nn.functional.pad(w, (0, 0, 0, extra))
         xs, ws = bf16_split3(a), bf16_split3(w)
         for k0 in range(0, a.shape[-1], _STEP_K):
             if group and step and step % group == 0:
@@ -829,10 +892,10 @@ def _forward_kernel(pk: PackedMLP, points: torch.Tensor, viewdirs: torch.Tensor,
     clusters) or
     ``csrc/fused_mlp_wide_f32.cu`` (f32, CUDA cores), counted also in
     ``fused_nerf_mlp.wide_launches``; packs past ``WIDE_MAX_WIDTH`` launch
-    ``csrc/fused_mlp_wide1k_tc.cu`` (bf16, tensor cores, clusters that
-    split the columns) or ``csrc/fused_mlp_wide1k_f32.cu`` (f32, CUDA
-    cores), counted also in ``fused_nerf_mlp.wide_launches`` and
-    ``fused_nerf_mlp.wide1k_launches``."""
+    ``csrc/fused_mlp_wide1k_tc.cu`` (bf16) or
+    ``csrc/fused_mlp_wide1k_f32tc.cu`` (split-f32), both on the tensor
+    cores in clusters that split the columns, counted also in
+    ``fused_nerf_mlp.wide_launches`` and ``fused_nerf_mlp.wide1k_launches``."""
     dirs, dir_div, batch, n = _kernel_inputs(pk, points, viewdirs)
     rgb = torch.empty((*batch, 3), dtype=torch.float32, device=points.device)
     sigma = torch.empty(batch, dtype=torch.float32, device=points.device)
@@ -842,15 +905,15 @@ def _forward_kernel(pk: PackedMLP, points: torch.Tensor, viewdirs: torch.Tensor,
     head = (points.data_ptr(), dirs.data_ptr(), n, dir_div)
     tail = (pk.ldw, pk.ldv, pk.depth, int(sigma_only), rgb.data_ptr(), sigma.data_ptr(),
             points.device.index or 0, _stream(points.device))
-    tensor_cores = not (pk.wide and pk.dtype == "float32")
+    tensor_cores = not (pk.wide and not pk.wide1k and pk.dtype == "float32")
     if pk.wide1k and pk.dtype == "bfloat16":
         err = lib.nerf_fused_mlp_wide1k_tc_forward(
             *head, pk.weights_tc.data_ptr(), pk.biases.data_ptr(), pk.layout_tc.ctypes.data,
             pk.layout_tc.size, *tail)
     elif pk.wide1k:
-        err = lib.nerf_fused_mlp_wide1k_f32_forward(
-            *head, pk.weights.data_ptr(), pk.biases.data_ptr(), pk.layout.ctypes.data,
-            pk.layout.size, *tail)
+        err = lib.nerf_fused_mlp_wide1k_f32tc_forward(
+            *head, pk.weights.data_ptr(), pk.weights_f32tc1k.data_ptr(), pk.biases.data_ptr(),
+            pk.layout.ctypes.data, pk.layout_f32tc1k.ctypes.data, pk.layout.size, *tail)
     elif pk.wide and pk.dtype == "bfloat16":
         err = lib.nerf_fused_mlp_wide_tc_forward(
             *head, pk.weights_tc.data_ptr(), pk.biases.data_ptr(), pk.layout_tc.ctypes.data,

@@ -23,7 +23,7 @@ import torch
 from nerf_rs_tpu_torch.config import ArchConfig, RenderConfig
 from nerf_rs_tpu_torch.io.golden import camera_from_golden, load_golden
 from nerf_rs_tpu_torch.io.weights import load_nerf_params
-from nerf_rs_tpu_torch.models.mlp import NerfMLP, arch_shapes
+from nerf_rs_tpu_torch.models.mlp import NerfMLP, arch_shapes, init_nerf_params
 from nerf_rs_tpu_torch.ops import random
 from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
     bf16_sigma_agrees,
@@ -143,26 +143,28 @@ def test_wide_kernel_matches_plain(card, arch, dtype, sigma_only):
     """K1's wide pair (csrc/fused_mlp_wide_tc.cu in bf16 on the tensor
     cores, csrc/fused_mlp_wide_f32.cu in f32 on the CUDA cores) past width
     256 or depth 16, and its wide1k pair past width 512
-    (csrc/fused_mlp_wide1k_tc.cu in bf16 on the tensor cores in clusters
-    that split each layer's columns, csrc/fused_mlp_wide1k_f32.cu in f32 on
-    the CUDA cores), ragged, at widths not a multiple of 64 or 128, with
+    (csrc/fused_mlp_wide1k_tc.cu in bf16 and csrc/fused_mlp_wide1k_f32tc.cu
+    in split-f32, both on the tensor cores in clusters that split each
+    layer's columns), ragged, at widths not a multiple of 64 or 128, with
     only the view branch past 512, and with one 64-column piece in a layer
-    (520x64: the second CTA of a cluster owns none of the view layer): one
-    launch, counted as wide (and on the tensor cores in bf16 only, and as
-    wide1k past 512), against the plain version at check's bars; a second
-    call bitwise equal."""
+    (520x64: the second CTA of a cluster owns none of the view layer, and
+    the f32 kernel's last three quarters none): one launch, counted as wide
+    (and on the tensor cores but for f32 up to width 512, and as wide1k
+    past 512), against the plain version at check's bars; a second call
+    bitwise equal."""
     net = NerfMLP(np_params(arch, 3), device=card)
     pts, dirs = inputs(331, 67, 4, card)
     rgb_atol, sig_atol, sig_rtol = TOL[dtype]
     counts = (fused_nerf_mlp.launches, fused_nerf_mlp.tc_launches, fused_nerf_mlp.wide_launches,
               fused_nerf_mlp.wide1k_launches)
+    wide1k = max(arch.width, arch.v_width) > 512
     with torch.no_grad():
         rgb, sig = fused_nerf_mlp(net, pts, dirs, dtype=dtype, sigma_only=sigma_only)
         torch.cuda.synchronize()
         assert (fused_nerf_mlp.launches, fused_nerf_mlp.tc_launches,
                 fused_nerf_mlp.wide_launches, fused_nerf_mlp.wide1k_launches) == (
-                    counts[0] + 1, counts[1] + (dtype == "bfloat16"), counts[2] + 1,
-                    counts[3] + (max(arch.width, arch.v_width) > 512))
+                    counts[0] + 1, counts[1] + (dtype == "bfloat16" or wide1k), counts[2] + 1,
+                    counts[3] + wide1k)
         rgb_r, sig_r = fused_nerf_mlp_reference(net, pts, dirs, dtype=dtype,
                                                 sigma_only=sigma_only)
         torch.testing.assert_close(rgb, rgb_r, atol=rgb_atol, rtol=0)
@@ -175,6 +177,46 @@ def test_wide_kernel_matches_plain(card, arch, dtype, sigma_only):
             assert ok, (bars, float((sig - sig_r).abs().max()))
         again = fused_nerf_mlp(net, pts, dirs, dtype=dtype, sigma_only=sigma_only)
     assert torch.equal(rgb, again[0]) and torch.equal(sig, again[1])
+
+
+WIDE1K_F32 = [ArchConfig(width=1024, v_width=512, depth=8, skip_at=4),
+              ArchConfig(width=1024, v_width=128, depth=8, skip_at=4),
+              ArchConfig(width=776, v_width=264, depth=12, skip_at=4),
+              ArchConfig(width=1024, v_width=1024, depth=32, skip_at=10)]
+
+
+@pytest.mark.parametrize("sigma_only", [False, True])
+@pytest.mark.parametrize("arch", WIDE1K_F32, ids=["1024x512x8", "1024x128x8", "776x264x12",
+                                                 "1024x1024x32"])
+def test_wide1k_f32_tensor_core_kernel_matches_plain(card, arch, sigma_only):
+    """K1 f32 past width 512 on the tensor cores
+    (csrc/fused_mlp_wide1k_f32tc.cu, split-f32 wgmma in clusters of four
+    CTAs) at chip_smoke.py phase 29 (e)'s random networks, over 8192
+    samples (128 64-sample tiles, so that clusters take more than one):
+    one launch, counted on the tensor cores and as wide and wide1k, within
+    the f32 bars of the plain version and, like the split-f32 arithmetic's
+    emulation on the CPU (tests/test_torch_wide1k_split_f32.py), no further
+    from the float64 evaluation than twice the plain version is; a second
+    call bitwise equal."""
+    g = torch.Generator(device=card).manual_seed(29)
+    net = NerfMLP(init_nerf_params(g, arch), device=card)
+    pts, dirs = inputs(128, 64, 5, card)
+    rgb_atol, sig_atol, sig_rtol = TOL["float32"]
+    names = ("launches", "tc_launches", "wide_launches", "wide1k_launches")
+    before = [getattr(fused_nerf_mlp, k) for k in names]
+    with torch.no_grad():
+        rgb, sig = fused_nerf_mlp(net, pts, dirs, sigma_only=sigma_only)
+        torch.cuda.synchronize()
+        assert [getattr(fused_nerf_mlp, k) - b for k, b in zip(names, before)] == [1, 1, 1, 1]
+        again = fused_nerf_mlp(net, pts, dirs, sigma_only=sigma_only)
+        plain = fused_nerf_mlp_reference(net, pts, dirs, sigma_only=sigma_only)
+        exact = fused_nerf_mlp_reference(net, pts.double(), dirs.double(), sigma_only=sigma_only)
+    torch.testing.assert_close(rgb, plain[0], atol=rgb_atol, rtol=0)
+    torch.testing.assert_close(sig, plain[1], atol=sig_atol, rtol=sig_rtol)
+    assert torch.equal(rgb, again[0]) and torch.equal(sig, again[1])
+    for got, want, ref in zip((rgb, sig), plain, exact):
+        dist = float((got.double() - ref).abs().max())
+        assert dist <= 2 * float((want.double() - ref).abs().max()) + 1e-30, dist
 
 
 def test_wide_network_refuses_gradients_before_launch(card):

@@ -1,15 +1,16 @@
 """PyTorch port, K1 past width 512: trunk and view widths up to 1024 (depth
 up to 32), which the forward kernel K1 serves through its wide1k pair
-(``csrc/fused_mlp_wide1k_tc.cu`` in bf16, ``csrc/fused_mlp_wide1k_f32.cu``
-in f32) while the backward K2 keeps its envelope at 512.
+(``csrc/fused_mlp_wide1k_tc.cu`` in bf16, ``csrc/fused_mlp_wide1k_f32tc.cu``
+in f32, whose arithmetic and pack ``tests/test_torch_wide1k_split_f32.py``
+holds) while the backward K2 keeps its envelope at 512.
 
 On the CPU the wrapper runs the plain version: the port's plain K1 at
 1024-wide architectures against the JAX Pallas kernel (interpret mode, as
 tests/test_fused_mlp.py runs it) and, where that kernel does not go (776 is
 not a multiple of 128; depth 32 costs too much in interpret mode), against
 JAX's plain ``nerf_mlp``; the pack at 1024; the envelopes; the bf16
-kernel's split of each weight chunk between a cluster's two CTAs and the
-f32 kernel's columns, emulated on the pack; ``chip_smoke.widen_nerf`` at 4x;
+kernel's split of each weight chunk between a cluster's two CTAs, emulated
+on the pack; ``chip_smoke.widen_nerf`` at 4x;
 and a tiny frame of the lego widened to 1024/512/8 through the CLI against
 JAX's frame of the lego. The kernels themselves are held to the same plain
 version on the card (``chip_smoke.py`` phase 29 (e),
@@ -215,32 +216,6 @@ def test_bf16_kernel_pass_chunks_are_tc_tiles_of_the_pass(n):
                         for g in range(kc // 8)]
                 assert torch.equal(torch.cat(runs), tc_tile(m[c:c + kc, col0:col0 + nh], kc, nh))
     assert covered == list(range(n))
-
-
-@pytest.mark.parametrize("n", [1024, 776, 600, 520, 128, 32])
-def test_f32_kernel_columns_cover_each_column_once(n):
-    """The wide1k f32 kernel's columns (csrc/fused_mlp_wide1k_f32.cu):
-    warp w of 8 takes rows 8 (w % 4) and half h = w / 4 of the 128-column
-    groups (even, or odd), lane l the columns 4 l + 128 (2 j + h) + e of
-    those below n; accumulate_any's count of whole groups for a half. Every
-    column once per row group, and the two halves within one group of each
-    other."""
-    seen = np.zeros(n, int)
-    per_half = [0, 0]
-    for h in (0, 1):
-        full = (n // 128 + 1 - h) // 2 if n % 128 == 0 else None
-        groups = 0
-        for lane in range(32):
-            for j in range(4):
-                col = 4 * lane + 128 * (2 * j + h)
-                if col < n:
-                    seen[col:col + 4] += 1
-                    per_half[h] += 4
-                    groups = max(groups, j + 1)
-        if full is not None:
-            assert groups == full
-    assert (seen == 1).all()
-    assert abs(per_half[0] - per_half[1]) <= 128
 
 
 @pytest.mark.parametrize("dims, forward, backward", [

@@ -3,8 +3,9 @@
 sources: the narrow K1 on the lego networks' render calls, the narrow K2 on
 the lego networks' training calls, the wide K1 on a 512-wide network's
 render calls and the wide K2 on a 512-wide network's training call, f32
-and bf16, and the narrow int8 kernel on the lego networks' render calls,
-timed in turns and held bit for bit.
+and bf16, the narrow int8 kernel on the lego networks' render calls, and
+two bf16 frames of the lego widened to 512/256/8, timed in turns and held
+bit for bit.
 
     python3 tools/torch_k1_parent_ab.py --parent DIR
 
@@ -37,11 +38,21 @@ Calls:
   ``chip_smoke.NARROW_INT8_SHA256``);
 - wide int8: the lego networks widened to 512/256/8 (fine full, coarse
   sigma-only) and 384/192/8 (fine full) at the same calls, skipped, and
-  said so, where ``DIR``'s sources lack the wide int8 kernel.
-K1 and K2 each in f32 and bf16, timed with CUDA events (median of 5 runs of 10
-launches; 3 for K2 and wide K1, 1 for wide K2) in turns, parent, change,
-change, parent, ``--rounds`` times (3), and the two libraries' outputs
-compared bit for bit; ``--only TEXT`` keeps the calls whose label holds
+  said so, where ``DIR``'s sources lack the wide int8 kernel;
+- wide1k K1: phase 29 (e)'s random 1024/512/8 network full at 8192 x 192
+  and sigma-only at 8192 x 64; where ``DIR``'s sources have no split-f32
+  wide1k kernel, their f32 side is the CUDA-core kernel that it replaced
+  (``nerf_fused_mlp_wide1k_f32_forward``, called on the f32 pack);
+- frames: the lego widened to 512/256/8 (``chip_smoke.py`` phase 29's
+  networks), bf16, the 256x256 64+128 frame (``chip_smoke.render``) and
+  the 800x800 accel+K3 frame (``chip_smoke.render_accel``, bench.py's
+  accel defaults) on one 128^3 grid built once through the checkout's
+  kernels, so that both sides render on the same grid.
+K1 and K2 each in f32 and bf16, timed with CUDA events (median of 5 runs
+of 10 launches; 3 for K2 and wide K1, 1 for wide K2; median of 3 single
+calls for wide1k K1 and the frames) in turns, parent, change, change,
+parent, ``--rounds`` times (3), and the two libraries' outputs compared
+bit for bit; ``--only TEXT`` keeps the calls whose label holds
 TEXT. Each line names the card and its power limit. Exit 1 if any output
 differs. Needs one CUDA card and nvcc.
 """
@@ -124,6 +135,32 @@ def launching(lib):
         _build.load_library = real
 
 
+def cuda_core_wide1k_f32(lib, net, pts, viewdirs, sigma_only: bool):
+    """K1 f32 past width 512 through the CUDA-core kernel of sources older
+    than the split-f32 one (``nerf_fused_mlp_wide1k_f32_forward`` in
+    ``lib``, on the f32 pack's ``weights`` and ``layout``, which that
+    kernel read as they are). -> (rgb, sigma)."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops.kernels import fused_mlp as fm
+
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fwd = lib.nerf_fused_mlp_wide1k_f32_forward
+    fwd.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, p, p, i, p]
+    fwd.restype = ctypes.c_int
+    pk = net.packed("float32")
+    dirs, dir_div, batch, n = fm._kernel_inputs(pk, pts, viewdirs)
+    rgb = torch.empty((*batch, 3), dtype=torch.float32, device=pts.device)
+    sigma = torch.empty(batch, dtype=torch.float32, device=pts.device)
+    err = fwd(pts.data_ptr(), dirs.data_ptr(), n, dir_div, pk.weights.data_ptr(),
+              pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout.size, pk.ldw, pk.ldv,
+              pk.depth, int(sigma_only), rgb.data_ptr(), sigma.data_ptr(),
+              pts.device.index or 0, fm._stream(pts.device))
+    if err != 0:
+        raise RuntimeError(f"the CUDA-core wide1k f32 kernel failed: CUDA error {err}")
+    return rgb, sigma
+
+
 def event_ms(fn, inner: int = 10, reps: int = 5) -> float:
     """Median over ``reps`` runs of ``inner`` calls, timed with CUDA events;
     per call."""
@@ -183,6 +220,17 @@ def main() -> int:
     def k1(net, pts, so):
         return lambda dtype: fused_nerf_mlp(net, pts, vd, dtype=dtype, sigma_only=so)
 
+    def k1_1k(net, pts, so):
+        def call(dtype):
+            lib = _build.load_library()
+            if dtype == "float32" and not hasattr(lib, "nerf_fused_mlp_wide1k_f32tc_forward"):
+                return cuda_core_wide1k_f32(lib, net, pts, vd, so)
+            return fused_nerf_mlp(net, pts, vd, dtype=dtype, sigma_only=so)
+        return call
+
+    wide1k = NerfMLP(init_nerf_params(torch.Generator(device=dev).manual_seed(29),
+                                      ArchConfig(*smoke.WIDE1K_RANDOM[0])), device=dev)
+
     def q8(net, pts, so):
         from nerf_rs_tpu_torch.ops.kernels.int8_mlp import fused_int8_mlp
 
@@ -200,6 +248,26 @@ def main() -> int:
                                     device=dev)
                for net, arch in (("fine", (512, 256, 8)), ("coarse", (512, 256, 8)),
                                  ("fine", (384, 192, 8)))}
+    scene = {}
+
+    def frame(accel: bool):
+        def call(dtype):
+            if "grid" not in scene:
+                from nerf_rs_tpu_torch.accel import build_scene_grid
+
+                with launching(None):
+                    scene["grid"] = build_scene_grid(*wide_lego, resolution=smoke.GRID_RES)
+            if accel:
+                img, _ = smoke.render_accel(*wide_lego, cam, dev, smoke.accel_cfg(dtype=dtype),
+                                            scene["grid"], smoke.BENCH_SIZE)
+                return (img,)
+            img, _ = smoke.render(*wide_lego, cam, dev, "pallas", dtype)
+            return (torch.from_numpy(img),)
+        return call
+
+    wide_lego = tuple(NerfMLP(smoke.widen_nerf(load_nerf_params(assets / net), 512, 256, 8,
+                                               seed=seed), device=dev)
+                      for seed, net in enumerate(("coarse", "fine")))
     wide_k2 = ("nerf_fused_mlp_wide_f32_record", "nerf_wide_bwd_f32_tiles",
                "nerf_wide_bwd_bf16_tiles", "nerf_wide_dw", "nerf_wide_small_sum")
 
@@ -222,7 +290,14 @@ def main() -> int:
              ("int8 wide 512/256/8 sigma-only", q8(widened[("coarse", (512, 256, 8))], pts_c,
                                                    True), tuple(pts_c.shape[:-1]), 5),
              ("int8 wide 384/192/8 full", q8(widened[("fine", (384, 192, 8))], pts_f, False),
-              tuple(pts_f.shape[:-1]), 5)]
+              tuple(pts_f.shape[:-1]), 5),
+             ("wide1k K1 1024/512/8 full", k1_1k(wide1k, pts_f, False), tuple(pts_f.shape[:-1]),
+              1),
+             ("wide1k K1 1024/512/8 sigma-only", k1_1k(wide1k, pts_c, True),
+              tuple(pts_c.shape[:-1]), 1),
+             ("frame 512/256/8 256x256 64+128", frame(False), (smoke.H, smoke.W), 1),
+             ("frame 512/256/8 800x800 accel+K3", frame(True),
+              (smoke.BENCH_SIZE, smoke.BENCH_SIZE), 1)]
     calls = [c for c in calls if not args.only or any(o in c[0] for o in args.only)]
     skipped = {c[0]: sorted(set(wide_k2) & set(missing)) for c in calls
                if c[0].startswith("wide K2") and set(wide_k2) & set(missing)}
@@ -236,6 +311,8 @@ def main() -> int:
     same = True
     times = {}
     def dtypes(label):
+        if label.startswith("frame"):
+            return ("bfloat16",)
         return ("int8",) if label.startswith("int8") else ("float32", "bfloat16")
 
     for label, call, shape, inner in calls:
@@ -256,7 +333,8 @@ def main() -> int:
             for _ in range(args.rounds):
                 for side in ("parent", "change", "change", "parent"):
                     with launching(sides[side]), torch.no_grad():
-                        ms = event_ms(lambda: call(dtype), inner=inner)
+                        ms = event_ms(lambda: call(dtype), inner=inner,
+                                      reps=3 if label.startswith(("frame", "wide1k")) else 5)
                     times.setdefault((label, dtype, side), []).append(ms)
     for label, _, shape, _ in calls:
         for dtype in dtypes(label):

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where wide K1's time goes: the wide forward pair (bf16
 ``csrc/fused_mlp_wide_tc.cu``, f32 ``csrc/fused_mlp_wide_f32.cu``) at
-phase 29's random 512/256/8 network (``chip_smoke.WIDE_RANDOM``), on the
-render's calls (``chip_smoke.main_path_inputs``: 8192 rays x 192 samples
-full, x 64 sigma-only).
+phase 29's random 512/256/8 network (``chip_smoke.WIDE_RANDOM``), and the
+wide1k split-f32 kernel (``csrc/fused_mlp_wide1k_f32tc.cu``) at phase 29
+(e)'s random 1024/512/8 (``chip_smoke.WIDE1K_RANDOM``), on the render's
+calls (``chip_smoke.main_path_inputs``: 8192 rays x 192 samples full, x
+64 sigma-only).
 
     python3 tools/torch_wide_k1_profile.py [--parent DIR] [--only TEXT]
 
@@ -14,9 +16,12 @@ on the same calls through the port's wrappers (CUDA events, median of 5
 runs of 3 calls): what a part's removal saves is that part's share. The
 patched kernels' answers are wrong where a part is taken out; only their
 times are read. Parts of this checkout's bf16 kernel: the cluster size (1,
-2, 4 CTAs sharing the weight stream), the ring (8 stages of 16 KB), a
-stage released one chunk behind, the tensor-core products, the weight
-copies (each chunk's bytes cut to 16 a CTA). With ``--parent DIR`` (a
+2, 4 CTAs sharing the weight stream), the ring (8 stages of 16 KB, chunks
+of 32 K-rows), a stage released one chunk behind, the tensor-core
+products, the chunks' f32 sums, the weight copies (each run's bytes cut
+to 16). Of the wide1k split-f32 kernel: the products, the staging of
+the layer input, the weight copies (16 bytes a chunk), the barrier of
+each k-step. With ``--parent DIR`` (a
 ``csrc/`` of the kernels before clusters, e.g. ``git archive 7f4632f
 nerf_rs_tpu_torch/ops/kernels/csrc`` unpacked into ``scratch_checkout/``),
 the same for its wide pair (bf16 on ``wgmma``, f32 on the CUDA cores): as
@@ -42,11 +47,13 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "tools"))
 
 BF16 = "fused_mlp_wide_tc.cu"
+WIDE1K_F32 = "fused_mlp_wide1k_f32tc.cu"
 COPIES_OUT = [
-    ("fused_mlp_cluster.cuh", "    mbar_expect_tx(bars + 8 * stage, bytes);",
-     "    mbar_expect_tx(bars + 8 * stage, 16u * G);"),
-    ("fused_mlp_cluster.cuh", "                        slice, bars + 8 * stage, grp.mask);",
-     "                        16u, bars + 8 * stage, grp.mask);")]
+    ("fused_mlp_cluster.cuh", "    mbar_expect_tx(bars + 8 * stage, run_bytes * runs);",
+     "    mbar_expect_tx(bars + 8 * stage, 16u * runs);"),
+    ("fused_mlp_cluster.cuh",
+     "                          static_cast<const uint8_t*>(src) + r * stride, run_bytes,",
+     "                          static_cast<const uint8_t*>(src) + r * stride, 16u,")]
 # (target, name, [(file, text, replacement), ...]): every text must occur in file.
 PARTS = [
     (BF16, "as built (clusters of 2)", []),
@@ -54,12 +61,14 @@ PARTS = [
         (BF16, "constexpr int kClusterW = 2;", "constexpr int kClusterW = 1;")]),
     (BF16, "clusters of 4", [
         (BF16, "constexpr int kClusterW = 2;", "constexpr int kClusterW = 4;")]),
-    (BF16, "8 stages of 16 KB", [
+    (BF16, "8 stages of 16 KB, chunks of 32 K-rows", [
         (BF16, "constexpr int kStagesW = 4;", "constexpr int kStagesW = 8;"),
-        (BF16, "kStageBytesW", "(kStageBytesW / 2)"),
-        ("fused_mlp_wide_tc.cuh",
-         "__device__ __forceinline__ int chunk_k(int nn) { return nn > kMaxWidth ? 32 : 64; }",
-         "__device__ __forceinline__ int chunk_k(int nn) { return nn > kMaxWidth ? 16 : 32; }")]),
+        (BF16, "kStagesW * kStageBytesW", "kStagesW * (kStageBytesW / 2)"),
+        (BF16, "ClusterProducer<kStagesW, kStageBytesW,", "ClusterProducer<kStagesW, kStageBytesW / 2,"),
+        (BF16, "ClusterPipe<kStagesW, kStageBytesW,", "ClusterPipe<kStagesW, kStageBytesW / 2,"),
+        ("fused_mlp_wide_tc.cuh", "constexpr int kPassK = 64;", "constexpr int kPassK = 32;"),
+        ("fused_mlp_wide_tc.cuh", "static_assert(kPassK * kPassPieces * kPiece * 2 == kStageBytesW,",
+         "static_assert(2 * kPassK * kPassPieces * kPiece * 2 == kStageBytesW,")]),
     (BF16, "released one chunk behind (tc::Pipe's)", [
         ("fused_mlp_cluster.cuh", "  uint32_t ring, bars;\n  int stage;\n  uint32_t phase;\n",
          "  uint32_t ring, bars;\n  int stage;\n  uint32_t phase;\n  int pending = -1;\n"),
@@ -72,10 +81,32 @@ PARTS = [
          "    pending = -1;\n  }")]),
     (BF16, "products out", [
         ("fused_mlp_wide_tc.cuh",
-         "          wgmma_64<0, 0>(acc[p], da, desc(b + (p0 + p) * 1024 + (s >> 3) * (n * 16), "
-         "n * 16, 128),\n                         first ? 0 : 1);",
-         "          (void)da;")]),
+         "            wgmma_64<0, 0>(acc[p], da,\n"
+         "                           desc(b + (pw + p) * 1024 + (s >> 3) * (nh * 16), nh * 16, 128),\n"
+         "                           s ? 1 : 0);",
+         "            (void)da;")]),
+    (BF16, "chunk sums out", [
+        ("fused_mlp_wide_tc.cuh", "          for (int i = 0; i < 32; ++i) run[p][i] += acc[p][i];",
+         "          for (int i = 0; i < 32; ++i) run[p][i] = acc[p][i];")]),
     (BF16, "weight copies out", COPIES_OUT),
+    (WIDE1K_F32, "as built", []),
+    (WIDE1K_F32, "products out", [
+        (WIDE1K_F32, "          if (j < 5) {\n"
+                     "            wgmma_64<0, 0>(small[p], da, db, (t == 0 && j == 0) ? 0 : 1);\n"
+                     "          } else {\n"
+                     "            wgmma_64<0, 0>(big[p], da, db, 0);\n"
+                     "          }",
+         "          (void)da;\n          (void)db;")]),
+    (WIDE1K_F32, "staging out", [
+        (WIDE1K_F32, "    if (next) stage_load(first ? s1 : s2, (first ? t + 1 : t + 1 - steps1) * "
+                     "kStepK, in, v);", "    (void)first;"),
+        (WIDE1K_F32, "      stage_store(v, a_stages + ((t + 1) & 1) * 3 * kPlaneA);", "")]),
+    (WIDE1K_F32, "weight copies out", [
+        (WIDE1K_F32, "    mbar_expect_tx(full, sg.bytes);", "    mbar_expect_tx(full, 16u);"),
+        (WIDE1K_F32, "              sg.bytes, full);", "              16u, full);")]),
+    (WIDE1K_F32, "k-step barrier out", [
+        (WIDE1K_F32, "    consumers_barrier();   // the next stage written; this one's wgmmas retired",
+         "")]),
 ]
 PARENT_BF16, PARENT_F32 = "fused_mlp_wide_tc.cu", "fused_mlp_wide_f32.cu"
 PARENT_PARTS = [
@@ -152,9 +183,10 @@ def main() -> int:
     assets = find_lego_assets()
     cam = camera_from_golden(load_golden(assets / "tf_reference_samples.json"))
     pts_c, pts_f, vd = smoke.main_path_inputs(cam, dev)
-    arch = smoke.WIDE_RANDOM[1]
-    net = NerfMLP(init_nerf_params(torch.Generator(device=dev).manual_seed(29), ArchConfig(*arch)),
-                  device=dev)
+    nets = {}
+    for target, arch in ((BF16, smoke.WIDE_RANDOM[1]), (WIDE1K_F32, smoke.WIDE1K_RANDOM[0])):
+        gen = torch.Generator(device=dev).manual_seed(29)
+        nets[target] = arch, NerfMLP(init_nerf_params(gen, ArchConfig(*arch)), device=dev)
     calls = [("full", pts_f, False), ("sigma-only", pts_c, True)]
 
     def time_parts(src_dir: Path, parts, label: str):
@@ -164,6 +196,7 @@ def main() -> int:
             for target, name, _ in parts:
                 lib = _build.declare(libs[(target, name)])
                 dtype = "bfloat16" if target == BF16 else "float32"
+                arch, net = nets.get(target, nets[BF16])
                 for kind, pts, so in calls:
                     with launching(lib), torch.no_grad():
                         ms = event_ms(lambda: fused_nerf_mlp(net, pts, vd, dtype=dtype,

@@ -7,11 +7,14 @@ gradient from the top layer down, as three relative distances
 (the plain version on float64 inputs: the same function, rounded where
 the kernels round, without summation error) and plain to float64.
 
-    python3 tools/torch_wide_k2_layers.py [--arch 512x512x32] [--dtype bfloat16]
+    python3 tools/torch_wide_k2_layers.py [--arch 512x512x32] [--dtype bfloat16] [--parent DIR]
 
 Shows whether a gap opens at the heads and the recompute's masks, grows
 down the trunk through W·dz, or appears only in dW. Prints the card's
-name and power limit. Needs one CUDA card and nvcc.
+name and power limit. Needs one CUDA card and nvcc. With ``--parent DIR``
+(another version of ``csrc/``, e.g. the parent commit's unpacked into a
+gitignored directory), every call runs that version's kernels instead,
+built as ``tools/torch_k1_parent_ab.py`` builds them.
 
 With ``--witness`` (bf16): the same call again, its round's workspace
 kept (the per-tile kernel's H and dZ images, ``csrc/fused_mlp_wide_dw.cuh``),
@@ -63,7 +66,23 @@ def main() -> int:
                         help="bf16: the backward on the kernel's own activations")
     parser.add_argument("--activations", action="store_true",
                         help="bf16: the recomputed activations against plain, layer by layer")
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="run another version's csrc/ (its *.cu and headers)")
     args = parser.parse_args()
+    if args.parent is not None:
+        import importlib.util
+        import tempfile
+
+        sys.path.insert(0, str(REPO))
+        spec = importlib.util.spec_from_file_location(
+            "torch_k1_parent_ab", REPO / "tools" / "torch_k1_parent_ab.py")
+        ab = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(ab)
+        lib = ab.build_other(args.parent, Path(tempfile.mkdtemp(prefix="layers_")))[0]
+        from nerf_rs_tpu_torch.ops.kernels import _build
+
+        _build.load_library = lambda: lib
+        print(f"the kernels of {args.parent}", flush=True)
     if not torch.cuda.is_available():
         print("error: needs a CUDA card", file=sys.stderr)
         return 2
