@@ -257,10 +257,12 @@ kernel), and a 512-wide student trained, rendered, evaluated and served. Phases,
     bitwise; (c) wide K2 against its plain version at the training path's
     inputs on the widened legos (fine and coarse full, coarse sigma-only),
     at phase 8's bars, and K2 bf16 on the random 512/512/32 network of
-    ``tests/test_torch_cuda.py``'s card case (37 x 29 samples; sigma-only
-    at its 3e-2 bar; the full call's distance from plain reported, and its
-    largest distance from the float64 evaluation no larger than the plain
-    version's); one 512/256/8 step against the plain step at phase
+    ``tests/test_torch_cuda.py``'s card case (37 x 29 samples),
+    full and sigma-only at the 32-deep bf16 bar (each gradient within
+    max(3e-2, 1.5 x the plain version's distance) of the float64
+    evaluation, the kernel's largest distance no larger than the plain
+    version's, the distance from plain reported); one 512/256/8 step
+    against the plain step at phase
     9's bound; ``train --width 512 --v-width 256`` for WIDE_STEPS f32 and
     WIDE_BF16_STEPS bf16 steps through wide K1 and wide K2 with no note,
     then ``render --checkpoint`` through wide K1 without a note,
@@ -278,7 +280,22 @@ kernel), and a 512-wide student trained, rendered, evaluated and served. Phases,
     >= 40 dB from the dense bf16 frame; one bf16 ``/render`` byte for byte;
     the pair against plain on WIDE1K_RANDOM and the widened lego at (b)'s
     bars, every call a wide1k launch; times at 1024/512/8, each kernel
-    and its library call in turns; (f) times:
+    and its library call in turns; (f) K2 past width 512 (the wide1k pair
+    in record mode, ``fused_mlp_wide1k_bwd.cu``, the dW kernel): random
+    WIDE1K_K2_RANDOM and the lego widened to WIDE1K_LEGO on 37 x 29
+    samples, f32 and bf16, full and sigma-only, at (c)'s bars (bf16 on the
+    32-deep network at the float64 one), every call a wide1k launch; one
+    f32 step of a 1024/512/8 student on WIDE1K_STEP_RAYS rays, kernels,
+    plain and float64 steps on the same fine samples: the kernel step
+    within 1e-5 of the float64 step's loss, 2 lr of its parameters, and
+    off it by more than 1e-5 on no larger a share of entries than
+    max(plain's, 1e-3); ``train --width 1024 --v-width 512`` for
+    WIDE1K_TRAIN_STEPS f32 and bf16 steps with no note, two wide1k K1 and
+    two wide1k K2 launches a step, finite losses, and its checkpoint
+    through ``render --checkpoint`` (two wide1k launches a chunk); times
+    in turns with autograd through ``models.mlp.nerf_mlp`` at the
+    training path's fine and coarse sigma-only calls, the plain version,
+    bounds and peak scratch; (g) times:
     K1 f32 and bf16 at (512, 256, 8) full and sigma-only and at (384, 192,
     8) full, wide K2 at the fine training call, each beside the plain
     version, the library call and the bound, wide K2 f32 with its record
@@ -289,7 +306,8 @@ Any failed phase exits non-zero. The line before the last is a JSON
 summary of the kernels, each with its bound (the larger of its bytes over
 the memory rate and its operations over the peak for their type through
 the kernel's route — K1 f32 and wide1k f32 six bf16 passes a product
-(split-f32), bf16
+(split-f32), wide1k K2 f32 its recompute and dW so and its W dz as
+3xTF32, bf16
 for K1 bf16 and K2's bf16 mode, K2's f32 mode its recompute as K1 f32
 and its dW and W dz as 3xTF32 at the tf32 peak (the f32 entries also
 carry their all-CUDA-core bound), f32 on the CUDA cores for K3 and the
@@ -435,7 +453,8 @@ def phase_build():
                               r"dw_sum_kernel|small_sum_kernel|record_planes_kernel|"
                               r"fused_mlp_f32tc_kernel|reduce_partials|resample_kernel|"
                               r"hash_encode_kernel|int8_mlp_tc_kernel|int8_mlp_wide_tc_kernel|"
-                              r"fused_mlp_wide1k_tc_kernel|fused_mlp_wide1k_f32tc_kernel)"
+                              r"fused_mlp_wide1k_tc_kernel|fused_mlp_wide1k_f32tc_kernel|"
+                              r"fused_mlp_wide1k_bwd_kernel)"
                               r"(I\w*?L[bi][0-9]E)?", line)
             if "(C7519)" in line:              # an arrive ptxas adds before a wgmma
                 injected += 1
@@ -457,7 +476,8 @@ def phase_build():
         for label, pattern, instances in (("K1", WIDE_K1_KERNELS, WIDE_K1_INSTANCES),
                                           ("K2", WIDE_K2_KERNELS, WIDE_K2_INSTANCES),
                                           ("int8", WIDE_INT8_KERNELS, 2),
-                                          ("K1 past width 512", WIDE1K_K1_KERNELS, 4)):
+                                          ("K1 past width 512", WIDE1K_K1_KERNELS, 4),
+                                          ("K2 past width 512", WIDE1K_K2_KERNELS, 4)):
             wide = ptxas_usage(log.read_text(), pattern)
             serialized = sorted({m.group(1) + m.group(2) for m in re.finditer(
                 r"wgmma\.mma_async instructions are serialized.*?" + pattern,
@@ -489,12 +509,15 @@ def phase_build():
         if len(counts) != 2 or not all(counts):
             raise PhaseFailure(f"{kernel} (both variants) has no HGMMA instructions in the built "
                                f"library")
-    for kernel in ("fused_mlp_bwd_tc_kernel", "fused_mlp_wide_bwd_tc_kernel"):
+    # K2 past width 512 (fused_mlp_wide1k_bwd_kernel, f32 and bf16, each
+    # sigma-only or not): HMMA in all four, every one .TF32.
+    for kernel, instances in (("fused_mlp_bwd_tc_kernel", 2), ("fused_mlp_wide_bwd_tc_kernel", 2),
+                              ("fused_mlp_wide1k_bwd_kernel", 4)):
         k2 = {fn: count for (fn, kind), count in sass.items()
               if kind == "HMMA" and re.search(rf"\d{kernel}", fn)}
-        if len(k2) != 2 or not all(count and sass.get((fn, "TF32"), 0) == count
-                                   for fn, count in k2.items()):
-            raise PhaseFailure(f"K2's f32 kernel ({kernel}, both variants) lacks HMMA "
+        if len(k2) != instances or not all(count and sass.get((fn, "TF32"), 0) == count
+                                           for fn, count in k2.items()):
+            raise PhaseFailure(f"K2's kernel {kernel} ({instances} variants) lacks HMMA "
                                "instructions, or has some that are not tf32")
     # The int8 kernels, narrow and wide: IGMMA (integer wgmma) in both
     # instances of each.
@@ -525,6 +548,10 @@ WIDE_INT8_KERNELS = r"(int8_mlp_wide_tc_kernel)(ILb[01]E)"
 # K1 past width 512: bf16 and split-f32 (each sigma-only or not): four
 # instances.
 WIDE1K_K1_KERNELS = r"(fused_mlp_wide1k_tc_kernel|fused_mlp_wide1k_f32tc_kernel)(ILb[01]E)"
+# K2 past width 512: the half-tile backward (f32 and bf16, each sigma-only
+# or not; its f32 record's split into planes is WIDE_K2_KERNELS'
+# record_planes_kernel): four instances.
+WIDE1K_K2_KERNELS = r"(fused_mlp_wide1k_bwd_kernel)(I(?:Lb[01]E)+)"
 # The wide K2 with per-tile partials (before its dW kernel): the build and
 # the whole run of its final chip_smoke run (PERF.md).
 PARTIALS_BUILD_S, PARTIALS_TOTAL_S = 118.7, 882.5
@@ -554,7 +581,7 @@ def ptxas_usage(log: str, pattern: str) -> dict:
 
 
 MLP_KERNEL = (r"(?:fused_mlp(?:_wide(?:1k)?)?(?:_bwd)?_(?:tc|bf16|f32tc)_kernel(?:I(?:Lb[01]E)+)?"
-              r"|fused_mlp_wide_dw_kernelILi[13]E)")
+              r"|fused_mlp_wide1k_bwd_kernelI(?:Lb[01]E)+|fused_mlp_wide_dw_kernelILi[13]E)")
 INT8_KERNEL = r"int8_mlp_tc_kernelILb[01]E"
 WIDE_INT8_KERNEL = r"int8_mlp_wide_tc_kernelILb[01]E"
 TC_KERNEL = rf"(?:{MLP_KERNEL}|{INT8_KERNEL}|{WIDE_INT8_KERNEL})"
@@ -827,16 +854,17 @@ def main_path_backward_inputs(dev):
         return real(pk, points, viewdirs, g_rgb, g_sigma, **kw)
 
     # The wrapper counts through its module name.
-    record.launches, record.bf16_launches, record.wide_launches, record.dw_launches = (
-        real.launches, real.bf16_launches, real.wide_launches, real.dw_launches)
+    names = ("launches", "bf16_launches", "wide_launches", "dw_launches", "wide1k_launches")
+    for name in names:
+        setattr(record, name, getattr(real, name))
     fm.fused_nerf_mlp_backward = record
     try:
         loss, _ = nerf_loss(nets, batch, random.fold_in(key, torch.tensor(0)), cfg)
         loss.backward()
     finally:
         fm.fused_nerf_mlp_backward = real
-        real.launches, real.bf16_launches, real.wide_launches, real.dw_launches = (
-            record.launches, record.bf16_launches, record.wide_launches, record.dw_launches)
+        for name in names:
+            setattr(real, name, getattr(record, name))
     by_samples = {args[0].shape[-2]: args for args in seen}
     return {"coarse": (nets["coarse"], *by_samples[N_COARSE]),
             "fine": (nets["fine"], *by_samples[N_COARSE + N_FINE])}
@@ -1293,24 +1321,7 @@ def library_backward_ms(net, pts, viewdirs, g_rgb, g_sigma, dtype: str = "float3
     sum(g_rgb rgb) + sum(g_sigma sigma) to the parameters, the function K2
     computes (parameter gradients, recompute included); median ms. The
     port's kernel path never calls it."""
-    import torch
-
-    from nerf_rs_tpu_torch.models.mlp import nerf_mlp
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
-    tree = {layer: {k: v.detach().to(dt).clone().requires_grad_() for k, v in p.items()}
-            for layer, p in net.tree().items()}
-    leaves = [t for p in tree.values() for t in p.values()]
-    p, d, gr, gs = (x.to(dt) for x in (pts, viewdirs, g_rgb, g_sigma))
-
-    def run():
-        rgb, sigma = nerf_mlp(tree, p, d)
-        loss = (rgb * gr.reshape(rgb.shape)).sum() + (sigma * gs.reshape(sigma.shape)).sum()
-        return torch.autograd.grad(loss, leaves)
-
-    return timed_ms(run)
+    return timed_ms(library_backward_call(net, pts, viewdirs, g_rgb, g_sigma, dtype))
 
 
 def profile_step(dev):
@@ -1752,10 +1763,10 @@ def counters():
 
 # The wrappers' other counts, (index in counters(), attribute): K1's
 # tensor-core count, K2's bf16 count, K1's wide count, K2's wide count, the
-# wide K2's dW kernel's, the wide int8 kernel's and K1's wide1k count.
+# wide K2's dW kernel's, the wide int8 kernel's, K1's wide1k count and K2's.
 SUB_COUNTS = ((0, "tc_launches"), (1, "bf16_launches"), (0, "wide_launches"),
               (1, "wide_launches"), (1, "dw_launches"), (4, "wide_launches"),
-              (0, "wide1k_launches"))
+              (0, "wide1k_launches"), (1, "wide1k_launches"))
 
 
 def save_counts():
@@ -1784,7 +1795,8 @@ def read_counts() -> dict:
             "fused_nerf_mlp_backward_wide": fns[1].wide_launches,
             "fused_nerf_mlp_backward_dw": fns[1].dw_launches,
             "fused_int8_mlp_wide": fns[4].wide_launches,
-            "fused_nerf_mlp_wide1k": fns[0].wide1k_launches}
+            "fused_nerf_mlp_wide1k": fns[0].wide1k_launches,
+            "fused_nerf_mlp_backward_wide1k": fns[1].wide1k_launches}
 
 
 def encode_vs_plain(tables, pts, cfg, top: float):
@@ -3926,40 +3938,60 @@ def random_k2_case(arch, dev, rays: int = 37, samples: int = 29):
     return NerfMLP(tree, device=dev), args
 
 
-def random_k2_report(net, args) -> None:
-    """K2 bf16 on random_k2_case's full call: its largest distance from the
-    plain version (||g_k - g_p|| / ||g_p||, the card test's 3e-2 bar),
-    reported, and the kernel's and the plain version's largest distances
-    from the float64 evaluation over every gradient; fails if the kernel's
-    exceeds the plain version's, a gradient is not finite or two calls
-    differ."""
+def random_k2_report(net, args, label: str, sigma_only: bool = False,
+                     phase: str = "29 wide") -> float:
+    """K2 bf16 on a random network 32 layers deep (random_k2_case's seeds),
+    held to the float64 evaluation (the reference on float64 inputs,
+    rounded where the kernels round), since any summation order but
+    cuBLAS's own lies further than 3e-2 from the plain version there
+    (PERF.md §7): each gradient within max(3e-2, F32_VS_PLAIN x the plain
+    version's distance) of it, and the kernel's largest distance over the
+    call's gradients no larger than the plain version's; every gradient
+    finite, two calls bitwise equal, the color branch zero in sigma-only
+    calls. Its largest distance from the plain version is reported. ->
+    the largest parameter-gradient difference from plain."""
     import torch
 
     from nerf_rs_tpu_torch.ops.kernels.fused_mlp import fused_nerf_mlp_backward_reference
 
-    got, again, want, _ = k2_gradients(net, args, "bfloat16")
+    got, again, want, _ = k2_gradients(net, args, "bfloat16", sigma_only)
     with torch.no_grad():
         exact = fused_nerf_mlp_backward_reference(net, *(a.double() for a in args),
-                                                  dtype="bfloat16")
+                                                  dtype="bfloat16", sigma_only=sigma_only)
     pk = net.packed("bfloat16")
     gk, gp, g64 = (named_gradients(pk, out) for out in (got, want, exact))
-    vs_plain = {k: rel_err(gk[k], gp[k]) for k in gp}
-    worst = max(vs_plain, key=vs_plain.get)
-    k64, p64 = ({k: rel_err(g[k].double(), g64[k]) for k in g64} for g in (gk, gp))
-    k_worst, p_worst = max(k64, key=k64.get), max(p64, key=p64.get)
+    live = [k for k in g64 if bool(g64[k].any())]
+    zero = all(not bool(gk[k].any()) for k in g64 if k not in live)
     finite = all(bool(torch.isfinite(x).all()) for x in got)
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-    ok = finite and bitwise and k64[k_worst] <= p64[p_worst]
-    say("29 wide", f"K2 random {WIDE_K2_RANDOM[:3]} (the card test's seeds) "
-        f"{tuple(args[0].shape[:-1])} bfloat16: worst ||g_k - g_p|| / ||g_p|| "
-        f"{vs_plain[worst]:.3e} ({worst}; the card test's bar {BWD_BARS['bfloat16']}, reported); "
-        f"worst from float64 over {len(g64)} gradients: kernel {k64[k_worst]:.3e} ({k_worst}), "
-        f"plain {p64[p_worst]:.3e} ({p_worst}) (bar: the kernel's no larger); at {worst}: kernel "
-        f"{k64[worst]:.3e}, plain {p64[worst]:.3e}; finite {finite}; two calls bitwise equal: "
-        f"{bitwise} -> {'ok' if ok else 'FAIL'}")
+    if not live:    # the sigma head's ReLU off on every sample: every gradient zero
+        ok = finite and bitwise and zero
+        say(phase, f"K2 {label} {tuple(args[0].shape[:-1])} bfloat16"
+            f"{' sigma-only' if sigma_only else ''}: every gradient zero in float64 (the sigma "
+            f"head's ReLU off on every sample), the kernel's too: {zero}; two calls bitwise "
+            f"equal: {bitwise} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailure(f"K2 bf16 on the random network {label} is not zero where float64 "
+                               "is, or is not deterministic")
+        return 0.0
+    vs_plain = {k: rel_err(gk[k], gp[k]) for k in live}
+    worst = max(vs_plain, key=vs_plain.get)
+    k64, p64 = ({k: rel_err(g[k].double(), g64[k]) for k in live} for g in (gk, gp))
+    k_worst, p_worst = max(k64, key=k64.get), max(p64, key=p64.get)
+    margin = {k: k64[k] / max(BWD_BARS["bfloat16"], F32_VS_PLAIN * p64[k]) for k in live}
+    tight = max(margin, key=margin.get)
+    ok = finite and bitwise and zero and k64[k_worst] <= p64[p_worst] and margin[tight] <= 1.0
+    say(phase, f"K2 {label} {tuple(args[0].shape[:-1])} bfloat16"
+        f"{' sigma-only' if sigma_only else ''}: against float64 over {len(live)} gradients, "
+        f"tightest {tight}: kernel {k64[tight]:.3e}, plain {p64[tight]:.3e} (bar max("
+        f"{BWD_BARS['bfloat16']}, {F32_VS_PLAIN} x plain)); worst: kernel {k64[k_worst]:.3e} "
+        f"({k_worst}), plain {p64[p_worst]:.3e} ({p_worst}) (bar: the kernel's no larger); "
+        f"worst ||g_k - g_p|| / ||g_p|| {vs_plain[worst]:.3e} ({worst}; reported); finite "
+        f"{finite}; two calls bitwise equal: {bitwise} -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise PhaseFailure("K2 bf16 on the random 512/512/32 network lies further from float64 "
-                           "than its plain version, is not finite or is not deterministic")
+        raise PhaseFailure(f"K2 bf16 on the random network {label} misses the float64 bars, is "
+                           "not finite or is not deterministic")
+    return max(float((a - b).abs().max()) for a, b in zip(got[:2], want[:2]))
 
 
 def widen_nerf(tree, width: int, v_width: int, depth: int = 0, seed: int = 0):
@@ -4212,17 +4244,14 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path):
                     bwd_nets[key], bwd_in[name][1:], dtype, sigma_only=so,
                     exact_rays=WIDE_EXACT_RAYS))
     # The random 512/512/32 network of tests/test_torch_cuda.py's bf16 K2
-    # case, on its 37 x 29 samples: sigma-only at the card test's bar; the
-    # full call's distance from plain reported (the card test holds it to
-    # 3e-2 and fails: the plain version itself lies further than that from
-    # float64 on this 32-deep network; PERF.md §7), its largest distance
-    # from the float64 evaluation no larger than the plain version's, its
-    # gradients finite and reruns bitwise.
+    # case, on its 37 x 29 samples, full and sigma-only, at the 32-deep bf16
+    # bar (random_k2_report: the float64 evaluation; the plain version
+    # itself lies further than 3e-2 from it there, PERF.md §7).
     net, args = random_k2_case(WIDE_K2_RANDOM, dev)
     label = f"random {WIDE_K2_RANDOM[:3]} (the card test's seeds)"
-    bwd_errs["bfloat16"] = max(bwd_errs["bfloat16"], backward_vs_plain(
-        "29 wide", label, net, args, "bfloat16", sigma_only=True))
-    random_k2_report(net, args)
+    for so in (False, True):
+        bwd_errs["bfloat16"] = max(bwd_errs["bfloat16"],
+                                   random_k2_report(net, args, label, sigma_only=so))
     restore_counts(saved)
     c_step = phase_step_vs_plain(dev, arch=(512, 256, 8, 4), phase="29 wide")
     if c_step["fused_nerf_mlp_backward_wide"] != 2 or c_step["fused_nerf_mlp_backward"] != 2:
@@ -4329,7 +4358,10 @@ def run_phase_wide(root: Path, cam, dev, card, assets: Path):
     # (e) Past width 512: K1's wide1k pair.
     wide1k_entries = run_wide1k(root, cam, dev, card, assets, pts_c, pts_f, vd, golden, chunks)
 
-    # (f) Times, not counted: K1 and the plain version and the library
+    # (f) Past width 512: K2's wide1k kernels.
+    wide1k_entries += run_wide1k_k2(root, dev, card, assets, bwd_in, chunks)
+
+    # (g) Times, not counted: K1 and the plain version and the library
     # call at the render's shapes, bounds, frames.
     saved = save_counts()
     times = {}
@@ -4701,6 +4733,325 @@ def run_wide1k(root: Path, cam, dev, card, assets: Path, pts_c, pts_f, vd, golde
             "max_abs_err": errs[dtype], "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": lib_ms, "shapes": wide_shapes(times, dtype)})
     return entries
+
+
+# Past width 512 (phase 29 (f)): K2's wide1k kernels on random networks
+# (width, v_width, depth, skip_at) beside the lego widened 4x, at the card
+# tests' 37 x 29 samples; the one f32 step's student and batch (a float64
+# step at 4096 rays needs about 6.4 GB an activation of the fine pass);
+# `train --width 1024 --v-width 512`'s steps in f32 and bf16.
+WIDE1K_K2_RANDOM = ((1024, 512, 8, 4), (776, 264, 12, 4), (1024, 1024, 32, 10))
+WIDE1K_STEP_RAYS = 1024
+WIDE1K_TRAIN_STEPS = {"float32": 5, "bfloat16": 3}
+
+
+def float64_mlp(params, points, viewdirs, sigma_only: bool = False):
+    """``models.mlp.nerf_mlp`` in float64 (the one-step check's third step:
+    its parameters are float64), as ``render.get_mlp_fn`` hands an MLP to
+    ``render_rays``."""
+    from nerf_rs_tpu_torch.models.mlp import nerf_mlp
+
+    return nerf_mlp(params, points.double(), viewdirs.double(), sigma_only=sigma_only)
+
+
+def wide1k_step(dev, arch=(1024, 512, 8, 4), rays: int = WIDE1K_STEP_RAYS):
+    """Phase 29 (f)'s one f32 step past width 512, from distill_setup's
+    random init of ``arch`` and one batch of ``rays`` rays, 64 + 128: the
+    plain f32 step (impl="xla") draws the fine samples, and the kernel step
+    (impl="pallas") and the plain MLP in float64 (parameters, batch and
+    Adam in float64) take the same ones (``render.importance_samples``
+    replayed, here only). Bars: the kernel step's loss within 1e-5
+    relative of the float64 step's; every parameter within 2 lr of it;
+    its share of entries more than 1e-5 from the float64 step at most
+    max(the plain step's share, 1e-3). The kernel-vs-plain share is
+    reported. -> the kernel step's launch counts."""
+    import torch
+
+    from nerf_rs_tpu_torch import render
+    from nerf_rs_tpu_torch.ops import random
+    from nerf_rs_tpu_torch.train import train_step
+
+    drawn = []
+    real_draw, real_mlp = render.importance_samples, render.get_mlp_fn
+
+    def replay(*args, **kw):
+        if not drawn:
+            drawn.append(real_draw(*args, **kw))
+        return drawn[0]
+
+    results, batch, counts = {}, None, None
+    render.importance_samples = replay
+    try:
+        for kind in ("plain", "pallas", "float64"):
+            state, dataset, cfg, key = distill_setup(dev, "pallas" if kind == "pallas" else "xla",
+                                                     arch=arch)
+            if batch is None:
+                batch = next(dataset.batches(rays, seed=cfg.seed))
+            b = batch
+            if kind == "float64":
+                for net in state.params.values():
+                    net.to(torch.float64)
+                state.mu, state.nu = ({net: {n: torch.zeros_like(w) for n, w in m.weights.items()}
+                                       for net, m in state.params.items()} for _ in range(2))
+                b = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+                     for k, v in batch.items()}
+                render.get_mlp_fn = lambda *a, **kw: float64_mlp
+            torch.cuda.synchronize()
+            zero_counts()
+            state, metrics = train_step(state, b, random.fold_in(key, torch.tensor(0)), cfg)
+            torch.cuda.synchronize()
+            render.get_mlp_fn = real_mlp
+            if kind == "pallas":
+                counts = read_counts()
+            results[kind] = (float(metrics["loss"]), {
+                (net, name): w.detach().double() for net, m in state.params.items()
+                for name, w in m.weights.items()})
+    finally:
+        render.importance_samples, render.get_mlp_fn = real_draw, real_mlp
+    (loss_k, w_k), (loss_p, w_p), (loss_64, w_64) = (results[k] for k in
+                                                     ("pallas", "plain", "float64"))
+
+    def apart(a, b):
+        diffs = {k: (a[k] - b[k]).abs() for k in b}
+        total = sum(d.numel() for d in diffs.values())
+        share = sum(int((d > 1e-5).sum()) for d in diffs.values()) / total
+        return max(float(d.max()) for d in diffs.values()), share
+
+    max_k, share_k = apart(w_k, w_64)
+    max_p, share_p = apart(w_p, w_64)
+    max_kp, share_kp = apart(w_k, w_p)
+    loss_rel, loss_rel_p = abs(loss_k - loss_64) / abs(loss_64), abs(loss_p - loss_64) / abs(loss_64)
+    lr = cfg.lr_init
+    launched = (counts["fused_nerf_mlp_wide1k"] == 2 and counts["fused_nerf_mlp_backward"]
+                == counts["fused_nerf_mlp_backward_wide1k"] == 2)
+    ok = (loss_rel <= 1e-5 and max_k < 2 * lr and share_k <= max(share_p, 1e-3) and launched
+          and len(drawn) == 1)
+    say("29 wide1k", f"one f32 step of a {arch[0]}/{arch[1]}/{arch[2]} student, {rays} rays "
+        f"{N_COARSE}+{N_FINE} on the same fine samples (the plain step's, replayed): kernels vs "
+        f"the float64 step: loss rel {loss_rel:.2e} (bar 1e-5; plain {loss_rel_p:.2e}), params max "
+        f"|d| {max_k:.3e} (bar < {2 * lr:g}; plain {max_p:.3e}), share of entries > 1e-5 "
+        f"{share_k:.2e} (bar <= max(plain's {share_p:.2e}, 1e-3)); kernels vs plain: max |d| "
+        f"{max_kp:.3e}, share {share_kp:.2e} (reported); K1 wide1k launches "
+        f"{counts['fused_nerf_mlp_wide1k']}, K2 {counts['fused_nerf_mlp_backward']}, wide1k "
+        f"{counts['fused_nerf_mlp_backward_wide1k']} (expected 2 each) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the kernel step past width 512 misses the float64 step's bars or "
+                           "went around the wide1k kernels")
+    return counts
+
+
+def run_wide1k_k2(root: Path, dev, card, assets: Path, bwd_in, chunks: int):
+    """Phase 29 (f): K2 past width 512 (the wide1k forwards' record modes,
+    ``csrc/fused_mlp_wide1k_bwd.cu``, the dW kernel). Against the plain
+    version, not counted: WIDE1K_K2_RANDOM and the lego widened to
+    WIDE1K_LEGO (fine) on 37 x 29 samples, both dtypes, full and
+    sigma-only (f32 against float64 with the kernel's masks; bf16 against
+    plain at 3e-2, or on the 32-deep random network against float64,
+    random_k2_report); one f32 step against plain and float64
+    (wide1k_step); then the main path, counted: ``train --width 1024
+    --v-width 512`` in f32 and bf16, its checkpoint rendered through K1;
+    times in turns against autograd through ``models.mlp.nerf_mlp`` at the
+    training path's inputs. -> the two kernels' entries of the kernels
+    line."""
+    import numpy as np
+    import torch
+
+    from nerf_rs_tpu_torch.io import checkpoint as ckpt_io
+    from nerf_rs_tpu_torch.io.weights import load_nerf_params
+    from nerf_rs_tpu_torch.models.mlp import NerfMLP
+    from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
+        fused_nerf_mlp_backward,
+        fused_nerf_mlp_backward_reference,
+    )
+
+    t_step = time.perf_counter()
+    saved = save_counts()
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    lego = {name: NerfMLP(widen_nerf(load_nerf_params(assets / name), *WIDE1K_LEGO), device=dev)
+            for name in ("coarse", "fine")}
+    cases = []
+    for arch in WIDE1K_K2_RANDOM:
+        net, args = random_k2_case(arch, dev)
+        cases.append((f"random {arch[:3]}", net, args, arch[2] == 32))
+    _, args = random_k2_case(WIDE1K_K2_RANDOM[0], dev)
+    cases.append((f"lego fine widened to {WIDE1K_LEGO}", lego["fine"],
+                   (args[0] * 0.4, *args[1:]), False))
+    for label, net, args, deep in cases:
+        for dtype in ("float32", "bfloat16"):
+            for so in (False, True):
+                before = fused_nerf_mlp_backward.wide1k_launches
+                if dtype == "bfloat16" and deep:
+                    err = random_k2_report(net, args, label, sigma_only=so, phase="29 wide1k")
+                else:
+                    err = backward_vs_plain("29 wide1k", label, net, args, dtype, sigma_only=so)
+                errs[dtype] = max(errs[dtype], err)
+                if fused_nerf_mlp_backward.wide1k_launches - before != 2:
+                    raise PhaseFailure(f"K2 at {label} went around the wide1k kernels")
+    del cases
+    restore_counts(saved)
+    wide1k_step(dev)
+
+    # The main path: the CLI trains a 1024/512/8 student, f32 and bf16.
+    launched = {}
+    ck = root / "ck1k"
+    outs = {}
+    for dtype, steps in WIDE1K_TRAIN_STEPS.items():
+        zero_counts()
+        argv = ["train", "--width", "1024", "--v-width", "512", "--steps", str(steps),
+                "--log-every", "1"]
+        if dtype == "float32":
+            argv += ["--checkpoint-dir", str(ck)]
+        else:
+            argv += ["--dtype", "bfloat16"]
+        out = cli_run(argv)
+        c = read_counts()
+        losses = [float(v) for v in re.findall(r"^step \d+: loss ([0-9.e+-]+)", out, flags=re.M)]
+        n_k2 = 2 * steps
+        ok = (K2_NOTE not in out and FRONT_NOTE not in out and len(losses) == steps
+              and all(map(math.isfinite, losses))
+              and c["fused_nerf_mlp_backward"] == c["fused_nerf_mlp_backward_wide1k"] == n_k2
+              and c["fused_nerf_mlp_wide1k"] == n_k2
+              and c["fused_nerf_mlp_backward_bf16"] == (n_k2 if dtype == "bfloat16" else 0)
+              and c["fused_nerf_mlp_backward_dw"] >= n_k2)
+        say("29 wide1k", f"train --width 1024 --v-width 512 {dtype} --steps {steps}: note "
+            f"printed: {K2_NOTE in out or FRONT_NOTE in out}; losses {losses}; K2 launches "
+            f"{c['fused_nerf_mlp_backward']}, wide1k {c['fused_nerf_mlp_backward_wide1k']}, bf16 "
+            f"{c['fused_nerf_mlp_backward_bf16']}, wide1k K1 {c['fused_nerf_mlp_wide1k']} "
+            f"(expected {n_k2} each: the student's two networks a step); the dW kernel "
+            f"{c['fused_nerf_mlp_backward_dw']} times (a round a launch) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailure(f"the 1024-wide student did not train in {dtype} through the "
+                               "wide1k K1 and K2")
+        launched[dtype] = (c["fused_nerf_mlp_backward_wide1k"], c["fused_nerf_mlp_backward_dw"])
+        outs[dtype] = out
+    last = ckpt_io.latest_checkpoint(ck)
+    img, text, c = wide_cli_frame(["--checkpoint", str(last)], root / "ck1k.ppm")
+    finite = bool(np.isfinite(img).all())
+    ok = (last is not None and FRONT_NOTE not in text and finite
+          and c["fused_nerf_mlp_wide1k"] == c["fused_nerf_mlp"] == 2 * chunks)
+    say("29 wide1k", f"render --checkpoint of the 1024-wide student ({last}): note printed: "
+        f"{FRONT_NOTE in text}, frame finite {finite}, wide1k K1 launches "
+        f"{c['fused_nerf_mlp_wide1k']} (expected {2 * chunks}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailure("the 1024-wide checkpoint's frame went around the wide1k K1")
+
+    # Times, not counted: at the training path's inputs (fine 4096 x 192
+    # full, coarse 4096 x 64 sigma-only) on the lego widened 4x, parameter
+    # gradients as the training path asks; the kernel and autograd through
+    # models.mlp.nerf_mlp in turns (medians of 3, ranges), the plain version
+    # alone; bounds from the shapes; the peak scratch of a call.
+    saved = save_counts()
+    times, entries = {}, []
+    for name, so in (("fine", False), ("coarse", True)):
+        args = bwd_in[name][1:]
+        net = lego[name]
+        n = args[0].numel() // 3
+        for dtype in ("float32", "bfloat16"):
+            kw = dict(dtype=dtype, sigma_only=so, input_grads=False)
+            got = turns({"kernel": lambda: fused_nerf_mlp_backward(net, *args, **kw),
+                         "library": library_backward_call(net, *args, dtype=dtype,
+                                                          sigma_only=so)})
+            p_ms = timed_ms(lambda: fused_nerf_mlp_backward_reference(net, *args, **kw))
+            torch.cuda.synchronize()
+            base_bytes = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fused_nerf_mlp_backward(net, *args, **kw)
+            torch.cuda.synchronize()
+            scratch = (torch.cuda.max_memory_allocated() - base_bytes) / 2 ** 30
+            bnd = wide1k_backward_bounds(net, *args, sigma_only=so)
+            (k_ms, k_lo, k_hi), (lib_ms, lib_lo, lib_hi) = got["kernel"], got["library"]
+            times[(name, dtype)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                                        bound=bnd[dtype], route=bnd[f"route_{dtype}"],
+                                        scratch=scratch, n=n, so=so)
+            apart = k_hi < lib_lo or lib_hi < k_lo
+            say("29 times", f"{card}: wide1k K2 {dtype} on the lego widened to {WIDE1K_LEGO}, "
+                f"{tuple(args[0].shape[:-1])} {name}{' sigma-only' if so else ''}, parameter "
+                f"gradients, in turns (medians of 3, ranges): kernel {k_ms:.3f} ms "
+                f"({k_lo:.3f}-{k_hi:.3f}), library (autograd through models.mlp.nerf_mlp, "
+                f"{dtype}) {lib_ms:.3f} ms ({lib_lo:.3f}-{lib_hi:.3f}): the kernel "
+                f"{lib_ms / k_ms:.3f}x the library's speed, the ranges "
+                f"{'apart' if apart else 'overlapping'}; plain {p_ms:.3f} ms (median of 3); bound "
+                f"{bnd[dtype][0]:.3f} ms ({bnd[dtype][1]}), {bnd[dtype][0] / k_ms:.1%} of it; "
+                f"through the kernels' route {bnd['route_' + dtype][0]:.3f} ms; peak scratch "
+                f"{scratch:.3f} GiB")
+    restore_counts(saved)
+    say("29 wide1k", f"step (f) took {time.perf_counter() - t_step:.1f} s")
+    csrc = "nerf_rs_tpu_torch/ops/kernels/csrc"
+    for dtype, name, record in (("float32", "fused_nerf_mlp_backward_wide1k",
+                                 "fused_mlp_wide1k_f32tc.cu"),
+                                ("bfloat16", "fused_nerf_mlp_backward_wide1k_bf16",
+                                 "fused_mlp_wide1k_tc.cu")):
+        t = times[("fine", dtype)]
+        entries.append({
+            "name": name, "route": "cuda", "source": f"{csrc}/fused_mlp_wide1k_bwd.cu",
+            "sources": [f"{csrc}/{f}" for f in ("fused_mlp_wide1k_bwd.cu", record,
+                                                "fused_mlp_wide_dw.cu", "fused_mlp_wide_dw.cuh",
+                                                "fused_mlp_bwd_tc.cuh", "fused_mlp_wide1k.cuh")],
+            "replaces": "nerf_rs_tpu/ops/kernels/fused_mlp.py:663",
+            "launches": launched[dtype][0], "dw_launches": launched[dtype][1],
+            "max_abs_err": errs[dtype], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+            "bound_ms_route": t["route"][0], "peak_scratch_gib": t["scratch"],
+            "shapes": [{"net": f"lego {net} widened to {list(WIDE1K_LEGO)}", "samples": v["n"],
+                        "sigma_only": v["so"], "ms": v["ms"], "plain_ms": v["plain_ms"],
+                        "bound_ms": v["bound"][0], "bound_by": v["bound"][1],
+                        "library_ms": v["library_ms"], "peak_scratch_gib": v["scratch"]}
+                       for (net, dt), v in times.items() if dt == dtype]})
+    return entries
+
+
+def library_backward_call(net, pts, viewdirs, g_rgb, g_sigma, dtype: str = "float32",
+                          sigma_only: bool = False):
+    """library_backward_ms's call (``sigma_only``: the sigma head alone, as
+    the coarse pass runs it), with its inputs and weights already cast."""
+    import torch
+
+    from nerf_rs_tpu_torch.models.mlp import nerf_mlp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    tree = {layer: {k: v.detach().to(dt).clone().requires_grad_() for k, v in p.items()}
+            for layer, p in net.tree().items()}
+    skip = ("bottleneck", "viewdirs", "rgb") if sigma_only else ()
+    leaves = [t for layer, p in tree.items() if layer not in skip for t in p.values()]
+    p, d, gr, gs = (x.to(dt) for x in (pts, viewdirs, g_rgb, g_sigma))
+
+    def run():
+        rgb, sigma = nerf_mlp(tree, p, d, sigma_only=sigma_only)
+        loss = (sigma * gs.reshape(sigma.shape)).sum()
+        if not sigma_only:
+            loss = loss + (rgb * gr.reshape(rgb.shape)).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    return run
+
+
+def wide1k_backward_bounds(net, pts, viewdirs, g_rgb, g_sigma, sigma_only: bool) -> dict:
+    """K2's bounds past width 512 for one call at these inputs (points,
+    dirs and cotangents read once, the weights read and their gradients
+    written once), (ms, "bytes" or "operations"): "float32" and
+    "route_float32" both the f32 route (the recompute and dW as split-f32,
+    six bf16 passes a product at the bf16 peak, W dz as 3xTF32, three tf32
+    products at the tf32 peak); "bfloat16" three forwards of bf16
+    products at the bf16 peak, "route_bfloat16" with W dz as one tf32
+    product at the tf32 peak, as the kernel runs it."""
+    n = pts.numel() // 3
+    fwd = mlp_flops(net, sigma_only) * n
+    io = 4 * (pts.numel() + viewdirs.numel() + g_rgb.numel() + g_sigma.numel())
+    n_w = sum(int(p.numel()) for p in net.parameters())
+
+    def at(n_bytes, ms):
+        t_bytes = n_bytes / HBM_BYTES_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= ms else (ms, "operations")
+
+    f32 = at(io + 8 * n_w, (2 * SPLIT_F32_PASSES * fwd / BF16_FLOP_S + 3 * fwd / TF32_FLOP_S)
+             * 1e3)
+    return {"float32": f32, "route_float32": f32,
+            "bfloat16": at(io + 6 * n_w, 3 * fwd / BF16_FLOP_S * 1e3),
+            "route_bfloat16": at(io + 6 * n_w, (2 * fwd / BF16_FLOP_S + fwd / TF32_FLOP_S) * 1e3)}
 
 
 def turns(fns: dict, reps: int = 3) -> dict:

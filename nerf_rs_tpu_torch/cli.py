@@ -118,17 +118,17 @@ def _impl_for_params(cfg, width: int, v_width: int, depth: int):
 
 def _train_impl_for_params(cfg, width: int, v_width: int, depth: int):
     """The training check: ``impl="pallas"`` trains through the fused
-    backward K2, whose envelope (width 512) is narrower than K1's; a
-    student beyond it trains on the plain MLP, with a note."""
+    backward K2, whose envelope is K1's (width 1024, depth 32); a student
+    beyond it trains on the plain MLP, with a note."""
     from nerf_rs_tpu_torch.ops.kernels.fused_mlp import (
         MAX_DEPTH,
-        WIDE_MAX_WIDTH,
+        MAX_WIDTH,
         supports_backward_dims,
     )
 
     if cfg.impl == "pallas" and not supports_backward_dims(width, v_width, depth):
         print(f"note: the network is outside the fused kernels' range for training (the "
-              f"fused backward K2 serves width, v_width <= {WIDE_MAX_WIDTH}, depth <= "
+              f"fused backward K2 serves width, v_width <= {MAX_WIDTH}, depth <= "
               f"{MAX_DEPTH}) — running impl='xla'")
         return cfg.replace(impl="xla")
     return cfg

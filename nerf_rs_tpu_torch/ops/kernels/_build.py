@@ -106,9 +106,12 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.nerf_fused_mlp_wide_f32_forward, lib.nerf_fused_mlp_wide1k_tc_forward):
         tc.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, p, p, i, p]
         tc.restype = ctypes.c_int
-    rec = lib.nerf_fused_mlp_f32tc_record
-    rec.argtypes = [p, p, ll, ll, p, p, p, p, p, i, i, i, i, i, ll, ll, p, i, p]
-    rec.restype = ctypes.c_int
+    for rec in (lib.nerf_fused_mlp_f32tc_record, lib.nerf_fused_mlp_wide1k_f32tc_record):
+        rec.argtypes = [p, p, ll, ll, p, p, p, p, p, i, i, i, i, i, ll, ll, p, i, p]
+        rec.restype = ctypes.c_int
+    rec16 = lib.nerf_fused_mlp_wide1k_tc_record
+    rec16.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, ll, ll, p, ll, p, i, p]
+    rec16.restype = ctypes.c_int
     wide_rec = lib.nerf_fused_mlp_wide_f32_record
     wide_rec.argtypes = [p, p, ll, ll, p, p, p, i, i, i, i, i, ll, ll, p, i, p]
     wide_rec.restype = ctypes.c_int
@@ -132,6 +135,11 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     wide32.argtypes = [p, p, ll, ll, p, p, p, p, ll, p, p, i, p, i, i, i, i, i, p, p, ll, ll, ll,
                        p, ll, ll, i, p, p, i, p]
     wide32.restype = ctypes.c_int
+    # K2 past width 512: the per-half-tile kernel (the record passes above).
+    w1k = lib.nerf_wide1k_bwd_tiles
+    w1k.argtypes = [p, p, ll, ll, p, p, p, p, ll, p, p, i, p, i, i, i, i, i, i, p, p, p, ll, ll,
+                    ll, p, ll, ll, i, p, p, i, p]
+    w1k.restype = ctypes.c_int
     dw = lib.nerf_wide_dw
     dw.argtypes = [p, ll, p, i, i, ll, i, i, i, i, p, p, i, i, p]
     dw.restype = ctypes.c_int

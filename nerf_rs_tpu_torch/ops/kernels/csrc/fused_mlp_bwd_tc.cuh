@@ -11,6 +11,7 @@
 #pragma once
 
 #include "fused_mlp_f32tc.cuh"
+#include "fused_mlp_wide_dw.cuh"
 
 namespace nerf {
 namespace bwd_tc {
@@ -592,5 +593,52 @@ inline bool parse_mma(const long long* layout_mma, int layout_mma_len, int depth
   return true;
 }
 
+// The wide f32 backwards' workspace (fused_mlp_wide_bwd_tc.cu up to width
+// 512, fused_mlp_wide1k_bwd.cu past it): the planes of a layer output (an
+// image of `cols` columns of fused_mlp_wide_dw.cuh) from its record slot
+// (ws_index order at ld columns, 64 rows), zeros from column ld on: a
+// thread takes 4 samples of two features, one float4 load each, the
+// block's threads in turn.
+__device__ __forceinline__ void put_planes_record(uint8_t* dst, int cols, const float* slot,
+                                                  int ld) {
+  const int plane = cols * 128, n8 = ld >> 3, groups = cols >> 3;
+  for (int u = threadIdx.x; u < 64 * groups; u += blockDim.x) {
+    const int k = u & 3, cp = (u >> 2) & 3, cg = (u >> 4) % groups, rb = (u >> 4) / groups;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+    if (cg < n8) {
+      const float4* blk = reinterpret_cast<const float4*>(slot + (rb * n8 + cg) * 128);
+      a = __ldcg(blk + 8 * cp + k);
+      b = __ldcg(blk + 8 * cp + 4 + k);
+    }
+    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = 16 * rb + 4 * j + k;
+      uint32_t h, m, l;
+      f32tc::split3(make_float2(av[j], bv[j]), h, m, l);
+      uint8_t* p = dst + cg * 1024 + (row >> 3) * 128 + (row & 7) * 16 + cp * 4;
+      __stcg(reinterpret_cast<unsigned int*>(p), h);
+      __stcg(reinterpret_cast<unsigned int*>(p + plane), m);
+      __stcg(reinterpret_cast<unsigned int*>(p + 2 * plane), l);
+    }
+  }
+}
+
+namespace {
+
+// The layers' outputs in a round's record (tile blockIdx.x, rec_stride
+// floats a tile; slot blockIdx.y), split into the workspace's planes: the
+// dW products' A. A kernel of its own, many CTAs wide, so that these loads
+// and stores, bound by latency in a per-tile kernel's one CTA an SM,
+// overlap.
+__global__ void __launch_bounds__(256)
+record_planes_kernel(const float* __restrict__ rec_all, long long rec_stride,
+                     const wide::DwWs D, int ldw) {
+  const float* rec = rec_all + blockIdx.x * rec_stride;
+  put_planes_record(D.at(wide::DwWs::h(blockIdx.y), blockIdx.x), D.nw,
+                    f32tc::ws_slot(const_cast<float*>(rec), blockIdx.y, ldw, 64), ldw);
+}
+
+}  // namespace
 }  // namespace bwd_tc
 }  // namespace nerf

@@ -8,8 +8,15 @@
 // Replaces nerf_rs_tpu/ops/kernels/fused_mlp.py::_forward_t (the Pallas
 // call at fused_mlp.py:779 -> :795) for dtype="float32" past the wide f32
 // kernel's width of 512 (fused_mlp_wide_f32.cu); the JAX kernel serves any
-// width that is a multiple of 128 (fused_mlp.py::supports_arch). No
-// record mode: K2 stops at width 512.
+// width that is a multiple of 128 (fused_mlp.py::supports_arch).
+//
+// Record mode (nerf_fused_mlp_wide1k_f32tc_record) is K2's f32 recompute
+// past width 512 (fused_mlp_wide1k_bwd.cu): the same kernel over a round of
+// 64-sample tiles writes each CTA's quarter of every trunk layer's, the
+// bottleneck's and the view layer's f32 output to those tiles' record
+// (fused_mlp_f32tc.cuh's ws_index layout at 64 rows, the wide f32
+// forward's record) instead of computing the heads, so the backward
+// differentiates this kernel's own activations and ReLU masks, bit for bit.
 //
 // Numerics: fused_mlp_f32tc.cuh's split-f32 (the JAX kernel's
 // Precision.HIGHEST, as bf16 passes): each f32 operand splits into three
@@ -419,9 +426,11 @@ __device__ __forceinline__ float head_total(uint32_t parts, int slot, int row) {
   return acc;
 }
 
-// Tiles of 64 samples, one a cluster (rows past n read zeros and are
-// never stored). P: the split pack's table (its layer segments), L: the
-// f32 pack's (the heads) and the biases'.
+// Tiles tile_lo .. tile_hi - 1 of 64 samples, one a cluster (rows past n
+// read zeros and are never stored). P: the split pack's table (its layer
+// segments), L: the f32 pack's (the heads) and the biases'. With rec (the
+// record mode): every layer's output into the record of tile t - tile_lo
+// (rec_stride floats a tile), and no heads.
 template <bool kSigmaOnly>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_wide1k_f32tc_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
@@ -429,7 +438,9 @@ fused_mlp_wide1k_f32tc_kernel(const float* __restrict__ pts, const float* __rest
                               const __nv_bfloat16* __restrict__ w,
                               const float* __restrict__ bias, const WideLayout L,
                               const WideLayout P, const int nw, const int nv,
-                              float* __restrict__ rgb, float* __restrict__ sigma) {
+                              float* __restrict__ rgb, float* __restrict__ sigma,
+                              const long long tile_lo, const long long tile_hi,
+                              float* __restrict__ rec, const long long rec_stride) {
   extern __shared__ __align__(1024) uint8_t smem[];
   float* bufs = reinterpret_cast<float*>(smem + kActOff);   // two of kActBytes
   uint8_t* a_stages = smem + kAOff;
@@ -437,10 +448,10 @@ fused_mlp_wide1k_f32tc_kernel(const float* __restrict__ pts, const float* __rest
   float* parts = reinterpret_cast<float*>(smem + kPartOff);
   Seg* segs = reinterpret_cast<Seg*>(smem + kSegOff);
   const uint32_t bars = smem_u32(smem + kBarOff);
-  const long long tiles = (n + kBlock - 1) / kBlock;
   const int tid = threadIdx.x;
   const int rank = static_cast<int>(cluster::ctarank());
-  const long long first_tile = blockIdx.x / kQuarters, tile_step = gridDim.x / kQuarters;
+  const long long first_tile = tile_lo + blockIdx.x / kQuarters;
+  const long long tile_step = gridDim.x / kQuarters;
   const int layers = kSigmaOnly ? L.depth : L.depth + 2;
 
   if (tid == 0) {
@@ -458,7 +469,7 @@ fused_mlp_wide1k_f32tc_kernel(const float* __restrict__ pts, const float* __rest
                          static_cast<uint32_t>(3 * kStepK * qt.count * kPiece * 2)};
       }
     }
-    feed() = Feed{w, (tiles - first_tile + tile_step - 1) / tile_step, count, 0, 0, 0, 0, 0u};
+    feed() = Feed{w, (tile_hi - first_tile + tile_step - 1) / tile_step, count, 0, 0, 0, 0, 0u};
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bars + 8 * s, 1);
       mbar_init(bars + 8 * (kStages + s), kThreads / 32);
@@ -472,7 +483,7 @@ fused_mlp_wide1k_f32tc_kernel(const float* __restrict__ pts, const float* __rest
   Ring q{smem_u32(smem), bars, 0, 0u};
   const uint32_t s_parts = smem_u32(parts);
 
-  for (long long tile = first_tile; tile < tiles; tile += tile_step) {
+  for (long long tile = first_tile; tile < tile_hi; tile += tile_step) {
     // The tile's points and dirs (rows past n zeros); the last tile's
     // reads of them ended behind its layers' barriers.
     if (tid < 2 * kBlock) {
@@ -526,6 +537,20 @@ fused_mlp_wide1k_f32tc_kernel(const float* __restrict__ pts, const float* __rest
         }
       }
       cluster::cluster_sync();   // the outputs whole in every CTA; the inputs read by all
+      if (rec != nullptr) {
+        // This CTA's columns of the output into record slot i (ld columns,
+        // ws_index order); the buffer is next written two layers on, after
+        // a cluster barrier that every thread reaches after these stores.
+        const int ld = view ? L.ldv : L.ldw, col0 = qt.p0 * kPiece;
+        float* slot = f32tc::ws_slot(rec + (tile - tile_lo) * rec_stride, i, L.ldw, kBlock);
+        for (int e = tid; e < qt.count * kPiece * kBlock; e += kThreads) {
+          const int col = e / kBlock, row = e % kBlock;
+          if (col0 + col < ld) {
+            __stcg(slot + f32tc::ws_index(row, col0 + col, ld >> 3), out[col * kBlock + row]);
+          }
+        }
+        continue;
+      }
       if (i != L.depth - 1 && i != L.depth + 1) continue;
       // A head: this CTA's part, then CTA 0's sum of the four.
       const int nq = qt.count * kPiece, col0 = qt.p0 * kPiece;
@@ -565,7 +590,7 @@ template <bool kSigmaOnly>
 cudaError_t launch(const float* pts, const float* dirs, long long n, long long dir_div,
                    const float* w32, const __nv_bfloat16* w, const float* bias,
                    const WideLayout& L, const WideLayout& P, float* rgb, float* sigma,
-                   cudaStream_t stream) {
+                   long long tile_lo, long long tile_hi, float* rec, cudaStream_t stream) {
   auto kernel = fused_mlp_wide1k_f32tc_kernel<kSigmaOnly>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
@@ -588,12 +613,13 @@ cudaError_t launch(const float* pts, const float* dirs, long long n, long long d
   err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
   if (err != cudaSuccess) return err;
   if (fit < 1) return cudaErrorInvalidConfiguration;
-  const long long tiles = (n + kBlock - 1) / kBlock;
+  const long long tiles = tile_hi - tile_lo;
   cfg.gridDim = dim3(static_cast<unsigned>((tiles < fit ? tiles : fit) * kQuarters));
   const int nw = (L.ldw + kPiece - 1) / kPiece * kPiece;   // widths in the split pack
   const int nv = (L.ldv + kPiece - 1) / kPiece * kPiece;
+  const long long rec_stride = f32tc::ws_stride(L.depth, L.ldw, L.ldv, kBlock);
   err = cudaLaunchKernelEx(&cfg, kernel, pts, dirs, n, dir_div, w32, w, bias, L, P, nw, nv, rgb,
-                           sigma);
+                           sigma, tile_lo, tile_hi, rec, rec_stride);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -637,7 +663,50 @@ extern "C" int nerf_fused_mlp_wide1k_f32tc_forward(
   float* o_rgb = static_cast<float*>(rgb);
   float* o_sigma = static_cast<float*>(sigma);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = sigma_only ? launch<true>(p, d, n, dir_div, w32, w, b, L, P, o_rgb, o_sigma, s)
-                   : launch<false>(p, d, n, dir_div, w32, w, b, L, P, o_rgb, o_sigma, s);
+  const long long tiles = (n + kBlock - 1) / kBlock;
+  err = sigma_only
+            ? launch<true>(p, d, n, dir_div, w32, w, b, L, P, o_rgb, o_sigma, 0, tiles, nullptr, s)
+            : launch<false>(p, d, n, dir_div, w32, w, b, L, P, o_rgb, o_sigma, 0, tiles, nullptr,
+                            s);
+  return static_cast<int>(err);
+}
+
+// The record mode: the forward's contract without rgb and sigma, over the
+// tiles of samples row0 .. row0 + rows - 1 (row0 and rows multiples of 64;
+// samples from n on read zeros), each tile's trunk outputs, bottleneck
+// output and view output (the last two unless sigma_only) into the record
+// ws (fused_mlp_f32tc.cuh's ws_stride(depth, ldw, ldv, 64) floats a tile,
+// row0's first; its encode slots unwritten). K2 past width 512 runs it
+// before each round. Returns a cudaError_t value (0 = launched).
+extern "C" int nerf_fused_mlp_wide1k_f32tc_record(
+    const void* pts, const void* dirs, long long n, long long dir_div, const void* weights,
+    const void* weights_1k, const void* biases, const long long* layout,
+    const long long* layout_1k, int layout_len, int ldw, int ldv, int depth, int sigma_only,
+    long long row0, long long rows, void* ws, int device, void* stream) {
+  WideLayout L, P;
+  if (layout_len != kWideLayoutLen) return static_cast<int>(cudaErrorInvalidValue);
+  long long table[kWideLayoutLen];
+  for (int i = 0; i < kWideLayoutLen; ++i) table[i] = layout_1k[i];
+  table[2 * kWideMaxDepth] = layout[2 * kWideMaxDepth];
+  table[2 * kWideMaxDepth + 4] = layout[2 * kWideMaxDepth + 4];
+  if (!parse_wide1k_layout(layout, layout_len, ldw, ldv, depth, &L) ||
+      !parse_wide1k_layout(table, layout_len, ldw, ldv, depth, &P) || dir_div < 1 || n < 1 ||
+      row0 < 0 || row0 % kBlock != 0 || rows < 1 || rows % kBlock != 0 || row0 >= n ||
+      ws == nullptr || reinterpret_cast<uintptr_t>(weights_1k) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* p = static_cast<const float*>(pts);
+  const float* d = static_cast<const float*>(dirs);
+  const float* w32 = static_cast<const float*>(weights);
+  const auto* w = static_cast<const __nv_bfloat16*>(weights_1k);
+  const float* b = static_cast<const float*>(biases);
+  float* r = static_cast<float*>(ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long t0 = row0 / kBlock, t1 = t0 + rows / kBlock;
+  err = sigma_only ? launch<true>(p, d, n, dir_div, w32, w, b, L, P, nullptr, nullptr, t0, t1, r, s)
+                   : launch<false>(p, d, n, dir_div, w32, w, b, L, P, nullptr, nullptr, t0, t1,
+                                   r, s);
   return static_cast<int>(err);
 }

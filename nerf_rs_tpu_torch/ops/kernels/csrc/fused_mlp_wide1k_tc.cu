@@ -12,6 +12,15 @@
 // (fused_mlp.py::supports_arch). fused_mlp_wide_tc.cu is unchanged and
 // still serves every network up to width 512.
 //
+// Record mode (nerf_fused_mlp_wide1k_tc_record) is K2's bf16 recompute past
+// width 512 (fused_mlp_wide1k_bwd.cu): the same kernel over a round of
+// tiles writes the tile's encodes and each CTA's half of every trunk
+// layer's and the bottleneck's output, as their shared-memory images, to
+// the round's workspace (fused_mlp_wide_dw.cuh: the layer inputs H the dW
+// kernel reads) and the view layer's to an image of its own, and stores no
+// heads, so the backward differentiates this kernel's own activations and
+// ReLU masks, bit for bit.
+//
 // Numerics: the wide bf16 contract of fused_mlp_wide_tc.cu. The encode
 // (exact sincosf), the weights and each layer's input activations are
 // bf16; products are summed in f32 over K in order (a skip layer's encode
@@ -23,9 +32,9 @@
 // widened 4x (chip_smoke.widen_nerf), three times as many sigmas left the
 // bf16 bars of the float64 evaluation as the plain version's (70 against
 // 22 of 524,288 on an H100 80GB HBM3, chip_smoke.py phase 29 (e)), from
-// bf16 roundings flipped early in the trunk. So each ring chunk (2 or 4
-// k-steps) is summed by wgmmas from zero and added to a running f32 sum in
-// registers, rounded to nearest.
+// bf16 roundings flipped early in the trunk. So each group of 64 K rows
+// (4 k-steps: one or two ring chunks, pass_sum) is summed by wgmmas from
+// zero and added to a running f32 sum in registers, rounded to nearest.
 //
 // What bounds it on the H100: at 1024/512/8 a fine sample costs 18.1
 // MFLOP (28.8 ms a 8192 x 192 call at 989 TFLOP/s), but the bf16 pack (18.1
@@ -70,6 +79,7 @@
 
 #include "fused_mlp_cluster.cuh"
 #include "fused_mlp_wide1k.cuh"
+#include "fused_mlp_wide_dw.cuh"
 #include "fused_mlp_wide_tc.cuh"
 
 namespace {
@@ -82,6 +92,7 @@ using f32tc::head_sum;
 using wide::encode_tile;
 using wide::kBlock;
 using wide::ld_act;
+using wide::DwWs;
 using wide::Share;
 
 constexpr int kClusterW = 2;                 // CTAs on one tile, each on half of N
@@ -190,13 +201,22 @@ __device__ __forceinline__ void fence_acc2(float (&acc)[2][32]) {
   }
 }
 
+// K rows of a source that one accumulator sums before pass_sum adds them
+// to the running sum: two ring chunks of 32 rows, or one of 64.
+constexpr int kGroupRows = 64;
+
 // One pass of a layer for this warpgroup: run (NP pieces, from local piece
 // pw of the pass's nh columns) = sum over the sources (a1: k1 columns, a2:
-// k2) of the A buffer times the next ring chunks. Each chunk's wgmmas start
-// from zero and their sum is added to run in f32 (round to nearest) once
-// they retire: a wgmma's accumulation rounds toward zero, so over all of
-// K in one accumulator its error grows with the k-steps and does not
-// average out (at K = 1024 it flips bf16 roundings that cascade).
+// k2) of the A buffer times the next ring chunks. The wgmmas of each group
+// of kGroupRows K rows start from zero and their sum is added to run in
+// f32 (round to nearest) once they retire: a wgmma's accumulation rounds
+// toward zero, so over all of K in one accumulator its error grows with
+// the k-steps and does not average out (at K = 1024 it flips bf16
+// roundings that cascade). A group of 64 rows, as the <= 512 wide kernels
+// sum theirs: on the random 1024/1024/32 network of K2's card test, groups
+// of 32 rows put K2 bf16 (which recomputes with this code) further from
+// the float64 evaluation than the plain version, groups of 64 nearer
+// (tools/torch_wide1k_bf16_groups.py emulates these sums on the CPU).
 template <int NP>
 __device__ __forceinline__ void pass_sum(float (&run)[2][32], PassRing& q, uint32_t a1, int k1,
                                          uint32_t a2, int k2, int nh, int pw) {
@@ -212,6 +232,8 @@ __device__ __forceinline__ void pass_sum(float (&run)[2][32], PassRing& q, uint3
     const int k = src ? k2 : k1;
     for (int c = 0; c < k; c += ck) {
       const int kc = min(ck, k - c);
+      const bool fresh = c % kGroupRows == 0;                      // the group's first chunk
+      const bool ends = (c + kc) % kGroupRows == 0 || c + kc >= k;  // and its last
       fence_acc2<NP>(acc);   // before the wgmma stage opens: nothing else defines acc in it
       const uint32_t b = q.acquire();
       if constexpr (NP > 0) {
@@ -221,7 +243,7 @@ __device__ __forceinline__ void pass_sum(float (&run)[2][32], PassRing& q, uint3
           for (int p = 0; p < NP; ++p) {
             wgmma_64<0, 0>(acc[p], da,
                            desc(b + (pw + p) * 1024 + (s >> 3) * (nh * 16), nh * 16, 128),
-                           s ? 1 : 0);
+                           (s || !fresh) ? 1 : 0);
           }
         }
       }
@@ -229,6 +251,7 @@ __device__ __forceinline__ void pass_sum(float (&run)[2][32], PassRing& q, uint3
       wgmma_wait<0>();
       fence_acc2<NP>(acc);
       q.release();
+      if (!ends) continue;
       if constexpr (NP > 0) {
 #pragma unroll
         for (int p = 0; p < NP; ++p) {
@@ -371,12 +394,26 @@ __device__ __forceinline__ void layer_half(PassRing& q, uint32_t a1, int k1, uin
   x.both_written(bars + 8 * (2 * kStages1k + 1));   // the whole output, in both CTAs
 }
 
+// Bytes [b0, b1) (multiples of 16) of a shared-memory image to dst, by
+// the 256 consumer threads.
+__device__ __forceinline__ void image_out(const uint8_t* buf, uint8_t* dst, int b0, int b1) {
+  for (int i = b0 / 16 + static_cast<int>(threadIdx.x); i < b1 / 16; i += kConsumers) {
+    __stcg(reinterpret_cast<uint4*>(dst) + i, reinterpret_cast<const uint4*>(buf)[i]);
+  }
+}
+
+// Tiles tile_lo .. tile_hi - 1 of 64 samples, one a cluster. Record mode
+// (D.base not null): the encodes and the layer inputs of tile t - tile_lo
+// into its images in the workspace D, the view output into view_rec (an
+// image of nv columns a tile), and no heads stored.
 template <bool kSigmaOnly>
 __global__ void __launch_bounds__(kThreadsTc, 1)
 fused_mlp_wide1k_tc_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
                            long long n, long long dir_div, const __nv_bfloat16* __restrict__ w,
                            const float* __restrict__ bias, const WideLayout L, const int nw,
-                           const int nv, float* __restrict__ rgb, float* __restrict__ sigma) {
+                           const int nv, float* __restrict__ rgb, float* __restrict__ sigma,
+                           const long long tile_lo, const long long tile_hi, const DwWs D,
+                           uint8_t* __restrict__ view_rec) {
   extern __shared__ __align__(1024) uint8_t smem[];
   uint8_t* act = smem + kActOff;
   uint8_t* enc_x = smem + kEncXOff;
@@ -384,12 +421,12 @@ fused_mlp_wide1k_tc_kernel(const float* __restrict__ pts, const float* __restric
   float* w_alpha = reinterpret_cast<float*>(smem + kHeadOff);
   float* w_rgb = w_alpha + kWide1kMaxWidth;
   const uint32_t bars = smem_u32(smem + kBarOff);
-  const int tiles = static_cast<int>((n + kBlock - 1) / kBlock);
   const int tid = threadIdx.x;
   const int layers = kSigmaOnly ? L.depth : L.depth + 2;
   const int rank = static_cast<int>(cluster::ctarank());
-  const int first_tile = static_cast<int>(blockIdx.x) / kClusterW;
-  const int tile_step = static_cast<int>(gridDim.x) / kClusterW;
+  const long long first_tile = tile_lo + static_cast<long long>(blockIdx.x) / kClusterW;
+  const long long tile_step = static_cast<long long>(gridDim.x) / kClusterW;
+  const bool record = D.base != nullptr;
 
   if (tid == 0) {
     for (int s = 0; s < kStages1k; ++s) {
@@ -414,7 +451,7 @@ fused_mlp_wide1k_tc_kernel(const float* __restrict__ pts, const float* __restric
     reg_dealloc<kProducerRegs>();
     if (tid == kConsumers) {
       PassProducer pr{smem_u32(smem), bars, 0, 0u};
-      for (int tile = first_tile; tile < tiles; tile += tile_step) {
+      for (long long tile = first_tile; tile < tile_hi; tile += tile_step) {
         for (int i = 0; i < layers; ++i) {
           const LayerIo io = layer_io(L, i, nw, nv);
           const Half half(io.n / kPiece, rank);
@@ -446,18 +483,26 @@ fused_mlp_wide1k_tc_kernel(const float* __restrict__ pts, const float* __restric
   const int hrow = head_row();
   auto row = [&](int i) { return ld_act(act, hrow, i); };
 
-  for (int tile = first_tile; tile < tiles; tile += tile_step) {
+  for (long long tile = first_tile; tile < tile_hi; tile += tile_step) {
     // The tile's encode, in each CTA. (The last tile's reads of the
     // encodes ended behind its layers' barriers.)
     encode_tile(pts, dirs, n, dir_div, tile, enc_x, enc_d);
     fence_async_smem();
     f32tc::consumers_barrier();
+    if (record) {
+      if (rank == 0) {
+        image_out(enc_x, D.at(0, tile - tile_lo), 0, kBlock * kEncX * 2);
+      } else {
+        image_out(enc_d, D.at(1, tile - tile_lo), 0, kBlock * kEncD * 2);
+      }
+    }
 
     // The trunk, then (unless sigma-only) the bottleneck (no activation)
     // and the view layer (bottleneck part plus dir-encode part, ReLU),
     // from one call site.
     const long long s = static_cast<long long>(tile) * kBlock + hrow;
-    const bool mine = rank == 0 && !(tid & 3) && s < n;   // rank 0's first thread of the row
+    // rank 0's first thread of the row stores its heads (none in record mode).
+    const bool mine = rank == 0 && !(tid & 3) && s < n && !record;
     for (int i = 0; i < layers; ++i) {
       const LayerIo io = layer_io(L, i, nw, nv);
       const bool view = i == L.depth + 1;
@@ -466,6 +511,14 @@ fused_mlp_wide1k_tc_kernel(const float* __restrict__ pts, const float* __restric
       const Half half(io.n / kPiece, rank);
       layer_half(q, enc ? a_ex : a_act, io.k1, view ? a_ed : a_act, io.k2, half.p0, half.count,
                  bias + b, view ? L.ldv : L.ldw, i != L.depth, act, x, bars, g);
+      if (record) {
+        // This CTA's half of the output's image (64-column pieces of 8 KB),
+        // read before this thread arrives on the next layer's read barrier,
+        // which both CTAs pass before they overwrite act.
+        uint8_t* dst = view ? view_rec + (tile - tile_lo) * nv * 128
+                            : D.at(DwWs::h(i), tile - tile_lo);
+        image_out(act, dst, half.p0 * 8192, (half.p0 + half.count) * 8192);
+      }
       if (i != L.depth - 1) continue;
       // Sigma head. Its reads come before this thread's arrivals on the
       // next layer's read barriers, which both CTAs wait on before they
@@ -501,7 +554,8 @@ fused_mlp_wide1k_tc_kernel(const float* __restrict__ pts, const float* __restric
 template <bool kSigmaOnly>
 cudaError_t launch(const float* pts, const float* dirs, long long n, long long dir_div,
                    const __nv_bfloat16* w, const float* bias, const WideLayout& L, float* rgb,
-                   float* sigma, cudaStream_t stream) {
+                   float* sigma, long long tile_lo, long long tile_hi, const DwWs& D,
+                   uint8_t* view_rec, cudaStream_t stream) {
   auto kernel = fused_mlp_wide1k_tc_kernel<kSigmaOnly>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
@@ -524,11 +578,12 @@ cudaError_t launch(const float* pts, const float* dirs, long long n, long long d
   err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
   if (err != cudaSuccess) return err;
   if (fit < 1) return cudaErrorInvalidConfiguration;
-  const long long tiles = (n + kBlock - 1) / kBlock;
+  const long long tiles = tile_hi - tile_lo;
   cfg.gridDim = dim3(static_cast<unsigned>((tiles < fit ? tiles : fit) * kClusterW));
   const int nw = (L.ldw + kPiece - 1) / kPiece * kPiece;   // widths in the pack
   const int nv = (L.ldv + kPiece - 1) / kPiece * kPiece;
-  err = cudaLaunchKernelEx(&cfg, kernel, pts, dirs, n, dir_div, w, bias, L, nw, nv, rgb, sigma);
+  err = cudaLaunchKernelEx(&cfg, kernel, pts, dirs, n, dir_div, w, bias, L, nw, nv, rgb, sigma,
+                           tile_lo, tile_hi, D, view_rec);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -560,7 +615,48 @@ extern "C" int nerf_fused_mlp_wide1k_tc_forward(const void* pts, const void* dir
   float* o_rgb = static_cast<float*>(rgb);
   float* o_sigma = static_cast<float*>(sigma);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = sigma_only ? launch<true>(p, d, n, dir_div, w, b, L, o_rgb, o_sigma, s)
-                   : launch<false>(p, d, n, dir_div, w, b, L, o_rgb, o_sigma, s);
+  const long long tiles = (n + kBlock - 1) / kBlock;
+  const DwWs none{nullptr, 0, 1, 0, 0, 0};
+  err = sigma_only ? launch<true>(p, d, n, dir_div, w, b, L, o_rgb, o_sigma, 0, tiles, none,
+                                  nullptr, s)
+                   : launch<false>(p, d, n, dir_div, w, b, L, o_rgb, o_sigma, 0, tiles, none,
+                                   nullptr, s);
+  return static_cast<int>(err);
+}
+
+// The record mode: the forward's contract without rgb and sigma, over the
+// tiles tile0 .. tile0 + tiles - 1 (below ceil(n / 64); samples from n on
+// read zeros): each tile's encodes, trunk outputs and bottleneck output
+// (unless sigma_only) as bf16 images into the workspace ws
+// (fused_mlp_wide_dw.cuh, planes 1, laid out for ws_tiles tiles; tile0's
+// are its tile 0), its view output (unless sigma_only) into view (128 nv
+// bytes a tile). K2 past width 512 runs it before each round. Returns a
+// cudaError_t value (0 = launched).
+extern "C" int nerf_fused_mlp_wide1k_tc_record(
+    const void* pts, const void* dirs, long long n, long long dir_div, const void* weights,
+    const void* biases, const long long* layout, int layout_len, int ldw, int ldv, int depth,
+    int sigma_only, long long tile0, long long tiles, void* ws, long long ws_tiles, void* view,
+    int device, void* stream) {
+  WideLayout L;
+  if (!parse_wide1k_layout(layout, layout_len, ldw, ldv, depth, &L) || dir_div < 1 || n < 1 ||
+      tile0 < 0 || tiles < 1 || tiles > ws_tiles || tile0 * kBlock >= n || ws == nullptr ||
+      (!sigma_only && view == nullptr) || reinterpret_cast<uintptr_t>(weights) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(ws) % 16 != 0 || reinterpret_cast<uintptr_t>(view) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nw = (ldw + kPiece - 1) / kPiece * kPiece, nv = (ldv + kPiece - 1) / kPiece * kPiece;
+  const DwWs D{static_cast<uint8_t*>(ws), ws_tiles, 1, nw, nv, depth};
+  const float* p = static_cast<const float*>(pts);
+  const float* d = static_cast<const float*>(dirs);
+  const auto* w = static_cast<const __nv_bfloat16*>(weights);
+  const float* b = static_cast<const float*>(biases);
+  auto* v = static_cast<uint8_t*>(view);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = sigma_only ? launch<true>(p, d, n, dir_div, w, b, L, nullptr, nullptr, tile0,
+                                  tile0 + tiles, D, v, s)
+                   : launch<false>(p, d, n, dir_div, w, b, L, nullptr, nullptr, tile0,
+                                   tile0 + tiles, D, v, s);
   return static_cast<int>(err);
 }

@@ -70,51 +70,9 @@ __device__ __forceinline__ void put_planes(uint8_t* dst, int cols, int valid, Ge
   }
 }
 
-// The planes of a layer output (an image of `cols` columns) from its
-// record slot (f32tc::ws_index order at ld columns: blocks of 16 samples x
-// 8 features, a feature's 16 samples in four float4 of samples k, k + 4,
-// k + 8, k + 12), zeros from column ld on: a thread takes 4 samples of two
-// features, one float4 load each.
-__device__ __forceinline__ void put_planes_record(uint8_t* dst, int cols, const float* slot,
-                                                  int ld) {
-  const int plane = cols * 128, n8 = ld >> 3, groups = cols >> 3;
-  for (int u = threadIdx.x; u < 64 * groups; u += Wide::kThreadsBwd) {
-    const int k = u & 3, cp = (u >> 2) & 3, cg = (u >> 4) % groups, rb = (u >> 4) / groups;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    if (cg < n8) {
-      const float4* blk = reinterpret_cast<const float4*>(slot + (rb * n8 + cg) * 128);
-      a = __ldcg(blk + 8 * cp + k);
-      b = __ldcg(blk + 8 * cp + 4 + k);
-    }
-    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = 16 * rb + 4 * j + k;
-      uint32_t h, m, l;
-      f32tc::split3(make_float2(av[j], bv[j]), h, m, l);
-      uint8_t* p = dst + cg * 1024 + (row >> 3) * 128 + (row & 7) * 16 + cp * 4;
-      __stcg(reinterpret_cast<unsigned int*>(p), h);
-      __stcg(reinterpret_cast<unsigned int*>(p + plane), m);
-      __stcg(reinterpret_cast<unsigned int*>(p + 2 * plane), l);
-    }
-  }
-}
-
 // The two bf16 of a word (the lower at the lower address), as floats.
 __device__ __forceinline__ float2 pair(unsigned int u) {
   return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xFFFF0000u));
-}
-
-// The layers' outputs in the round's record (tile blockIdx.x, slot
-// blockIdx.y), split into the workspace's planes: the dW products' A. A
-// kernel of its own, many CTAs wide, so that these loads and stores, bound
-// by latency in the per-tile kernel's one CTA an SM, overlap.
-__global__ void __launch_bounds__(Wide::kThreadsBwd)
-record_planes_kernel(const float* __restrict__ rec_all, long long rec_stride, const DwWs D,
-                     int ldw) {
-  const float* rec = rec_all + blockIdx.x * rec_stride;
-  put_planes_record(D.at(DwWs::h(blockIdx.y), blockIdx.x), D.nw,
-                    f32tc::ws_slot(const_cast<float*>(rec), blockIdx.y, ldw, Wide::kRows), ldw);
 }
 
 // 3xTF32 with two accumulators a pass: [kMi m16 tiles][4 n8 tiles][4].
@@ -487,8 +445,9 @@ extern "C" int nerf_wide_bwd_f32_tiles(
   if (err != cudaSuccess) return static_cast<int>(err);
   const DwWs D{static_cast<uint8_t*>(ws), ws_tiles, 3, nw, nv, depth};
   const long long rec_stride = f32tc::ws_stride(depth, ldw, ldv, Wide::kRows);
-  record_planes_kernel<<<dim3(static_cast<unsigned>(tiles), sigma_only ? depth : depth + 1),
-                         Wide::kThreadsBwd, 0, static_cast<cudaStream_t>(stream)>>>(
+  bwd_tc::record_planes_kernel<<<dim3(static_cast<unsigned>(tiles),
+                                      sigma_only ? depth : depth + 1),
+                                 Wide::kThreadsBwd, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rec), rec_stride, D, ldw);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

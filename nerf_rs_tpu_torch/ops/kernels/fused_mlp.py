@@ -32,15 +32,20 @@ pack: float32 runs K1 f32's kernel in record mode over a round of tiles
 (every layer's output into a workspace), then ``csrc/fused_mlp_bwd_tc.cu``
 (dW and W·dz as 3xTF32 ``mma.sync``) over the same tiles; bfloat16 is one
 kernel, ``csrc/fused_mlp_bwd_bf16.cu`` (every product a ``wgmma``). K2
-serves widths up to ``WIDE_MAX_WIDTH`` (:func:`supports_backward_dims`): a
-wide pack runs the wide K2 in rounds of tiles
-(:func:`wide_plan`): per round a per-tile kernel, float32
-``csrc/fused_mlp_wide_bwd_tc.cu`` after the wide f32 forward's record
-mode, bfloat16 ``csrc/fused_mlp_wide_bwd_bf16.cu`` (the recompute the wide
-bf16 forward's device code, ``csrc/fused_mlp_wide_tc.cuh``), writes every
-layer's input and output gradient to a workspace, and the dW kernel
-``csrc/fused_mlp_wide_dw.cu`` sums the weight gradients over the round
-(:func:`wide_dw_jobs`).
+serves every network K1 serves (:func:`supports_backward_dims`): a wide
+pack runs the wide K2 in rounds of tiles (:func:`wide_plan`): per round a
+per-tile kernel, float32 ``csrc/fused_mlp_wide_bwd_tc.cu`` after the wide
+f32 forward's record mode, bfloat16 ``csrc/fused_mlp_wide_bwd_bf16.cu``
+(the recompute the wide bf16 forward's device code,
+``csrc/fused_mlp_wide_tc.cuh``), writes every layer's input and output
+gradient to a workspace, and the dW kernel ``csrc/fused_mlp_wide_dw.cu``
+sums the weight gradients over the round (:func:`wide_dw_jobs`). Past
+``WIDE_MAX_WIDTH`` the round starts with the wide1k forward of its dtype
+in record mode (every layer's output into the record or the workspace),
+then ``csrc/fused_mlp_wide1k_bwd.cu`` backpropagates half tiles of 32
+rows (W·dz as ``mma.sync`` on the transposed pack ``PackedMLP.mma_wt``:
+3xTF32 in f32, one tf32 product of bf16 values in bf16), then the dW
+kernel.
 
 - :func:`pack_params` lays the weights out for the kernels, once per
   network and dtype (``models.mlp.NerfMLP.packed`` keeps the pack).
@@ -52,9 +57,10 @@ layer's input and output gradient to a workspace, and the dW kernel
   in ``fused_nerf_mlp.wide_launches`` for the wide pair and the wide1k
   pair, and in ``fused_nerf_mlp.wide1k_launches`` for the wide1k pair) and its
   backward K2 (counted in ``fused_nerf_mlp_backward.launches``, and in
-  ``fused_nerf_mlp_backward.wide_launches`` for the wide K2, whose dW
-  kernel's launches, one a round, ``fused_nerf_mlp_backward.dw_launches``
-  counts); on CPU
+  ``fused_nerf_mlp_backward.wide_launches`` for the wide K2, in
+  ``fused_nerf_mlp_backward.wide1k_launches`` also past ``WIDE_MAX_WIDTH``,
+  whose dW kernel's launches, one a round,
+  ``fused_nerf_mlp_backward.dw_launches`` counts); on CPU
   tensors they run the plain versions instead. A CUDA tensor never
   reaches a plain version.
 - :func:`fused_nerf_mlp_reference` and
@@ -92,8 +98,7 @@ _ENC_X, _ENC_D = 64, 32     # the kernel's padded encode rows
 MAX_DEPTH = 32
 MAX_WIDTH = 1024
 # The wide kernels' width (kWideMaxWidth in csrc/fused_mlp_wide.cuh): K1's
-# wide pair serves up to it, its wide1k pair past it; it is also K2's
-# envelope, with MAX_DEPTH.
+# and K2's wide kernels serve up to it, their wide1k kernels past it.
 WIDE_MAX_WIDTH = 512
 # The narrow kernels' envelope (kMaxDepth, kMaxWidth in
 # csrc/fused_mlp_common.cuh): beyond it K1 and K2 run their wide kernels.
@@ -148,10 +153,9 @@ def supports_dims(width: int, v_width: int, depth: int) -> bool:
 
 def supports_backward_dims(width: int, v_width: int, depth: int) -> bool:
     """Whether the backward kernel K2 serves these dimensions (whether
-    ``impl="pallas"`` can train such a network): trunk and view widths up
-    to ``WIDE_MAX_WIDTH``, at most ``MAX_DEPTH`` dense layers."""
-    return (1 <= width <= WIDE_MAX_WIDTH and 1 <= v_width <= WIDE_MAX_WIDTH
-            and 1 <= depth <= MAX_DEPTH)
+    ``impl="pallas"`` can train such a network): K1's envelope, trunk and
+    view widths up to ``MAX_WIDTH``, at most ``MAX_DEPTH`` dense layers."""
+    return supports_dims(width, v_width, depth)
 
 
 def narrow_dims(width: int, v_width: int, depth: int) -> bool:
@@ -177,7 +181,7 @@ def supports_backward_arch(params) -> bool:
 
 
 def _backward_refusal(width: int, v_width: int, depth: int) -> str:
-    return (f"fused backward K2 serves width, v_width <= {WIDE_MAX_WIDTH} and depth <= "
+    return (f"fused backward K2 serves width, v_width <= {MAX_WIDTH} and depth <= "
             f"{MAX_DEPTH}; got width={width}, v_width={v_width}, depth={depth}")
 
 
@@ -198,7 +202,7 @@ class PackedMLP:
     tables, in the same order (``csrc/fused_mlp_wide.cuh``); a ``wide1k``
     pack (past ``WIDE_MAX_WIDTH``) the same tables.
 
-    f32 packs within K2's envelope hold ``mma_wt``, the f32 backward
+    f32 packs hold ``mma_wt``, the f32 backward
     kernels' tensor-core pack (``csrc/fused_mlp_bwd_tc.cuh``): the transpose
     of every segment but the two heads (for the input-gradient products),
     tiled by :func:`mma_tile` into ``mma.sync`` B-fragment order, at the
@@ -209,7 +213,7 @@ class PackedMLP:
     ``lo = tf32_rna(w - hi)`` (:func:`tf32_split`), for the kernel's 3xTF32
     products.
 
-    f32 packs within K2's envelope also hold ``weights_f32tc``, the split
+    f32 packs up to ``WIDE_MAX_WIDTH`` also hold ``weights_f32tc``, the split
     pack that the f32 forward (``csrc/fused_mlp_f32tc.cu``) and the f32
     backward's recompute read: every layer segment (not the heads, which the kernels read from
     ``weights``) tiled by :func:`f32tc_tile` as bf16 hi, mid and lo planes,
@@ -227,8 +231,12 @@ class PackedMLP:
     and 32. Its two head segments are those of ``weights``. Each pack
     holds ``None`` in the other's fields.
 
-    A ``wide1k`` f32 pack holds neither K2's packs nor ``weights_f32tc``
-    but ``weights_f32tc1k``, the split pack of the wide1k f32 forward
+    A ``wide1k`` bf16 pack also holds ``mma_wt`` and ``layout_mma``, of
+    its bf16-rounded weights (the lo row zero): the wide1k K2
+    (``csrc/fused_mlp_wide1k_bwd.cu``) runs its W·dz products in bf16 on
+    them. A ``wide1k`` f32 pack holds ``mma_wt`` and, instead of
+    ``weights_f32tc``, ``weights_f32tc1k``, the split pack of the wide1k
+    f32 forward
     (``csrc/fused_mlp_wide1k_f32tc.cu``): ``weights_f32tc``'s segments,
     pieces and padding, each k-step of 16 rows laid out by
     :func:`f32tc1k_tile` quarter by quarter of its 64-column pieces, with
@@ -264,8 +272,8 @@ class PackedMLP:
 
     @property
     def wide1k(self) -> bool:
-        """Whether K1 runs its wide1k pair on this pack (a trunk or view
-        width past ``WIDE_MAX_WIDTH``), which K2 does not serve."""
+        """Whether K1 and K2 run their wide1k kernels on this pack (a
+        trunk or view width past ``WIDE_MAX_WIDTH``)."""
         return max(self.width, self.v_width) > WIDE_MAX_WIDTH
 
     def mat(self, name: str) -> torch.Tensor:
@@ -298,8 +306,10 @@ def pack_params(params, dtype: str) -> PackedMLP:
     ldw, ldv = _round_up(width, 8), _round_up(v_width, 8)
     device = params["dense0"]["kernel"].device
     slots = NARROW_MAX_DEPTH if narrow_dims(width, v_width, depth) else MAX_DEPTH
-    # The packs only K2 (and the narrow f32 K1) read: f32, within K2's envelope.
-    backward = dtype == "float32" and supports_backward_dims(width, v_width, depth)
+    wide1k = max(width, v_width) > WIDE_MAX_WIDTH
+    # K2's transposed pack: every f32 pack's; past WIDE_MAX_WIDTH, every
+    # bf16 pack's too, of the bf16-rounded weights.
+    backward = dtype == "float32" or wide1k
 
     def kern(name):
         return params[name]["kernel"].detach().to(torch.float32)
@@ -344,9 +354,10 @@ def pack_params(params, dtype: str) -> PackedMLP:
         pieces.append(torch.nn.functional.pad(padded.reshape(-1), (0, size - rows * ld)))
         segments[name] = (off, rows, ld)
         off += size
-        # K2's f32 pack (rows, ld: multiples of 8).
+        # K2's transposed pack (rows, ld: multiples of 8).
         if backward and name not in ("alpha", "rgb"):
-            pieces_wt.append(mma_tile(padded.t(), _round_up(ld, 16), rows))
+            src = padded if dtype == "float32" else padded.to(torch.bfloat16).to(torch.float32)
+            pieces_wt.append(mma_tile(src.t(), _round_up(ld, 16), rows))
             offsets_wt[name] = off_wt
             off_wt += pieces_wt[-1].numel()
     weights = torch.cat(pieces).to(_DTYPES[dtype])
@@ -407,14 +418,15 @@ def pack_params(params, dtype: str) -> PackedMLP:
             + [offsets_wt.get(f"dense{i}_enc", -1) for i in range(slots)]
             + [offsets_wt[n] for n in ("bottleneck", "viewdirs", "viewdirs_dir")],
             dtype=np.int64)
-        weights_f32tc, layout_f32tc = tensor_core_pack(f32tc_tile, heads=False)
-        weights_f32tc = weights_f32tc.to(torch.bfloat16)    # exact: the pieces are bf16 values
-    elif dtype == "bfloat16":
+    if dtype == "bfloat16":
         weights_tc, layout_tc = tensor_core_pack(tc_tile, heads=True)
         weights_tc = weights_tc.to(torch.bfloat16)
-    elif max(width, v_width) > WIDE_MAX_WIDTH:
+    elif wide1k:
         weights_f32tc1k, layout_f32tc1k = tensor_core_pack(f32tc1k_tile, heads=False)
         weights_f32tc1k = weights_f32tc1k.to(torch.bfloat16)   # exact: bf16 values
+    else:
+        weights_f32tc, layout_f32tc = tensor_core_pack(f32tc_tile, heads=False)
+        weights_f32tc = weights_f32tc.to(torch.bfloat16)    # exact: the pieces are bf16 values
     return PackedMLP(weights=weights, biases=biases, segments=segments,
                      bias_slots=bias_slots, layout=layout, mma_wt=mma_wt,
                      layout_mma=layout_mma, width=width, v_width=v_width, depth=depth,
@@ -989,6 +1001,9 @@ def _backward_f32(lib, pk: PackedMLP, ptrs, partials, grid: int, tiles: int, sig
 # budgets give 4 and 3 tiles a CTA there: of the rounds timed there (1, 2
 # and these tiles a CTA, tools/torch_wide_k2_profile.py --per-cta), the
 # fastest. No round fits the 50 MB L2: one tile a CTA is 161 MB in bf16.
+# Past WIDE_MAX_WIDTH a tile takes 2.50 MB in bf16 and 9.82 MB in f32 at
+# 1024/512/8 (two tiles a CTA and one), 8.92 and 35.3 MB at 1024/1024/32
+# (one each).
 WIDE_ROUND_BYTES = {"bfloat16": 768 * 2 ** 20, "float32": 2048 * 2 ** 20}
 _DW_TILE_M = 128             # kTileM of csrc/fused_mlp_wide_dw.cu: input features a job
 _DW_JOB_FIELDS = 8           # kJobLen: int64 fields a job
@@ -1073,7 +1088,8 @@ class WidePlan:
     """How the wide K2 runs one call: ``tiles`` tiles of 64 samples on
     ``grid`` CTAs, in rounds of ``round_tiles`` (the last may be ragged),
     each round's dW jobs cut into ``splits`` slices; the scratch each
-    buffer takes, in bytes (``record`` is the f32 record pass's round)."""
+    buffer takes, in bytes (``record`` is the f32 record pass's round, or
+    past ``WIDE_MAX_WIDTH`` in bf16 the round's view-output images)."""
 
     tiles: int
     grid: int
@@ -1106,7 +1122,10 @@ def wide_plan(pk: PackedMLP, n: int, sms: int, sigma_only: bool) -> WidePlan:
     grid = min(tiles, sms)
     planes = wide_planes(pk.dtype)
     tile_ws = 128 * planes * sum(wide_slot_cols(pk))
-    tile_rec = 4 * _record_floats(pk) if pk.dtype == "float32" else 0
+    if pk.dtype == "float32":
+        tile_rec = 4 * _record_floats(pk)
+    else:
+        tile_rec = 128 * wide_slot_cols(pk)[-1] if pk.wide1k else 0
     per_cta = max(1, min(budget // (grid * (tile_ws + tile_rec)), -(-tiles // grid)))
     round_tiles = min(grid * per_cta, tiles)
     jobs = wide_dw_jobs(pk, sigma_only)
@@ -1118,18 +1137,21 @@ def wide_plan(pk: PackedMLP, n: int, sms: int, sigma_only: bool) -> WidePlan:
         ws_bytes=tile_ws * round_tiles, record_bytes=tile_rec * round_tiles,
         part_bytes=4 * splits * len(jobs) * _DW_TILE_M * _DW_TILE_N,
         small_bytes=4 * grid * small_stride,
-        de_bytes=4 * grid * _WIDE_BWD_TILE * _ENC_X if pk.dtype == "bfloat16" else 0)
+        de_bytes=(4 * grid * _WIDE_BWD_TILE * _ENC_X
+                  if pk.dtype == "bfloat16" and not pk.wide1k else 0))
 
 
 def _backward_wide(lib, pk: PackedMLP, ptrs, n: int, sigma_only: bool, outs, dev: torch.device,
                    sms: int) -> int:
     """K2 on a wide pack (:func:`wide_plan`): per round the record pass (f32:
-    ``nerf_fused_mlp_wide_f32_record``), the per-tile kernel
-    (``nerf_wide_bwd_bf16_tiles`` or ``nerf_wide_bwd_f32_tiles``) and the
-    dW kernel (``nerf_wide_dw``, counted in
-    ``fused_nerf_mlp_backward.dw_launches``); then the per-CTA sums of the
-    biases and heads (``nerf_wide_small_sum``). Scratch on ``dev``, the
-    plan for ``sms`` SMs. -> a cudaError_t value."""
+    ``nerf_fused_mlp_wide_f32_record``; past ``WIDE_MAX_WIDTH``
+    ``nerf_fused_mlp_wide1k_f32tc_record`` or, bf16,
+    ``nerf_fused_mlp_wide1k_tc_record``), the per-tile kernel
+    (``nerf_wide_bwd_bf16_tiles`` or ``nerf_wide_bwd_f32_tiles``; past
+    ``WIDE_MAX_WIDTH`` ``nerf_wide1k_bwd_tiles``) and the dW kernel
+    (``nerf_wide_dw``, counted in ``fused_nerf_mlp_backward.dw_launches``);
+    then the per-CTA sums of the biases and heads (``nerf_wide_small_sum``).
+    Scratch on ``dev``, the plan for ``sms`` SMs. -> a cudaError_t value."""
     dweights, dbiases, dpts, ddirs, device, stream = outs
     plan = wide_plan(pk, n, sms, sigma_only)
     ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
@@ -1138,15 +1160,14 @@ def _backward_wide(lib, pk: PackedMLP, ptrs, n: int, sigma_only: bool, outs, dev
     jobs = torch.from_numpy(plan.jobs).to(dev)
     n_b = pk.biases.numel()
     points, dirs, _, dir_div = ptrs[:4]
-    if pk.dtype == "float32":
-        rec = torch.empty(plan.record_bytes // 4, dtype=torch.float32, device=dev)
-        de = None
-    else:
-        rec = None
-        de = torch.empty(plan.de_bytes // 4, dtype=torch.float32, device=dev)
+    rec = torch.empty(plan.record_bytes, dtype=torch.uint8, device=dev)
+    de = torch.empty(plan.de_bytes, dtype=torch.uint8, device=dev)
     for tile0 in range(0, plan.tiles, plan.round_tiles):
         tiles = min(plan.tiles - tile0, plan.round_tiles)
-        if pk.dtype == "float32":
+        if pk.wide1k:
+            err = _round_wide1k(lib, pk, ptrs, n, sigma_only, outs, plan, tile0, tiles, rec, ws,
+                                small)
+        elif pk.dtype == "float32":
             err = lib.nerf_fused_mlp_wide_f32_record(
                 points, dirs, n, dir_div, pk.weights.data_ptr(), pk.biases.data_ptr(),
                 pk.layout.ctypes.data, pk.layout.size, pk.ldw, pk.ldv, pk.depth,
@@ -1180,6 +1201,40 @@ def _backward_wide(lib, pk: PackedMLP, ptrs, n: int, sigma_only: bool, outs, dev
                                    dbiases, device, stream)
 
 
+def _round_wide1k(lib, pk: PackedMLP, ptrs, n: int, sigma_only: bool, outs, plan: WidePlan,
+                  tile0: int, tiles: int, rec: torch.Tensor, ws: torch.Tensor,
+                  small: torch.Tensor) -> int:
+    """One round of K2 past ``WIDE_MAX_WIDTH``: the wide1k forward of the
+    pack's dtype in record mode over the round's tiles (f32: every layer's
+    output into the record ``rec``; bf16: the layer inputs' images into the
+    workspace ``ws``, the view outputs' into ``rec``), then the half-tile
+    backward ``nerf_wide1k_bwd_tiles``. -> a cudaError_t value."""
+    points, dirs, _, dir_div = ptrs[:4]
+    _, _, dpts, ddirs, device, stream = outs
+    f32 = pk.dtype == "float32"
+    if f32:
+        err = lib.nerf_fused_mlp_wide1k_f32tc_record(
+            points, dirs, n, dir_div, pk.weights.data_ptr(), pk.weights_f32tc1k.data_ptr(),
+            pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout_f32tc1k.ctypes.data,
+            pk.layout.size, pk.ldw, pk.ldv, pk.depth, int(sigma_only), tile0 * _WIDE_BWD_TILE,
+            tiles * _WIDE_BWD_TILE, rec.data_ptr(), device, stream)
+    else:
+        err = lib.nerf_fused_mlp_wide1k_tc_record(
+            points, dirs, n, dir_div, pk.weights_tc.data_ptr(), pk.biases.data_ptr(),
+            pk.layout_tc.ctypes.data, pk.layout_tc.size, pk.ldw, pk.ldv, pk.depth,
+            int(sigma_only), tile0, tiles, ws.data_ptr(), plan.round_tiles, rec.data_ptr(),
+            device, stream)
+    if err != 0:
+        return err
+    return lib.nerf_wide1k_bwd_tiles(
+        *ptrs, pk.weights.data_ptr(), pk.mma_wt.data_ptr(), pk.mma_wt.shape[1],
+        pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout.size, pk.layout_mma.ctypes.data,
+        pk.layout_mma.size, pk.ldw, pk.ldv, pk.depth, int(sigma_only), int(not f32),
+        rec.data_ptr() if f32 else None, None if f32 else rec.data_ptr(), ws.data_ptr(),
+        plan.round_tiles, tile0, tiles, small.data_ptr(), pk.biases.numel(), plan.small_stride,
+        plan.grid, dpts, ddirs, device, stream)
+
+
 def _ws_order(rows: int, features: int, device) -> torch.Tensor:
     """Where (sample row, feature) of a workspace slot of ``rows`` x
     ``features`` lies in it (``csrc/fused_mlp_f32tc.cuh``'s ws_index)."""
@@ -1192,14 +1247,13 @@ def _ws_order(rows: int, features: int, device) -> torch.Tensor:
 def recorded_outputs(params, points: torch.Tensor, viewdirs: torch.Tensor) -> List[torch.Tensor]:
     """What K2's f32 mode differentiates: every trunk layer's output, the
     bottleneck's and the view layer's, (n, width) each, as its record pass
-    writes them (K1 f32's record mode, or the wide f32 forward's for wide
-    packs; each sample's row depends on its own inputs only), from which the
-    backward takes its ReLU masks. CPU tensors: the plain version's. Not a
-    path of the renderer or the trainer: checks read it (the kernel's own
-    mask where a pre-activation lies within f32's resolution of zero)."""
+    writes them (K1 f32's record mode, the wide f32 forward's for wide
+    packs, the wide1k f32 forward's past ``WIDE_MAX_WIDTH``; each sample's
+    row depends on its own inputs only), from which the backward takes its
+    ReLU masks. CPU tensors: the plain version's. Not a path of the renderer
+    or the trainer: checks read it (the kernel's own mask where a
+    pre-activation lies within f32's resolution of zero)."""
     pk = _packed(params, "float32")
-    if pk.wide1k:
-        raise ValueError(_backward_refusal(pk.width, pk.v_width, pk.depth))
     if points.device.type == "cpu":
         pts, dirs = _flat_inputs(points, viewdirs)
         mat = pk.mat
@@ -1218,7 +1272,13 @@ def recorded_outputs(params, points: torch.Tensor, viewdirs: torch.Tensor) -> Li
     ws = torch.empty(tiles * stride, dtype=torch.float32, device=points.device)
     lib = _build.load_library()
     dev = points.device
-    if pk.wide:
+    if pk.wide1k:
+        err = lib.nerf_fused_mlp_wide1k_f32tc_record(
+            points.data_ptr(), dirs.data_ptr(), n, dir_div, pk.weights.data_ptr(),
+            pk.weights_f32tc1k.data_ptr(), pk.biases.data_ptr(), pk.layout.ctypes.data,
+            pk.layout_f32tc1k.ctypes.data, pk.layout.size, pk.ldw, pk.ldv, pk.depth, 0, 0,
+            tiles * rows_a_tile, ws.data_ptr(), dev.index or 0, _stream(dev))
+    elif pk.wide:
         err = lib.nerf_fused_mlp_wide_f32_record(
             points.data_ptr(), dirs.data_ptr(), n, dir_div, pk.weights.data_ptr(),
             pk.biases.data_ptr(), pk.layout.ctypes.data, pk.layout.size, pk.ldw, pk.ldv,
@@ -1253,10 +1313,12 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
     (the kernel and its fixed-order sum of per-CTA partials; bf16 calls
     also in ``fused_nerf_mlp_backward.bf16_launches``, calls on a wide pack
     in ``fused_nerf_mlp_backward.wide_launches``, which run in rounds,
-    their dW kernel's launches in ``fused_nerf_mlp_backward.dw_launches``).
-    Two calls on the same inputs give bitwise-equal results. K2 serves
-    :func:`supports_backward_arch`, widths up to ``WIDE_MAX_WIDTH``: a
-    wider pack (which K1 serves) raises ValueError on every device.
+    their dW kernel's launches in ``fused_nerf_mlp_backward.dw_launches``,
+    calls on a pack past ``WIDE_MAX_WIDTH`` also in
+    ``fused_nerf_mlp_backward.wide1k_launches``). Two calls on the same
+    inputs give bitwise-equal results. K2 serves
+    :func:`supports_backward_arch`, every network K1 serves; a kernel that
+    fails to launch raises, and nothing falls back.
     """
     if points.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_nerf_mlp_backward takes CPU or CUDA tensors, got {points.device}")
@@ -1313,6 +1375,7 @@ def fused_nerf_mlp_backward(params, points: torch.Tensor, viewdirs: torch.Tensor
         fused_nerf_mlp_backward.launches += 1
         fused_nerf_mlp_backward.bf16_launches += int(dtype == "bfloat16")
         fused_nerf_mlp_backward.wide_launches += int(pk.wide)
+        fused_nerf_mlp_backward.wide1k_launches += int(pk.wide1k)
     if not input_grads:
         return dweights, dbiases, None, None
     return dweights, dbiases, dpts.view(*batch, 3), ddirs.view(*batch, 3)
@@ -1322,6 +1385,7 @@ fused_nerf_mlp_backward.launches = 0
 fused_nerf_mlp_backward.bf16_launches = 0
 fused_nerf_mlp_backward.wide_launches = 0
 fused_nerf_mlp_backward.dw_launches = 0
+fused_nerf_mlp_backward.wide1k_launches = 0
 
 
 class _FusedMLP(torch.autograd.Function):
@@ -1331,8 +1395,7 @@ class _FusedMLP(torch.autograd.Function):
     in place before backward raises, as autograd does. Forward and
     backward run the kernels on CUDA tensors and the plain versions on CPU
     tensors; points' and viewdirs' gradients are computed only when asked
-    for. K1 serves networks past K2's envelope (``WIDE_MAX_WIDTH``); their
-    backward raises ValueError."""
+    for. K1 and K2 serve the same networks."""
 
     @staticmethod
     def forward(ctx, params, opts, names, points, viewdirs, *leaves):
@@ -1373,10 +1436,9 @@ def fused_nerf_mlp(params, points: torch.Tensor, viewdirs: torch.Tensor, *,
     gives the color branch no gradient.
 
     CUDA tensors launch K1 (and, in backward, K2) on the current stream
-    without synchronizing; CPU tensors run the plain versions. K1 serves
-    :func:`supports_arch`; the pack of any other network raises ValueError
-    before K1 launches. K2 serves :func:`supports_backward_arch`; a
-    backward through a wider network raises ValueError.
+    without synchronizing; CPU tensors run the plain versions. K1 and K2
+    serve :func:`supports_arch`; the pack of any other network raises
+    ValueError before K1 launches.
     """
     _check_call(x_freqs, d_freqs, dtype)
     if points.device.type not in ("cpu", "cuda"):

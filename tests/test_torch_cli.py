@@ -43,7 +43,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 LEGO = ROOT / "assets" / "lego_rust"
 NOTE = "outside the fused kernels' range"
-K2_NOTE = "the fused backward K2 serves width, v_width <= 512, depth <= 32"
+K2_NOTE = "the fused backward K2 serves width, v_width <= 1024, depth <= 32"
 INT8_NOTE = "outside the int8 kernel's range (width, v_width <= 512, depth <= 32)"
 # Wider than the narrow kernels serve (256), within K1's envelope (1024), a
 # multiple of 128 as JAX's kernel takes.
@@ -185,21 +185,24 @@ TRAIN = ["train", "--device", "cpu", "--steps", "1", "--batch-rays", "16", "--co
 
 
 def test_cli_train_unserved_width_runs_xla_with_note(capsys):
-    """A width-640 student with ``--impl pallas`` trains on the plain MLP
-    with the note naming K2's envelope: the fused backward does not serve
-    it (K2 stops at 512; K1 serves it, but training needs both)."""
-    rc = cli_main([*TRAIN, "--width", "640", "--depth", "2", "--skip-at", "0", "--impl", "pallas"])
+    """A width-1152 student with ``--impl pallas`` trains on the plain MLP
+    with the note naming K2's envelope: past K1's envelope (1024), which
+    K2 shares, neither fused kernel serves it."""
+    rc = cli_main([*TRAIN, "--width", "1152", "--depth", "2", "--skip-at", "0", "--impl",
+                   "pallas"])
     assert rc == 0
     out = capsys.readouterr().out
     assert NOTE in out and K2_NOTE in out
     assert re.search(r"^step 0: loss [0-9.]+ psnr", out, flags=re.M), out
 
 
-@pytest.mark.parametrize("width, depth", [(384, 2), (512, 20)], ids=["w384", "w512_d20"])
+@pytest.mark.parametrize("width, depth", [(384, 2), (512, 20), (1024, 2)],
+                         ids=["w384", "w512_d20", "w1024"])
 def test_cli_train_wide_student_runs_fused_without_note(width, depth, monkeypatch, capsys):
-    """A student within K1's envelope (width 384, or 512 and 20 layers deep)
-    trains with ``--impl pallas`` through the fused path (K1 and K2; their
-    plain versions on the CPU) with no note: K2's envelope is K1's."""
+    """A student within K1's envelope (width 384, 512 and 20 layers deep, or
+    1024, past the wide kernels' 512) trains with ``--impl pallas`` through
+    the fused path (K1 and K2; their plain versions on the CPU) with no
+    note: K2's envelope is K1's."""
     import nerf_rs_tpu_torch.ops.kernels.fused_mlp as fm
 
     seen = []

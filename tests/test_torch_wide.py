@@ -196,12 +196,12 @@ def test_cli_render_widened_lego_matches_jax_lego_frame(arch, tmp_path, capsys):
 
 @pytest.mark.parametrize("dims, forward, backward", [
     ((256, 128, 8), True, True), ((384, 128, 8), True, True), ((512, 512, 8), True, True),
-    ((256, 128, 32), True, True), ((576, 128, 8), True, False), ((640, 128, 8), True, False),
-    ((256, 640, 8), True, False), ((256, 128, 33), False, False),
+    ((256, 128, 32), True, True), ((576, 128, 8), True, True), ((640, 128, 8), True, True),
+    ((256, 640, 8), True, True), ((256, 128, 33), False, False),
     ((1152, 128, 8), False, False)])
 def test_envelopes(dims, forward, backward):
-    """K1's envelope (width, v_width <= 1024, depth <= 32) and K2's (512,
-    32); the JAX kernel takes every one of these trunk widths that is a
+    """K1's envelope (width, v_width <= 1024, depth <= 32), which is K2's;
+    the JAX kernel takes every one of these trunk widths that is a
     multiple of 128."""
     assert fm.supports_dims(*dims) == forward
     assert fm.supports_backward_dims(*dims) == backward

@@ -2,7 +2,7 @@
 up to 32), which the forward kernel K1 serves through its wide1k pair
 (``csrc/fused_mlp_wide1k_tc.cu`` in bf16, ``csrc/fused_mlp_wide1k_f32tc.cu``
 in f32, whose arithmetic and pack ``tests/test_torch_wide1k_split_f32.py``
-holds) while the backward K2 keeps its envelope at 512.
+holds), and the backward K2 with it (tests/test_torch_wide1k_bwd.py).
 
 On the CPU the wrapper runs the plain version: the port's plain K1 at
 1024-wide architectures against the JAX Pallas kernel (interpret mode, as
@@ -146,13 +146,15 @@ def test_pack_at_1024_segments_offsets_and_padding():
     """A 1000/1020/5 network (skip at layer 3): the wide tables of 32
     slots, every segment 8-aligned and in the layout's order, the padding
     zero (encode rows 63 and 27 on, view columns 1020 on), the f32 pack
-    without K2's packs, and the bf16 tensor-core pack each layer segment's
-    ``tc_tile`` at widths padded to 64."""
+    with K2's transposed pack and without the narrow split pack, and the
+    bf16 tensor-core pack each layer segment's ``tc_tile`` at widths padded
+    to 64, with K2's transposed pack of its bf16 weights."""
     params = np_params((1000, 1020, 5, 2), 3)
     tree = params_to_torch(params, "cpu")
     pk = pack_params(tree, "float32")
     assert pk.wide and pk.wide1k and (pk.ldw, pk.ldv) == (1000, 1024)
-    assert pk.layout.size == 3 * fm.MAX_DEPTH + 9 and pk.mma_wt is None
+    assert pk.layout.size == 3 * fm.MAX_DEPTH + 9 and pk.mma_wt is not None
+    assert pk.layout_mma.size == 2 * fm.MAX_DEPTH + 3
     assert pk.weights_f32tc is None and pk.weights_tc is None
     names = (["dense0", "dense1", "dense2", "dense3_enc", "dense3", "dense4", "alpha",
               "bottleneck", "viewdirs", "viewdirs_dir", "rgb"])
@@ -178,6 +180,7 @@ def test_pack_at_1024_segments_offsets_and_padding():
                                   params["viewdirs"]["kernel"][:1000])
     pk16 = pack_params(tree, "bfloat16")
     assert pk16.wide1k and pk16.layout_tc.size == pk.layout.size
+    assert pk16.mma_wt is not None and np.array_equal(pk16.layout_mma, pk.layout_mma)
     off = pk16.layout_tc[fm.MAX_DEPTH * 2 + 2]                      # viewdirs
     seg = pk16.weights_tc[off:off + 1024 * 1024].float()
     assert torch.equal(seg, tc_tile(pk16.mat("viewdirs"), 1024, 1024).to(torch.bfloat16).float())
@@ -219,14 +222,15 @@ def test_bf16_kernel_pass_chunks_are_tc_tiles_of_the_pass(n):
 
 
 @pytest.mark.parametrize("dims, forward, backward", [
-    ((512, 512, 32), True, True), ((576, 128, 8), True, False), ((640, 128, 8), True, False),
-    ((256, 640, 8), True, False), ((1024, 512, 8), True, False), ((1024, 1024, 32), True, False),
+    ((512, 512, 32), True, True), ((576, 128, 8), True, True), ((640, 128, 8), True, True),
+    ((256, 640, 8), True, True), ((1024, 512, 8), True, True), ((1024, 1024, 32), True, True),
     ((1152, 128, 8), False, False), ((256, 1152, 8), False, False),
     ((1024, 512, 33), False, False), ((256, 128, 33), False, False)])
 def test_envelopes_past_512(dims, forward, backward):
-    """K1's envelope (width, v_width <= 1024, depth <= 32) and K2's (512,
-    32); a network past K2's envelope packs, runs forward and raises in
-    backward, on the CPU as on the card; past K1's the pack raises."""
+    """K1's envelope (width, v_width <= 1024, depth <= 32) is K2's: a
+    network inside it packs and its backward is served (the plain version
+    on the CPU, in both dtypes); past it the pack raises, and K2's refusal
+    names the envelope."""
     assert fm.supports_dims(*dims) == forward
     assert fm.supports_backward_dims(*dims) == backward
     width, v_width, depth = dims
@@ -234,37 +238,53 @@ def test_envelopes_past_512(dims, forward, backward):
     net = NerfMLP(params)
     assert fm.supports_arch(net) == fm.supports_dims(width, v_width, min(depth, 2))
     assert fm.supports_backward_arch(net) == fm.supports_backward_dims(width, v_width, min(depth, 2))
+    assert (fm._backward_refusal(*dims)
+            == f"fused backward K2 serves width, v_width <= 1024 and depth <= 32; got "
+               f"width={width}, v_width={v_width}, depth={depth}")
     pts, dirs = (torch.from_numpy(a) for a in np_inputs(8, 2))
     if not fm.supports_dims(width, v_width, min(depth, 2)):
         with pytest.raises(ValueError, match=f"width={width}"):
             pack_params(net.tree(), "float32")
         return
-    if not fm.supports_backward_dims(width, v_width, min(depth, 2)):
-        g = torch.ones(8)
-        with pytest.raises(ValueError, match=f"K2 serves width, v_width <= 512 .*width={width}"):
-            fused_nerf_mlp_backward(net, pts, dirs, g[:, None].expand(8, 3), g)
+    g = torch.ones(8)
+    for dtype in ("float32", "bfloat16"):
+        got = fused_nerf_mlp_backward(net, pts, dirs, g[:, None].expand(8, 3), g, dtype=dtype)
+        want = fm.fused_nerf_mlp_backward_reference(net, pts, dirs, g[:, None].expand(8, 3), g,
+                                                    dtype=dtype)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_backward_past_512_raises_after_a_forward_with_gradients():
     """At 1024/512/3 a forward with gradients runs (K1 serves it; the plain
-    version here) and its backward raises with K2's envelope."""
+    version here) and its backward now runs too (K2 serves every network
+    K1 serves; no network K1 serves is refused by K2): every parameter's
+    and the points' gradient equals the plain backward's, and
+    ``recorded_outputs`` gives the plain forward's layers."""
     net = NerfMLP(np_params((1024, 512, 3, 1), 4), requires_grad=True)
     pts, dirs = (torch.from_numpy(a) for a in np_inputs(16, 5))
+    pts.requires_grad_(True)
     rgb, sig = fused_nerf_mlp(net, pts, dirs)
     assert rgb.requires_grad and bool(torch.isfinite(rgb).all())
-    with pytest.raises(ValueError, match="K2 serves width, v_width <= 512 .*width=1024"):
-        (rgb.sum() + sig.sum()).backward()
-    with pytest.raises(ValueError, match="width=1024"):
-        fm.recorded_outputs(net, pts, dirs)
+    (rgb.sum() + sig.sum()).backward()
+    with torch.no_grad():
+        dw, db, dpts, _ = fm.fused_nerf_mlp_backward_reference(
+            net, pts, dirs, torch.ones_like(rgb), torch.ones_like(sig))
+    want = fm.unpack_grads(net.packed("float32"), dw, db)
+    for layer in want:
+        for part in ("kernel", "bias"):
+            assert torch.equal(net.tree()[layer][part].grad, want[layer][part]), (layer, part)
+    assert torch.equal(pts.grad, dpts)
+    rec = fm.recorded_outputs(net, pts.detach(), dirs)
+    assert len(rec) == 5 and [r.shape[1] for r in rec] == [1024] * 4 + [512]
 
 
 def test_front_ends_keep_the_kernel_at_1024():
     """The front ends' check (``cli._impl_for_params``: render, evaluate,
     verify, extract) keeps ``impl="pallas"`` at 1024 with no note and
-    notes past it; the trainer's check and ``train._trainable`` drop to the
-    plain MLP past 512; the renderer's MLP is the kernels' wrapper, the
-    server keeps ``pallas`` and ``accel.build_scene_grid`` takes the fused
-    sigma."""
+    notes past it; the trainer's check and ``train._trainable`` keep
+    ``pallas`` there too (K2 serves K1's envelope) and note past it; the
+    renderer's MLP is the kernels' wrapper, the server keeps ``pallas`` and
+    ``accel.build_scene_grid`` takes the fused sigma."""
     import contextlib
     import io
 
@@ -280,12 +300,12 @@ def test_front_ends_keep_the_kernel_at_1024():
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             got = cli._train_impl_for_params(cfg, *dims)
-        assert "K2 serves width, v_width <= 512, depth <= 32" in out.getvalue()
-        assert got.impl == "xla"
+        assert ("K2 serves width, v_width <= 1024, depth <= 32" in out.getvalue()) == note
+        assert got.impl == ("xla" if note else "pallas")
     net = NerfMLP(np_params((1024, 128, 2, 0), 6))
     assert render.get_mlp_fn(cfg, net, torch.device("cuda", 0)).func is fused_nerf_mlp
     assert accel._default_mlp_fn(net) is accel._fused_sigma
-    assert train._trainable({"coarse": net, "fine": net}, cfg).impl == "xla"
+    assert train._trainable({"coarse": net, "fine": net}, cfg).impl == "pallas"
 
 
 @pytest.mark.parametrize("net", ["coarse", "fine"])

@@ -214,12 +214,13 @@ def test_pack_at_1024_holds_the_split_pack():
     """A 1000/1020/5 network (skip at layer 3): the f32 pack holds
     ``weights_f32tc1k`` (bf16, each layer segment ``f32tc1k_tile`` of its
     matrix at K and widths padded to 64, in ``layout``'s order, heads -1,
-    biases ``layout``'s); the bf16 pack and a pack within 512 hold none."""
+    biases ``layout``'s) beside K2's transposed pack, and not the narrow
+    split pack; the bf16 pack and a pack within 512 hold none."""
     params = np_params((1000, 1020, 5, 2), 3)
     tree = params_to_torch(params, "cpu")
     pk = pack_params(tree, "float32")
     assert pk.wide1k and pk.weights_f32tc1k.dtype == torch.bfloat16
-    assert pk.weights_f32tc is None and pk.mma_wt is None
+    assert pk.weights_f32tc is None and pk.mma_wt is not None
     t = pk.layout_f32tc1k
     assert t.size == pk.layout.size == 3 * fm.MAX_DEPTH + 9
     d = fm.MAX_DEPTH

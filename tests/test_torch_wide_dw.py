@@ -24,7 +24,8 @@ from nerf_rs_tpu_torch.ops.kernels import fused_mlp as fm
 torch.set_num_threads(1)
 
 ARCHS = {"264x136x3": ArchConfig(264, 136, 3, 1), "512x256x8": ArchConfig(512, 256, 8, 4),
-         "200x264x20": ArchConfig(200, 264, 20, 1)}
+         "200x264x20": ArchConfig(200, 264, 20, 1), "1024x512x8": ArchConfig(1024, 512, 8, 4),
+         "1024x1024x32": ArchConfig(1024, 1024, 32, 10)}
 FINE = 4096 * 192           # the training path's fine call
 H100_SMS = 132
 
@@ -61,17 +62,22 @@ def planes_of(x, n):
 @pytest.mark.parametrize("arch", list(ARCHS), ids=list(ARCHS))
 def test_wide_plan_rounds_and_scratch_follow_the_budget(arch, dtype, monkeypatch):
     """At the training path's fine call: a round is grid x the tiles a CTA
-    that WIDE_ROUND_BYTES of workspace (and f32 record) hold, at least
-    one; the workspace is 128 x planes x the slots' columns a tile; the
-    scratch is the sum of its buffers and stays below what the design with
-    per-CTA partials took (1.218 GiB bf16, 2.392 GiB f32 at 512/256/8); a
-    budget of one byte gives one tile a CTA."""
+    that WIDE_ROUND_BYTES of workspace (and f32 record, or past width 512
+    the bf16 view images) hold, at least one; the workspace is 128 x
+    planes x the slots' columns a tile; the scratch is the sum of its
+    buffers and stays below what the design with per-CTA partials took
+    (1.218 GiB bf16, 2.392 GiB f32 at 512/256/8); a budget of one byte
+    gives one tile a CTA."""
     pk = packed(ARCHS[arch], dtype)
     assert pk.wide
     plan = fm.wide_plan(pk, FINE, H100_SMS, sigma_only=False)
     planes = 1 if dtype == "bfloat16" else 3
     tile_ws = 128 * planes * sum(fm.wide_slot_cols(pk))
-    tile_rec = 4 * 64 * (96 + (pk.depth + 1) * pk.ldw + pk.ldv) if dtype == "float32" else 0
+    nv = -(-pk.ldv // 64) * 64
+    if dtype == "float32":
+        tile_rec = 4 * 64 * (96 + (pk.depth + 1) * pk.ldw + pk.ldv)
+    else:
+        tile_rec = 128 * nv if pk.wide1k else 0
     per_cta = max(1, fm.WIDE_ROUND_BYTES[dtype] // (H100_SMS * (tile_ws + tile_rec)))
     assert (plan.tiles, plan.grid, plan.planes) == (FINE // 64, H100_SMS, planes)
     assert plan.round_tiles == H100_SMS * per_cta
@@ -84,6 +90,8 @@ def test_wide_plan_rounds_and_scratch_follow_the_budget(arch, dtype, monkeypatch
                                   + 4 * H100_SMS * plan.small_stride + plan.de_bytes)
     if arch == "512x256x8":
         assert plan.scratch_bytes < {"bfloat16": 1.218, "float32": 2.392}[dtype] * 2 ** 30
+    if pk.wide1k:
+        assert plan.de_bytes == 0
     small = fm.wide_plan(pk, 1000, H100_SMS, sigma_only=False)
     assert (small.tiles, small.grid, small.round_tiles, small.rounds) == (16, 16, 16, 1)
     monkeypatch.setitem(fm.WIDE_ROUND_BYTES, dtype, 1)
@@ -195,7 +203,9 @@ def emulate_dw(pk, jobs, ws, tiles):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["264x136x3", "200x264x20"])
+@pytest.mark.parametrize("arch", [ARCHS["264x136x3"], ARCHS["200x264x20"],
+                                  ArchConfig(1024, 512, 3, 1)],
+                         ids=["264x136x3", "200x264x20", "1024x512x3"])
 def test_wide_dw_jobs_emulated_give_every_segments_h_transpose_dz(arch, dtype):
     """Every segment's weight gradient from the emulated dW kernel is H^T dZ
     over the round's samples, H and dZ the slots the segment reads (dense0
@@ -204,7 +214,7 @@ def test_wide_dw_jobs_emulated_give_every_segments_h_transpose_dz(arch, dtype):
     output and the dir encode; each with its layer's output gradient): to
     float64's rounding in bf16, within 1e-5 of it in f32 (three split
     pieces, the three smallest products dropped)."""
-    pk = packed(ARCHS[arch], dtype)
+    pk = packed(arch, dtype)
     tiles = 3
     ws, values = write_round(pk, tiles, np.random.default_rng(1))
     jobs = fm.wide_dw_jobs(pk, sigma_only=False)
@@ -276,3 +286,52 @@ def test_wide_backward_launches_round_by_round(dtype, sigma_only, monkeypatch):
     small = lib.calls[-1][1]
     assert small[1:5] == (plan.grid, plan.small_stride, pk.biases.numel(), pk.ldw)
     assert small[5:7] == (pk.segments["alpha"][0], pk.segments["rgb"][0])
+
+
+@pytest.mark.parametrize("sigma_only", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide1k_backward_launches_round_by_round(dtype, sigma_only, monkeypatch):
+    """Past width 512 ``_backward_wide`` launches, per round in order, the
+    wide1k forward of the pack's dtype in record mode (f32 over the
+    round's rows, its record the plan's; bf16 over its tiles, into the
+    workspace and the view images), the half-tile backward
+    ``nerf_wide1k_bwd_tiles`` (the transposed pack, the dtype's flag, the
+    record or the view images, the round's tiles) and the dW kernel, then
+    the small sums once."""
+    monkeypatch.setitem(fm.WIDE_ROUND_BYTES, dtype, 1)
+    pk = packed(ArchConfig(640, 136, 3, 1), dtype)
+    assert pk.wide1k
+    n, sms = 64 * 9 + 5, 4                          # 10 tiles: rounds of 4, 4, 2
+    lib = Recorder()
+    ptrs = (1, 2, n, 1, 3, 4)
+    outs = (5, 6, 7, 8, 0, 0)
+    assert fm._backward_wide(lib, pk, ptrs, n, sigma_only, outs, torch.device("cpu"), sms) == 0
+    plan = fm.wide_plan(pk, n, sms, sigma_only)
+    assert (plan.round_tiles, plan.rounds) == (4, 3)
+    record = ("nerf_fused_mlp_wide1k_f32tc_record" if dtype == "float32"
+              else "nerf_fused_mlp_wide1k_tc_record")
+    per_round = [record, "nerf_wide1k_bwd_tiles", "nerf_wide_dw"]
+    assert [c[0] for c in lib.calls] == per_round * 3 + ["nerf_wide_small_sum"]
+    recs = [args for name, args in lib.calls if name == record]
+    tiles_calls = [args for name, args in lib.calls if name == "nerf_wide1k_bwd_tiles"]
+    for (rec, bwd), (tile0, tiles) in zip(zip(recs, tiles_calls), ((0, 4), (4, 4), (8, 2))):
+        assert rec[:4] == ptrs[:4]
+        if dtype == "float32":
+            assert rec[13:16] == (int(sigma_only), 64 * tile0, 64 * tiles) and rec[16] == bwd[19]
+        else:
+            assert rec[11:16] == (int(sigma_only), tile0, tiles, bwd[21], plan.round_tiles)
+            assert rec[16] == bwd[20]
+        # nerf_wide1k_bwd_tiles(ptrs..., weights, mma_wt, lo_wt, biases, layout, len,
+        #                       layout_mma, len, ldw, ldv, depth, sigma_only, bf16, rec, view,
+        #                       ws, ws_tiles, tile0, tiles, small, n_b, small_stride, grid,
+        #                       dpts, ddirs, device, stream)
+        assert bwd[:6] == ptrs
+        assert bwd[7] == pk.mma_wt.data_ptr() and bwd[8] == pk.mma_wt.shape[1]
+        assert bwd[13] == pk.layout_mma.size == 2 * fm.MAX_DEPTH + 3
+        assert bwd[14:19] == (pk.ldw, pk.ldv, pk.depth, int(sigma_only),
+                              int(dtype == "bfloat16"))
+        assert (bwd[19] is None) == (dtype == "bfloat16") and (bwd[20] is None) == (
+            dtype == "float32")
+        assert bwd[22:25] == (plan.round_tiles, tile0, tiles)
+        assert bwd[26:29] == (pk.biases.numel(), plan.small_stride, plan.grid)
+        assert bwd[29:31] == (7, 8)
